@@ -1,0 +1,130 @@
+"""Port iLQR pieces (plain path, B lanes, batch last) against the JAX
+generic solver per scene (`trajoptkp_tpu/solver/ilqr.py:150,380,414`), at
+1e-10 relative in float64 (summation order is the only difference).
+
+Pentabot runs contact-free on both sides (its self-contacts are ROADMAP
+Queue 1 item 7); its nu = 3 exercises the Cholesky of the backward pass.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trajoptkp_tpu.solver import ilqr as jilqr
+from trajoptkp_tpu.tasks import toys as jtoys
+from trajoptkp_tpu_torch.solver import ilqr as pilqr
+from trajoptkp_tpu_torch.solver import lanes as planes
+from trajoptkp_tpu_torch.tasks import toys as ptoys
+
+jax.config.update("jax_enable_x64", True)
+
+RTOL, ATOL = 1e-10, 1e-12
+H, NLANE = 25, 3
+
+
+def _tasks(name):
+    jt = getattr(jtoys, f"make_{name}")(dtype=jnp.float64)
+    jt = jt.replace(model=jt.model.replace(contact_pairs=()))
+    pt = getattr(ptoys, f"make_{name}")(device="cpu")
+    return jt, pt
+
+
+def _scenes(pt, seed):
+    rng = np.random.default_rng(seed)
+    nq, nu = pt.model.nq, pt.model.nu
+    qp = pt.qpos_start.numpy()[:, None] + 0.3 * rng.standard_normal((nq, NLANE))
+    qv = 0.2 * rng.standard_normal((nq, NLANE))
+    U = 0.5 * rng.standard_normal((H, nu, NLANE))
+    tg = np.repeat(pt.residual_targets.numpy()[:, None], NLANE, axis=1)
+    return qp, qv, U, tg
+
+
+def _close(got, want, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL,
+                               atol=ATOL, err_msg=msg)
+
+
+@pytest.mark.parametrize("name", ["acrobot", "pentabot"])
+def test_rollout_matches_jax(name):
+    jt, pt = _tasks(name)
+    qp, qv, U, tg = _scenes(pt, 0)
+    qpos, qvel, costs = pilqr.rollout(pt, *map(torch.from_numpy, (qp, qv, U, tg)))
+    for b in range(NLANE):
+        ref = jilqr.rollout(jt, qp[:, b], qv[:, b], U[:, :, b])
+        _close(qpos[..., b], ref.qpos, "qpos")
+        _close(qvel[..., b], ref.qvel, "qvel")
+        _close(costs[:, b], ref.costs, "costs")
+
+
+def _bp_inputs(n2, nu, seed):
+    """Random well-posed expansions; lane 0 has an indefinite l_uu so its
+    sweep fails at small λ and retries, the other lanes need no retry."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(n2)[None, :, :, None] + 0.05 * rng.standard_normal((H, n2, n2, NLANE))
+    Bm = 0.1 * rng.standard_normal((H, n2, nu, NLANE))
+    l_x = rng.standard_normal((H, n2, NLANE))
+    R = rng.standard_normal((H, n2, n2, NLANE))
+    l_xx = np.einsum("hijb,hkjb->hikb", R, R) / n2
+    l_u = rng.standard_normal((H, nu, NLANE))
+    S = rng.standard_normal((H, nu, nu, NLANE))
+    l_uu = np.einsum("hijb,hkjb->hikb", S, S) / nu + 0.5 * np.eye(nu)[None, :, :, None]
+    l_uu[:, :, :, 0] -= 0.9 * np.eye(nu) * (np.abs(l_uu[:, :, :, 0]).sum() / H)
+    return A, Bm, l_x, l_xx, l_u, l_uu
+
+
+@pytest.mark.parametrize("nx,nu", [(4, 1), (10, 3)])
+def test_backward_pass_lambda_loop_matches_jax(nx, nu):
+    ins = _bp_inputs(nx, nu, seed=nx)
+    lamb = np.full(NLANE, 0.1)
+    cfg = pilqr.ILQRConfig()
+    k, K, dJ, lam, ex = pilqr.backward_pass_lambda_loop(
+        *map(torch.from_numpy, ins), torch.from_numpy(lamb), cfg)
+    jcfg = jilqr.ILQRConfig()
+    retried = 0
+    for b in range(NLANE):
+        jk, jK, jdJ, jlam, jex = jilqr.backward_pass_lambda_loop(
+            *(x[..., b] for x in ins), jnp.asarray(lamb[b]), jcfg)
+        assert bool(ex[b]) == bool(jex)
+        _close(lam[b], jlam, "lambda")
+        retried += float(jlam) > 0.1 / 10 + 1e-15
+        if not bool(jex):
+            _close(k[..., b], jk, "k")
+            _close(K[..., b], jK, "K")
+            _close(dJ[b], jdJ, "dJ")
+    assert retried >= 1  # the indefinite lane went through the λ retry
+
+
+@pytest.mark.parametrize("name", ["acrobot", "pentabot"])
+def test_line_search_matches_jax(name):
+    jt, pt = _tasks(name)
+    qp, qv, U, tg = _scenes(pt, 1)
+    n2, nu = 2 * pt.model.nv, pt.model.nu
+    rng = np.random.default_rng(2)
+    k = 0.3 * rng.standard_normal((H, nu, NLANE))
+    K = 0.2 * rng.standard_normal((H, nu, n2, NLANE))
+    qpos, qvel, costs = pilqr.rollout(pt, *map(torch.from_numpy, (qp, qv, U, tg)))
+    old = costs.sum(0) * torch.tensor([1.0, 1e-3, 10.0])  # reject lane 1
+    alphas = pilqr.default_alphas(6)
+    (bq, bv, bu, bc), best, best_cost, accept = planes.forward_pass(
+        pt, qpos, qvel, torch.from_numpy(U), torch.from_numpy(k),
+        torch.from_numpy(K), alphas, torch.from_numpy(tg), old)
+    assert not bool(accept[1])
+    for b in range(NLANE):
+        traj = jilqr.Trajectory(jnp.asarray(qpos[..., b].numpy()),
+                                jnp.asarray(qvel[..., b].numpy()),
+                                jnp.asarray(U[:, :, b]),
+                                jnp.asarray(costs[:, b].numpy()))
+        jnew, jcost, jacc, jalpha = jilqr.forward_pass(
+            jt, traj, jnp.asarray(k[..., b]), jnp.asarray(K[..., b]),
+            jilqr.default_alphas(6),
+            float(old[b]))
+        assert bool(accept[b]) == bool(jacc)
+        _close(alphas[best[b]], jalpha, "alpha")
+        if bool(jacc):
+            _close(best_cost[b], jcost, "cost")
+            _close(bq[..., b], jnew.qpos, "qpos")
+            _close(bv[..., b], jnew.qvel, "qvel")
+            _close(bu[..., b], jnew.ctrl, "ctrl")
+            _close(bc[:, b], jnew.costs, "costs")

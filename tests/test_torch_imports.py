@@ -1,0 +1,74 @@
+"""The port stands alone: importing every module of `trajoptkp_tpu_torch`
+and chip_smoke.py's imports loads neither JAX nor the JAX package, and the
+entry points refuse to run on the CPU unless asked to."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import trajoptkp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    trajoptkp_tpu_torch.__path__, "trajoptkp_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "trajoptkp_tpu" or m.startswith("trajoptkp_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("trajoptkp_tpu_torch.kernels.ops",
+                "trajoptkp_tpu_torch.solver.lanes",
+                "trajoptkp_tpu_torch.app"):
+        assert mod in res["modules"]
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    from trajoptkp_tpu_torch import app
+    from trajoptkp_tpu_torch.dynamics.model import load_model
+    from trajoptkp_tpu_torch.tasks.toys import make_acrobot
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_acrobot()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model("acrobot")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app.main(["--task", "acrobot", "--keypoint", "SI_5"])
+    assert make_acrobot(device="cpu").model.device.type == "cpu"
+
+
+def test_cli_refuses_what_is_not_ported(capsys):
+    from trajoptkp_tpu_torch import app
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        app.main(["--device", "cpu", "--keypoint", "VC_1_100"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        # acrobot's own method is velocity_change
+        app.main(["--device", "cpu", "--horizon", "10"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        app.main(["--device", "cpu", "--runMode", "MPC_until_completion"])
+    app.main(["--device", "cpu", "--keypoint", "SI_2", "--horizon", "12",
+              "--maxIter", "2", "--minIter", "1"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    out = json.loads(last)
+    assert out["task"] == "acrobot" and out["horizon"] == 12
+    assert out["final_cost"] <= out["initial_cost"]

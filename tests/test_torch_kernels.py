@@ -1,0 +1,90 @@
+"""The four CUDA kernels against their plain PyTorch twins on the card, at
+small shapes.  They need an NVIDIA GPU with nvcc (sm_90a) and skip
+elsewhere; `python3 chip_smoke.py` runs the same checks at the main path's
+shapes.  On the card (tests/conftest.py imports JAX, hence --noconftest):
+python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
+
+Bars: rollout and line search 1e-10 relative over the first 50 steps
+(rounding differences grow along a chaotic horizon), FD columns 1e-6
+absolute (rounding divided by 2 eps), backward pass 1e-9 relative.
+"""
+
+import pytest
+import torch
+
+from trajoptkp_tpu_torch.kernels import ops
+from trajoptkp_tpu_torch.solver import ilqr, lanes
+from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
+from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
+
+pytestmark = pytest.mark.cuda
+
+H, B = 60, 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("make", [make_acrobot, make_pentabot])
+def test_kernels_match_plain(cuda, make):
+    task = make(device=cuda)
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name="set_interval", min_N=3))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    nv, nu = task.model.nv, task.model.nu
+    f64 = dict(dtype=torch.float64)
+    qp, qv, tg = lanes.scenes(task, B, seed=1)
+    qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
+    U = (0.3 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
+    k = (0.1 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
+    K = (0.05 * torch.randn((H, nu, 2 * nv, B), generator=g, **f64)).to(cuda)
+    n = 50
+
+    kr = ops.rollout(task, qp0, qv0, U, tgl)
+    pr = ops.rollout(task, qp0, qv0, U, tgl, plain=True)
+    for a, b in zip(kr, pr):
+        assert _rel(a[:n], b[:n]) < 1e-10
+
+    cfg = ILQRConfig()
+    alphas = ilqr.default_alphas(6, device=cuda)
+    kl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tgl)
+    pl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tgl, plain=True)
+    for a, b in zip(kl, pl):
+        assert _rel(a[:n], b[:n]) < 1e-10
+
+    plan = lanes.si_plan(task, H)
+    kj = ops.fd_jacobian(task, kr[0], kr[1], U, plan.times, cfg.fd_eps)
+    pj = ops.fd_jacobian(task, kr[0], kr[1], U, plan.times, cfg.fd_eps,
+                         plain=True)
+    assert float((kj - pj).abs().max()) < 1e-6
+
+    A, Bm = lanes.jacobians_si(task, plan, kr[0], kr[1], U, cfg.fd_eps)
+    l = lanes.cost_expansion(task, kr[0], kr[1], U, tgl)
+    lam = torch.full((B,), 0.1, dtype=torch.float64, device=cuda)
+    kb = ops.backward(A, Bm, *l, lam, cfg)
+    pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
+    for a, b in zip(kb[:3], pb[:3]):
+        assert _rel(a, b) < 1e-9
+    assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
+
+
+def test_wrappers_count_launches_and_check_inputs(cuda):
+    task = make_acrobot(device=cuda)
+    qp, qv, tg = lanes.scenes(task, 4, seed=0)
+    U = torch.zeros((10, 1, 4), dtype=torch.float64, device=cuda)
+    ops.reset_launch_counts()
+    ops.rollout(task, qp.T.contiguous(), qv.T.contiguous(), U,
+                tg.T.contiguous())
+    ops.rollout(task, qp.T.contiguous(), qv.T.contiguous(), U,
+                tg.T.contiguous(), plain=True)
+    assert ops.LAUNCHES["rollout"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rollout(task, qp.T, qv.T.contiguous(), U, tg.T.contiguous())

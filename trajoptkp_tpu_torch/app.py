@@ -1,0 +1,86 @@
+"""Command-line entry point (counterpart of `trajoptkp_tpu/app.py`,
+Optimise_once only).
+
+    python -m trajoptkp_tpu_torch.app --task acrobot --runMode Optimise_once \\
+        --keypoint SI_1 [--horizon H --maxIter N --minIter N --device cuda]
+
+Runs on the card by default; `--device cpu` runs the plain PyTorch path.
+Prints per-iteration banner lines and a final JSON line with the initial
+and final cost and the cost reduction.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+RUN_MODES_LATER = {
+    "Init_controls": "ROADMAP Queue 1 item 12",
+    "MPC_until_completion": "ROADMAP Queue 1 item 8",
+    "Generate_test_scenes": "ROADMAP Queue 1 item 12",
+    "Generate_openloop_data": "ROADMAP Queue 1 item 12",
+    "Generate_syncronus_mpc_data": "ROADMAP Queue 1 item 8",
+    "Generate_asynchronus_mpc_data": "ROADMAP Queue 1 item 8",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--task", default="acrobot")
+    p.add_argument("--runMode", default="Optimise_once")
+    p.add_argument("--keypoint", help="keypoint method, SI_n (set_interval "
+                   "every n steps); the task's own method when omitted")
+    p.add_argument("--horizon", type=int, default=None)
+    p.add_argument("--maxIter", type=int, default=10)
+    p.add_argument("--minIter", type=int, default=5)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu for the plain path")
+    return p
+
+
+def parse_keypoint_name(kp_cfg, name: str):
+    """SI_n -> set_interval with min_N = n; other methods are not ported."""
+    parts = name.split("_")
+    if parts[0] == "SI" and len(parts) == 2 and parts[1].isdigit():
+        return kp_cfg.replace(name="set_interval", min_N=int(parts[1]))
+    raise NotImplementedError(
+        f"keypoint method {name!r}: ROADMAP Queue 1 item 9 ports AJ, AA, VC "
+        "and IE; this slice has SI_n only")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from .config.loader import make_task
+    from .solver.ilqr import ILQRConfig, optimise
+
+    if args.runMode != "Optimise_once":
+        later = RUN_MODES_LATER.get(args.runMode, "a later ROADMAP item")
+        raise NotImplementedError(
+            f"run mode {args.runMode!r} is not ported yet ({later}); this "
+            "slice has Optimise_once")
+    task = make_task(args.task, device=args.device)
+    if args.keypoint:
+        task = task.replace(
+            keypoint_cfg=parse_keypoint_name(task.keypoint_cfg, args.keypoint))
+    H = args.horizon or task.openloop_horizon
+    cfg = ILQRConfig(max_iterations=args.maxIter,
+                     min_iterations=args.minIter)
+    U = torch.zeros((H, task.model.nu), dtype=task.model.dtype,
+                    device=task.model.device)
+    traj, stats = optimise(task, task.qpos_start, task.qvel_start, U, cfg,
+                           verbose=True)
+    print(json.dumps({
+        "task": task.name, "horizon": H,
+        "initial_cost": stats.initial_cost,
+        "final_cost": stats.final_cost,
+        "cost_reduction": stats.cost_reduction,
+        "iterations": stats.num_iterations,
+        "opt_time_ms": stats.opt_time_ms,
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

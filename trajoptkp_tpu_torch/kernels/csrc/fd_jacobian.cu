@@ -1,0 +1,89 @@
+// K5: keypoint-slot Jacobians by central FD, one thread per (slot, scene).
+//
+// Replaces the JAX lane slot Jacobians, trajoptkp_tpu/solver/lanes.py:282
+// (_slot_jacobians_chunk, jacfwd of the lane step, used by jacobians_si
+// :342).  The port keeps the reference's own semantics instead: central
+// differences with eps = 1e-6 in double precision over all 2n + nu tangent
+// columns (trajoptkp_tpu/derivs/fd.py:83 fd_job_columns).  Plain twin:
+// trajoptkp_tpu_torch/derivs/fd.py:fd_slot_jacobians.
+//
+// Per lane: for each column c, the state or control is perturbed by +-eps
+// (adding eps times a 0/1 selector, bit-identical to the JAX engine), two
+// K1 steps run, and (out+ - out-) / (2 eps) fills J[:, c].  The interpolation
+// between slots stays torch (solver/lanes.py:jacobians_si).
+//
+// Bound: 2 (2n + nu) steps per lane against (2n)(2n + nu) x 8 bytes written;
+// K x B lanes (500 x 512 at acrobot SI_1) fill the card, so it is bound by
+// the double-precision issue rate, with local-memory spills at pentabot.
+#include "instances.cuh"
+#include "step.cuh"
+
+namespace trajopt {
+
+template <class T>
+__global__ void __launch_bounds__(64)
+fd_jacobian_kernel(const double* __restrict__ P,
+                   const double* __restrict__ qpos,
+                   const double* __restrict__ qvel,
+                   const double* __restrict__ U,
+                   const long long* __restrict__ times, double eps,
+                   double* __restrict__ J, int K, int B) {
+  constexpr int NV = T::NV, NU = T::NU, NX = T::NX, NC = T::NX + T::NU;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= K * B) return;
+  const int s = idx / B;
+  const int b = idx - s * B;
+  const size_t t = static_cast<size_t>(times[s]);
+  double q0[NV], v0[NV], u0[NU];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    q0[i] = qpos[(t * NV + i) * B + b];
+    v0[i] = qvel[(t * NV + i) * B + b];
+  }
+#pragma unroll
+  for (int a = 0; a < NU; ++a) u0[a] = U[(t * NU + a) * B + b];
+  const double scale = 2.0 * eps;
+#pragma unroll 1
+  for (int c = 0; c < NC; ++c) {
+    double qp[NV], vp[NV], up[NU], qm[NV], vm[NV], um[NU];
+    double qP[NV], vP[NV], qM[NV], vM[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      qp[i] = q0[i] + (c == i ? eps : 0.0);
+      qm[i] = q0[i] + (c == i ? -eps : 0.0);
+      vp[i] = v0[i] + (c == NV + i ? eps : 0.0);
+      vm[i] = v0[i] + (c == NV + i ? -eps : 0.0);
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      up[a] = u0[a] + (c == NX + a ? eps : 0.0);
+      um[a] = u0[a] + (c == NX + a ? -eps : 0.0);
+    }
+    smooth_step<T>(P, qp, vp, up, qP, vP);
+    smooth_step<T>(P, qm, vm, um, qM, vM);
+#pragma unroll
+    for (int r = 0; r < NV; ++r) {
+      J[((size_t(s) * NX + r) * NC + c) * B + b] = (qP[r] - qM[r]) / scale;
+      J[((size_t(s) * NX + NV + r) * NC + c) * B + b] =
+          (vP[r] - vM[r]) / scale;
+    }
+  }
+}
+
+}  // namespace trajopt
+
+#define TRAJOPT_DEFINE_FD(tag, NV, NU, SLIDE, PARENTS)                        \
+  extern "C" int trajopt_fd_jacobian_##tag(                                   \
+      const double* P, const double* qpos, const double* qvel,                \
+      const double* U, const long long* times, double eps, double* J, int K,  \
+      int B, void* stream) {                                                  \
+    using T = trajopt::Topo<NV, NU, SLIDE, PARENTS>;                          \
+    const int n = K * B;                                                      \
+    if (n <= 0) return 0;                                                     \
+    trajopt::fd_jacobian_kernel<T><<<(n + 63) / 64, 64, 0,                    \
+                                     static_cast<cudaStream_t>(stream)>>>(    \
+        P, qpos, qvel, U, times, eps, J, K, B);                               \
+    return static_cast<int>(cudaGetLastError());                              \
+  }
+
+TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_FD)

@@ -1,0 +1,82 @@
+// K3: fused rollout, one thread per scene with the time loop inside.
+//
+// Replaces the JAX lane rollout, trajoptkp_tpu/solver/lanes.py:263
+// (a lax.scan of the lane step).  Plain twin:
+// trajoptkp_tpu_torch/solver/ilqr.py:rollout.
+//
+// Per lane: H steps of K1 (step.cuh), the joint-space residual at (x_t, u_t)
+// and the weighted cost, terminal weights at t = H-1.  Layout is batch last,
+// so each step's loads and stores are coalesced across the lanes of a warp.
+//
+// Bound: ~H x (one step's ~2-4k dependent double operations) per thread
+// against ~(nq + nv + 1) x 8 bytes written per step: latency-bound per
+// thread, and at B = 512 lanes only 8 blocks of 64 threads are resident, so
+// most SMs idle.  A later version can split lanes across warps (one warp
+// per lane, bodies across threads) to fill the card.
+#include "instances.cuh"
+#include "residuals.cuh"
+#include "step.cuh"
+
+namespace trajopt {
+
+template <class T>
+__global__ void __launch_bounds__(64)
+rollout_kernel(const double* __restrict__ P, const double* __restrict__ W,
+               const double* __restrict__ qp0, const double* __restrict__ qv0,
+               const double* __restrict__ U, const double* __restrict__ tgt,
+               double* __restrict__ qpos, double* __restrict__ qvel,
+               double* __restrict__ costs, int H, int B) {
+  constexpr int NV = T::NV, NU = T::NU, NRES = T::NRES;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  double q[NV], v[NV], tg[NRES];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    q[i] = qp0[i * B + b];
+    v[i] = qv0[i * B + b];
+  }
+#pragma unroll
+  for (int r = 0; r < NRES; ++r) tg[r] = tgt[r * B + b];
+  for (int t = 0; t < H; ++t) {
+    double u[NU], r[NRES], qn[NV], vn[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      qpos[(size_t(t) * NV + i) * B + b] = q[i];
+      qvel[(size_t(t) * NV + i) * B + b] = v[i];
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) u[a] = U[(size_t(t) * NU + a) * B + b];
+    joint_space_residual<NV, NU>(q, v, u, tg, r);
+    costs[size_t(t) * B + b] =
+        weighted_cost<NRES>(r, t == H - 1 ? W + NRES : W);
+    smooth_step<T>(P, q, v, u, qn, vn);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) { q[i] = qn[i]; v[i] = vn[i]; }
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    qpos[(size_t(H) * NV + i) * B + b] = q[i];
+    qvel[(size_t(H) * NV + i) * B + b] = v[i];
+  }
+}
+
+}  // namespace trajopt
+
+#define TRAJOPT_DEFINE_ROLLOUT(tag, NV, NU, SLIDE, PARENTS)                   \
+  extern "C" int trajopt_rollout_##tag(                                       \
+      const double* P, const double* W, const double* qp0, const double* qv0, \
+      const double* U, const double* tgt, double* qpos, double* qvel,         \
+      double* costs, int H, int B, void* stream) {                            \
+    using T = trajopt::Topo<NV, NU, SLIDE, PARENTS>;                          \
+    if (B <= 0) return 0;                                                     \
+    trajopt::rollout_kernel<T><<<(B + 63) / 64, 64, 0,                        \
+                                 static_cast<cudaStream_t>(stream)>>>(        \
+        P, W, qp0, qv0, U, tgt, qpos, qvel, costs, H, B);                     \
+    return static_cast<int>(cudaGetLastError());                              \
+  }
+
+TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_ROLLOUT)
+
+extern "C" const char* trajopt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
