@@ -111,3 +111,57 @@ def test_cost_expansion_matches_jax(name):
         for g, w in zip(one, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w[H - 1]),
                                        rtol=1e-12, atol=1e-12)
+
+
+def test_panda_fd_columns_match_jax_with_limits():
+    """Reaching's [A|B] by central FD of the constrained step at 4 states
+    away from the joint limits and 2 with one joint 0.02 rad beyond a limit
+    (a row active), against the JAX engine's `fd_job_columns`, column by
+    column.
+
+    Interior: atol 1e-6 (FD noise at seven links; measured 1.1e-9).  With a
+    row active: atol 1e-3 against entries up to ~17 (measured 1.1e-4).  There
+    the step runs 8 Newton iterations whose step lengths and `y < 0` gates
+    are branches: the two packages' steps agree to ~1e-12 at the nominal
+    state (tests/test_torch_step.py), but a +-1e-6 perturbation can land the
+    two on different branches of the not fully converged solve, and central
+    FD divides that ~1e-10 jump by 2e-6.  The JAX package differentiates
+    this solve by the implicit-function rule for that reason
+    (`dynamics/contact.py:94-107`); the port's kernel and twin take the same
+    branches bit for bit (chip_smoke.py), so the port's FD is consistent
+    with its own rollouts."""
+    from trajoptkp_tpu.derivs.fd import fd_job_columns
+    from trajoptkp_tpu.tasks.reaching import make_reaching as jax_reaching
+    from trajoptkp_tpu_torch.derivs.fd import fd_slot_jacobians
+    from trajoptkp_tpu_torch.dynamics.contact import limits_active
+    from trajoptkp_tpu_torch.tasks.reaching import make_reaching
+
+    jt = jax_reaching(dtype=jnp.float64)
+    pt = make_reaching(device="cpu")
+    m = pt.model
+    rng = np.random.default_rng(11)
+    lo, hi = m.jnt_range[:, 0].numpy(), m.jnt_range[:, 1].numpy()
+    n_in, n_at = 4, 2
+    qp = (0.5 * (lo + hi))[:, None] + 0.3 * rng.standard_normal(
+        (7, n_in + n_at))
+    qp[1, n_in] = lo[1] - 0.02
+    qp[3, n_in + 1] = hi[3] + 0.02
+    qv = 0.5 * rng.standard_normal((7, n_in + n_at))
+    ct = 2.0 * rng.standard_normal((7, n_in + n_at))
+    act = limits_active(m, torch.from_numpy(qp))
+    assert not act[:n_in].any() and act[n_in:].all()
+    J = fd_slot_jacobians(m, pt.sv, *map(torch.from_numpy, (qp, qv, ct)),
+                          eps=1e-6).numpy()               # (14, 21, L)
+    cols = jax.jit(lambda a, b, c, d: fd_job_columns(jt.model, jt.sv, a, b, c,
+                                                     d, 1e-6))
+    worst = {"interior": 0.0, "row active": 0.0}
+    for b in range(n_in + n_at):
+        key = "interior" if b < n_in else "row active"
+        for d in range(7):
+            a_pos, a_vel, b_col = cols(qp[:, b], qv[:, b], ct[:, b], d)
+            for got, want in ((J[:, d, b], a_pos), (J[:, 7 + d, b], a_vel),
+                              (J[:, 14 + d, b], b_col)):
+                worst[key] = max(worst[key],
+                                 float(np.abs(got - np.asarray(want)).max()))
+    print("panda FD vs JAX fd_job_columns, max abs difference:", worst)
+    assert worst["interior"] < 1e-6 and worst["row active"] < 1e-3, worst

@@ -128,3 +128,43 @@ def test_line_search_matches_jax(name):
             _close(bv[..., b], jnew.qvel, "qvel")
             _close(bu[..., b], jnew.ctrl, "ctrl")
             _close(bc[:, b], jnew.costs, "costs")
+
+
+def test_lambda_retry_is_per_lane_unlike_the_coupled_jax_batch():
+    """The λ retry of the port's backward pass (twin of K7) against the JAX
+    lane solver's `bp_lambda_loop` (`solver/lanes.py:720-746`).
+
+    Run one lane at a time, the JAX lane program has nothing to couple to
+    and is the reference: λ, exit flag and gains agree for every lane, the
+    retrying one included.  Run as one batch, it sweeps every lane again
+    while any lane is invalid and divides the λ of the lanes that were
+    already valid a second time; the port does not copy that."""
+    from trajoptkp_tpu.solver import lanes as jlanes
+
+    jt, _ = _tasks("acrobot")
+    jt = jt.replace(keypoint_cfg=jt.keypoint_cfg.replace(
+        name="set_interval", min_N=1))
+    jcfg = jilqr.ILQRConfig()
+    bp = jax.jit(jlanes.make_lane_batch_optimise(jt, jcfg, H).phases["bp"])
+    ins = _bp_inputs(4, 1, seed=4)
+    lamb = np.full(NLANE, 0.1)
+    k, K, dJ, lam, ex = pilqr.backward_pass_lambda_loop(
+        *map(torch.from_numpy, ins), torch.from_numpy(lamb), pilqr.ILQRConfig())
+    retried = []
+    for b in range(NLANE):
+        jk, jK, jdJ, jlam, jex = bp(*(x[..., b:b + 1] for x in ins),
+                                    jnp.asarray(lamb[b:b + 1]))
+        assert bool(ex[b]) == bool(jex[0])
+        _close(lam[b], jlam[0], "lambda")
+        retried.append(float(jlam[0]) > 0.1 / 10 + 1e-15)
+        if not bool(jex[0]):
+            _close(k[..., b], jk[..., 0], "k")
+            _close(K[..., b], jK[..., 0], "K")
+            _close(dJ[b], jdJ[0], "dJ")
+    assert retried[0] and not any(retried[1:])
+    # the coupled batch: lanes 1 and 2, valid at once, end below λ0 / 10
+    _, _, _, clam, cex = bp(*ins, jnp.asarray(lamb))
+    clam = np.asarray(clam)
+    assert not np.asarray(cex).any()
+    np.testing.assert_allclose(clam[0], float(lam[0]), rtol=1e-12)
+    assert (clam[1:] < lam[1:].numpy() * 0.5).all(), (clam, lam)

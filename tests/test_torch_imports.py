@@ -37,6 +37,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res["bad"] == []
     for mod in ("trajoptkp_tpu_torch.kernels.ops",
                 "trajoptkp_tpu_torch.solver.lanes",
+                "trajoptkp_tpu_torch.dynamics.contact",
+                "trajoptkp_tpu_torch.dynamics.constraint",
+                "trajoptkp_tpu_torch.tasks.reaching",
                 "trajoptkp_tpu_torch.app"):
         assert mod in res["modules"]
 
@@ -72,3 +75,22 @@ def test_cli_refuses_what_is_not_ported(capsys):
     out = json.loads(last)
     assert out["task"] == "acrobot" and out["horizon"] == 12
     assert out["final_cost"] <= out["initial_cost"]
+
+
+def test_cli_solves_reaching_and_names_the_ported_tasks(capsys):
+    from trajoptkp_tpu_torch import app
+    from trajoptkp_tpu_torch.config.loader import make_task, task_names
+
+    assert task_names() == ("acrobot", "pentabot", "reaching")
+    with pytest.raises(KeyError, match="reaching"):
+        make_task("push_ncl", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        # reaching's own method is velocity_change
+        app.main(["--device", "cpu", "--task", "reaching", "--horizon", "6"])
+    app.main(["--device", "cpu", "--task", "reaching", "--keypoint", "SI_3",
+              "--horizon", "8", "--maxIter", "2", "--minIter", "2"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["task"] == "reaching" and out["horizon"] == 8
+    assert out["iterations"] == 2
+    assert out["final_cost"] <= out["initial_cost"]
+    assert "reaching" in app.build_parser().format_help()

@@ -12,9 +12,11 @@ absolute (rounding divided by 2 eps), backward pass 1e-9 relative.
 import pytest
 import torch
 
+from trajoptkp_tpu_torch.dynamics.contact import limits_active
 from trajoptkp_tpu_torch.kernels import ops
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
+from trajoptkp_tpu_torch.tasks.reaching import make_reaching
 from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
 
 pytestmark = pytest.mark.cuda
@@ -33,8 +35,12 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
-@pytest.mark.parametrize("make", [make_acrobot, make_pentabot])
+@pytest.mark.parametrize("make", [make_acrobot, make_pentabot,
+                                  make_reaching])
 def test_kernels_match_plain(cuda, make):
+    """Reaching starts half its lanes with every joint at a limit, under
+    controls of 5 N Nm, so the constraint solve inside the step (K2a) runs
+    with active rows."""
     task = make(device=cuda)
     task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
         name="set_interval", min_N=3))
@@ -42,8 +48,15 @@ def test_kernels_match_plain(cuda, make):
     nv, nu = task.model.nv, task.model.nu
     f64 = dict(dtype=torch.float64)
     qp, qv, tg = lanes.scenes(task, B, seed=1)
+    scale = 0.3
+    if task.model.has_constraints:
+        rng = task.model.jnt_range
+        side = torch.randint(0, 2, (B // 2, nv), generator=g).to(cuda)
+        qp[:B // 2] = torch.where(side == 0, rng[:, 0], rng[:, 1]) + (
+            0.01 * torch.randn((B // 2, nv), generator=g, **f64)).to(cuda)
+        scale = 5.0
     qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
-    U = (0.3 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
+    U = (scale * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
     k = (0.1 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
     K = (0.05 * torch.randn((H, nu, 2 * nv, B), generator=g, **f64)).to(cuda)
     n = 50
@@ -52,6 +65,8 @@ def test_kernels_match_plain(cuda, make):
     pr = ops.rollout(task, qp0, qv0, U, tgl, plain=True)
     for a, b in zip(kr, pr):
         assert _rel(a[:n], b[:n]) < 1e-10
+    if task.model.has_constraints:
+        assert bool(limits_active(task.model, pr[0].transpose(0, 1)).any())
 
     cfg = ILQRConfig()
     alphas = ilqr.default_alphas(6, device=cuda)
@@ -71,8 +86,9 @@ def test_kernels_match_plain(cuda, make):
     lam = torch.full((B,), 0.1, dtype=torch.float64, device=cuda)
     kb = ops.backward(A, Bm, *l, lam, cfg)
     pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
+    live = ~pb[4]                       # a λ-exit lane's gains are not used
     for a, b in zip(kb[:3], pb[:3]):
-        assert _rel(a, b) < 1e-9
+        assert _rel(a[..., live], b[..., live]) < 1e-9
     assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
 
 

@@ -25,7 +25,7 @@ jax.config.update("jax_enable_x64", True)
 
 XML_DIR = os.path.join(os.path.dirname(__file__), "..", "trajoptkp_tpu",
                        "models")
-PORTED = ("acrobot", "pentabot")
+PORTED = ("acrobot", "pentabot", "panda")
 
 
 def _npz_fields(jm) -> dict:
@@ -89,6 +89,51 @@ def test_model_from_numpy_matches_load_mjcf(name, tmp_path):
         assert sorted(fresh.files) == sorted(kept.files)
         for f in fresh.files:
             np.testing.assert_array_equal(fresh[f], kept[f], err_msg=f)
+
+
+@pytest.mark.parametrize("task_name,tag,nlim",
+                         [("acrobot", "acrobot", 0), ("pentabot", "pentabot", 0),
+                          ("reaching", "reaching", 7)])
+def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
+    """Each ported task finds its instance in kernels/csrc/instances.cuh,
+    and the packed model buffer has the layout step.cuh reads: 29 per body,
+    5 per actuator, the limit constants, gravity, timestep."""
+    from trajoptkp_tpu_torch.config.loader import make_task
+    from trajoptkp_tpu_torch.dynamics.contact import (LIMIT_FIELDS,
+                                                      limit_constants)
+    from trajoptkp_tpu_torch.kernels import ops
+
+    task = make_task(task_name, device="cpu")
+    m = task.model
+    ka = ops.kernel_args(task, torch.device("cpu"))
+    assert ka.tag == tag
+    # packed once per task: the launch path must not pack again
+    assert ops.kernel_args(task, torch.device("cpu")) is ka
+    nb = m.nbody - 1
+    lim = nlim * len(LIMIT_FIELDS)
+    assert ka.model_buf.numel() == 29 * nb + 5 * m.nu + lim + 4
+    assert ka.task_buf.numel() == 2 * task.nres + 2 * m.nu
+    off = 29 * nb + 5 * m.nu
+    np.testing.assert_array_equal(
+        ka.model_buf[off:off + lim].numpy(),
+        limit_constants(m).table.reshape(-1).numpy())
+    np.testing.assert_array_equal(ka.model_buf[-4:-1].numpy(),
+                                  m.gravity.numpy())
+    # a body without a joint packs zero joint fields; a jointed one its own
+    dofs = ops.body_dofs(m)
+    for b in range(1, m.nbody):
+        rec = ka.model_buf[29 * (b - 1):29 * b]
+        assert float(rec[14]) == float(m.body_mass[b])
+        if dofs[b] < 0:
+            assert float(rec[18:].abs().max()) == 0.0
+        else:
+            np.testing.assert_array_equal(rec[21:24].numpy(),
+                                          m.jnt_axis[dofs[b]].numpy())
+    # the limited mask is part of the key: without limits, no instance
+    if nlim:
+        free = task.replace(model=m.replace(jnt_limited=(False,) * m.njnt))
+        with pytest.raises(NotImplementedError, match="no kernel instance"):
+            ops.kernel_args(free, torch.device("cpu"))
 
 
 def test_load_model_unknown_name_raises():

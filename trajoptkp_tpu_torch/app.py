@@ -3,8 +3,12 @@ Optimise_once only).
 
     python -m trajoptkp_tpu_torch.app --task acrobot --runMode Optimise_once \\
         --keypoint SI_1 [--horizon H --maxIter N --minIter N --device cuda]
+    python -m trajoptkp_tpu_torch.app --task reaching --runMode Optimise_once \\
+        --keypoint SI_1
 
-Runs on the card by default; `--device cpu` runs the plain PyTorch path.
+Tasks: acrobot, pentabot, reaching (panda arm with joint limits).  The
+horizon defaults to the task's (500, 500, 1500) and the controls start at
+zero.  Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 Prints per-iteration banner lines and a final JSON line with the initial
 and final cost and the cost reduction.
 """
@@ -29,7 +33,8 @@ RUN_MODES_LATER = {
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--task", default="acrobot")
+    p.add_argument("--task", default="acrobot",
+                   help="acrobot, pentabot or reaching")
     p.add_argument("--runMode", default="Optimise_once")
     p.add_argument("--keypoint", help="keypoint method, SI_n (set_interval "
                    "every n steps); the task's own method when omitted")

@@ -1,0 +1,85 @@
+"""Time the four kernels alone at a task's main-path shape on the card.
+
+    python -m trajoptkp_tpu_torch.bench_kernels --task acrobot --H 500 --B 512
+    python -m trajoptkp_tpu_torch.bench_kernels --task reaching --H 1500 --B 128
+
+Each kernel is launched `--reps` times between two CUDA events, after two
+warm-up launches, `--rounds` times over; the inputs are the zero-control
+nominal of `lanes.scenes(seed=0)` with SI_1 slots, as chip_smoke.py's main
+paths start.  Prints one JSON line with the card's name and power limit and
+the per-launch milliseconds of every round.  To compare two trees on one
+card, run this file once per tree inside one job, with PYTHONPATH set to the
+tree under test, in the order parent, change, change, parent.
+"""
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from trajoptkp_tpu_torch.config.loader import make_task
+from trajoptkp_tpu_torch.kernels import ops
+from trajoptkp_tpu_torch.solver import ilqr, lanes
+
+
+def event_ms(fn, reps):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--task", default="acrobot")
+    ap.add_argument("--H", type=int, default=500)
+    ap.add_argument("--B", type=int, default=512)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_kernels: no CUDA device is available")
+    task = make_task(args.task, device="cuda")
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name="set_interval", min_N=1))
+    cfg = ilqr.ILQRConfig()
+    H, B = args.H, args.B
+    qp, qv, tg = lanes.scenes(task, B, seed=0)
+    qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
+    U = torch.zeros((H, task.model.nu, B), dtype=torch.float64, device="cuda")
+    plan = lanes.si_plan(task, H)
+    alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
+    qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tgl)
+    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps)
+    l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
+    lam = torch.full((B,), cfg.lambda_init, dtype=torch.float64,
+                     device="cuda")
+    k, K = ops.backward(A, Bm, *l, lam, cfg)[:2]
+    calls = {
+        "rollout": lambda: ops.rollout(task, qp0, qv0, U, tgl),
+        "linesearch": lambda: ops.linesearch(task, qpos, qvel, U, k, K,
+                                             alphas, tgl),
+        "fd_jacobian": lambda: ops.fd_jacobian(task, qpos, qvel, U,
+                                               plan.times, cfg.fd_eps),
+        "backward": lambda: ops.backward(A, Bm, *l, lam, cfg),
+    }
+    ms = {name: [event_ms(fn, args.reps) for _ in range(args.rounds)]
+          for name, fn in calls.items()}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label, "task": args.task, "H": H, "B": B,
+                      "reps": args.reps, "card": card, "ms": ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,18 @@
 """Task registry (counterpart of `trajoptkp_tpu/config/loader.py`).
 
-Only the tasks of this slice.  No YAML/CSV config: the machine with the card
-has no `yaml`, and the config layer is ROADMAP Queue 1 item 12.
+Only the ported tasks.  No YAML/CSV config: the machine with the card has no
+`yaml`, and the config layer is ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
 
+from ..tasks.reaching import make_reaching
 from ..tasks.toys import make_acrobot, make_pentabot
 
 _REGISTRY = {
     "acrobot": make_acrobot,
     "pentabot": make_pentabot,
+    "reaching": make_reaching,
 }
 
 
@@ -21,7 +23,7 @@ def task_names():
 def make_task(name: str, device=None):
     if name not in _REGISTRY:
         raise KeyError(
-            f"unknown task {name!r}; this slice has {task_names()} (the other "
-            "tasks are ROADMAP Queue 1 items 7, 8 and 11)"
+            f"unknown task {name!r}; the port has {task_names()} (the other "
+            "tasks are ROADMAP Queue 1 items 7b, 8 and 11)"
         )
     return _REGISTRY[name](device=device)

@@ -161,6 +161,7 @@ class Data:
     qfrc_bias: Optional[torch.Tensor] = None      # (nv, *L)
     qfrc_passive: Optional[torch.Tensor] = None   # (nv, *L)
     qfrc_actuator: Optional[torch.Tensor] = None  # (nv, *L)
+    qfrc_constraint: Optional[torch.Tensor] = None  # (nv, *L)
     qM: Optional[torch.Tensor] = None     # (nv, nv, *L)
     qacc: Optional[torch.Tensor] = None   # (nv, *L)
 
@@ -197,7 +198,7 @@ def model_from_numpy(d, dtype=torch.float64, device=None) -> Model:
 
 
 def load_model(name: str, dtype=torch.float64, device=None) -> Model:
-    """Read the checked-in `models/{name}.npz` (acrobot, pentabot)."""
+    """Read the checked-in `models/{name}.npz` (acrobot, pentabot, panda)."""
     path = os.path.join(MODELS_DIR, f"{name}.npz")
     if not os.path.exists(path):
         have = sorted(f[:-4] for f in os.listdir(MODELS_DIR)

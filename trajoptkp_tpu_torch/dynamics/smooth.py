@@ -14,8 +14,10 @@ kernels round alike:
     M_ij   = cdof_j . (Ic_body_i cdof_i) for j on the root path of i,
              Ic = composite inertia of the subtree
 
-Scope: one hinge or slide joint per body (every toy model); other joints
-are ROADMAP Queue 1 item 11.
+Scope: bodies with one hinge or slide joint or with none (a welded body
+carries its inertia and force to its parent without a dof; panda has three);
+free and ball joints in the smooth dynamics are ROADMAP Queue 1 item 7b and
+item 11.
 """
 
 from __future__ import annotations
@@ -29,17 +31,16 @@ _JROWS = ((0, 3, 4), (3, 1, 5), (4, 5, 2))  # symmetric 3x3 from SYM6
 
 
 def scalar_tree(model: Model):
-    """dof of each body 1..nbody-1, or raise outside the scope."""
+    """dof of each body (None for a body without a joint), or raise outside
+    the scope."""
     dofs = [None] * model.nbody
     for j, b in enumerate(model.jnt_bodyid):
         if model.jnt_type[j] not in (HINGE, SLIDE) or dofs[b] is not None:
             raise NotImplementedError(
-                "smooth dynamics take one hinge or slide joint per body; "
-                "other joints are ROADMAP Queue 1 item 11")
+                "smooth dynamics take at most one hinge or slide joint per "
+                "body; free and ball joints are ROADMAP Queue 1 items 7b "
+                "and 11")
         dofs[b] = model.jnt_dofadr[j]
-    if any(d is None for d in dofs[1:]):
-        raise NotImplementedError("a body without a joint (welded) is "
-                                  "ROADMAP Queue 1 item 11")
     return dofs
 
 
@@ -77,15 +78,20 @@ def bias_force(model: Model, data: Data) -> torch.Tensor:
     cfrc = [None]
     for b in range(1, model.nbody):
         p, i = model.body_parent[b], dofs[b]
-        cvel.append(cvel[p] + cdof[i] * v[i])
-        cacc.append(cacc[p] + cross_motion(cvel[p], cdof[i]) * v[i])
+        if i is None:                      # welded: moves with its parent
+            cvel.append(cvel[p])
+            cacc.append(cacc[p])
+        else:
+            cvel.append(cvel[p] + cdof[i] * v[i])
+            cacc.append(cacc[p] + cross_motion(cvel[p], cdof[i]) * v[i])
         inert = data.cinert[b]
         cfrc.append(inertia_mul(inert, cacc[b])
                     + cross_force(cvel[b], inertia_mul(inert, cvel[b])))
     bias = [None] * model.nv
     for b in range(model.nbody - 1, 0, -1):
         p = model.body_parent[b]
-        bias[dofs[b]] = dot6(cdof[dofs[b]], cfrc[b])
+        if dofs[b] is not None:
+            bias[dofs[b]] = dot6(cdof[dofs[b]], cfrc[b])
         if p > 0:
             cfrc[p] = cfrc[p] + cfrc[b]
     return torch.stack(bias)
@@ -104,11 +110,14 @@ def mass_matrix(model: Model, data: Data) -> torch.Tensor:
     M = [[zero] * model.nv for _ in range(model.nv)]
     for b in range(1, model.nbody):
         i = dofs[b]
+        if i is None:
+            continue
         F = inertia_mul(comp[b], data.cdof[i])
         M[i][i] = dot6(data.cdof[i], F) + model.dof_armature[i]
         a = model.body_parent[b]
         while a > 0:
-            M[i][dofs[a]] = M[dofs[a]][i] = dot6(data.cdof[dofs[a]], F)
+            if dofs[a] is not None:
+                M[i][dofs[a]] = M[dofs[a]][i] = dot6(data.cdof[dofs[a]], F)
             a = model.body_parent[a]
     return torch.stack([torch.stack(row) for row in M])
 

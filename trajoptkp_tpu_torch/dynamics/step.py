@@ -1,8 +1,10 @@
-"""The smooth step (counterpart of `trajoptkp_tpu/dynamics/step.py:27-92`).
+"""The step (counterpart of `trajoptkp_tpu/dynamics/step.py:27-92`).
 
-MuJoCo's Euler with implicit joint damping, batch axes last.  This is the
-plain version of kernel K1, the `__device__` step that the rollout, line
-search and FD-Jacobian kernels share (kernels/csrc/step.cuh).
+MuJoCo's Euler with implicit joint damping, batch axes last, with the
+joint-limit constraint solve between the smooth forces and the integration.
+This is the plain version of kernels K1 and K2a, the `__device__` step that
+the rollout, line search and FD-Jacobian kernels share
+(kernels/csrc/step.cuh, constraint.cuh).
 
 Damping enters twice on purpose, as in the JAX package and MuJoCo's Euler:
 explicitly in `passive_force` and implicitly in (M + h D) qacc = f.
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.linalg import sym_solve
+from .constraint import constraint_force
 from .fk import forward_kinematics
 from .integrate import integrate_pos
 from .model import Data, Model
@@ -20,28 +23,36 @@ from .smooth import fwd_velocity_smooth
 
 
 def check_smooth(model: Model) -> None:
-    """Raise for a model whose step needs the constraint solver."""
-    if model.has_constraints:
+    """Raise for a model whose step needs contact rows."""
+    if model.contact_pairs:
         raise NotImplementedError(
-            "joint limits and contacts are not ported yet (ROADMAP Queue 1 "
-            f"item 7): the model has {len(model.contact_pairs)} contact "
-            f"pairs and {sum(model.jnt_limited)} limited joints"
-        )
+            "contacts are not ported yet (ROADMAP Queue 1 item 7b): the "
+            f"model has {len(model.contact_pairs)} contact pairs")
 
 
-def forward(model: Model, data: Data) -> Data:
-    """FK products and smooth forces (mj_forward without constraints)."""
+def smooth_force(data: Data) -> torch.Tensor:
+    return data.qfrc_passive + data.qfrc_actuator - data.qfrc_bias
+
+
+def forward(model: Model, data: Data, diag=None) -> Data:
+    """FK products, smooth forces and, for a model with joint limits, the
+    constraint force and the constrained qacc (mj_forward)."""
     check_smooth(model)
     data = forward_kinematics(model, data)
-    return fwd_velocity_smooth(model, data)
+    data = fwd_velocity_smooth(model, data)
+    if not model.has_constraints:
+        return data
+    return constraint_force(model, data, smooth_force(data), diag)
 
 
 def advance(model: Model, data: Data) -> Data:
-    """Euler step from forward() products: (M + hD) qacc = f, then
-    qvel' = qvel + h qacc and qpos' = qpos (+) h qvel'."""
+    """Euler step from forward() products: (M + hD) qacc = qfrc_smooth +
+    qfrc_constraint, then qvel' = qvel + h qacc and qpos' = qpos (+) h qvel'."""
     h = model.timestep
     nl = data.qvel.dim() - 1
-    f = data.qfrc_passive + data.qfrc_actuator - data.qfrc_bias
+    f = smooth_force(data)
+    if data.qfrc_constraint is not None:
+        f = f + data.qfrc_constraint
     hD = torch.diag(h * model.dof_damping).reshape(
         (model.nv, model.nv) + (1,) * nl)
     qacc = sym_solve(data.qM + hD, f)

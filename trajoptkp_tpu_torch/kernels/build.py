@@ -74,9 +74,12 @@ def build(names=SOURCES) -> dict:
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs, failed = {}, []
+    t0 = time.perf_counter()
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
-        logs[name] = text
+        # the compilers run side by side: seconds until this one was done
+        logs[name] = text + f"nvcc {name}: done after " \
+            f"{time.perf_counter() - t0:.1f} s\n"
         if proc.returncode != 0:
             failed.append(name)
             continue

@@ -10,14 +10,17 @@
 // The λ retry runs per lane with the generic semantics of
 // trajoptkp_tpu/solver/ilqr.py:380: a lane sweeps again only while its own
 // gains are not finite (the JAX lane solver reruns every lane while any lane
-// is invalid, a known difference logged in ROADMAP Queue 3).
+// is invalid, a difference held by tests/test_torch_ilqr.py and logged in
+// ROADMAP Queue 3).
 //
 // Bound: ~H (2n)^2 (2n + nu) x 4 double operations per lane against the
 // (2n)(3n + nu) + (nu)(nu + 1) + ... x 8 bytes of A, B and the cost terms it
 // reads once per sweep: bytes-light and latency-bound per thread; V_xx and
-// the Q blocks live in local memory at pentabot width.
+// the Q blocks live in local memory from pentabot width up (a 14 KB stack
+// frame at reaching's nx 14, nu 7, whose fully unrolled sweep also takes
+// nvcc about a minute to compile).
 #include "instances.cuh"
-#include "step.cuh"
+#include "linalg.cuh"
 
 namespace trajopt {
 

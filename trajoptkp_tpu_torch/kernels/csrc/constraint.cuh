@@ -1,0 +1,267 @@
+// K2a: joint-limit rows and the projected-Newton constraint solve for one
+// lane, in double precision.
+//
+// Replaces, in the JAX lane engine trajoptkp_tpu/dynamics/lanes.py, the
+// limit rows (_limit_rows_regs:672, _impedance_reg:656) and the solver
+// (_solve_rows:1523 over _stack_solver_operands:1387 and _solve_rows_x:1427),
+// i.e. the cold-start semantics of trajoptkp_tpu/dynamics/contact.py
+// (_limit_rows:283, _newton_iterations:38, solve_constraints:344).  It is a
+// __device__ function called by smooth_step (step.cuh) between the force
+// assembly and the (M + h D) solve, so it runs inside the rollout (K3),
+// line-search (K4) and FD-Jacobian (K5) kernels, as the JAX lane step fuses
+// it (lanes.py:1673-1682).  Plain twin:
+// trajoptkp_tpu_torch/dynamics/contact.py (solve_constraints).
+//
+// Per step and lane: two one-sided rows per limited joint (impedance sigmoid
+// from solimp, aref from solref), a0 = M^-1 qfrc by Cholesky, then
+// NEWTON_ITERS iterations from x = a0.  Each builds H = M + J'GJ + 1e-10 I
+// over the rows with y = J x - aref < 0, factors it, and searches the merit
+// along the Newton direction over six step lengths from shared products
+// (e'Me, e'M dx, dx'M dx, J dx); the first minimum wins and is taken only if
+// it beats the merit at alpha = 0.  The result is qfrc_con = J' f,
+// f = -min(y, 0) / R.  The solution x itself is not used: the integrator
+// solves (M + h D) qacc = qfrc + qfrc_con.
+//
+// Row format: sparse.  Row r touches the dofs T::row_dof(r, w), w < ROW_W,
+// known at compile time, with coefficients rows.coef[r][w]; a limit row has
+// one entry, +1 (q - lo) or -1 (hi - q).  Row order: every limited joint's
+// lower side, then every upper side (the JAX generic engine's order).  R and
+// ROW_W come from the topology (T::R, T::ROW_W).  Contact rows (K2b) append to
+// the same solver: they raise T::R and T::ROW_W (the longest root path pair),
+// extend T::row_dof, fill coef/aref/invR after the limit rows, and pad short
+// rows with coefficient 0; the solver itself needs no change.
+//
+// The per-joint constants (range, margin, impedance and solref products) are
+// folded on the host in doubles and read from the model buffer, LIM_STRIDE
+// per limited joint (kernels/ops.py:pack_model, dynamics/contact.py
+// LIMIT_FIELDS), so this code and the twin start from the same numbers.  The
+// impedance power must be a small integer and is multiplied out: CUDA's pow
+// and torch.pow need not round alike.
+//
+// Rounding: every sum runs left to right exactly as the twin's (-fmad=false),
+// because `dist < margin`, `y < 0` and the choice of step length are
+// branches, and central FD divides a flipped branch's jump by 2 eps.
+//
+// Bound: per step ~2 NV^3/3 + 8 iterations x (NV^3/3 + 7 NV^2 + ~50 R)
+// dependent double operations per lane (about 10k at panda, beside ~6k for
+// the smooth step; chip_smoke.py:constraint_ops counts them term by term) and no global memory traffic of its own beyond the
+// LIM_STRIDE constants per joint: bound by the latency of one thread's
+// dependent double arithmetic.  This first version keeps one lane per
+// thread; H and L (NV x NV) live in local memory at panda width.  The Newton
+// and step-length loops stay rolled to bound code size and compile time.
+#pragma once
+
+#include "linalg.cuh"
+
+namespace trajopt {
+
+constexpr int LIM_STRIDE = 13;
+enum LimField {
+  L_LO = 0, L_HI = 1, L_MARGIN = 2, L_INVW = 3, L_WIDTH = 4, L_MID = 5,
+  L_DEN_LO = 6, L_DEN_HI = 7, L_D0 = 8, L_DSPAN = 9, L_B = 10, L_KDEN = 11,
+  L_POWER = 12
+};
+constexpr int NEWTON_ITERS = 8;  // cold start, contact._NEWTON_ITERS
+constexpr int N_ALPHA = 6;
+constexpr double HESSIAN_JITTER = 1e-10;
+
+template <int R, int W>
+struct Rows {
+  double coef[R][W];
+  double aref[R];
+  double invR[R];  // active / R: an inactive row contributes nothing
+};
+
+// x^n for n >= 1 by repeated multiplication
+__device__ __forceinline__ double ipow(double x, int n) {
+  double r = x;
+  for (int k = 1; k < n; ++k) r = r * x;
+  return r;
+}
+
+// mj_assignImpedance: power sigmoid from d0 to d0 + dspan over `width`
+__device__ __forceinline__ double impedance(const double* pl, double pos) {
+  const double x = clip(fabs(pos) / pl[L_WIDTH], 0.0, 1.0);
+  const int pw = static_cast<int>(pl[L_POWER]);
+  const double y_lo = ipow(x, pw) / pl[L_DEN_LO];
+  const double y_hi = 1.0 - ipow(1.0 - x, pw) / pl[L_DEN_HI];
+  const double y = x <= pl[L_MID] ? y_lo : y_hi;
+  return pl[L_D0] + y * pl[L_DSPAN];
+}
+
+// Rows 0..NLIM-1: q - lo of each limited joint; NLIM..2 NLIM-1: hi - q.
+template <class T>
+__device__ __forceinline__ void limit_rows(
+    const double* __restrict__ P, const double* q, const double* v,
+    Rows<T::R, T::ROW_W>& rows) {
+  constexpr int NLIM = T::NLIM;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+#pragma unroll
+    for (int k = 0; k < NLIM; ++k) {
+      const int r = side * NLIM + k;
+      const int d = T::lim_dof(k);
+      const double* pl = P + T::LIM + k * LIM_STRIDE;
+      const double dist = side == 0 ? q[d] - pl[L_LO] : pl[L_HI] - q[d];
+      const double vel = side == 0 ? v[d] : -v[d];
+      const double inc = dist < pl[L_MARGIN] ? 1.0 : 0.0;
+      const double imp = dist - pl[L_MARGIN];
+      const double dd = impedance(pl, imp);
+      const double kk = dd / pl[L_KDEN];
+      rows.aref[r] = (-pl[L_B]) * vel - kk * imp;
+      const double Rr =
+          at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pl[L_INVW];
+      rows.invR[r] = inc / Rr;
+      rows.coef[r][0] = side == 0 ? 1.0 : -1.0;
+#pragma unroll
+      for (int w = 1; w < T::ROW_W; ++w) rows.coef[r][w] = 0.0;
+    }
+  }
+}
+
+// out[r] = sum_w coef[r][w] x[row_dof(r, w)], left to right
+template <class T>
+__device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W>& rows,
+                                           const double* x, double* out) {
+#pragma unroll
+  for (int r = 0; r < T::R; ++r) {
+    double s = rows.coef[r][0] * x[T::row_dof(r, 0)];
+#pragma unroll
+    for (int w = 1; w < T::ROW_W; ++w)
+      s += rows.coef[r][w] * x[T::row_dof(r, w)];
+    out[r] = s;
+  }
+}
+
+// sum_r invR_r min(y_r + al jdx_r, 0)^2, left to right
+template <int R>
+__device__ __forceinline__ double penalty(const double* invR, const double* y,
+                                          const double* jdx, double al) {
+  double s = 0.0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const double ya = y[r] + al * jdx[r];
+    const double neg = ya < 0.0 ? ya : 0.0;
+    s += invR[r] * (neg * neg);
+  }
+  return s;
+}
+
+// qc = J' f at the solution of the soft-constraint problem for
+// (M, qfrc, rows).
+template <class T>
+__device__ void constraint_solve(const double (&M)[T::NV][T::NV],
+                                 const double (&qfrc)[T::NV],
+                                 const Rows<T::R, T::ROW_W>& rows,
+                                 double (&qc)[T::NV]) {
+  constexpr int NV = T::NV, R = T::R, W = T::ROW_W;
+  double H[NV][NV], a0[NV], x[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    a0[i] = qfrc[i];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
+  }
+  chol_factor<NV>(H);
+  chol_solve<NV>(H, a0);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) x[i] = a0[i];
+  const double ladder[N_ALPHA] = {1.0, 0.5, 0.25, 0.1, 0.04, 0.01};
+  double zero[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) zero[r] = 0.0;
+
+#pragma unroll 1
+  for (int it = 0; it < NEWTON_ITERS; ++it) {
+    double y[R], g[R], e[NV], Me[NV], dx[NV], jdx[R], Mdx[NV];
+    rows_times<T>(rows, x, y);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      y[r] = y[r] - rows.aref[r];
+      g[r] = y[r] < 0.0 ? rows.invR[r] : 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      double s = M[i][0] * e[0];
+#pragma unroll
+      for (int k = 1; k < NV; ++k) s += M[i][k] * e[k];
+      Me[i] = s;
+      dx[i] = s;  // becomes the gradient, then the Newton direction
+#pragma unroll
+      for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const double gy = g[r] * y[r];
+#pragma unroll
+      for (int w1 = 0; w1 < W; ++w1) {
+        const int d1 = T::row_dof(r, w1);
+        dx[d1] = dx[d1] + rows.coef[r][w1] * gy;
+#pragma unroll
+        for (int w2 = 0; w2 < W; ++w2) {
+          const int d2 = T::row_dof(r, w2);
+          H[d1][d2] = H[d1][d2] + (rows.coef[r][w1] * g[r]) * rows.coef[r][w2];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + HESSIAN_JITTER;
+    chol_factor<NV>(H);
+    chol_solve<NV>(H, dx);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
+
+    // merit along x + alpha dx from shared products
+    rows_times<T>(rows, dx, jdx);
+    double eMe = 0.0, eMdx = 0.0, dMd = 0.0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      double s = M[i][0] * dx[0];
+#pragma unroll
+      for (int k = 1; k < NV; ++k) s += M[i][k] * dx[k];
+      Mdx[i] = s;
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      eMe += e[i] * Me[i];
+      eMdx += e[i] * Mdx[i];
+      dMd += dx[i] * Mdx[i];
+    }
+    const double c0 = 0.5 * eMe + 0.5 * penalty<R>(rows.invR, y, zero, 0.0);
+    double best_c = 0.0, best_a = 0.0;
+#pragma unroll 1
+    for (int a = 0; a < N_ALPHA; ++a) {
+      const double al = ladder[a];
+      const double cost =
+          0.5 * (eMe + (2.0 * al) * eMdx + (al * al) * dMd) +
+          0.5 * penalty<R>(rows.invR, y, jdx, al);
+      // first minimum wins; a NaN cost wins over numbers (argmin)
+      if (a == 0 || cost < best_c || (isnan(cost) && !isnan(best_c))) {
+        best_c = cost;
+        best_a = al;
+      }
+    }
+    const double alpha = best_c < c0 ? best_a : 0.0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) x[i] = x[i] + alpha * dx[i];
+  }
+
+  double y[R];
+  rows_times<T>(rows, x, y);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) qc[i] = 0.0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const double yr = y[r] - rows.aref[r];
+    const double f = (-(yr < 0.0 ? yr : 0.0)) * rows.invR[r];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int d = T::row_dof(r, w);
+      qc[d] = qc[d] + rows.coef[r][w] * f;
+    }
+  }
+}
+
+}  // namespace trajopt

@@ -12,9 +12,16 @@
 // K1 steps run, and (out+ - out-) / (2 eps) fills J[:, c].  The interpolation
 // between slots stays torch (solver/lanes.py:jacobians_si).
 //
+// With joint limits each of those steps runs the constraint solve (K2a),
+// whose gates and step-length choices are branches: kernel and twin must
+// take the same ones, or a flipped branch's jump is divided by 2 eps.  They
+// run the same operations in the same order, and on the card the two agree
+// bit for bit at panda width with rows active.
+//
 // Bound: 2 (2n + nu) steps per lane against (2n)(2n + nu) x 8 bytes written;
-// K x B lanes (500 x 512 at acrobot SI_1) fill the card, so it is bound by
-// the double-precision issue rate, with local-memory spills at pentabot.
+// K x B lanes (500 x 512 at acrobot SI_1, 1500 x 128 at reaching) fill the
+// card, so it is bound by the double-precision instruction rate, with
+// local-memory spills from pentabot width up.
 #include "instances.cuh"
 #include "step.cuh"
 
@@ -72,12 +79,14 @@ fd_jacobian_kernel(const double* __restrict__ P,
 
 }  // namespace trajopt
 
-#define TRAJOPT_DEFINE_FD(tag, NV, NU, SLIDE, PARENTS)                        \
+#define TRAJOPT_DEFINE_FD(tag, NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS, \
+                               BODYDOF, LIMITED)                        \
   extern "C" int trajopt_fd_jacobian_##tag(                                   \
       const double* P, const double* qpos, const double* qvel,                \
       const double* U, const long long* times, double eps, double* J, int K,  \
       int B, void* stream) {                                                  \
-    using T = trajopt::Topo<NV, NU, SLIDE, PARENTS>;                          \
+    using T = trajopt::Topo<NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS,     \
+                            BODYDOF, LIMITED>;                        \
     const int n = K * B;                                                      \
     if (n <= 0) return 0;                                                     \
     trajopt::fd_jacobian_kernel<T><<<(n + 63) / 64, 64, 0,                    \

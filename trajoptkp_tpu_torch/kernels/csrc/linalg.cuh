@@ -1,0 +1,62 @@
+// Small per-thread linear algebra shared by the step (step.cuh), the
+// constraint solve (constraint.cuh) and the backward pass (backward.cu).
+// The plain twins are trajoptkp_tpu_torch/utils/linalg.py:chol_unrolled and
+// chol_solve_unrolled, operation for operation.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace trajopt {
+
+// clamp that keeps NaN, as torch.clamp and jnp.clip do (fmin/fmax drop it)
+__device__ __forceinline__ double clip(double x, double lo, double hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// max(x, lo) that keeps NaN, as torch.clamp(min=) and jnp.maximum do
+__device__ __forceinline__ double at_least(double x, double lo) {
+  return x < lo ? lo : x;
+}
+
+// In-place lower Cholesky factor of SPD A (NaN where A is not PD).
+template <int N>
+__device__ __forceinline__ void chol_factor(double (&A)[N][N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    double s = A[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
+    A[j][j] = sqrt(s);
+    const double inv = 1.0 / A[j][j];
+#pragma unroll
+    for (int i = j + 1; i < N; ++i) {
+      double t = A[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) t -= A[i][k] * A[j][k];
+      A[i][j] = t * inv;
+    }
+  }
+}
+
+// Solve L L^T x = b in place, L from chol_factor.
+template <int N>
+__device__ __forceinline__ void chol_solve(const double (&L)[N][N],
+                                           double (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    double s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= L[i][k] * b[k];
+    b[i] = s / L[i][i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    double s = b[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) s -= L[k][i] * b[k];
+    b[i] = s / L[i][i];
+  }
+}
+
+}  // namespace trajopt

@@ -10,8 +10,9 @@
 // alphas' trajectories are written; the argmin over alphas and the accept
 // test stay torch (solver/lanes.py:forward_pass).
 //
-// Bound: as K3, latency per thread; A x B lanes (6 x 512) fill 48 blocks.
-// Reading K_t (nu x 2n per step) dominates the bytes.
+// Bound: as K3, latency per thread; A x B lanes fill 48 blocks at acrobot's
+// 6 x 512 and 12 at reaching's 6 x 128.  Reading K_t (nu x 2n per step)
+// dominates the bytes.
 #include "instances.cuh"
 #include "residuals.cuh"
 #include "step.cuh"
@@ -63,7 +64,7 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
       u[c] = clip(U[tc * B + b] + alpha * kff[tc * B + b] + fb, lo[c], hi[c]);
       ctrl[(tc * A + a) * B + b] = u[c];
     }
-    joint_space_residual<NV, NU>(q, v, u, tg, r);
+    joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
     costs[(size_t(t) * A + a) * B + b] =
         weighted_cost<NRES>(r, t == H - 1 ? W + NRES : W);
     smooth_step<T>(P, q, v, u, qn, vn);
@@ -79,14 +80,16 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
 
 }  // namespace trajopt
 
-#define TRAJOPT_DEFINE_LINESEARCH(tag, NV, NU, SLIDE, PARENTS)                \
+#define TRAJOPT_DEFINE_LINESEARCH(tag, NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS, \
+                               BODYDOF, LIMITED)                \
   extern "C" int trajopt_linesearch_##tag(                                    \
       const double* P, const double* W, const double* qnom,                   \
       const double* vnom, const double* U, const double* kff,                 \
       const double* Kfb, const double* alphas, const double* tgt,             \
       double* qpos, double* qvel, double* ctrl, double* costs, int H, int A,  \
       int B, void* stream) {                                                  \
-    using T = trajopt::Topo<NV, NU, SLIDE, PARENTS>;                          \
+    using T = trajopt::Topo<NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS,     \
+                            BODYDOF, LIMITED>;                        \
     const int n = A * B;                                                      \
     if (n <= 0) return 0;                                                     \
     trajopt::linesearch_kernel<T><<<(n + 63) / 64, 64, 0,                     \

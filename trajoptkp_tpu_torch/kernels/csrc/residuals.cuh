@@ -5,7 +5,8 @@
 namespace trajopt {
 
 // tasks/toys.py:joint_space_residual — [q_i - tq_i] (NJ), [v_i - tv_i] (NJ),
-// [u_i - tu_i] (NU); targets laid out [pos (NJ), vel (NJ), ctrl (NU)].
+// [u_i - tu_i] (NU); targets laid out [pos (NJ), vel (NJ), ctrl (NU)].  NJ
+// and NU are the residual's own sizes (reaching: NJ = 7, NU = 0).
 template <int NJ, int NU>
 __device__ __forceinline__ void joint_space_residual(const double* q,
                                                      const double* v,

@@ -4,15 +4,17 @@
 // (a lax.scan of the lane step).  Plain twin:
 // trajoptkp_tpu_torch/solver/ilqr.py:rollout.
 //
-// Per lane: H steps of K1 (step.cuh), the joint-space residual at (x_t, u_t)
+// Per lane: H steps of K1 (step.cuh; with joint limits the constraint solve
+// K2a of constraint.cuh inside it), the joint-space residual at (x_t, u_t)
 // and the weighted cost, terminal weights at t = H-1.  Layout is batch last,
 // so each step's loads and stores are coalesced across the lanes of a warp.
 //
-// Bound: ~H x (one step's ~2-4k dependent double operations) per thread
-// against ~(nq + nv + 1) x 8 bytes written per step: latency-bound per
-// thread, and at B = 512 lanes only 8 blocks of 64 threads are resident, so
-// most SMs idle.  A later version can split lanes across warps (one warp
-// per lane, bodies across threads) to fill the card.
+// Bound: ~H x (one step's ~1.3k (acrobot) to ~16k (panda with its limit
+// rows) dependent double operations) per thread against ~(nq + nv + 1) x 8
+// bytes written per step: latency-bound per thread, and at B = 512 lanes
+// only 8 blocks of 64 threads are resident (2 blocks at reaching's 128
+// scenes), so most SMs idle.  A later version can split lanes across warps
+// (one warp per lane, bodies across threads) to fill the card.
 #include "instances.cuh"
 #include "residuals.cuh"
 #include "step.cuh"
@@ -46,7 +48,7 @@ rollout_kernel(const double* __restrict__ P, const double* __restrict__ W,
     }
 #pragma unroll
     for (int a = 0; a < NU; ++a) u[a] = U[(size_t(t) * NU + a) * B + b];
-    joint_space_residual<NV, NU>(q, v, u, tg, r);
+    joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
     costs[size_t(t) * B + b] =
         weighted_cost<NRES>(r, t == H - 1 ? W + NRES : W);
     smooth_step<T>(P, q, v, u, qn, vn);
@@ -62,12 +64,14 @@ rollout_kernel(const double* __restrict__ P, const double* __restrict__ W,
 
 }  // namespace trajopt
 
-#define TRAJOPT_DEFINE_ROLLOUT(tag, NV, NU, SLIDE, PARENTS)                   \
+#define TRAJOPT_DEFINE_ROLLOUT(tag, NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS, \
+                               BODYDOF, LIMITED)                   \
   extern "C" int trajopt_rollout_##tag(                                       \
       const double* P, const double* W, const double* qp0, const double* qv0, \
       const double* U, const double* tgt, double* qpos, double* qvel,         \
       double* costs, int H, int B, void* stream) {                            \
-    using T = trajopt::Topo<NV, NU, SLIDE, PARENTS>;                          \
+    using T = trajopt::Topo<NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS,     \
+                            BODYDOF, LIMITED>;                        \
     if (B <= 0) return 0;                                                     \
     trajopt::rollout_kernel<T><<<(B + 63) / 64, 64, 0,                        \
                                  static_cast<cudaStream_t>(stream)>>>(        \

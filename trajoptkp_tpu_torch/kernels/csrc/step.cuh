@@ -1,16 +1,20 @@
-// K1: one MuJoCo smooth step for one lane, in double-precision registers.
+// K1: one MuJoCo step for one lane, in double-precision registers.
 //
-// Replaces the JAX lane smooth step, trajoptkp_tpu/dynamics/lanes.py:1595
+// Replaces the JAX lane step, trajoptkp_tpu/dynamics/lanes.py:1595
 // (build_smooth_step; _fk_registers:288, _smooth_force_and_M:509,
 // _chol_solve_stacked:412, integrate_q_regs:1549).  It is a __device__
 // function shared by the rollout (K3), line-search (K4) and FD-Jacobian (K5)
 // kernels, not a kernel of its own.  Its plain twin is
 // trajoptkp_tpu_torch/dynamics/step.py:step_state.
 //
-// Scope: hinge/slide trees with one joint per body (joint j on body j+1,
-// qpos and dof index j), no joint limits, no contacts.  The topology is a
-// template argument (Topo); the numeric model is one double buffer whose
-// layout kernels/ops.py:pack_model writes.
+// Scope: trees whose bodies carry one hinge or slide joint or none (a welded
+// body passes its inertia and force to its parent), qpos index = dof index,
+// joint limits through the constraint solve of constraint.cuh (K2a), no
+// contacts, no free or ball joints.  The topology is a template argument
+// (Topo); the numeric model is one double buffer whose layout
+// kernels/ops.py:pack_model writes: BODY_STRIDE per body 1..NBODY-1 (the
+// joint fields of a welded body are zero), ACT_STRIDE per actuator,
+// LIM_STRIDE per limited joint, gravity, timestep.
 //
 // Per body the step runs FK (quaternion frames, cdof), then RNE for the
 // bias force and CRBA over composite inertias for the mass matrix, in the
@@ -23,14 +27,18 @@
 // (FD divides rounding differences by 2 eps; bitwise-equal steps keep the
 // kernel and plain solves on the same path through a chaotic horizon).
 //
-// Bound: one step is ~2-4k dependent double operations per lane, so a
-// kernel built on it is bound by latency per thread, not by bytes; this
-// first version runs one lane per thread and spills the per-body arrays to
-// local memory at pentabot width.
+// Bound: one step is ~1.3k (acrobot) to ~6k (panda, plus ~10k for its
+// constraint solve) dependent double operations per lane, so a kernel built
+// on it is bound by latency per thread, not by bytes; this first version
+// runs one lane per thread and spills the per-body arrays to local memory
+// from pentabot width up.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "constraint.cuh"
+#include "linalg.cuh"
 
 namespace trajopt {
 
@@ -43,21 +51,79 @@ enum BodyField {
 constexpr int ACT_STRIDE = 5;
 enum ActField { A_DOF = 0, A_GEAR = 1, A_LIMITED = 2, A_LO = 3, A_HI = 4 };
 
-template <int NV_, int NU_, unsigned SLIDE_, unsigned long long PARENTS_>
+// NV dofs, NU actuators, NBODY bodies (world included).  The residual is
+// joint-space over the first NJ joints with NUR control terms.  Bit codes:
+// joint of dof j is a slide when bit j of SLIDE is set; dof j is limited when
+// bit j of LIMITED is set; the parent of body b is (PARENTS >> 4b) & 15; the
+// dof of body b is ((BODYDOF >> 4b) & 15) - 1, -1 for a welded body.
+template <int NV_, int NU_, int NJ_, int NUR_, int NBODY_, unsigned SLIDE_,
+          unsigned long long PARENTS_, unsigned long long BODYDOF_,
+          unsigned LIMITED_>
 struct Topo {
   static constexpr int NV = NV_;
   static constexpr int NU = NU_;
   static constexpr int NX = 2 * NV_;
-  static constexpr int NRES = 2 * NV_ + NU_;
-  static constexpr int ACT = NV_ * BODY_STRIDE;   // actuator block offset
-  static constexpr int GRAV = ACT + NU_ * ACT_STRIDE;
-  static constexpr int DT = GRAV + 3;
+  static constexpr int NJ = NJ_;
+  static constexpr int NUR = NUR_;
+  static constexpr int NRES = 2 * NJ_ + NUR_;
+  static constexpr int NBODY = NBODY_;
   __host__ __device__ static constexpr int parent(int b) {
     return static_cast<int>((PARENTS_ >> (4 * b)) & 0xFull);
   }
   __host__ __device__ static constexpr bool slide(int j) {
     return ((SLIDE_ >> j) & 1u) != 0u;
   }
+  __host__ __device__ static constexpr int body_dof(int b) {
+    return static_cast<int>((BODYDOF_ >> (4 * b)) & 0xFull) - 1;
+  }
+  // The inverse maps are folded into bit codes once, so that a lookup in an
+  // unrolled loop is a shift of a constant like parent(): as loops over the
+  // bodies they did not always fold, and an index the compiler cannot see
+  // sends the per-body arrays through local memory (pentabot's FD kernel ran
+  // 2.2x slower that way).
+  __host__ __device__ static constexpr unsigned long long make_dofbody() {
+    unsigned long long code = 0;
+    for (int b = 1; b < NBODY_; ++b)
+      if (body_dof(b) >= 0)
+        code |= static_cast<unsigned long long>(b) << (4 * body_dof(b));
+    return code;
+  }
+  static constexpr unsigned long long DOFBODY = make_dofbody();
+  // the body of dof j
+  __host__ __device__ static constexpr int dof_body(int j) {
+    return static_cast<int>((DOFBODY >> (4 * j)) & 0xFull);
+  }
+  __host__ __device__ static constexpr int count_limited() {
+    int n = 0;
+    for (int j = 0; j < NV_; ++j) n += (LIMITED_ >> j) & 1u;
+    return n;
+  }
+  __host__ __device__ static constexpr unsigned long long make_limdof() {
+    unsigned long long code = 0;
+    int k = 0;
+    for (int j = 0; j < NV_; ++j)
+      if ((LIMITED_ >> j) & 1u) {
+        code |= static_cast<unsigned long long>(j) << (4 * k);
+        ++k;
+      }
+    return code;
+  }
+  static constexpr unsigned long long LIMDOF = make_limdof();
+  // the k-th limited dof
+  __host__ __device__ static constexpr int lim_dof(int k) {
+    return static_cast<int>((LIMDOF >> (4 * k)) & 0xFull);
+  }
+  static constexpr int NLIM = count_limited();
+  // constraint rows (constraint.cuh): two per limited joint, one entry each
+  static constexpr int R = 2 * NLIM;
+  static constexpr int ROW_W = 1;
+  __host__ __device__ static constexpr int row_dof(int r, int /*w*/) {
+    return lim_dof(r < NLIM ? r : r - NLIM);
+  }
+  static constexpr int ACT = (NBODY_ - 1) * BODY_STRIDE;  // actuator block
+  static constexpr int LIM = ACT + NU_ * ACT_STRIDE;      // limit block
+  static constexpr int GRAV = LIM + NLIM * LIM_STRIDE;
+  static constexpr int DT = GRAV + 3;
 };
 
 __device__ __forceinline__ void cross3(const double* a, const double* b,
@@ -164,68 +230,25 @@ __device__ __forceinline__ void cross_force(const double* v, const double* f,
   for (int k = 0; k < 3; ++k) { o[k] = a[k] + b[k]; o[3 + k] = c[k]; }
 }
 
-// clamp that keeps NaN, as torch.clamp and jnp.clip do (fmin/fmax drop it)
-__device__ __forceinline__ double clip(double x, double lo, double hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
 __device__ __forceinline__ double dot6(const double* a, const double* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3] +
          a[4] * b[4] + a[5] * b[5];
 }
 
-// In-place lower Cholesky factor of SPD A (NaN where A is not PD).
-template <int N>
-__device__ __forceinline__ void chol_factor(double (&A)[N][N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    double s = A[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
-    A[j][j] = sqrt(s);
-    const double inv = 1.0 / A[j][j];
-#pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      double t = A[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= A[i][k] * A[j][k];
-      A[i][j] = t * inv;
-    }
-  }
-}
-
-// Solve L L^T x = b in place, L from chol_factor.
-template <int N>
-__device__ __forceinline__ void chol_solve(const double (&L)[N][N],
-                                           double (&b)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    double s = b[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= L[i][k] * b[k];
-    b[i] = s / L[i][i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    double s = b[i];
-#pragma unroll
-    for (int k = i + 1; k < N; ++k) s -= L[k][i] * b[k];
-    b[i] = s / L[i][i];
-  }
-}
-
 // (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
-// actuator forces, (M + h D) qacc = f, semi-implicit Euler.
+// actuator forces, the constraint force of the limit rows (K2a),
+// (M + h D) qacc = f, semi-implicit Euler.
 template <class T>
 __device__ void smooth_step(const double* __restrict__ P, const double* q,
                             const double* v, const double* u, double* qn,
                             double* vn) {
   constexpr int NV = T::NV;
   constexpr int NU = T::NU;
-  double xpos[NV + 1][3], xquat[NV + 1][4];
+  constexpr int NB = T::NBODY;
+  double xpos[NB][3], xquat[NB][4];
   double cdof[NV][6];
-  Inertia In[NV + 1];
-  double cvel[NV + 1][6], cacc[NV + 1][6], cfrc[NV + 1][6];
+  Inertia In[NB];
+  double cvel[NB][6], cacc[NB][6], cfrc[NB][6];
 #pragma unroll
   for (int k = 0; k < 3; ++k) xpos[0][k] = 0.0;
   xquat[0][0] = 1.0; xquat[0][1] = 0.0; xquat[0][2] = 0.0; xquat[0][3] = 0.0;
@@ -237,17 +260,19 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 
   // ---- forward kinematics, body inertias and the RNE forward sweep
 #pragma unroll
-  for (int b = 1; b <= NV; ++b) {
+  for (int b = 1; b < NB; ++b) {
     const double* pb = P + (b - 1) * BODY_STRIDE;
     const int p = T::parent(b);
-    const int j = b - 1;
+    const int j = T::body_dof(b);
     double xq[4], xp[3], tmp[3];
     quat_mul(xquat[p], pb + F_BQUAT, xq);
     quat_rotate(xquat[p], pb + F_BPOS, tmp);
 #pragma unroll
     for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
-    const double dq = q[j] - pb[F_QPOS0];
-    if (T::slide(j)) {
+    if (j < 0) {
+      // welded body: the parent's frame moved by the body offset
+    } else if (T::slide(j)) {
+      const double dq = q[j] - pb[F_QPOS0];
       double aw[3];
       quat_rotate(xq, pb + F_JAXIS, aw);
 #pragma unroll
@@ -257,6 +282,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
         cdof[j][3 + k] = aw[k];
       }
     } else {
+      const double dq = q[j] - pb[F_QPOS0];
       double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
       quat_rotate(xq, pb + F_JPOS, anchor);
 #pragma unroll
@@ -312,12 +338,21 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
     }
 
     // RNE forward: body velocity, acceleration and force
-    double cm[6], Iv[6], Ia[6], cf[6];
+    double Iv[6], Ia[6], cf[6];
+    if (j < 0) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) cvel[b][k] = cvel[p][k] + cdof[j][k] * v[j];
-    cross_motion(cvel[p], cdof[j], cm);
+      for (int k = 0; k < 6; ++k) {
+        cvel[b][k] = cvel[p][k];
+        cacc[b][k] = cacc[p][k];
+      }
+    } else {
+      double cm[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) cacc[b][k] = cacc[p][k] + cm[k] * v[j];
+      for (int k = 0; k < 6; ++k) cvel[b][k] = cvel[p][k] + cdof[j][k] * v[j];
+      cross_motion(cvel[p], cdof[j], cm);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cacc[b][k] = cacc[p][k] + cm[k] * v[j];
+    }
     inertia_mul(I, cvel[b], Iv);
     inertia_mul(I, cacc[b], Ia);
     cross_force(cvel[b], Iv, cf);
@@ -328,9 +363,10 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
   // ---- RNE backward (bias) and composite inertias (CRBA)
   double bias[NV];
 #pragma unroll
-  for (int b = NV; b >= 1; --b) {
+  for (int b = NB - 1; b >= 1; --b) {
     const int p = T::parent(b);
-    bias[b - 1] = dot6(cdof[b - 1], cfrc[b]);
+    const int j = T::body_dof(b);
+    if (j >= 0) bias[j] = dot6(cdof[j], cfrc[b]);
     if (p > 0) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) cfrc[p][k] += cfrc[b][k];
@@ -344,23 +380,27 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
     for (int k = 0; k < NV; ++k) M[i][k] = 0.0;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
+    const int bi = T::dof_body(i);
     double F[6];
-    inertia_mul(In[i + 1], cdof[i], F);
-    M[i][i] = dot6(cdof[i], F) + P[i * BODY_STRIDE + F_ARM];
+    inertia_mul(In[bi], cdof[i], F);
+    M[i][i] = dot6(cdof[i], F) + P[(bi - 1) * BODY_STRIDE + F_ARM];
 #pragma unroll
-    for (int a = T::parent(i + 1); a > 0; a = T::parent(a)) {
-      const double mij = dot6(cdof[a - 1], F);
-      M[i][a - 1] = mij;
-      M[a - 1][i] = mij;
+    for (int a = T::parent(bi); a > 0; a = T::parent(a)) {
+      const int ja = T::body_dof(a);
+      if (ja >= 0) {
+        const double mij = dot6(cdof[ja], F);
+        M[i][ja] = mij;
+        M[ja][i] = mij;
+      }
     }
   }
 
-  // ---- forces, implicit damping, Euler
+  // ---- forces, constraint force, implicit damping, Euler
   const double h = P[T::DT];
   double f[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const double* pb = P + i * BODY_STRIDE;
+    const double* pb = P + (T::dof_body(i) - 1) * BODY_STRIDE;
     const double passive =
         -pb[F_DAMP] * v[i] + (-pb[F_STIFF] * (q[i] - pb[F_QSPRING]));
     double act = 0.0;
@@ -374,8 +414,18 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       }
     }
     f[i] = passive + act - bias[i];
-    M[i][i] += h * pb[F_DAMP];
   }
+  if constexpr (T::R > 0) {
+    Rows<T::R, T::ROW_W> rows;
+    double qc[NV];
+    limit_rows<T>(P, q, v, rows);
+    constraint_solve<T>(M, f, rows, qc);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) f[i] = f[i] + qc[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    M[i][i] += h * P[(T::dof_body(i) - 1) * BODY_STRIDE + F_DAMP];
   chol_factor<NV>(M);
   chol_solve<NV>(M, f);
 #pragma unroll

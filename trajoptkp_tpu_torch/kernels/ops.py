@@ -8,10 +8,12 @@ version on the card.  Each wrapper adds one to `LAUNCHES[name]` where it
 launches its kernel, so a run can show that its main path went through the
 kernels.
 
-The kernels cover hinge/slide trees with one joint per body, no joint
-limits and no contacts, a full state vector and the joint-space residual.
-Their topology (NV, NU, slide-joint mask, parent code) is a template
-argument; the instances built are listed in csrc/instances.cuh.
+The kernels cover trees whose bodies carry one hinge or slide joint or none,
+joint limits (the constraint solve K2a, csrc/constraint.cuh, a device
+function inside the step), no contacts, a full state vector and the
+joint-space residual.  Their topology (sizes, slide-joint mask, parent and
+body-dof codes, limited-joint mask) is a template argument; the instances
+built are listed in csrc/instances.cuh.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..derivs.fd import fd_slot_jacobians
+from ..dynamics.contact import LIMIT_FIELDS, limit_constants
 from ..dynamics.model import HINGE, SLIDE, Model
 from ..dynamics.step import check_smooth
 from ..solver import ilqr as twins
@@ -39,6 +42,14 @@ REPLACES = {
     "fd_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
     "backward": "trajoptkp_tpu/solver/lanes.py:632",
 }
+# device functions inside rollout, linesearch and fd_jacobian: the step (K1)
+# and, for a model with joint limits, the constraint solve (K2a)
+DEVICE_FUNCTIONS = {
+    "step": ("trajoptkp_tpu_torch/kernels/csrc/step.cuh",
+             "trajoptkp_tpu/dynamics/lanes.py:1595"),
+    "constraint": ("trajoptkp_tpu_torch/kernels/csrc/constraint.cuh",
+                   "trajoptkp_tpu/dynamics/lanes.py:1523"),
+}
 
 # numeric model buffer layout, mirrored by csrc/step.cuh
 BODY_FIELDS = (("body_pos", 3), ("body_quat", 4), ("body_ipos", 3),
@@ -46,7 +57,9 @@ BODY_FIELDS = (("body_pos", 3), ("body_quat", 4), ("body_ipos", 3),
                ("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
                ("jnt_stiffness", 1), ("qpos_spring", 1), ("dof_damping", 1),
                ("dof_armature", 1))
-# then per actuator: dof, gear, ctrllimited, lo, hi; gravity (3); timestep
+# per body 1..nbody-1 (joint fields zero for a body without a joint); then
+# per actuator: dof, gear, ctrllimited, lo, hi; per limited joint:
+# dynamics/contact.py LIMIT_FIELDS; gravity (3); timestep
 
 
 def reset_launch_counts() -> None:
@@ -59,15 +72,26 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def model_topology(model: Model) -> Tuple[int, int, int, int]:
-    """(NV, NU, slide mask, parent code) of a kernel-ready model, or raise."""
+def body_dofs(model: Model):
+    """dof of each body, -1 for a body without a joint, or raise."""
+    dofs = [-1] * model.nbody
+    for j, b in enumerate(model.jnt_bodyid):
+        if dofs[b] != -1:
+            raise NotImplementedError(
+                "the kernels take at most one joint per body")
+        dofs[b] = model.jnt_dofadr[j]
+    return dofs
+
+
+def model_topology(model: Model) -> Tuple[int, ...]:
+    """(NV, NU, NBODY, slide mask, parent code, body-dof code, limited
+    mask) of a kernel-ready model, or raise."""
     check_smooth(model)
     nv = model.nv
-    ok = (model.nq == nv and model.njnt == nv and model.nbody == nv + 1
-          and nv <= 15)
+    ok = model.nq == nv and model.njnt == nv and nv <= 15 \
+        and model.nbody <= 16
     for j in range(model.njnt):
         ok = ok and (model.jnt_type[j] in (HINGE, SLIDE)
-                     and model.jnt_bodyid[j] == j + 1
                      and model.jnt_qposadr[j] == j
                      and model.jnt_dofadr[j] == j)
     for b in range(1, model.nbody):
@@ -76,21 +100,36 @@ def model_topology(model: Model) -> Tuple[int, int, int, int]:
         ok = ok and model.actuator_trnid[a] < model.njnt
     if not ok:
         raise NotImplementedError(
-            "the kernels take hinge/slide trees with one joint per body; "
-            "other topologies are ROADMAP Queue 1 items 7 and 11"
-        )
+            "the kernels take trees of up to 16 bodies with one hinge or "
+            "slide joint per body or none; free and ball joints are ROADMAP "
+            "Queue 1 items 7b and 11")
+    if any(model.jnt_limited) and not limit_constants(model).int_power:
+        raise NotImplementedError(
+            "the kernels multiply the impedance power out: solimp[4] must "
+            "be an integer from 1 to 8")
+    dofs = body_dofs(model)
     slide = sum(1 << j for j in range(nv) if model.jnt_type[j] == SLIDE)
-    parents = sum(model.body_parent[b] << (4 * b) for b in range(1, nv + 1))
-    return nv, model.nu, slide, parents
+    parents = sum(model.body_parent[b] << (4 * b)
+                  for b in range(1, model.nbody))
+    bodydof = sum((dofs[b] + 1) << (4 * b) for b in range(1, model.nbody))
+    limited = sum(1 << model.jnt_dofadr[j]
+                  for j in limit_constants(model).joints)
+    return nv, model.nu, model.nbody, slide, parents, bodydof, limited
 
 
 def instances() -> dict:
-    """(NV, NU, slide mask, parent code) -> instance tag, from instances.cuh."""
+    """(NV, NU, NJ, NUR, NBODY, slide mask, parent code, body-dof code,
+    limited mask) -> instance tag, from instances.cuh.  The limited mask in
+    the key fixes the row count of the constraint solve, so a model with
+    limits never runs through an instance without them."""
     text = (build.CSRC / "instances.cuh").read_text()
     out = {}
-    pat = r"X\((\w+),\s*(\d+),\s*(\d+),\s*(0x[0-9a-fA-F]+)u,\s*(0x[0-9a-fA-F]+)ull\)"
-    for tag, nv, nu, slide, par in re.findall(pat, text):
-        out[(int(nv), int(nu), int(slide, 16), int(par, 16))] = tag
+    pat = (r"X\((\w+)" + r",\s*(\d+)" * 5
+           + r",\s*(0x[0-9a-fA-F]+)u,\s*(0x[0-9a-fA-F]+)ull"
+             r",\s*(0x[0-9a-fA-F]+)ull,\s*(0x[0-9a-fA-F]+)u\)")
+    for m in re.findall(pat, text):
+        key = tuple(int(x) for x in m[1:6]) + tuple(int(x, 16) for x in m[6:])
+        out[key] = m[0]
     return out
 
 
@@ -115,13 +154,18 @@ _ARGS_CACHE: dict = {}
 
 def pack_model(model: Model) -> torch.Tensor:
     rows = []
+    dofs = body_dofs(model)
     for b in range(1, model.nbody):
-        j = b - 1
+        j = dofs[b]            # joint index = dof index = qpos index
         for field, width in BODY_FIELDS:
             x = getattr(model, field)
-            idx = b if field.startswith("body_") else j
-            rows.append(x[idx].reshape(width) if width > 1
-                        else x[idx].reshape(1))
+            if field.startswith("body_"):
+                rows.append(x[b].reshape(width))
+            elif j < 0:
+                rows.append(torch.zeros(width, dtype=x.dtype,
+                                        device=x.device))
+            else:
+                rows.append(x[j].reshape(width))
     for a in range(model.nu):
         j = model.actuator_trnid[a]
         rng = model.actuator_ctrlrange[a]
@@ -132,6 +176,8 @@ def pack_model(model: Model) -> torch.Tensor:
             torch.tensor(float(model.actuator_ctrllimited[a]), dtype=rng.dtype,
                          device=rng.device),
             rng[0], rng[1]]))
+    lc = limit_constants(model)
+    rows.append(lc.table.reshape(len(lc.joints) * len(LIMIT_FIELDS)))
     rows.append(model.gravity.reshape(3))
     rows.append(model.timestep.reshape(1))
     return torch.cat(rows).contiguous()
@@ -146,17 +192,21 @@ def kernel_args(task: Task, device: torch.device) -> KernelArgs:
     hit = _ARGS_CACHE.get(key)
     if hit is not None and hit[0] is task:
         return hit[1]
+    kind = task.residual_kind
+    if (len(kind) != 3 or kind[0] != "joint_space"
+            or not 0 < kind[1] <= model.nv or not 0 <= kind[2] <= model.nu
+            or task.nres != 2 * kind[1] + kind[2]):
+        raise NotImplementedError(
+            "the kernels compute the joint-space residual (\"joint_space\", "
+            f"nj <= nv, nr <= nu); task residual is {kind}; FK residuals are "
+            "ROADMAP Queue 1 item 7b")
     topo = model_topology(model)
+    topo = topo[:2] + tuple(kind[1:]) + topo[2:]
     tag = instances().get(topo)
     if tag is None:
         raise NotImplementedError(
             f"no kernel instance for topology {topo}; add it to "
             "kernels/csrc/instances.cuh")
-    kind = task.residual_kind
-    if kind != ("joint_space", model.nv, model.nu):
-        raise NotImplementedError(
-            f"the kernels compute the joint-space residual over all joints; "
-            f"task residual is {kind}")
     if not task.sv.is_full:
         raise NotImplementedError("the kernels need the full state vector")
     lim = control_limits(task)

@@ -137,7 +137,8 @@ class LaneSolve(NamedTuple):
     final_cost: torch.Tensor      # (B,)
     num_iterations: torch.Tensor  # (B,)
     pct_derivs: torch.Tensor      # (B,)
-    log: dict                     # per-iteration values of lane 0
+    log: dict                     # per-iteration values of lane 0; "retried"
+    #                               counts the lanes that took the λ retry
     opt_time_ms: float
 
 
@@ -148,23 +149,33 @@ def _sync(device):
 
 def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
                 rule: str = "lane", verbose: bool = False,
-                plain: bool = False) -> LaneSolve:
+                plain=False) -> LaneSolve:
     """The host iteration loop over B lanes.
 
     qpos0 (nq, B), qvel0 (nv, B), U (H, nu, B), targets (nres, B).
-    `plain=True` runs the kernels' PyTorch twins on any device."""
+    `plain=True` runs the kernels' PyTorch twins on any device; a collection
+    of kernel names (of `ops.KERNELS`) runs only those as twins, which tells
+    apart the kernels a difference between the two paths comes from."""
     if rule not in ("lane", "generic"):
         raise ValueError(f"rule must be 'lane' or 'generic', not {rule!r}")
+    if not isinstance(plain, bool):
+        unknown = set(plain) - set(ops.KERNELS)
+        if unknown:
+            raise ValueError(f"unknown kernels {sorted(unknown)}")
+
+    def twin(name: str) -> bool:
+        return plain if isinstance(plain, bool) else name in plain
+
     dev = qpos0.device
     H, B = U.shape[0], U.shape[-1]
     plan = si_plan(task, H)
     alphas = default_alphas(cfg.num_parallel_rollouts, U.dtype, dev)
-    log = {k: [] for k in ("cost", "pct", "alpha", "lambda", "derivs_ms",
-                           "bp_ms", "fp_ms")}
+    log = {k: [] for k in ("cost", "pct", "alpha", "lambda", "retried",
+                           "derivs_ms", "bp_ms", "fp_ms")}
 
     t_start = time.perf_counter()
     qpos, qvel, costs = ops.rollout(task, qpos0, qvel0, U, targets,
-                                    plain=plain)
+                                    plain=twin("rollout"))
     initial = costs.sum(0)
     old = initial
     lamb = torch.full((B,), cfg.lambda_init, dtype=U.dtype, device=dev)
@@ -176,13 +187,19 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
         t0 = time.perf_counter()
         if need_derivs:
             A, Bm = jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps,
-                                 plain)
+                                 twin("fd_jacobian"))
             l_x, l_xx, l_u, l_uu = cost_expansion(task, qpos, qvel, U,
                                                   targets)
             _sync(dev)
         t1 = time.perf_counter()
         k, K, dJ, lam_n, lam_exit = ops.backward(
-            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=plain)
+            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward"))
+        # live lanes whose backward pass went through the λ retry, read from
+        # λ: a lane valid at once leaves clamp(λ / factor).  (One retry from
+        # min_lambda leaves the same value and is not seen.)
+        at_once = torch.clamp(lamb / cfg.lambda_factor, cfg.min_lambda,
+                              cfg.max_lambda)
+        log["retried"].append(int((~done & (lam_n > 1.5 * at_once)).sum()))
         lamb = torch.where(done, lamb, lam_n)
         _sync(dev)
         t2 = time.perf_counter()
@@ -194,7 +211,8 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
             done = torch.ones_like(done)
             break
         best_traj, best, best_cost, accept = forward_pass(
-            task, qpos, qvel, U, k, K, alphas, targets, old, plain)
+            task, qpos, qvel, U, k, K, alphas, targets, old,
+            twin("linesearch"))
         upd = accept & active
         qpos = torch.where(upd, best_traj[0], qpos)
         qvel = torch.where(upd, best_traj[1], qvel)
@@ -252,10 +270,11 @@ class LaneBatchResult(NamedTuple):
 
 
 def make_lane_phase_optimise(task: Task, cfg: ILQRConfig, H: int,
-                             plain: bool = False):
+                             plain=False):
     """run(qposB (B, nq), qvelB (B, nv), UB (B, H, nu), targetsB (B, nres))
     -> LaneBatchResult, on the task's device, with the lane stopping rule;
-    `plain=True` runs the kernels' PyTorch twins (a reference on the card)."""
+    `plain=True` runs the kernels' PyTorch twins (a reference on the card),
+    a collection of kernel names only those (see `solve_lanes`)."""
     si_plan(task, H)  # refuse an unported keypoint method up front
     model = task.model
     f64 = dict(dtype=model.dtype, device=model.device)

@@ -5,7 +5,9 @@ Cost c = sum_i w_i r_i^2 per step, terminal weights at t = H-1; the cost
 expansion is Gauss-Newton from residual Jacobians.  A task's residual exists
 twice: as the plain torch function `residual_fn` and as a CUDA device
 function of the same name for the kernels; `residual_kind` names it and its
-static sizes, e.g. ("joint_space", nj, nu).
+static sizes: ("joint_space", nj, nr) is position and velocity errors of the
+first nj joints and nr control terms, nres = 2 nj + nr (reaching has nr = 0
+although its arm has seven actuators).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ class Task:
     qpos_start: torch.Tensor           # (nq,)
     qvel_start: torch.Tensor           # (nv,)
     keypoint_cfg: Optional[KeypointConfig] = None
+    # task_complete_fn(qpos (nq,*L), targets (nres,*L)) -> (done, distance)
+    task_complete_fn: Optional[Callable] = None
     openloop_horizon: int = 500
     mpc_horizon: int = 100
 

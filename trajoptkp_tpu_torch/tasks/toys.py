@@ -21,7 +21,9 @@ from .base import Task
 
 def joint_space_residual(nj: int, nu: int, qpos, qvel, ctrl, targets):
     """[q_i - tq_i]*nj, [v_i - tv_i]*nj, [u_i - tu_i]*nu; targets laid out
-    as [pos (nj), vel (nj), ctrl (nu)] (Acrobot::Residuals)."""
+    as [pos (nj), vel (nj), ctrl (nu)] (Acrobot::Residuals).  `nu` counts
+    the control terms of the residual, which may be fewer than the model's
+    actuators (none in reaching)."""
     return torch.cat([
         qpos[:nj] - targets[:nj],
         qvel[:nj] - targets[nj:2 * nj],
@@ -77,7 +79,7 @@ def make_pentabot(device=None) -> Task:
     """Pentabot: 5-link chain, joints 1-3 actuated.
 
     The model's six capsule self-contact pairs (non-adjacent links) are
-    dropped: contacts are not in this slice (ROADMAP Queue 1 item 7), so the
+    dropped: contacts are not ported yet (ROADMAP Queue 1 item 7b), so the
     port's pentabot is the smooth subset of the JAX one and agrees with it
     while no two links touch."""
     device = resolve_device(device)
