@@ -4,27 +4,38 @@
     python3 chip_smoke.py
 
 Builds the four CUDA kernels from kernels/csrc and holds each against its
-plain PyTorch twin on the card: acrobot at its main path's shapes, pentabot
-and reaching (panda, joint limits: the constraint solve inside the step) at a
-smaller size, half of reaching's lanes started at their joint limits.  It
-replays the acrobot SI_5 H=200 golden solve on the kernel path, then drives
-the two main paths through `make_lane_phase_optimise` with launch counts:
-acrobot SI_1 (H=500, 512 scenes, 10 iterations) and reaching SI_1 (H=1500,
-128 scenes, 10 iterations), float64.  Three iterations of each are compared
-with the plain path on the card (reaching at a reduced horizon), the four
-kernels are timed at reaching's full shape and held against their twins
+plain PyTorch twin on the card: acrobot at its main path's shapes, pentabot,
+reaching (panda, joint limits: the constraint solve inside the step) and
+push_ncl (panda pushing a free cylinder: the contact rows and narrow phase
+inside the step as well) at a smaller size, half of reaching's lanes started
+at their joint limits and push_ncl's from its servo with all three contact
+pairs touching (the contact rows K2b and the constraint solve K2a run inside
+the step of the rollout, line-search and FD kernels); the servo's fk_bias is
+held against its twin there too.  The backward pass is also held against
+its twin summed in another order (`sum_contract`) on the card and on the
+CPU.  It replays the acrobot SI_5 H=200 golden solve on the kernel path,
+then drives the three main paths through `make_lane_phase_optimise` with
+launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1 (H=1500, 128
+scenes) and push_ncl SI_1 (H=1000, 128 scenes from the task's scene
+generator, started by its setup and init servo), 10 iterations each,
+float64.  Three iterations of each are compared with the plain path on the
+card (reaching and push_ncl at a reduced horizon), the four kernels are
+timed at reaching's and push_ncl's full shapes and held against their twins
 there too (the rollout and the line search step by step, see
-`stepwise_check`), and the CLI solves both tasks.
+`stepwise_check`), the push_ncl servo's first steps and its fk_bias are
+held against the plain servo at its own 128 lanes (`check_servo`), and the
+CLI solves the three tasks.
 
-Prints the card's name and power limit, the kernel build time, a `record`
-line with every measurement, one `{"kernels": [...]}` line (one entry per
-kernel and model) and, last, `{"ok": true, "device": {...}}`.  Any failed
-check is printed as it happens and makes the script exit non-zero at the end
-without a result; it also fails where no CUDA device is present.
+Prints the card's name and power limit, the kernel build time, the seconds
+of each phase, a `record` line with every measurement, one
+`{"kernels": [...]}` line (one entry per kernel and model) and, last,
+`{"ok": true, "device": {...}}`.  Any failed check is printed as it happens
+and makes the script exit non-zero at the end without a result; it also
+fails where no CUDA device is present.
 
-`--phases a,b` runs a subset (build, acrobot, pentabot, reaching, golden,
-main_acrobot, main_reaching, cli) while developing; a subset never prints a
-result.
+`--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
+golden, main_acrobot, main_reaching, main_push, cli) while developing; a
+subset never prints a result.
 """
 
 import argparse
@@ -39,13 +50,17 @@ import numpy as np
 import torch
 
 from trajoptkp_tpu_torch.dynamics.contact import (ALPHA_LADDER, NEWTON_ITERS,
+                                                  contact_constants,
+                                                  contacts_active,
                                                   limit_constants,
                                                   limits_active)
+from trajoptkp_tpu_torch.dynamics.model import FREE, HINGE, SLIDE
 from trajoptkp_tpu_torch.dynamics.step import step_state
 from trajoptkp_tpu_torch.kernels import build, ops
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
 from trajoptkp_tpu_torch.state.statevector import to_tangent
+from trajoptkp_tpu_torch.tasks import pushing
 from trajoptkp_tpu_torch.tasks.base import control_limits
 from trajoptkp_tpu_torch.tasks.reaching import make_reaching
 from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
@@ -55,10 +70,16 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "acrobot_si5_h200.npz")
 
 H, B, ITERS = 500, 512, 10          # the acrobot main path
 RH, RB = 1500, 128                  # the reaching main path
-PH, PB = 100, 64                    # pentabot and reaching check size
-RH3 = 200                           # reaching kernel-vs-plain solve horizon
-PHASES = ("build", "acrobot", "pentabot", "reaching", "golden",
-          "main_acrobot", "main_reaching", "cli")
+UH, UB = 1000, 128                  # the push_ncl main path
+PH, PB = 100, 64                    # pentabot, reaching and push check size
+# kernel-vs-plain solve horizons: cut from reaching's 200 to 100 to make
+# room for push_ncl (a plain reaching step at 64 lanes takes ~170 ms on an
+# H100)
+RH3 = 100
+UH3 = 40                            # push kernel-vs-plain solve horizon
+SERVO_CHECK = 10                    # servo steps held against the plain servo
+PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "golden",
+          "main_acrobot", "main_reaching", "main_push", "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -126,41 +147,81 @@ class Sizes:
 
     def __init__(self, task):
         m = task.model
-        self.nv, self.nu, self.nres = m.nv, m.nu, task.nres
-        self.nbody = m.nbody - 1                    # moving or welded bodies
-        self.rows = 2 * len(limit_constants(m).joints)
+        self.nq, self.nv, self.nu, self.nres = m.nq, m.nv, m.nu, task.nres
+        self.nx = task.sv.nx                        # 2 x state-vector dofs
+        self.ntgt = task.residual_targets.shape[0]
+        kinds = [m.jnt_type[j] if j >= 0 else None
+                 for j in ops.body_joints(m)[1:]]
+        self.n_scalar = sum(k in (HINGE, SLIDE) for k in kinds)
+        self.n_welded = kinds.count(None)
+        self.n_free = kinds.count(FREE)
+        # (i, k < i) pairs of the mass matrix the CRBA fills: per body with
+        # n dofs, its own earlier dofs and its ancestors' dofs
+        anc = m.ancestor_mask.sum(1).tolist()
+        self.m_pairs = 0
+        for b, j in enumerate(ops.body_joints(m)):
+            if j >= 0:
+                n = 6 if m.jnt_type[j] == FREE else 1
+                self.m_pairs += n * (n - 1) // 2 + n * (int(anc[b]) - n)
+        lim = 2 * len(limit_constants(m).joints)
+        pairs = [(len(p.support), p.ncon)
+                 for p in contact_constants(m).pairs]
+        self.rows = lim + sum(4 * nc for _, nc in pairs)
+        # sparse entries of the rows, and their squares (the Hessian)
+        self.entries = lim + sum(4 * nc * w for w, nc in pairs)
+        self.entries_sq = lim + sum(4 * nc * w * w for w, nc in pairs)
+        self.lim_rows = lim
+        self.contact_pairs = pairs
+        self.fk_residual = task.residual_kind[0] == "push"
 
 
-def constraint_ops(nv, rows):
+def contact_ops(s):
+    """Double operations of csrc/contact.cuh (K2b) per step: per pair ~300
+    for the two geom poses and the narrow phase, per slot ~46 (impedance,
+    R, gate) plus 43 per support dof (point Jacobian 12, three frame rows
+    15, four rows' coefficients and velocity 16)."""
+    return sum(300 + nc * (46 + 43 * w) for w, nc in s.contact_pairs)
+
+
+def constraint_ops(s):
     """Double operations of csrc/constraint.cuh per step, counted from the
-    source with one entry per row: the rows ~30 each; a0 nv^3/3 + 2 nv^2;
-    per Newton iteration y and the gate 3 R, e nv, M e 2 nv^2, gradient and
-    H 5 R + nv^2, Cholesky nv^3/3 + 2 nv^2, J dx R, M dx 2 nv^2, three dot
-    products 6 nv, the merit at alpha = 0 and six step lengths 7 (5 R + 8),
-    the update 2 nv; the force 6 R."""
+    source over the rows' E sparse entries (E2 the sum of their squares;
+    a limit row has one entry): the limit rows ~30 each and the contact
+    rows (contact_ops); a0 nv^3/3 + 2 nv^2; per Newton iteration y and the
+    gate 2 E + R, e nv, M e 2 nv^2, gradient and H 2 E + 3 E2 + nv^2,
+    Cholesky nv^3/3 + 2 nv^2, J dx 2 E - R, M dx 2 nv^2, three dot products
+    6 nv, the merit at alpha = 0 and six step lengths 7 (5 R + 8), the
+    update 2 nv; the force 4 R + 2 E."""
+    nv, rows, E, E2 = s.nv, s.rows, s.entries, s.entries_sq
     if rows == 0:
         return 0
     chol = nv ** 3 / 3 + 2 * nv ** 2
-    per_it = (3 * rows + nv + 2 * nv ** 2 + 5 * rows + nv ** 2 + chol + rows
-              + 2 * nv ** 2 + 6 * nv + (len(ALPHA_LADDER) + 1) * (5 * rows + 8)
-              + 2 * nv)
-    return 30 * rows + chol + NEWTON_ITERS * per_it + 6 * rows
+    per_it = (2 * E + rows + nv + 2 * nv ** 2 + 2 * E + 3 * E2 + nv ** 2
+              + chol + 2 * E - rows + 2 * nv ** 2 + 6 * nv
+              + (len(ALPHA_LADDER) + 1) * (5 * rows + 8) + 2 * nv)
+    return (30 * s.lim_rows + contact_ops(s) + chol + NEWTON_ITERS * per_it
+            + 4 * rows + 2 * E)
 
 
 def step_ops(s):
     """Double operations of one step of csrc/step.cuh, counted per part:
     FK ~230 per hinge body (~60 for a welded one), body inertia ~190, RNE
-    ~180, CRBA ~30 plus 11 per ancestor pair, forces ~10 per dof and
+    ~180; a free body ~1000 (pose and six cdof ~60, inertia, RNE over six
+    dofs with the whole-twist rotations ~350, bias 66, its CRBA columns
+    ~250, quaternion integration ~110); CRBA ~30 per dof plus 11 per pair
+    of a dof and an earlier dof of its root path, forces ~10 per dof and
     actuator, Cholesky nv^3/3 and its solve 2 nv^2, Euler 4 nv; plus the
-    constraint solve for a model with limits."""
+    constraint solve for a model with limits or contacts."""
     nv, nu = s.nv, s.nu
-    return (630 * nv + 430 * (s.nbody - nv) + 11 * nv * (nv - 1) // 2
-            + 10 * (nv + nu) + nv ** 3 / 3 + 2 * nv ** 2 + 4 * nv
-            + constraint_ops(nv, s.rows))
+    return (630 * s.n_scalar + 430 * s.n_welded + 1000 * s.n_free
+            + 11 * s.m_pairs + 10 * (nv + nu) + nv ** 3 / 3 + 2 * nv ** 2
+            + 4 * nv + constraint_ops(s))
 
 
 def cost_ops(s):
-    return 4 * s.nres
+    """The residual and its weighted square; the push FK residual adds the
+    end-effector site (~35) and three norms (~35)."""
+    return 4 * s.nres + (70 if s.fk_residual else 0)
 
 
 def bound(ops_count, bytes_count):
@@ -171,25 +232,25 @@ def bound(ops_count, bytes_count):
 
 
 def rollout_bound(s, Hh, Bb):
-    nv, nu = s.nv, s.nu
+    nu, ns = s.nu, s.nq + s.nv
     ops_ = Hh * Bb * (step_ops(s) + cost_ops(s))
-    byt = F8 * Bb * (2 * nv + Hh * nu + s.nres + (Hh + 1) * 2 * nv + Hh)
+    byt = F8 * Bb * (ns + Hh * nu + s.ntgt + (Hh + 1) * ns + Hh)
     return bound(ops_, byt)
 
 
 def linesearch_bound(s, Hh, A, Bb):
-    nv, nu, nx = s.nv, s.nu, 2 * s.nv
+    nu, nx, ns = s.nu, s.nx, s.nq + s.nv
     ops_ = Hh * A * Bb * (step_ops(s) + cost_ops(s) + 2 * nu * nx + 4 * nu
                           + nx)
-    byt = F8 * (Bb * ((Hh + 1) * nx + Hh * nu * (2 + nx) + s.nres) + A
-                + A * Bb * ((Hh + 1) * nx + Hh * nu + Hh))
+    byt = F8 * (Bb * ((Hh + 1) * ns + Hh * nu * (2 + nx) + s.ntgt) + A
+                + A * Bb * ((Hh + 1) * ns + Hh * nu + Hh))
     return bound(ops_, byt)
 
 
 def fd_bound(s, K, Bb):
-    nx, nc = 2 * s.nv, 2 * s.nv + s.nu
+    nx, nc = s.nx, s.nx + s.nu
     ops_ = K * Bb * (2 * nc * step_ops(s) + 2 * nc * nx)
-    byt = F8 * K * (1 + Bb * (nx + s.nu + nx * nc))
+    byt = F8 * K * (1 + Bb * (s.nq + s.nv + s.nu + nx * nc))
     return bound(ops_, byt)
 
 
@@ -215,13 +276,25 @@ def card_line():
     return smi.stdout.strip().splitlines()[0]
 
 
+def cuda_timed(fn):
+    """(fn(), device ms of that one call by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def lane_inputs(task, Hh, Bb, seed, at_limits=False):
     """Scenes, controls and gains.  `at_limits` starts half the lanes with
     every joint at one of its limits (+- 0.01 N), moving, under controls
     large enough to push into them, so limit rows are active."""
     qp, qv, tg = lanes.scenes(task, Bb, seed=seed)
     rng = np.random.default_rng(seed + 1)
-    nv, nu, nx = task.model.nv, task.model.nu, 2 * task.model.nv
+    nv, nu, nx = task.model.nv, task.model.nu, task.sv.nx
     f64 = dict(dtype=torch.float64, device="cuda")
     scale = 0.3
     if at_limits:
@@ -237,6 +310,186 @@ def lane_inputs(task, Hh, Bb, seed, at_limits=False):
     k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
     K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
     return (qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous(), U, k, K)
+
+
+_PUSH_STARTS = {}
+
+
+def push_start(task):
+    """The push_ncl main path's start (computed once): UB scenes from the
+    task's generator (numpy seed 0) and the JAX app's initial controls, the
+    setup servo behind the object (1000 steps), whose end is the start, then
+    the init servo over UH, both stepped by K3 at H = 1 with the FK products
+    and bias force from fk_bias -> dict of the scenes' scene_qpos (nq, B)
+    and scene_qvel (nv, B), the start qpos (nq, B), qvel (nv, B), targets
+    (2, B), U (UH, nu, B), the servo's wall seconds and its kernel
+    launches."""
+    if "main" not in _PUSH_STARTS:
+        qp, qv, tg = pushing.push_scenes(task, UB, seed=0)
+        tgl = tg.T.contiguous()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        qs, vs, U = pushing.init_controls(task, UH, qp.T.contiguous(),
+                                          qv.T.contiguous(), tgl)
+        torch.cuda.synchronize()
+        _PUSH_STARTS["main"] = dict(
+            scene_qpos=qp.T.contiguous(), scene_qvel=qv.T.contiguous(),
+            qpos=qs, qvel=vs, targets=tgl, U=U.contiguous(),
+            servo_s=time.perf_counter() - t0,
+            launches={k: v for k, v in ops.LAUNCHES.items() if v})
+    return _PUSH_STARTS["main"]
+
+
+def push_inputs(task, Hh, Bb, seed):
+    """Check inputs for push_ncl: the first Bb servo-driven starts of the
+    main path (push_start), where the pusher touches the goal and the goal
+    rests on the table, and the init servo's first Hh controls.  The first
+    quarter of the lanes adds N(0, 2) noise to the controls; the second
+    starts with the shoulder (joint 2) 0.035 rad further down, which presses
+    the pusher ~2 mm into the table (the servo holds it ~1 cm above); the
+    second half runs the servo as it is.  Gains as lane_inputs."""
+    st = push_start(task)
+    qp0, qv0 = (st[k][:, :Bb].contiguous() for k in ("qpos", "qvel"))
+    tgl = st["targets"][:, :Bb].contiguous()
+    U = st["U"][:Hh, :, :Bb].contiguous()
+    rng = np.random.default_rng(seed + 1)
+    nu, nx = task.model.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    noise = 2.0 * rng.standard_normal((Hh, nu, Bb))
+    noise[..., Bb // 4:] = 0.0
+    U = (U + torch.as_tensor(noise, **f64)).contiguous()
+    qp0 = qp0.clone()
+    qp0[1, Bb // 4:Bb // 2] += 0.035
+    k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
+    K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
+    return qp0, qv0, tgl, U, k, K
+
+
+def fk_bias_ops(s):
+    """The FK and RNE part of step_ops (what fk_bias runs): 630 per hinge
+    or slide body, 430 per welded one, 900 per free one."""
+    return 630 * s.n_scalar + 430 * s.n_welded + 900 * s.n_free
+
+
+def check_fk_bias(task, qpos, qvel):
+    """The servo's fk_bias kernel against its twin (forward_kinematics +
+    bias_force) at the states qpos (H, nq, B), qvel (H, nv, B), one lane
+    per (time, lane) pair."""
+    m = task.model
+    q = qpos.transpose(0, 1).reshape(m.nq, -1).contiguous()
+    v = qvel.transpose(0, 1).reshape(m.nv, -1).contiguous()
+    n = q.shape[1]
+    kr = ops.fk_bias(task, q, v)
+    pr, plain_ms = cuda_timed(lambda: ops.fk_bias(task, q, v, plain=True))
+    e = max((err(a, b, "rel") for a, b in zip(kr, pr)), key=lambda x: x[1])
+    same = all(bool(torch.equal(a, b)) for a, b in zip(kr, pr))
+    byt = F8 * n * (m.nq + m.nv + 7 * m.nbody + 7 * m.nv)
+    out = dict(err=e, bitwise=same, lanes=n, plain_ms=plain_ms,
+               ms=cuda_ms(lambda: ops.fk_bias(task, q, v), 5),
+               bound=bound(n * fk_bias_ops(Sizes(task)), byt),
+               tol="rel 1e-12")
+    print(f"  {task.name} fk_bias ({n} lanes): kernel vs plain max abs err "
+          f"{e[0]:.3e} (compared {e[1]:.3e}), bitwise equal {same}, "
+          f"{out['ms']:.4f} ms (plain {plain_ms:.4f} ms)", flush=True)
+    check(math.isfinite(e[1]) and e[1] <= 1e-12,
+          f"{task.name} fk_bias: kernel vs plain error {e[1]:.3e}")
+    return out
+
+
+def check_servo(task, st):
+    """The push_ncl main path's servo against its plain twin at the shape it
+    runs, UB lanes: fk_bias at the scenes' start and at the start the setup
+    servo reached, then the first SERVO_CHECK steps of the setup servo (from
+    the scenes) and of the init servo (from that start), the kernel servo
+    against the plain servo (`servo_along_path(plain=True)`: the twins of
+    fk_bias and of the K3 step); the kernel init servo must give the main
+    path's own first controls."""
+    tgl, n = st["targets"], SERVO_CHECK
+    fk = [check_fk_bias(task, st[q][None], st[v][None])
+          for q, v in (("scene_qpos", "scene_qvel"), ("qpos", "qvel"))]
+    out = dict(fk_bias=fk, steps=n)
+    for name, make_path, horizon, q0, v0 in (
+            ("setup", pushing.setup_path, pushing.SETUP_STEPS,
+             st["scene_qpos"], st["scene_qvel"]),
+            ("init", pushing.ee_waypoint_path, UH, st["qpos"], st["qvel"])):
+        path, angle = make_path(task, horizon, q0, tgl)
+        ks = pushing.servo_along_path(task, path[:n], angle, q0, v0, tgl)
+        t0 = time.perf_counter()
+        ps = pushing.servo_along_path(task, path[:n], angle, q0, v0, tgl,
+                                      plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        e = max((err(a, b, "rel") for a, b in zip(ks, ps)),
+                key=lambda x: x[1])
+        same = all(bool(torch.equal(a, b)) for a, b in zip(ks, ps))
+        out[name] = dict(err=e, bitwise=same, plain_s=plain_s)
+        print(f"  {task.name} {name} servo, {n} steps at {q0.shape[1]} "
+              f"lanes: kernel vs plain servo (U, end qpos, qvel) max abs err "
+              f"{e[0]:.3e} (compared {e[1]:.3e}), bitwise equal {same}, "
+              f"plain {plain_s:.2f} s", flush=True)
+        check(math.isfinite(e[1]) and e[1] <= 1e-10,
+              f"{task.name} {name} servo: kernel vs plain error {e[1]:.3e}")
+        if name == "init":
+            e = err(ks[0], st["U"][:n], "rel")
+            out["main_U_err"] = e
+            print(f"  {task.name} init servo: its first {n} controls vs the "
+                  f"main path's, max abs err {e[0]:.3e}", flush=True)
+            check(e[1] <= 1e-10, f"{task.name}: the init servo's controls "
+                                 f"differ from the main path's by {e[1]:.3e}")
+    return out
+
+
+def order_witness(A, Bm, l, lam, cfg, kb):
+    """K7's result kb against its twin in the kernel's summation order on
+    the CPU and in torch's order (`sum_contract`) on the card and on the
+    CPU, over the lanes whose λ and λ-exit all agree: (max abs err,
+    compared err) of k and K per pair, and the bar below.  The other order
+    as far from the kernel as from itself across devices says that a gap
+    is rounding order through the problem's conditioning, not a fault of
+    the kernel; it is also how a K7 that sums in another order is held."""
+    cpu = [x.cpu() for x in (A, Bm, *l, lam)]
+    runs = {
+        "kernel_order_cpu": ilqr.backward_pass_lambda_loop(*cpu, cfg),
+        "sum_order_cuda": ilqr.backward_pass_lambda_loop(
+            A, Bm, *l, lam, cfg, contract=ilqr.sum_contract),
+        "sum_order_cpu": ilqr.backward_pass_lambda_loop(
+            *cpu, cfg, contract=ilqr.sum_contract),
+    }
+    runs = {k: [x.to(kb[0].device) for x in v] for k, v in runs.items()}
+    live = ~kb[4]
+    for r in runs.values():
+        live &= (r[3] == kb[3]) & (r[4] == kb[4])
+
+    def gap(x, y):
+        return max((err(a[..., live], b[..., live], "rel")
+                    for a, b in zip(x[:2], y[:2])),
+                   key=lambda z: z[1])
+    out = {f"kernel_vs_{k}": gap(kb, v) for k, v in runs.items()}
+    out["sum_order_cuda_vs_cpu"] = gap(runs["sum_order_cuda"],
+                                       runs["sum_order_cpu"])
+    out["lanes"] = int(live.sum())
+    # K7 must sit inside the spread that rounding order alone makes: as
+    # close to the other order's twin as that twin is to itself across
+    # devices (ten times, and at least TOL's bar); a fault lands far outside
+    out["bar"] = max(TOL["backward"][1], 10 * out["sum_order_cuda_vs_cpu"][1])
+    return out
+
+
+def check_orders(name, wit):
+    print(f"  {name} backward, summation orders: {json.dumps(wit)}",
+          flush=True)
+    check(wit["kernel_vs_sum_order_cpu"][1] <= wit["bar"],
+          f"{name} backward vs the sum-order twin: "
+          f"{wit['kernel_vs_sum_order_cpu'][1]:.3e} > {wit['bar']:.3e}")
+
+
+def contact_counts(task, qpos):
+    """Per contact pair, the lane-steps and lanes of qpos (H, nq, B) with a
+    slot within its margin."""
+    act = contacts_active(task.model, qpos.transpose(0, 1))  # (np, H, B)
+    return dict(lane_steps_by_pair=act.sum((1, 2)).tolist(),
+                lanes_by_pair=act.any(1).sum(1).tolist(), of=act[0].numel())
 
 
 def note(task, name, rows):
@@ -255,12 +508,15 @@ def fd_slot_agreement(kj, pj, tol):
     return 1.0 - float(bad.double().mean()), within, int(bad.sum()), flips
 
 
-def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
-    """Each kernel against its plain twin on the same inputs."""
+def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
+                  inputs=None):
+    """Each kernel against its plain twin on the same inputs (`inputs`, or
+    lane_inputs).  With constraint rows (limits at `at_limits`, or contacts)
+    FD is held slot by slot (fd_slot_agreement)."""
     s = Sizes(task)
-    nv, nu = s.nv, s.nu
-    qp0, qv0, tg, U, k, K = lane_inputs(task, Hh, Bb, seed=3,
-                                        at_limits=at_limits)
+    gated = at_limits or bool(task.model.contact_pairs)
+    qp0, qv0, tg, U, k, K = inputs or lane_inputs(task, Hh, Bb, seed=3,
+                                                  at_limits=at_limits)
     cfg = ILQRConfig()
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     plan = lanes.si_plan(task.replace(keypoint_cfg=task.keypoint_cfg.replace(
@@ -269,7 +525,8 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
 
     # K3 rollout
     kr = ops.rollout(task, qp0, qv0, U, tg)
-    pr = ops.rollout(task, qp0, qv0, U, tg, plain=True)
+    pr, plain_ms = cuda_timed(
+        lambda: ops.rollout(task, qp0, qv0, U, tg, plain=True))
     n = min(100, Hh)
     e = max(err(kr[0][:n], pr[0][:n], "rel"), err(kr[1][:n], pr[1][:n], "rel"),
             err(kr[2][:n], pr[2][:n], "rel"), key=lambda x: x[1])
@@ -284,15 +541,26 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
               f"{rows['active']['lanes']} of {Bb} lanes", flush=True)
         check(rows["active"]["lane_steps"] > 0,
               f"{task.name}: no limit row was ever active in the check")
+    if task.model.contact_pairs:
+        c = rows["contacts"] = contact_counts(task, pr[0][:Hh])
+        print(f"  {task.name}: contact rows active, per pair "
+              f"{[f'{a}-{b}' for a, b in task.model.contact_pairs]}, in "
+              f"{c['lane_steps_by_pair']} of {c['of']} lane-steps and "
+              f"{c['lanes_by_pair']} of {Bb} lanes of the plain rollout",
+              flush=True)
+        check(all(n_ > 0 for n_ in c["lane_steps_by_pair"]),
+              f"{task.name}: a contact pair was never active in the check")
+    if task.init_controls_fn is not None:
+        rows["fk_bias"] = check_fk_bias(task, pr[0][:Hh], pr[1][:Hh])
     if time_them:
         rows["rollout"]["ms"] = cuda_ms(lambda: ops.rollout(task, qp0, qv0, U, tg), 5)
-        rows["rollout"]["plain_ms"] = cuda_ms(
-            lambda: ops.rollout(task, qp0, qv0, U, tg, plain=True), 1, 0)
+        rows["rollout"]["plain_ms"] = plain_ms
 
     # K4 line search, about the kernel rollout's nominal
     qpos, qvel = kr[0], kr[1]
     kl = ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg)
-    pl = ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg, plain=True)
+    pl, plain_ms = cuda_timed(lambda: ops.linesearch(
+        task, qpos, qvel, U, k, K, alphas, tg, plain=True))
     e = max(err(kl[0][:n], pl[0][:n], "rel"), err(kl[2][:n], pl[2][:n], "rel"),
             err(kl[3][:n], pl[3][:n], "rel"), key=lambda x: x[1])
     rows["linesearch"] = dict(
@@ -301,22 +569,20 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
     if time_them:
         rows["linesearch"]["ms"] = cuda_ms(
             lambda: ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg), 5)
-        rows["linesearch"]["plain_ms"] = cuda_ms(
-            lambda: ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg,
-                                   plain=True), 1, 0)
+        rows["linesearch"]["plain_ms"] = plain_ms
 
     # K5 FD slot Jacobians at every step (SI_1) and K7: for the toys on the
     # nominal their main path starts from (zero controls on these scenes),
-    # for the lanes at their limits along the rollout above
-    U0 = U if at_limits else torch.zeros_like(U)
+    # with constraint rows along the rollout above
+    U0 = U if gated else torch.zeros_like(U)
     q0, v0, _ = ops.rollout(task, qp0, qv0, U0, tg)
     kj = ops.fd_jacobian(task, q0, v0, U0, plan.times, cfg.fd_eps)
-    pj = ops.fd_jacobian(task, q0, v0, U0, plan.times, cfg.fd_eps,
-                         plain=True)
+    pj, plain_ms = cuda_timed(lambda: ops.fd_jacobian(
+        task, q0, v0, U0, plan.times, cfg.fd_eps, plain=True))
     rows["fd_jacobian"] = dict(err=err(kj, pj, "abs"),
                                bound=fd_bound(s, len(plan.times), Bb))
     note(task, "fd_jacobian", rows)
-    if at_limits:
+    if gated:
         share, within, n_flips, flips = fd_slot_agreement(kj, pj, fd_abs)
         rows["fd_jacobian"].update(share=share, within=within, flips=n_flips)
         print(f"  {task.name} fd_jacobian: {share:.6f} of {kj.shape[0] * Bb} "
@@ -326,15 +592,15 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
     if time_them:
         rows["fd_jacobian"]["ms"] = cuda_ms(lambda: ops.fd_jacobian(
             task, q0, v0, U0, plan.times, cfg.fd_eps), 5)
-        rows["fd_jacobian"]["plain_ms"] = cuda_ms(lambda: ops.fd_jacobian(
-            task, q0, v0, U0, plan.times, cfg.fd_eps, plain=True), 1, 0)
+        rows["fd_jacobian"]["plain_ms"] = plain_ms
 
     A, Bm = lanes.jacobians_si(task, plan, q0, v0, U0, cfg.fd_eps)
     l = lanes.cost_expansion(task, q0, v0, U0, tg)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     kb = ops.backward(A, Bm, *l, lam, cfg)
-    pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
+    pb, plain_ms = cuda_timed(
+        lambda: ops.backward(A, Bm, *l, lam, cfg, plain=True))
     # λ and λ-exit decide the next iteration: they must agree (λ to 1e-14)
     lam_off = (kb[3] - pb[3]).abs() > 1e-14 * pb[3]
     bad = ((kb[4] != pb[4]) | lam_off).nonzero().flatten()[:5]
@@ -348,15 +614,16 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
             err(kb[1][..., live], pb[1][..., live], "rel"),
             err(kb[2][live], pb[2][live], "rel"), key=lambda x: x[1])
     sweeps = sweeps_from_lambda(kb[3], lam, cfg)
-    rows["backward"] = dict(err=e, sweeps=sweeps, retried=float(
+    wit = order_witness(A, Bm, l, lam, cfg, kb)
+    check_orders(task.name, wit)
+    rows["backward"] = dict(err=e, orders=wit, sweeps=sweeps, retried=float(
         (kb[3] > lam / cfg.lambda_factor * 1.5).double().mean()),
-        bound=backward_bound(2 * nv, nu, Hh, Bb, sweeps))
+        bound=backward_bound(s.nx, s.nu, Hh, Bb, sweeps))
     note(task, "backward", rows)
     if time_them:
         rows["backward"]["ms"] = cuda_ms(lambda: ops.backward(A, Bm, *l, lam,
                                                               cfg), 5)
-        rows["backward"]["plain_ms"] = cuda_ms(lambda: ops.backward(
-            A, Bm, *l, lam, cfg, plain=True), 1, 0)
+        rows["backward"]["plain_ms"] = plain_ms
 
     for name in ops.KERNELS:
         row = rows[name]
@@ -364,7 +631,7 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False):
         if name == "fd_jacobian":
             tol = fd_abs
         got = row["err"][1]
-        if name == "fd_jacobian" and at_limits:
+        if name == "fd_jacobian" and gated:
             check(row["share"] >= REACHING_FD_SHARE and row["within"] <= tol,
                   f"{task.name} fd_jacobian: only {row['share']:.6f} of the "
                   f"slot Jacobians agree within {tol:.0e}")
@@ -406,7 +673,7 @@ def golden_replay():
 
 
 def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
-                   cfg):
+                   cfg, fd_chunk=250):
     """Every kernel against its twin at the main path's full shape, for a
     model whose twin is too slow to roll out the whole horizon (reaching: a
     twin step is thousands of launches).  FD Jacobians and the backward pass
@@ -463,9 +730,10 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
 
     # K5 whole, the twin in chunks of slots (it steps 2 (2n + nu) copies)
     kj = ops.fd_jacobian(task, qpos, qvel, U, plan.times, cfg.fd_eps)
-    pj = torch.cat([ops.fd_jacobian(task, qpos, qvel, U, plan.times[i:i + 250],
-                                    cfg.fd_eps, plain=True)
-                    for i in range(0, len(plan.times), 250)])
+    pj = torch.cat([ops.fd_jacobian(task, qpos, qvel, U,
+                                    plan.times[i:i + fd_chunk], cfg.fd_eps,
+                                    plain=True)
+                    for i in range(0, len(plan.times), fd_chunk)])
     out["fd_jacobian"] = err(kj, pj, "abs")
     out["fd_bitwise"] = bool(torch.equal(kj, pj))
     del kj, pj
@@ -480,6 +748,9 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
     out["backward"] = worst(((kb[0][..., live], pb[0][..., live]),
                              (kb[1][..., live], pb[1][..., live]),
                              (kb[2][live], pb[2][live])))
+    del pb
+    out["backward_orders"] = order_witness(A, Bm, l, lam, cfg, kb)
+    check_orders(f"{task.name} at the full shape", out["backward_orders"])
     return out
 
 
@@ -488,18 +759,34 @@ def si1(task):
         name="set_interval", min_N=1))
 
 
-def main_path(task, Hh, Bb, H3, time_kernels):
+def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     """One batched solve through the entry point with launch counts, the
     per-phase device times at the initial nominal, and 3 iterations of the
-    kernel path against the plain path on the card at horizon H3."""
+    kernel path against the plain path on the card at horizon H3.  Scenes:
+    lanes.scenes and zero controls, or for a task with initial controls
+    (pushing) its scene generator and servo (push_start, timed).  A warm-up
+    solve of `warmup_iters` iterations runs first."""
     task = si1(task)
     name = task.name
-    qp, qv, tg = lanes.scenes(task, Bb, seed=0)
-    U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
-                     device="cuda")
+    servo = None
+    if task.init_controls_fn is None:
+        qp, qv, tg = lanes.scenes(task, Bb, seed=0)
+        U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
+                         device="cuda")
+    else:
+        st = push_start(task)
+        qp, qv = st["qpos"].T.contiguous(), st["qvel"].T.contiguous()
+        tg = st["targets"].T.contiguous()
+        U0 = st["U"].permute(2, 0, 1).contiguous()
+        servo = dict(s=st["servo_s"], launches=st["launches"])
+        print(f"  {name}: setup and init servo for {Bb} scenes, "
+              f"{pushing.SETUP_STEPS} + {Hh} steps: {st['servo_s']:.3f} s, "
+              f"launches {json.dumps(st['launches'])}", flush=True)
+    lanes.make_lane_phase_optimise(                    # warm-up
+        task, ILQRConfig(max_iterations=warmup_iters,
+                         min_iterations=warmup_iters), Hh)(qp, qv, U0, tg)
     run = lanes.make_lane_phase_optimise(
         task, ILQRConfig(max_iterations=ITERS, min_iterations=ITERS), Hh)
-    run(qp, qv, U0, tg)                                # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -518,6 +805,7 @@ def main_path(task, Hh, Bb, H3, time_kernels):
           f"{name} main path: mean cost reduction {mean_red}")
     for kname in ops.KERNELS:
         check(launches[kname] > 0, f"{name} main path never launched {kname}")
+    servo_check = check_servo(task, st) if servo else None
 
     # per-phase device times at the initial nominal
     s = Sizes(task)
@@ -528,6 +816,8 @@ def main_path(task, Hh, Bb, H3, time_kernels):
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     qpos, qvel, costs = ops.rollout(task, qp0, qv0, U, tgl)
     active = limits_active(task.model, qpos[:Hh].transpose(0, 1))
+    contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
+                else None)
     A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps)
     l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
@@ -549,19 +839,22 @@ def main_path(task, Hh, Bb, H3, time_kernels):
                iterations_mean=float(res.num_iterations.double().mean()),
                peak_memory_bytes=peak,
                limit_active_lane_steps=int(active.sum()),
+               contacts=contacts, servo=servo, servo_check=servo_check,
                bp_sweeps_first=sweeps_from_lambda(lam_out, lam, cfg))
     if time_kernels:
         # the four kernels alone at this path's shapes, from its nominal
+        # (the rollout and bp phases above are these kernels' launches)
         out["kernel_ms"] = {
-            "rollout": cuda_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl), 3),
+            "rollout": phases["rollout"],
             "linesearch": cuda_ms(lambda: ops.linesearch(
                 task, qpos, qvel, U, k, K, alphas, tgl), 3),
             "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
                 task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
-            "backward": cuda_ms(lambda: ops.backward(A, Bm, *l, lam, cfg), 3),
+            "backward": phases["bp"],
         }
         full = out["full_shape_err"] = stepwise_check(
-            task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam, cfg)
+            task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam, cfg,
+            fd_chunk=100 if task.model.contact_pairs else 250)
         print(f"  {name} kernels vs twins at H={Hh} B={Bb} (rollout and line "
               f"search step by step): {json.dumps(full)}", flush=True)
         for kname in ops.KERNELS:
@@ -576,7 +869,7 @@ def main_path(task, Hh, Bb, H3, time_kernels):
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
             "fd_jacobian": fd_bound(s, len(plan.times), Bb),
-            "backward": backward_bound(2 * s.nv, s.nu, Hh, Bb,
+            "backward": backward_bound(s.nx, s.nu, Hh, Bb,
                                        out["bp_sweeps_first"]),
         }
     del A, Bm, l, k, K
@@ -604,11 +897,12 @@ def main_path(task, Hh, Bb, H3, time_kernels):
         check(agree >= 0.99, f"{name}: only {agree:.3f} of lanes agree with "
                              "the plain path within 1e-4")
         return out
-    # With limit rows the bar is REACHING_AGREE_TOL: rollout, line search and
-    # FD agree with their twins bit for bit, so the whole difference enters
-    # through the backward pass (~1e-15 per call), and reaching amplifies it:
-    # l_uu = 0 leaves Q_uu = B'V'B + λI with λ down to 1e-4, and FD through
-    # an active limit row turns a 1e-10 state difference into a 1e-4
+    # With constraint rows the bar is REACHING_AGREE_TOL: rollout, line search
+    # and FD agree with their twins bit for bit, so the whole difference
+    # enters through the backward pass (~1e-15 per call), and the solve
+    # amplifies it: reaching's l_uu = 0 leaves Q_uu = B'V'B + λI with λ down
+    # to 1e-4 (push_ncl's control weight is 0 too), and FD through an active
+    # limit or contact row turns a 1e-10 state difference into a 1e-4
     # Jacobian difference.  The run below shows it: the kernel path with
     # only the backward pass taken from the twin must equal the plain path
     # exactly.
@@ -636,6 +930,7 @@ def report_main(name, Hh, Bb, mp):
           f"{json.dumps({k: round(v, 3) for k, v in mp['phases_ms'].items()})}"
           f", launches {json.dumps(mp['launches'])}, limit rows active in "
           f"{mp['limit_active_lane_steps']} lane-steps of the first rollout, "
+          f"contacts {json.dumps(mp['contacts'])}, "
           f"3-it lanes agreeing with plain {mp['plain_agree_3it']:.4f} "
           f"({mp['plain_agree_shape']})", flush=True)
 
@@ -687,6 +982,8 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                      ms_at_plain_shape=r["ms"],
                      bound_ms_at_plain_shape=r["bound"][0])
         if name != "backward":
+            # the step's device functions this model instantiates (held
+            # against their twins through this kernel's check)
             e["device_functions"] = [
                 {"name": k, "source": v[0], "replaces": v[1],
                  "ops_per_step": step_counts[k]}
@@ -707,39 +1004,61 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
     t_start = time.perf_counter()
+    phase_s = {}
+    t_phase = [t_start]
+
+    def done(phase):
+        now = time.perf_counter()
+        phase_s[phase] = now - t_phase[0]
+        t_phase[0] = now
+        print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
     build_s, logs = build.build_all_timed()
-    print(f"kernel build: {build_s:.1f} s (4 nvcc in parallel)", flush=True)
+    print(f"kernel build: {build_s:.1f} s ({len(build.SOURCES)} nvcc in "
+          "parallel)", flush=True)
     for name, text in logs.items():
         for ln in text.splitlines():
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
                     or "warning" in ln or "done after" in ln):
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    done("build")
 
     acro = make_acrobot(device="cuda")
     penta = make_pentabot(device="cuda")
     reach = make_reaching(device="cuda")
-    record = {"card": card, "build_s": build_s}
-    rows = prow = rrow = None
+    push = pushing.make_pushing(device="cuda")
+    record = {"card": card, "build_s": build_s, "phase_s": phase_s}
+    rows = prow = rrow = urow = None
     if "acrobot" in phases:
         rows = check_kernels(acro, H, B, TOL["fd_jacobian"][1],
                              time_them=True)
+        done("acrobot")
     if "pentabot" in phases:
         prow = check_kernels(penta, PH, PB, PENTABOT_FD_ABS, time_them=False)
         record["pentabot"] = {k: prow[k]["err"] for k in ops.KERNELS}
+        done("pentabot")
     if "reaching" in phases:
         rrow = check_kernels(reach, PH, PB, REACHING_FD_ABS, time_them=True,
                              at_limits=True)
         record["reaching_check"] = {
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in rrow.items()}
+        done("reaching")
+    if "push" in phases:
+        urow = check_kernels(push, PH, PB, REACHING_FD_ABS, time_them=True,
+                             inputs=push_inputs(si1(push), PH, PB, seed=3))
+        record["push_check"] = {
+            k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+            for k, v in urow.items()}
+        done("push")
     for name in ops.KERNELS:
         for model, r in (("acrobot", rows), ("pentabot", prow),
-                         ("reaching", rrow)):
+                         ("reaching", rrow), ("push_ncl", urow)):
             if r:
                 print(f"check {name}: {model} {r[name]['tol']} err "
                       f"{r[name]['err'][1]:.3e}", flush=True)
@@ -749,20 +1068,32 @@ def main():
         print(f"golden replay (kernel path): ctrl {gold['ctrl']:.2e} qpos "
               f"{gold['qpos']:.2e} final cost {gold['final_cost']:.2e}",
               flush=True)
+        done("golden")
 
-    mp = rmp = None
+    mp = rmp = ump = None
     if "main_acrobot" in phases:
         mp = record["main_path"] = main_path(acro, H, B, H, False)
         report_main("acrobot", H, B, mp)
-    if "main_reaching" in phases:
-        rmp = record["main_path_reaching"] = main_path(reach, RH, RB, RH3,
-                                                       True)
-        report_main("reaching", RH, RB, rmp)
-        print(f"  reaching kernels at H={RH} B={RB}: ms "
-              f"{json.dumps({k: round(v, 3) for k, v in rmp['kernel_ms'].items()})}"
-              f", bounds {json.dumps(rmp['bounds'])}, first backward pass "
-              f"{rmp['bp_sweeps_first']:.2f} sweeps per lane, peak memory "
-              f"{rmp['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+        done("main_acrobot")
+    for phase, task, Hh, Bb, H3, key in (
+            ("main_reaching", reach, RH, RB, RH3, "main_path_reaching"),
+            ("main_push", push, UH, UB, UH3, "main_path_push")):
+        if phase not in phases:
+            continue
+        # push_ncl's warm-up is one iteration: its kernels ran in the check
+        m = record[key] = main_path(task, Hh, Bb, H3, True,
+                                    ITERS if task is reach else 1)
+        report_main(task.name, Hh, Bb, m)
+        print(f"  {task.name} kernels at H={Hh} B={Bb}: ms "
+              f"{json.dumps({k: round(v, 3) for k, v in m['kernel_ms'].items()})}"
+              f", bounds {json.dumps(m['bounds'])}, first backward pass "
+              f"{m['bp_sweeps_first']:.2f} sweeps per lane, peak memory "
+              f"{m['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+        if phase == "main_reaching":
+            rmp = m
+        else:
+            ump = m
+        done(phase)
 
     if "cli" in phases:
         cli_line, record["cli"] = cli("acrobot")
@@ -770,6 +1101,14 @@ def main():
         cli_line, record["cli_reaching"] = cli(
             "reaching", ("--maxIter", "3", "--minIter", "3"))
         print(f"cli: {cli_line}", flush=True)
+        cli_line, record["cli_push"] = cli(
+            "pushing_no_clutter", ("--maxIter", "3", "--minIter", "3"))
+        print(f"cli: {cli_line}", flush=True)
+        if cli_line:
+            red = json.loads(cli_line)["cost_reduction"]
+            check(0.0 < red < 1.0, f"CLI pushing_no_clutter cost reduction "
+                                   f"{red} not in (0, 1)")
+        done("cli")
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
     if sorted(phases) != sorted(PHASES):
@@ -777,20 +1116,54 @@ def main():
               flush=True)
         sys.exit(4)
 
-    sa, sr = Sizes(acro), Sizes(si1(reach))
-    # per step: the whole step, and the constraint solve's part of it
+    sizes = {"acrobot": Sizes(acro), "reaching": Sizes(si1(reach)),
+             "push_ncl": Sizes(si1(push))}
+    # per step: the whole step, and the parts of the constraint solve and
+    # the contact rows in it
     counts = record["ops_per_step"] = {
-        name: {"step": step_ops(s), "constraint": constraint_ops(s.nv, s.rows),
+        name: {"step": step_ops(s), "constraint": constraint_ops(s),
+               "contact": contact_ops(s),
                # least time of one lane's step at the card's FP64 peak
                "step_bound_ns": step_ops(s) / F64_OPS_PER_S * 1e9}
-        for name, s in (("acrobot", sa), ("reaching", sr))}
+        for name, s in sizes.items()}
+    counts["push_ncl"]["fk_bias"] = fk_bias_ops(sizes["push_ncl"])
     kernels = (kernel_entries("acrobot", rows, mp["launches"],
                               counts["acrobot"])
                + kernel_entries("reaching", rrow, rmp["launches"],
                                 counts["reaching"],
                                 rmp["kernel_ms"], rmp["bounds"],
                                 f"H={RH} B={RB}", f"H={PH} B={PB}",
-                                rmp["full_shape_err"]))
+                                rmp["full_shape_err"])
+               + kernel_entries("push_ncl", urow, ump["launches"],
+                                counts["push_ncl"],
+                                ump["kernel_ms"], ump["bounds"],
+                                f"H={UH} B={UB}", f"H={PH} B={PB}",
+                                ump["full_shape_err"]))
+    # fk_bias at the main path's own shape (UB lanes: the init servo's
+    # start), its other checks beside it
+    sc = ump["servo_check"]
+    fk, wide = sc["fk_bias"][1], urow["fk_bias"]
+    kernels.append({
+        "name": "fk_bias", "model": "push_ncl", "route": "cuda",
+        "source": "trajoptkp_tpu_torch/kernels/csrc/rollout.cu",
+        "device_function": "trajoptkp_tpu_torch/kernels/csrc/step.cuh",
+        "replaces": "trajoptkp_tpu/tasks/pushing.py:421",
+        "launches": ump["servo"]["launches"].get("fk_bias", 0),
+        "launched_by": f"the setup and init servo of the main path "
+                       f"({pushing.SETUP_STEPS} + {UH} steps)",
+        "max_abs_err": max(f["err"][0] for f in sc["fk_bias"] + [wide]),
+        "ms": fk["ms"], "plain_ms": fk["plain_ms"],
+        "bound_ms": fk["bound"][0], "bound_by": fk["bound"][1],
+        "library_ms": None, "tolerance": fk["tol"],
+        "shape": f"{fk['lanes']} lanes",
+        "bitwise": all(f["bitwise"] for f in sc["fk_bias"] + [wide]),
+        "servo_vs_plain_servo": {
+            k: dict(steps=sc["steps"], max_abs_err=sc[k]["err"][0],
+                    bitwise=sc[k]["bitwise"]) for k in ("setup", "init")},
+        "at_check_states": {"lanes": wide["lanes"], "ms": wide["ms"],
+                            "plain_ms": wide["plain_ms"],
+                            "max_abs_err": wide["err"][0],
+                            "bound_ms": wide["bound"][0]}})
     for e in kernels:
         if e["model"] == "acrobot":
             e["pentabot_err"] = prow[e["name"]]["err"][0]

@@ -96,6 +96,32 @@ def test_backward_pass_lambda_loop_matches_jax(nx, nu):
     assert retried >= 1  # the indefinite lane went through the λ retry
 
 
+@pytest.mark.parametrize("nx,nu", [(4, 1), (20, 7)])
+def test_backward_pass_sum_order_matches_jax(nx, nu):
+    """The reference order (`sum_contract`, torch's reductions) against the
+    JAX sweep as above, and against the kernel order at 1e-12 relative:
+    the orders differ by rounding only."""
+    ins = _bp_inputs(nx, nu, seed=nx + 1)
+    lamb = torch.full((NLANE,), 0.1, dtype=torch.float64)
+    cfg = pilqr.ILQRConfig()
+    ref = pilqr.backward_pass_lambda_loop(*map(torch.from_numpy, ins), lamb,
+                                          cfg, contract=pilqr.sum_contract)
+    got = pilqr.backward_pass_lambda_loop(*map(torch.from_numpy, ins), lamb,
+                                          cfg)
+    assert torch.equal(ref[3], got[3]) and torch.equal(ref[4], got[4])
+    live = ~ref[4]
+    for a, b in zip(got[:3], ref[:3]):
+        a, b = a[..., live], b[..., live]
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    jcfg = jilqr.ILQRConfig()
+    for b in np.flatnonzero(live.numpy()):
+        jk, jK, jdJ, _, _ = jilqr.backward_pass_lambda_loop(
+            *(x[..., b] for x in ins), jnp.asarray(0.1), jcfg)
+        _close(ref[0][..., b], jk, "k")
+        _close(ref[1][..., b], jK, "K")
+        _close(ref[2][b], jdJ, "dJ")
+
+
 @pytest.mark.parametrize("name", ["acrobot", "pentabot"])
 def test_line_search_matches_jax(name):
     jt, pt = _tasks(name)

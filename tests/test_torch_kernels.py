@@ -1,5 +1,6 @@
-"""The four CUDA kernels against their plain PyTorch twins on the card, at
-small shapes.  They need an NVIDIA GPU with nvcc (sm_90a) and skip
+"""The four CUDA kernels (with the device functions K1, K2a and K2b inside
+the step) and the servo's fk_bias against their plain PyTorch twins on the
+card, at small shapes.  They need an NVIDIA GPU with nvcc (sm_90a) and skip
 elsewhere; `python3 chip_smoke.py` runs the same checks at the main path's
 shapes.  On the card (tests/conftest.py imports JAX, hence --noconftest):
 python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
@@ -12,10 +13,13 @@ absolute (rounding divided by 2 eps), backward pass 1e-9 relative.
 import pytest
 import torch
 
-from trajoptkp_tpu_torch.dynamics.contact import limits_active
+from trajoptkp_tpu_torch.dynamics.contact import (contacts_active,
+                                                  limits_active)
 from trajoptkp_tpu_torch.kernels import ops
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
+from trajoptkp_tpu_torch.tasks import pushing
+from trajoptkp_tpu_torch.tasks.pushing import make_pushing
 from trajoptkp_tpu_torch.tasks.reaching import make_reaching
 from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
 
@@ -57,15 +61,27 @@ def test_kernels_match_plain(cuda, make):
         scale = 5.0
     qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
     U = (scale * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
+    _compare(task, qp0, qv0, tgl, U, g)
+
+
+def _compare(task, qp0, qv0, tgl, U, g):
+    """Each kernel against its twin from these lanes; feedback gains from
+    the generator g."""
+    cuda = U.device
+    f64 = dict(dtype=torch.float64)
+    nu, nx = task.model.nu, task.sv.nx
     k = (0.1 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
-    K = (0.05 * torch.randn((H, nu, 2 * nv, B), generator=g, **f64)).to(cuda)
+    K = (0.05 * torch.randn((H, nu, nx, B), generator=g, **f64)).to(cuda)
     n = 50
 
     kr = ops.rollout(task, qp0, qv0, U, tgl)
     pr = ops.rollout(task, qp0, qv0, U, tgl, plain=True)
     for a, b in zip(kr, pr):
         assert _rel(a[:n], b[:n]) < 1e-10
-    if task.model.has_constraints:
+    if task.model.contact_pairs:
+        act = contacts_active(task.model, pr[0].transpose(0, 1))
+        assert bool(act.any(2).any(1).all()), act.sum((1, 2)).tolist()
+    elif task.model.has_constraints:
         assert bool(limits_active(task.model, pr[0].transpose(0, 1)).any())
 
     cfg = ILQRConfig()
@@ -90,6 +106,51 @@ def test_kernels_match_plain(cuda, make):
     for a, b in zip(kb[:3], pb[:3]):
         assert _rel(a[..., live], b[..., live]) < 1e-9
     assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
+
+
+def test_push_kernels_match_plain(cuda):
+    """push_ncl (free goal cylinder, 42 constraint rows: the contact rows of
+    K2b and the limit rows, solved by K2a inside the step; ndof 10 of nv
+    13): half the lanes start with the goal against the pusher rod's lower
+    end, a quarter with the arm lowered onto the table, under controls of
+    N(0, 2), so that all three pairs touch; the kernels, and with them the
+    contact rows K2b inside their step, must equal their twins as above, and
+    the instance is push_ncl.  The servo's fk_bias and a few servo steps
+    equal their twins as well."""
+    task = make_pushing(device=cuda)
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name="set_interval", min_N=3))
+    assert ops.kernel_args(task, cuda).tag == "push_ncl"
+    m = task.model
+    g = torch.Generator(device="cpu").manual_seed(0)
+    f64 = dict(dtype=torch.float64)
+    qp, qv, tg = pushing.push_scenes(task, B, seed=1)
+    qa = m.jnt_qposadr[m.joint_names.index("goal")]
+    # the rod's lower end at the start pose is ~(0.353, 0, 0.03)
+    qp[:B // 2, qa] = 0.353 + 0.0595
+    qp[:B // 2, qa + 1] = 0.0
+    qp[B // 2:3 * B // 4, 1] += 0.12
+    U = (2.0 * torch.randn((H, m.nu, B), generator=g, **f64)).to(cuda)
+    _compare(task, qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous(),
+             U, g)
+    # the servo's FK products and bias force (fk_bias) at every state of
+    # the rollout
+    q, v, _ = ops.rollout(task, qp.T.contiguous(), qv.T.contiguous(), U,
+                          tg.T.contiguous(), plain=True)
+    q = q.transpose(0, 1).reshape(m.nq, -1).contiguous()
+    v = v.transpose(0, 1).reshape(m.nv, -1).contiguous()
+    for a, b in zip(ops.fk_bias(task, q, v), ops.fk_bias(task, q, v,
+                                                         plain=True)):
+        assert _rel(a, b) < 1e-12
+    # five setup-servo steps from the scenes, kernels against twins
+    qp0, qv0, tgl = (x.T.contiguous() for x in pushing.push_scenes(
+        task, B, seed=2))
+    path, angle = pushing.setup_path(task, 5, qp0, tgl)
+    ks = pushing.servo_along_path(task, path[:5], angle, qp0, qv0, tgl)
+    ps = pushing.servo_along_path(task, path[:5], angle, qp0, qv0, tgl,
+                                  plain=True)
+    for a, b in zip(ks, ps):
+        assert _rel(a, b) < 1e-12
 
 
 def test_wrappers_count_launches_and_check_inputs(cuda):

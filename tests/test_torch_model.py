@@ -1,7 +1,9 @@
 """The port's Model carries the JAX Model across as data.
 
 `write_model_npz` is the one writer of `trajoptkp_tpu_torch/models/*.npz`:
-it dumps a JAX `Model` (from `load_mjcf` on the repo's XMLs) field by field.
+it dumps a JAX `Model` (from `load_mjcf` on the repo's XMLs, and for
+`push_ncl` from the pushing scene `tasks/pushing.py:build_push_scene_xml(0)`
+assembles around panda.xml) field by field.
 Regenerate with
 
     JAX_PLATFORMS=cpu python -c "from tests.test_torch_model import \\
@@ -18,14 +20,22 @@ import numpy as np
 import pytest
 import torch
 
-from trajoptkp_tpu.dynamics.mjcf import load_mjcf
+from trajoptkp_tpu.dynamics.mjcf import load_mjcf, load_mjcf_string
+from trajoptkp_tpu.tasks.pushing import build_push_scene_xml
 from trajoptkp_tpu_torch.dynamics import model as pm
 
 jax.config.update("jax_enable_x64", True)
 
 XML_DIR = os.path.join(os.path.dirname(__file__), "..", "trajoptkp_tpu",
                        "models")
-PORTED = ("acrobot", "pentabot", "panda")
+PORTED = ("acrobot", "pentabot", "panda", "push_ncl")
+
+
+def jax_model(name: str):
+    """The JAX Model each checked-in npz is written from."""
+    if name == "push_ncl":
+        return load_mjcf_string(build_push_scene_xml(0))
+    return load_mjcf(os.path.join(XML_DIR, f"{name}.xml"))
 
 
 def _npz_fields(jm) -> dict:
@@ -52,7 +62,7 @@ def write_model_npz(jm, path: str) -> None:
 
 def write_all_models() -> None:
     for name in PORTED:
-        jm = load_mjcf(os.path.join(XML_DIR, f"{name}.xml"))
+        jm = jax_model(name)
         write_model_npz(jm, os.path.join(pm.MODELS_DIR, f"{name}.npz"))
 
 
@@ -70,14 +80,14 @@ def _assert_model_equal(port, jm):
 
 @pytest.mark.parametrize("name", PORTED)
 def test_checked_in_npz_matches_load_mjcf(name):
-    jm = load_mjcf(os.path.join(XML_DIR, f"{name}.xml"))
+    jm = jax_model(name)
     port = pm.load_model(name, device="cpu")
     _assert_model_equal(port, jm)
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_model_from_numpy_matches_load_mjcf(name, tmp_path):
-    jm = load_mjcf(os.path.join(XML_DIR, f"{name}.xml"))
+    jm = jax_model(name)
     path = tmp_path / f"{name}.npz"
     write_model_npz(jm, str(path))
     with np.load(path) as z:
@@ -93,13 +103,17 @@ def test_model_from_numpy_matches_load_mjcf(name, tmp_path):
 
 @pytest.mark.parametrize("task_name,tag,nlim",
                          [("acrobot", "acrobot", 0), ("pentabot", "pentabot", 0),
-                          ("reaching", "reaching", 7)])
+                          ("reaching", "reaching", 7),
+                          ("pushing_no_clutter", "push_ncl", 7)])
 def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     """Each ported task finds its instance in kernels/csrc/instances.cuh,
-    and the packed model buffer has the layout step.cuh reads: 29 per body,
-    5 per actuator, the limit constants, gravity, timestep."""
+    and the packed model buffer has the layout step.cuh reads: 27 per body,
+    2 per dof, 5 per actuator, the limit constants, the contact pairs (geom
+    poses and sizes, then the pair's constants), gravity, timestep."""
     from trajoptkp_tpu_torch.config.loader import make_task
-    from trajoptkp_tpu_torch.dynamics.contact import (LIMIT_FIELDS,
+    from trajoptkp_tpu_torch.dynamics.contact import (CONTACT_FIELDS,
+                                                      LIMIT_FIELDS,
+                                                      contact_constants,
                                                       limit_constants)
     from trajoptkp_tpu_torch.kernels import ops
 
@@ -111,24 +125,43 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     assert ops.kernel_args(task, torch.device("cpu")) is ka
     nb = m.nbody - 1
     lim = nlim * len(LIMIT_FIELDS)
-    assert ka.model_buf.numel() == 29 * nb + 5 * m.nu + lim + 4
-    assert ka.task_buf.numel() == 2 * task.nres + 2 * m.nu
-    off = 29 * nb + 5 * m.nu
+    cc = contact_constants(m)
+    pair = 20 + len(CONTACT_FIELDS)
+    assert ka.model_buf.numel() == (27 * nb + 2 * m.nv + 5 * m.nu + lim
+                                    + pair * len(cc.pairs) + 4)
+    # the pushing residual's constants (the ee site on its body) close the
+    # task buffer
+    res = 3 if task.residual_kind[0] == "push" else 0
+    assert ka.task_buf.numel() == 2 * task.nres + 2 * m.nu + res
+    if res:
+        np.testing.assert_array_equal(
+            ka.task_buf[-3:].numpy(),
+            m.site_pos[m.site_names.index("ee")].numpy())
+    off = 27 * nb + 2 * m.nv + 5 * m.nu
     np.testing.assert_array_equal(
         ka.model_buf[off:off + lim].numpy(),
         limit_constants(m).table.reshape(-1).numpy())
+    for p in range(len(cc.pairs)):
+        rec = ka.model_buf[off + lim + pair * p:off + lim + pair * (p + 1)]
+        np.testing.assert_array_equal(rec[20:].numpy(), cc.table[p].numpy())
+        np.testing.assert_array_equal(rec[7:10].numpy(),
+                                      m.geom_size[cc.pairs[p].g1].numpy())
     np.testing.assert_array_equal(ka.model_buf[-4:-1].numpy(),
                                   m.gravity.numpy())
-    # a body without a joint packs zero joint fields; a jointed one its own
-    dofs = ops.body_dofs(m)
+    np.testing.assert_array_equal(
+        ka.model_buf[27 * nb:27 * nb + 2 * m.nv].reshape(m.nv, 2).numpy(),
+        torch.stack([m.dof_damping, m.dof_armature], 1).numpy())
+    # a body without a joint or with a free one packs zero joint fields; a
+    # hinge or slide body its own
+    joints = ops.body_joints(m)
     for b in range(1, m.nbody):
-        rec = ka.model_buf[29 * (b - 1):29 * b]
+        rec = ka.model_buf[27 * (b - 1):27 * b]
         assert float(rec[14]) == float(m.body_mass[b])
-        if dofs[b] < 0:
+        if joints[b] < 0 or m.jnt_type[joints[b]] == pm.FREE:
             assert float(rec[18:].abs().max()) == 0.0
         else:
             np.testing.assert_array_equal(rec[21:24].numpy(),
-                                          m.jnt_axis[dofs[b]].numpy())
+                                          m.jnt_axis[joints[b]].numpy())
     # the limited mask is part of the key: without limits, no instance
     if nlim:
         free = task.replace(model=m.replace(jnt_limited=(False,) * m.njnt))
@@ -139,3 +172,33 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
 def test_load_model_unknown_name_raises():
     with pytest.raises(FileNotFoundError, match="acrobot"):
         pm.load_model("humanoid", device="cpu")
+
+
+def test_backward_instance_and_schedule_are_cached(monkeypatch):
+    """ops.backward's instance lookup reads instances.cuh once and its λ
+    schedule is built once per (nx, nu, schedule, device): a second call
+    parses nothing and hands back the same tensor."""
+    import pathlib
+
+    from trajoptkp_tpu_torch.kernels import ops
+    from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
+
+    reads = []
+    real = pathlib.Path.read_text
+
+    def counting(self, *a, **k):
+        reads.append(self.name)
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(pathlib.Path, "read_text", counting)
+    ops.backward_instances.cache_clear()
+    monkeypatch.setattr(ops, "_BP_ARGS", {})
+    cfg, cpu = ILQRConfig(), torch.device("cpu")
+    first = ops.backward_args(20, 7, cfg, cpu)
+    assert first[0] == "trajopt_backward_nx20_nu7"
+    assert reads == ["instances.cuh"]
+    assert ops.backward_args(20, 7, cfg, cpu) is first
+    assert ops.backward_args(14, 7, cfg, cpu)[1] is not first[1]
+    assert reads == ["instances.cuh"]
+    with pytest.raises(NotImplementedError, match="nx=12, nu=7"):
+        ops.backward_args(12, 7, cfg, cpu)

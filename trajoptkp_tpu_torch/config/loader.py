@@ -6,6 +6,7 @@ Only the ported tasks.  No YAML/CSV config: the machine with the card has no
 
 from __future__ import annotations
 
+from ..tasks.pushing import make_pushing
 from ..tasks.reaching import make_reaching
 from ..tasks.toys import make_acrobot, make_pentabot
 
@@ -13,6 +14,7 @@ _REGISTRY = {
     "acrobot": make_acrobot,
     "pentabot": make_pentabot,
     "reaching": make_reaching,
+    "pushing_no_clutter": make_pushing,
 }
 
 
@@ -24,6 +26,7 @@ def make_task(name: str, device=None):
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown task {name!r}; the port has {task_names()} (the other "
-            "tasks are ROADMAP Queue 1 items 7b, 8 and 11)"
+            "tasks are ROADMAP Queue 1 items 7b, 8 and 11: clutter, boxes, "
+            "locomotion, manipulation)"
         )
     return _REGISTRY[name](device=device)

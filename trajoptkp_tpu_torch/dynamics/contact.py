@@ -1,6 +1,7 @@
 """Soft-constraint rows and their solver (counterpart of
-`trajoptkp_tpu/dynamics/contact.py`): joint-limit rows and the cold-start
-projected-Newton solve.  Contact rows are ROADMAP Queue 1 item 7b.
+`trajoptkp_tpu/dynamics/contact.py`): joint-limit rows, pyramidal contact
+rows from the narrow phase (dynamics/collision.py) and the cold-start
+projected-Newton solve.
 
 MuJoCo's constraint model, as in the JAX package: impedance d(pos) from
 solimp, stiffness and damping from solref,
@@ -15,15 +16,20 @@ and the primal problem over accelerations
 solved by a fixed number of Newton iterations from x = a0 = M^-1 qfrc_smooth,
 each with a merit line search over six step lengths.
 
-This module is the plain twin of kernel K2a (kernels/csrc/constraint.cuh),
-batch axes last.  It runs the kernel's operations in the kernel's order
-(sequential sums, the same row order, the same constants), so that on the
-card the two round alike: the gates `dist < margin`, `y < 0` and the choice
-of step length are branches, and central FD divides any jump by 2 eps.
+This module is the plain twin of kernels K2a (kernels/csrc/constraint.cuh)
+and K2b (kernels/csrc/contact.cuh), batch axes last.  It runs the kernels'
+operations in their order (sequential sums, the same row order, the same
+constants), so that on the card the two round alike: the gates
+`dist < margin`, `y < 0` and the choice of step length are branches, and
+central FD divides any jump by 2 eps.
 
-Rows are sparse: row r touches the dofs `dofs[r]` with coefficients
-`coefs[r]` (a limit row has one entry, +1 or -1).  Row order is the JAX
-generic engine's: every limited joint's lower side, then every upper side.
+Rows are sparse: limit row r touches the dof `dofs[r]` with coefficient
++1 or -1; the rows of a contact pair share its support, the dofs on exactly
+one of the two bodies' root paths, with per-lane coefficients (a `PairRows`
+block).  Row order: every limited joint's lower side, then every upper side
+(the JAX generic engine's), then the contact rows, pair by pair, slot by
+slot, four per slot: Jn + mu Jt1, Jn - mu Jt1, Jn + mu Jt2, Jn - mu Jt2
+(the JAX lane engine's, `dynamics/lanes.py:989`).
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.linalg import chol_solve_unrolled, chol_unrolled, sym_solve
+from .collision import geom_pose, pair_contacts, pair_ncon
+from .fk import forward_kinematics
 from .model import HINGE, SLIDE, Data, Model
 
 NEWTON_ITERS = 8                      # cold start (JAX contact._NEWTON_ITERS)
@@ -44,6 +52,10 @@ MAX_INT_POWER = 8
 # table from the packed model buffer (kernels/ops.py:pack_model)
 LIMIT_FIELDS = ("lo", "hi", "margin", "invweight", "width", "midpoint",
                 "den_lo", "den_hi", "d0", "dspan", "b", "kden", "power")
+# per contact pair, likewise; the impedance fields sit where LIMIT_FIELDS has
+# them, so one impedance function reads both tables
+CONTACT_FIELDS = ("mu", "unused", "margin", "rconst", "width", "midpoint",
+                  "den_lo", "den_hi", "d0", "dspan", "b", "kden", "power")
 
 
 class LimitConstants(NamedTuple):
@@ -81,17 +93,9 @@ def limit_constants(model: Model) -> LimitConstants:
     invw = model.dof_invweight0.tolist()
     rows = []
     for j in joints:
-        d0, dwidth, width, mid, power = solimp[j]
-        mp = min(max(mid, 1e-6), 1.0 - 1e-6)
-        pw = max(power, 1.0)
-        tc = max(solref[j][0], 1e-8)
-        dr = max(solref[j][1], 1e-8)
-        rows.append([
-            rng[j][0], rng[j][1], margin[j],
-            max(invw[model.jnt_dofadr[j]], 1e-9),
-            max(width, 1e-12), mp, mp ** (pw - 1.0),
-            (1.0 - mp) ** (pw - 1.0), d0, dwidth - d0,
-            2.0 / (dwidth * tc), dwidth * dwidth * tc * tc * dr * dr, pw])
+        rows.append([rng[j][0], rng[j][1], margin[j],
+                     max(invw[model.jnt_dofadr[j]], 1e-9)]
+                    + _impedance_constants(solref[j], solimp[j]))
     table = torch.tensor(rows, dtype=model.dtype, device=model.device).reshape(
         len(joints), len(LIMIT_FIELDS))
     out = LimitConstants(
@@ -104,28 +108,134 @@ def limit_constants(model: Model) -> LimitConstants:
     return out
 
 
+def _impedance_constants(solref, solimp):
+    """width, midpoint, den_lo, den_hi, d0, dspan, b, kden, power from one
+    row's solref/solimp (JAX `_impedance`, `_kb`), in Python doubles."""
+    d0, dwidth, width, mid, power = solimp
+    mp = min(max(mid, 1e-6), 1.0 - 1e-6)
+    pw = max(power, 1.0)
+    tc = max(solref[0], 1e-8)
+    dr = max(solref[1], 1e-8)
+    return [max(width, 1e-12), mp, mp ** (pw - 1.0), (1.0 - mp) ** (pw - 1.0),
+            d0, dwidth - d0, 2.0 / (dwidth * tc),
+            dwidth * dwidth * tc * tc * dr * dr, pw]
+
+
+def root_path_dofs(model: Model, b: int) -> Tuple[int, ...]:
+    """The dofs on body b's root path (its own included)."""
+    anc = model.ancestor_mask[b].tolist()
+    return tuple(i for i in range(model.nv) if anc[i] > 0.5)
+
+
+class Pair(NamedTuple):
+    g1: int
+    g2: int
+    types: Tuple[int, int]
+    bodies: Tuple[int, int]
+    sizes: Tuple[Tuple[float, ...], Tuple[float, ...]]
+    ncon: int
+    support: Tuple[int, ...]     # dofs on exactly one of the root paths
+    signs: Tuple[float, ...]     # +1 on geom2's body path, -1 on geom1's
+
+
+class ContactConstants(NamedTuple):
+    pairs: Tuple[Pair, ...]
+    table: torch.Tensor          # (npair, len(CONTACT_FIELDS))
+    powers: Tuple[float, ...]
+
+    @property
+    def int_power(self) -> bool:
+        return all(p == int(p) and p <= MAX_INT_POWER for p in self.powers)
+
+    @property
+    def nslot(self) -> int:
+        return sum(p.ncon for p in self.pairs)
+
+
+_CONTACT_CACHE: dict = {}
+
+
+def contact_constants(model: Model) -> ContactConstants:
+    """Static pair data and per-pair row constants, once per model.
+
+    MuJoCo's default mixing (equal priority, solmix 1) as JAX `_combine`:
+    solref and solimp averaged, friction and margin the larger; R's constant
+    factor max(invw1 + invw2, 1e-9) 2 mu^2 (1 + mu^2) is folded here in
+    Python doubles, and the kernels read the same table."""
+    hit = _CONTACT_CACHE.get(id(model))
+    if hit is not None and hit[0] is model:
+        return hit[1]
+    size = model.geom_size.tolist()
+    solref = model.geom_solref.tolist()
+    solimp = model.geom_solimp.tolist()
+    fric = model.geom_friction.tolist()
+    gmargin = model.geom_margin.tolist()
+    invw = model.body_invweight0.tolist()
+    pairs, rows = [], []
+    for g1, g2 in model.contact_pairs:
+        t = (model.geom_type[g1], model.geom_type[g2])
+        b = (model.geom_bodyid[g1], model.geom_bodyid[g2])
+        p1, p2 = root_path_dofs(model, b[0]), root_path_dofs(model, b[1])
+        support = tuple(i for i in range(model.nv) if (i in p1) != (i in p2))
+        pairs.append(Pair(g1, g2, t, b, (tuple(size[g1]), tuple(size[g2])),
+                          pair_ncon(*t), support,
+                          tuple(1.0 if i in p2 else -1.0 for i in support)))
+        ref = [0.5 * (solref[g1][k] + solref[g2][k]) for k in range(2)]
+        imp = [0.5 * (solimp[g1][k] + solimp[g2][k]) for k in range(5)]
+        mu = max(fric[g1][0], fric[g2][0])
+        margin = max(gmargin[g1], gmargin[g2])
+        rconst = (max(invw[b[0]][0] + invw[b[1]][0], 1e-9)
+                  * (2.0 * mu * mu * (1.0 + mu * mu)))
+        rows.append([mu, 0.0, margin, rconst]
+                    + _impedance_constants(ref, imp))
+    table = torch.tensor(rows, dtype=model.dtype, device=model.device).reshape(
+        len(pairs), len(CONTACT_FIELDS))
+    out = ContactConstants(tuple(pairs), table, tuple(r[-1] for r in rows))
+    if len(_CONTACT_CACHE) > 16:
+        _CONTACT_CACHE.clear()
+    _CONTACT_CACHE[id(model)] = (model, out)
+    return out
+
+
+class PairRows(NamedTuple):
+    """The 4 ncon rows of one contact pair over its shared support."""
+
+    support: Tuple[int, ...]
+    coef: torch.Tensor            # (4 ncon, len(support), *L)
+
+
 class Rows(NamedTuple):
-    dofs: Tuple[Tuple[int, ...], ...]     # per row, the dofs it touches
-    coefs: Tuple[Tuple[float, ...], ...]  # per row, the J entries there
-    aref: torch.Tensor                    # (R, *L)
+    dofs: Tuple[Tuple[int, ...], ...]     # per limit row, the dofs it touches
+    coefs: Tuple[Tuple[float, ...], ...]  # per limit row, the J entries there
+    aref: torch.Tensor                    # (R, *L), limit rows then contacts
     R: torch.Tensor                       # (R, *L)
     active: torch.Tensor                  # (R, *L) 1.0 / 0.0
+    pairs: Tuple[PairRows, ...] = ()      # contact rows after the limit rows
 
 
 def rows_jacobian(rows: Rows, nv: int) -> torch.Tensor:
-    """The dense constraint Jacobian (R, nv) of sparse rows."""
-    J = torch.zeros((len(rows.dofs), nv), dtype=rows.aref.dtype,
-                    device=rows.aref.device)
+    """The dense constraint Jacobian of sparse rows: (R, nv) for limit rows
+    alone, whose coefficients are constants, (R, nv, *L) once contact rows,
+    whose coefficients vary per lane, are among them."""
+    lanes = tuple(rows.aref.shape[1:]) if rows.pairs else ()
+    J = torch.zeros((rows.aref.shape[0], nv) + lanes,
+                    dtype=rows.aref.dtype, device=rows.aref.device)
     for r, (dofs, coefs) in enumerate(zip(rows.dofs, rows.coefs)):
         for d, c in zip(dofs, coefs):
             J[r, d] = c
+    r0 = len(rows.dofs)
+    for blk in rows.pairs:
+        n = blk.coef.shape[0]
+        J[r0:r0 + n, list(blk.support)] = blk.coef
+        r0 += n
     return J
 
 
-def _impedance(c: dict, pos: torch.Tensor, lc: LimitConstants) -> torch.Tensor:
+def _impedance(c: dict, pos: torch.Tensor, lc) -> torch.Tensor:
     """mj_assignImpedance: the power sigmoid from d0 to dwidth over `width`.
     Integer powers multiply out (x, x x, ...) as the kernel does; CUDA's pow
-    and torch.pow need not round alike."""
+    and torch.pow need not round alike.  `lc` holds the rows' powers
+    (LimitConstants or ContactConstants)."""
     x = torch.clamp(pos.abs() / c["width"], 0.0, 1.0)
 
     def power(z):
@@ -185,13 +295,87 @@ def limits_active(model: Model, qpos: torch.Tensor) -> torch.Tensor:
     return ((q - lo < margin) | (hi - q < margin)).any(0)
 
 
+def _cross_rows(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """w x p for w (W, 3, *L) and a point p (3, *L), as tm.cross per row."""
+    return torch.stack([w[:, 1] * p[2] - w[:, 2] * p[1],
+                        w[:, 2] * p[0] - w[:, 0] * p[2],
+                        w[:, 0] * p[1] - w[:, 1] * p[0]], 1)
+
+
+def contact_slots(model: Model, data: Data):
+    """The narrow phase of every pair: a list of collision.Slots."""
+    cc = contact_constants(model)
+    out = []
+    for pr in cc.pairs:
+        xp1, xm1 = geom_pose(model, data, pr.g1)
+        xp2, xm2 = geom_pose(model, data, pr.g2)
+        out.append(pair_contacts(*pr.types, xp1, xm1, pr.sizes[0], xp2, xm2,
+                                 pr.sizes[1]))
+    return out
+
+
 def _contact_rows(model: Model, data: Data) -> Optional[Rows]:
-    if model.contact_pairs:
-        raise NotImplementedError(
-            "contact rows (narrow phase, pyramidal friction) are not ported "
-            "yet (ROADMAP Queue 1 item 7b): the model has "
-            f"{len(model.contact_pairs)} contact pairs")
-    return None
+    """Pyramidal rows of every contact slot (JAX `_contact_rows`), four per
+    slot: J = Jn +- mu Jt1, Jn +- mu Jt2 with the relative point Jacobian
+    (cdof_lin + cdof_ang x pos) signed +1 on geom2's path and -1 on
+    geom1's; aref = -b (J qvel) - k (dist - margin); one R per slot,
+    R = max((1 - d) / max(d, 1e-6), 1e-9) rconst; gate dist < margin."""
+    if not model.contact_pairs:
+        return None
+    cc = contact_constants(model)
+    v = data.qvel
+    nl = v.dim() - 1
+    blocks, arefs, Rs, acts = [], [], [], []
+    for p, (pr, slots) in enumerate(zip(cc.pairs, contact_slots(model,
+                                                                data))):
+        c = {f: cc.table[p, i] for i, f in enumerate(CONTACT_FIELDS)}
+        mu = float(cc.table[p, 0])
+        S = list(pr.support)
+        sgn = torch.tensor(pr.signs, dtype=v.dtype, device=v.device).reshape(
+            (-1, 1) + (1,) * nl)
+        cw, cl = data.cdof[S, :3], data.cdof[S, 3:]      # (W, 3, *L)
+        f0, f1, f2 = slots.frame
+        coefs = []
+        for dist, pos in zip(slots.dist, slots.pos):
+            include = dist < c["margin"]
+            imp = dist - c["margin"]
+            d = _impedance(c, imp, cc)
+            k = d / c["kden"]
+            R = torch.clamp((1.0 - d) / torch.clamp(d, min=1e-6),
+                            min=1e-9) * c["rconst"]
+            jac = (cl + _cross_rows(cw, pos)) * sgn          # (W, 3, *L)
+            Jn, Jt1, Jt2 = ((f[0] * jac[:, 0] + f[1] * jac[:, 1])
+                            + f[2] * jac[:, 2] for f in (f0, f1, f2))
+            for Jt in (Jt1, Jt2):
+                for smu in (mu, -mu):
+                    coef = Jn + smu * Jt                     # (W, *L)
+                    vel = coef[0] * v[S[0]]
+                    for w in range(1, len(S)):
+                        vel = vel + coef[w] * v[S[w]]
+                    coefs.append(coef)
+                    arefs.append((-c["b"]) * vel - k * imp)
+                    Rs.append(R)
+                    acts.append(include.to(v.dtype))
+        blocks.append(PairRows(pr.support, torch.stack(coefs)))
+    return Rows(dofs=(), coefs=(), aref=torch.stack(arefs), R=torch.stack(Rs),
+                active=torch.stack(acts), pairs=tuple(blocks))
+
+
+def contacts_active(model: Model, qpos: torch.Tensor):
+    """Per pair, whether any of its slots is within its margin at qpos
+    (nq, *L): bool (npair, *L)."""
+    cc = contact_constants(model)
+    lanes = tuple(qpos.shape[1:])
+    data = forward_kinematics(model, Data(
+        qpos=qpos, qvel=torch.zeros((model.nv,) + lanes, dtype=qpos.dtype,
+                                    device=qpos.device),
+        ctrl=torch.zeros((model.nu,) + lanes, dtype=qpos.dtype,
+                         device=qpos.device)))
+    out = []
+    for p, slots in enumerate(contact_slots(model, data)):
+        margin = cc.table[p, 2]
+        out.append(torch.stack([d < margin for d in slots.dist]).any(0))
+    return torch.stack(out)
 
 
 def assemble_constraints(model: Model, data: Data) -> Optional[Rows]:
@@ -205,7 +389,8 @@ def assemble_constraints(model: Model, data: Data) -> Optional[Rows]:
                 coefs=sum((p.coefs for p in parts), ()),
                 aref=torch.cat([p.aref for p in parts]),
                 R=torch.cat([p.R for p in parts]),
-                active=torch.cat([p.active for p in parts]))
+                active=torch.cat([p.active for p in parts]),
+                pairs=sum((p.pairs for p in parts), ()))
 
 
 # ---------------------------------------------------------------------------
@@ -237,16 +422,54 @@ def _rows_times(rows: Rows, x: torch.Tensor) -> torch.Tensor:
         for d, c in zip(dofs[1:], coefs[1:]):
             s = s + c * x[d]
         out.append(s)
-    return torch.stack(out)
+    for blk in rows.pairs:
+        s = blk.coef[:, 0] * x[blk.support[0]]
+        for w in range(1, len(blk.support)):
+            s = s + blk.coef[:, w] * x[blk.support[w]]
+        out.append(s)
+    out = [o[None] if o.dim() == x.dim() - 1 else o for o in out]
+    return torch.cat(out)
 
 
 def _rows_transpose_add(rows: Rows, base, f: torch.Tensor):
-    """base (list of nv entries) + J' f, rows added in order."""
+    """base (list of nv entries) + J' f (nv, *L), rows added in order."""
     out = list(base)
     for r, (dofs, coefs) in enumerate(zip(rows.dofs, rows.coefs)):
         for d, c in zip(dofs, coefs):
             out[d] = out[d] + c * f[r]
+    out = torch.stack(out)
+    r = len(rows.dofs)
+    for blk in rows.pairs:
+        idx = torch.tensor(blk.support, device=f.device)
+        for row in range(blk.coef.shape[0]):
+            out = out.index_put((idx,), out[idx] + blk.coef[row] * f[r])
+            r += 1
     return out
+
+
+def _hessian(rows: Rows, M: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """M + J' diag(gate) J + jitter I, row by row in order, as the kernel."""
+    nv = M.shape[0]
+    H = [[M[i, j] for j in range(nv)] for i in range(nv)]
+    for r, (dofs, coefs) in enumerate(zip(rows.dofs, rows.coefs)):
+        for d1, c1 in zip(dofs, coefs):
+            for d2, c2 in zip(dofs, coefs):
+                H[d1][d2] = H[d1][d2] + (c1 * gate[r]) * c2
+    if rows.pairs:
+        H = torch.stack([torch.stack(row) for row in H])
+        r = len(rows.dofs)
+        for blk in rows.pairs:
+            idx = torch.tensor(blk.support, device=M.device)
+            ii, jj = idx[:, None], idx[None, :]
+            for row in range(blk.coef.shape[0]):
+                c = blk.coef[row]
+                upd = (c[:, None] * gate[r]) * c[None, :]
+                H = H.index_put((ii, jj), H[ii, jj] + upd)
+                r += 1
+        H = [list(row.unbind(0)) for row in H.unbind(0)]
+    for i in range(nv):
+        H[i][i] = H[i][i] + HESSIAN_JITTER
+    return torch.stack([torch.stack(row) for row in H])
 
 
 def _penalty(invR: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -267,15 +490,8 @@ def _newton_iterations(M, a0, rows: Rows, invR, n_iters: int,
         gate = torch.where(y < 0, invR, torch.zeros_like(invR))
         e = x - a0
         Me = _matvec(M, e)
-        grad = torch.stack(_rows_transpose_add(rows, Me.unbind(0), gate * y))
-        H = [[M[i, j] for j in range(nv)] for i in range(nv)]
-        for r, (dofs, coefs) in enumerate(zip(rows.dofs, rows.coefs)):
-            for d1, c1 in zip(dofs, coefs):
-                for d2, c2 in zip(dofs, coefs):
-                    H[d1][d2] = H[d1][d2] + (c1 * gate[r]) * c2
-        for i in range(nv):
-            H[i][i] = H[i][i] + HESSIAN_JITTER
-        L = chol_unrolled(torch.stack([torch.stack(row) for row in H]))
+        grad = _rows_transpose_add(rows, Me.unbind(0), gate * y)
+        L = chol_unrolled(_hessian(rows, M, gate))
         dx = -chol_solve_unrolled(L, grad)
 
         # merit along x + alpha dx from shared products (JAX contact.py:54-83)
@@ -322,5 +538,5 @@ def solve_constraints(model: Model, data: Data, qfrc_smooth: torch.Tensor,
     y = _rows_times(rows, x) - rows.aref
     f = (-torch.where(y < 0, y, torch.zeros_like(y))) * invR
     zero = torch.zeros_like(a0[0])
-    qfrc = torch.stack(_rows_transpose_add(rows, [zero] * a0.shape[0], f))
+    qfrc = _rows_transpose_add(rows, [zero] * a0.shape[0], f)
     return data.replace(qfrc_constraint=qfrc, qacc=x)

@@ -1,6 +1,7 @@
 """Forward kinematics (counterpart of `trajoptkp_tpu/dynamics/fk.py:141`).
 
-World poses of bodies and sites, the per-dof motion subspace `cdof` and the
+World poses of bodies and sites (position and orientation), the per-dof
+motion subspace `cdof` and the
 world-frame spatial inertia `cinert` of each body about the origin (compact
 form; `cinert_matrix` gives the JAX 6x6), for hinge, slide and free joints.
 The body loop unrolls in Python (topology is static and small); every
@@ -48,6 +49,18 @@ def body_inertia(model: Model, b: int, xpos_b, xquat_b):
     return c, X, inert
 
 
+def mat_vec(R: torch.Tensor, v: torch.Tensor, base: torch.Tensor):
+    """base + R v for R (3, 3, *L), a model constant v (3,), sums left to
+    right (kernels/csrc/residuals.cuh reads the end-effector site so)."""
+    return base + (R[:, 0] * v[0] + R[:, 1] * v[1] + R[:, 2] * v[2])
+
+
+def mat_mat(R: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """R S for R (3, 3, *L) and a model constant S (3, 3)."""
+    return torch.stack([R[:, 0] * S[0, s] + R[:, 1] * S[1, s]
+                        + R[:, 2] * S[2, s] for s in range(3)], 1)
+
+
 def cinert_matrix(cinert: torch.Tensor) -> torch.Tensor:
     """Compact inertias (nbody, 10, *L) -> 6x6 spatial inertias
     [[J, hat(h)], [-hat(h), m I]] (nbody, 6, 6, *L), the JAX layout."""
@@ -64,10 +77,9 @@ def cinert_matrix(cinert: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cat([Jm, H], 2), torch.cat([-H, mI], 2)], 1)
 
 
-def forward_kinematics(model: Model, data: Data) -> Data:
-    """Fill xpos, xquat, xipos, ximat, site_xpos, cdof and cinert (compact,
-    see body_inertia)."""
-    qpos = data.qpos
+def body_frames(model: Model, qpos: torch.Tensor):
+    """World frames of every body and the per-dof cdof rows: lists xpos
+    (3, *L), xquat (4, *L) per body and cdof (6, *L) per dof."""
     lanes = tuple(qpos.shape[1:])
     nl = len(lanes)
     dtype, device = qpos.dtype, qpos.device
@@ -120,6 +132,24 @@ def forward_kinematics(model: Model, data: Data) -> Data:
                 )
         xpos.append(xp.expand((3,) + lanes))
         xquat.append(xq.expand((4,) + lanes))
+    return xpos, xquat, cdof
+
+
+def site_pose(model: Model, xpos, xquat, s: int):
+    """World position (3, *L) and rotation (3, 3, *L) of site s."""
+    sb = model.site_bodyid[s]
+    R = tm.quat_to_mat(xquat[sb])
+    return (mat_vec(R, model.site_pos[s], xpos[sb]),
+            mat_mat(R, tm.quat_to_mat(model.site_quat[s])))
+
+
+def forward_kinematics(model: Model, data: Data) -> Data:
+    """Fill xpos, xquat, xipos, ximat, site_xpos, site_xmat, cdof and cinert
+    (compact, see body_inertia)."""
+    qpos = data.qpos
+    lanes = tuple(qpos.shape[1:])
+    dtype, device = qpos.dtype, qpos.device
+    xpos, xquat, cdof = body_frames(model, qpos)
 
     xpos_t = torch.stack(xpos)                       # (nbody, 3, *L)
     xquat_t = torch.stack(xquat)                     # (nbody, 4, *L)
@@ -133,18 +163,19 @@ def forward_kinematics(model: Model, data: Data) -> Data:
         ximat.append(Ri)
         cinert.append(inert)
 
-    if model.nsite:
-        site_xpos = torch.stack([
-            xpos_t[sb] + torch.einsum("ij...,j...->i...",
-                                      tm.quat_to_mat(xquat_t[sb]),
-                                      _c(model.site_pos[s], nl))
-            for s, sb in enumerate(model.site_bodyid)
-        ])
-    else:
-        site_xpos = torch.zeros((0, 3) + lanes, dtype=dtype, device=device)
+    site_xpos, site_xmat = [], []
+    for s in range(model.nsite):
+        sp, sm = site_pose(model, xpos_t, xquat_t, s)
+        site_xpos.append(sp)
+        site_xmat.append(sm)
+    empty = torch.zeros((0, 3) + lanes, dtype=dtype, device=device)
+    site_xpos = torch.stack(site_xpos) if model.nsite else empty
+    site_xmat = (torch.stack(site_xmat) if model.nsite
+                 else empty.reshape((0, 3, 3) + lanes))
 
     return data.replace(
         xpos=xpos_t, xquat=xquat_t, xipos=torch.stack(xipos),
-        ximat=torch.stack(ximat), site_xpos=site_xpos, cdof=cdof_t,
+        ximat=torch.stack(ximat), site_xpos=site_xpos, site_xmat=site_xmat,
+        cdof=cdof_t,
         cinert=torch.stack(cinert),
     )

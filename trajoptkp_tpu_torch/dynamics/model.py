@@ -156,6 +156,7 @@ class Data:
     xipos: Optional[torch.Tensor] = None  # (nbody, 3, *L)
     ximat: Optional[torch.Tensor] = None  # (nbody, 3, 3, *L)
     site_xpos: Optional[torch.Tensor] = None  # (nsite, 3, *L)
+    site_xmat: Optional[torch.Tensor] = None  # (nsite, 3, 3, *L)
     cdof: Optional[torch.Tensor] = None   # (nv, 6, *L)
     cinert: Optional[torch.Tensor] = None  # (nbody, 10, *L) m, m c, J
     qfrc_bias: Optional[torch.Tensor] = None      # (nv, *L)
@@ -198,7 +199,8 @@ def model_from_numpy(d, dtype=torch.float64, device=None) -> Model:
 
 
 def load_model(name: str, dtype=torch.float64, device=None) -> Model:
-    """Read the checked-in `models/{name}.npz` (acrobot, pentabot, panda)."""
+    """Read the checked-in `models/{name}.npz` (acrobot, pentabot, panda,
+    push_ncl)."""
     path = os.path.join(MODELS_DIR, f"{name}.npz")
     if not os.path.exists(path):
         have = sorted(f[:-4] for f in os.listdir(MODELS_DIR)

@@ -7,17 +7,20 @@ that the kernels run per thread (kernels/csrc/step.cuh), operation for
 operation in the same order, so that on the card this plain twin and the
 kernels round alike:
 
-    cvel_b = cvel_parent + cdof_i qvel_i
+    cvel_b = cvel_parent + cdof_i qvel_i  (summed over the body's dofs)
     cacc_b = cacc_parent + (cvel_parent x cdof_i) qvel_i,  cacc_0 = [0; -g]
     f_b    = I_b cacc_b + cvel_b x* (I_b cvel_b)
     bias_i = cdof_i . (sum of f over the subtree of body_i)
-    M_ij   = cdof_j . (Ic_body_i cdof_i) for j on the root path of i,
-             Ic = composite inertia of the subtree
+    M_ij   = cdof_j . (Ic_body_i cdof_i) for j on the root path of i (the
+             body's own earlier dofs included), Ic = composite inertia
 
-Scope: bodies with one hinge or slide joint or with none (a welded body
-carries its inertia and force to its parent without a dof; panda has three);
-free and ball joints in the smooth dynamics are ROADMAP Queue 1 item 7b and
-item 11.
+Scope: bodies with one hinge, slide or free joint or with none (a welded
+body carries its inertia and force to its parent without a dof; panda has
+three).  A free joint's six dofs (JAX `model._path_dofs`): the translations
+move along world axes and their cdof does not change; the rotations turn
+about the body's own axes, so the whole body twist drives them:
+cacc_b = cacc_parent + sum over the rotations of (cvel_b x cdof_i) qvel_i.
+Ball joints are ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -25,23 +28,30 @@ from __future__ import annotations
 import torch
 
 from ..utils.math import cross, cross_force, cross_motion
-from .model import HINGE, SLIDE, Data, Model, dof_width
+from .model import FREE, HINGE, SLIDE, Data, Model, dof_width
 
 _JROWS = ((0, 3, 4), (3, 1, 5), (4, 5, 2))  # symmetric 3x3 from SYM6
 
 
-def scalar_tree(model: Model):
-    """dof of each body (None for a body without a joint), or raise outside
-    the scope."""
-    dofs = [None] * model.nbody
+def body_dofs(model: Model):
+    """Per body, its joint's dofs in order (() for a body without a joint),
+    or raise outside the scope."""
+    dofs = [()] * model.nbody
     for j, b in enumerate(model.jnt_bodyid):
-        if model.jnt_type[j] not in (HINGE, SLIDE) or dofs[b] is not None:
+        jt = model.jnt_type[j]
+        if jt not in (HINGE, SLIDE, FREE) or dofs[b]:
             raise NotImplementedError(
-                "smooth dynamics take at most one hinge or slide joint per "
-                "body; free and ball joints are ROADMAP Queue 1 items 7b "
-                "and 11")
-        dofs[b] = model.jnt_dofadr[j]
+                "smooth dynamics take at most one hinge, slide or free joint "
+                "per body; ball joints are ROADMAP Queue 1 item 11")
+        dofs[b] = tuple(range(model.jnt_dofadr[j],
+                              model.jnt_dofadr[j] + dof_width(jt)))
     return dofs
+
+
+def free_bodies(model: Model):
+    """The bodies whose joint is free."""
+    return {model.jnt_bodyid[j] for j in range(model.njnt)
+            if model.jnt_type[j] == FREE}
 
 
 def inertia_mul(inert: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -68,7 +78,7 @@ def _world(data: Data):
 
 def bias_force(model: Model, data: Data) -> torch.Tensor:
     """Coriolis, centrifugal and gravity force (nv, *L) (mj_rne)."""
-    dofs = scalar_tree(model)
+    dofs, free = body_dofs(model), free_bodies(model)
     v, cdof = data.qvel, data.cdof
     zero = _world(data)
     g = -model.gravity
@@ -77,21 +87,26 @@ def bias_force(model: Model, data: Data) -> torch.Tensor:
                        .expand(zero[3:].shape)])]
     cfrc = [None]
     for b in range(1, model.nbody):
-        p, i = model.body_parent[b], dofs[b]
-        if i is None:                      # welded: moves with its parent
-            cvel.append(cvel[p])
-            cacc.append(cacc[p])
-        else:
-            cvel.append(cvel[p] + cdof[i] * v[i])
-            cacc.append(cacc[p] + cross_motion(cvel[p], cdof[i]) * v[i])
+        p = model.body_parent[b]
+        cv, ca = cvel[p], cacc[p]        # welded: moves with its parent
+        for i in dofs[b]:
+            cv = cv + cdof[i] * v[i]
+        if b in free:                    # rotations: the whole body twist
+            for i in dofs[b][3:]:
+                ca = ca + cross_motion(cv, cdof[i]) * v[i]
+        elif dofs[b]:
+            i = dofs[b][0]
+            ca = ca + cross_motion(cvel[p], cdof[i]) * v[i]
+        cvel.append(cv)
+        cacc.append(ca)
         inert = data.cinert[b]
         cfrc.append(inertia_mul(inert, cacc[b])
                     + cross_force(cvel[b], inertia_mul(inert, cvel[b])))
     bias = [None] * model.nv
     for b in range(model.nbody - 1, 0, -1):
         p = model.body_parent[b]
-        if dofs[b] is not None:
-            bias[dofs[b]] = dot6(cdof[dofs[b]], cfrc[b])
+        for i in dofs[b]:
+            bias[i] = dot6(cdof[i], cfrc[b])
         if p > 0:
             cfrc[p] = cfrc[p] + cfrc[b]
     return torch.stack(bias)
@@ -100,7 +115,7 @@ def bias_force(model: Model, data: Data) -> torch.Tensor:
 def mass_matrix(model: Model, data: Data) -> torch.Tensor:
     """Joint-space inertia (nv, nv, *L) by the composite-rigid-body
     algorithm over the compact inertias."""
-    dofs = scalar_tree(model)
+    dofs = body_dofs(model)
     comp = list(data.cinert.unbind(0))
     for b in range(model.nbody - 1, 0, -1):
         p = model.body_parent[b]
@@ -109,16 +124,16 @@ def mass_matrix(model: Model, data: Data) -> torch.Tensor:
     zero = torch.zeros_like(data.qvel[0])
     M = [[zero] * model.nv for _ in range(model.nv)]
     for b in range(1, model.nbody):
-        i = dofs[b]
-        if i is None:
-            continue
-        F = inertia_mul(comp[b], data.cdof[i])
-        M[i][i] = dot6(data.cdof[i], F) + model.dof_armature[i]
-        a = model.body_parent[b]
-        while a > 0:
-            if dofs[a] is not None:
-                M[i][dofs[a]] = M[dofs[a]][i] = dot6(data.cdof[dofs[a]], F)
-            a = model.body_parent[a]
+        for n, i in enumerate(dofs[b]):
+            F = inertia_mul(comp[b], data.cdof[i])
+            M[i][i] = dot6(data.cdof[i], F) + model.dof_armature[i]
+            for k in dofs[b][:n]:
+                M[i][k] = M[k][i] = dot6(data.cdof[k], F)
+            a = model.body_parent[b]
+            while a > 0:
+                for k in dofs[a]:
+                    M[i][k] = M[k][i] = dot6(data.cdof[k], F)
+                a = model.body_parent[a]
     return torch.stack([torch.stack(row) for row in M])
 
 

@@ -1,10 +1,10 @@
 """The step (counterpart of `trajoptkp_tpu/dynamics/step.py:27-92`).
 
 MuJoCo's Euler with implicit joint damping, batch axes last, with the
-joint-limit constraint solve between the smooth forces and the integration.
-This is the plain version of kernels K1 and K2a, the `__device__` step that
-the rollout, line search and FD-Jacobian kernels share
-(kernels/csrc/step.cuh, constraint.cuh).
+constraint solve over joint-limit and contact rows between the smooth forces
+and the integration.  This is the plain version of kernels K1, K2a and K2b,
+the `__device__` step that the rollout, line search and FD-Jacobian kernels
+share (kernels/csrc/step.cuh, constraint.cuh, contact.cuh).
 
 Damping enters twice on purpose, as in the JAX package and MuJoCo's Euler:
 explicitly in `passive_force` and implicitly in (M + h D) qacc = f.
@@ -22,22 +22,13 @@ from .model import Data, Model
 from .smooth import fwd_velocity_smooth
 
 
-def check_smooth(model: Model) -> None:
-    """Raise for a model whose step needs contact rows."""
-    if model.contact_pairs:
-        raise NotImplementedError(
-            "contacts are not ported yet (ROADMAP Queue 1 item 7b): the "
-            f"model has {len(model.contact_pairs)} contact pairs")
-
-
 def smooth_force(data: Data) -> torch.Tensor:
     return data.qfrc_passive + data.qfrc_actuator - data.qfrc_bias
 
 
 def forward(model: Model, data: Data, diag=None) -> Data:
-    """FK products, smooth forces and, for a model with joint limits, the
-    constraint force and the constrained qacc (mj_forward)."""
-    check_smooth(model)
+    """FK products, smooth forces and, for a model with joint limits or
+    contacts, the constraint force and the constrained qacc (mj_forward)."""
     data = forward_kinematics(model, data)
     data = fwd_velocity_smooth(model, data)
     if not model.has_constraints:

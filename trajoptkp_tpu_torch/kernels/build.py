@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
 compiled by its own `nvcc` for sm_90a into `_build/<name>-<hash>.so`; the
-four compilers run in parallel and take seconds.  The hash covers the
+compilers run in parallel.  The hash covers the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the library already there.  `torch.utils.cpp_extension` is imported only
 here, inside the build, to find the CUDA toolkit; nothing at import time

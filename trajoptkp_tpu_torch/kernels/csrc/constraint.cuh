@@ -22,15 +22,14 @@
 // f = -min(y, 0) / R.  The solution x itself is not used: the integrator
 // solves (M + h D) qacc = qfrc + qfrc_con.
 //
-// Row format: sparse.  Row r touches the dofs T::row_dof(r, w), w < ROW_W,
-// known at compile time, with coefficients rows.coef[r][w]; a limit row has
-// one entry, +1 (q - lo) or -1 (hi - q).  Row order: every limited joint's
-// lower side, then every upper side (the JAX generic engine's order).  R and
-// ROW_W come from the topology (T::R, T::ROW_W).  Contact rows (K2b) append to
-// the same solver: they raise T::R and T::ROW_W (the longest root path pair),
-// extend T::row_dof, fill coef/aref/invR after the limit rows, and pad short
-// rows with coefficient 0; the solver itself needs no change.
-//
+// Row format: sparse.  Row r touches the dofs T::row_dof(r, w),
+// w < T::row_w(r) <= ROW_W, known at compile time, with coefficients
+// rows.coef[r][w]; a limit row has one entry, +1 (q - lo) or -1 (hi - q).
+// Row order: every limited joint's lower side, then every upper side (the
+// JAX generic engine's order), then the contact rows of contact.cuh (K2b),
+// four per slot over the support of the slot's pair.  R, ROW_W, row_dof and
+// row_w come from the topology; every loop over a row's entries runs to
+// ROW_W with a guard w < row_w(r), which folds once the loops are unrolled.
 // The per-joint constants (range, margin, impedance and solref products) are
 // folded on the host in doubles and read from the model buffer, LIM_STRIDE
 // per limited joint (kernels/ops.py:pack_model, dynamics/contact.py
@@ -42,10 +41,12 @@
 // because `dist < margin`, `y < 0` and the choice of step length are
 // branches, and central FD divides a flipped branch's jump by 2 eps.
 //
-// Bound: per step ~2 NV^3/3 + 8 iterations x (NV^3/3 + 7 NV^2 + ~50 R)
-// dependent double operations per lane (about 10k at panda, beside ~6k for
-// the smooth step; chip_smoke.py:constraint_ops counts them term by term) and no global memory traffic of its own beyond the
-// LIM_STRIDE constants per joint: bound by the latency of one thread's
+// Bound: per step ~2 NV^3/3 + 8 iterations x (NV^3/3 + 7 NV^2 + ~50 R +
+// 3 sum_r row_w(r)^2) dependent double operations per lane (about 10k at
+// panda with 14 limit rows, ~50k at push_ncl with 42 rows up to 13 wide,
+// beside ~6-9k for the smooth step; chip_smoke.py:constraint_ops counts them
+// term by term) and no global memory traffic of its own beyond the
+// constants per joint and pair: bound by the latency of one thread's
 // dependent double arithmetic.  This first version keeps one lane per
 // thread; H and L (NV x NV) live in local memory at panda width.  The Newton
 // and step-length loops stay rolled to bound code size and compile time.
@@ -102,7 +103,8 @@ __device__ __forceinline__ void limit_rows(
       const int r = side * NLIM + k;
       const int d = T::lim_dof(k);
       const double* pl = P + T::LIM + k * LIM_STRIDE;
-      const double dist = side == 0 ? q[d] - pl[L_LO] : pl[L_HI] - q[d];
+      const double qd = q[T::dof_q(d)];
+      const double dist = side == 0 ? qd - pl[L_LO] : pl[L_HI] - qd;
       const double vel = side == 0 ? v[d] : -v[d];
       const double inc = dist < pl[L_MARGIN] ? 1.0 : 0.0;
       const double imp = dist - pl[L_MARGIN];
@@ -113,8 +115,6 @@ __device__ __forceinline__ void limit_rows(
           at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pl[L_INVW];
       rows.invR[r] = inc / Rr;
       rows.coef[r][0] = side == 0 ? 1.0 : -1.0;
-#pragma unroll
-      for (int w = 1; w < T::ROW_W; ++w) rows.coef[r][w] = 0.0;
     }
   }
 }
@@ -128,7 +128,7 @@ __device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W>& rows,
     double s = rows.coef[r][0] * x[T::row_dof(r, 0)];
 #pragma unroll
     for (int w = 1; w < T::ROW_W; ++w)
-      s += rows.coef[r][w] * x[T::row_dof(r, w)];
+      if (w < T::row_w(r)) s += rows.coef[r][w] * x[T::row_dof(r, w)];
     out[r] = s;
   }
 }
@@ -197,10 +197,12 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
       const double gy = g[r] * y[r];
 #pragma unroll
       for (int w1 = 0; w1 < W; ++w1) {
+        if (w1 >= T::row_w(r)) continue;
         const int d1 = T::row_dof(r, w1);
         dx[d1] = dx[d1] + rows.coef[r][w1] * gy;
 #pragma unroll
         for (int w2 = 0; w2 < W; ++w2) {
+          if (w2 >= T::row_w(r)) continue;
           const int d2 = T::row_dof(r, w2);
           H[d1][d2] = H[d1][d2] + (rows.coef[r][w1] * g[r]) * rows.coef[r][w2];
         }
@@ -258,6 +260,7 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
     const double f = (-(yr < 0.0 ? yr : 0.0)) * rows.invR[r];
 #pragma unroll
     for (int w = 0; w < W; ++w) {
+      if (w >= T::row_w(r)) continue;
       const int d = T::row_dof(r, w);
       qc[d] = qc[d] + rows.coef[r][w] * f;
     }

@@ -1,0 +1,276 @@
+// K2b: the narrow phase and the pyramidal contact rows for one lane, in
+// double precision.
+//
+// Replaces, in the JAX lane engine trajoptkp_tpu/dynamics/lanes.py, the
+// contact rows (_contact_rows_regs:989) over the pair slots
+// (_pair_slots_regs:963) of the narrow phase (_collide_regs:826:
+// plane-cylinder :853-881, cylinder-cylinder :897-913), i.e. the semantics
+// of trajoptkp_tpu/dynamics/contact.py:_contact_rows:190 and collision.py.
+// It is a __device__ function called by smooth_step (step.cuh) between the
+// force assembly and the constraint solve of constraint.cuh (K2a), from the
+// FK products the step already has (body frames, cdof), so it runs inside
+// the rollout (K3), line-search (K4) and FD-Jacobian (K5) kernels.  Plain
+// twin: trajoptkp_tpu_torch/dynamics/collision.py and
+// dynamics/contact.py:_contact_rows.
+//
+// Per contact pair (geom types and bodies are compile-time, T::pair_*): the
+// geom poses from their bodies' frames, the pair's fixed slots (3 for
+// plane-cylinder: rim points of the cap nearer the plane; 1 for
+// cylinder-cylinder, as equal-radius capsules), and four rows per slot,
+// J = Jn + mu Jt1, Jn - mu Jt1, Jn + mu Jt2, Jn - mu Jt2, over the pair's
+// support: the dofs on exactly one of the two bodies' root paths (known at
+// compile time, T::supp), the point Jacobian cdof_lin + cdof_ang x pos
+// signed +1 on geom2's path and -1 on geom1's.  aref = -b (J qvel) -
+// k (dist - margin); R = max((1-d)/max(d, 1e-6), 1e-9) rconst, one per
+// slot; the row is active when dist < margin.  The rows are written after
+// the limit rows, and the solver of constraint.cuh takes them unchanged.
+//
+// Model buffer, PAIR_STRIDE per pair (kernels/ops.py:pack_model): geom1
+// pos (3), quat (4), size (3), geom2 likewise, then the pair's constants in
+// the layout of dynamics/contact.py CONTACT_FIELDS, whose impedance fields
+// sit at the LimField offsets of constraint.cuh, so `impedance` reads both.
+//
+// Rounding: the branches of the narrow phase (the cap side, the aligned
+// axis test rad_norm < 1e-9, the segment clamps) and the gate
+// dist < margin are taken by the same comparisons on bit-equal operands as
+// the twin's: every sum runs left to right in the twin's order
+// (-fmad=false).
+//
+// Bound: per pair ~100 operations of geometry and per slot ~30 + 25 W
+// (Jacobian) + 4 x 3 W (rows) with W the support size: about 2.5k at
+// push_ncl (7 slots, W 7/6/13), small beside the solve it feeds.
+#pragma once
+
+#include <utility>
+
+#include "constraint.cuh"
+#include "geometry.cuh"
+#include "linalg.cuh"
+
+namespace trajopt {
+
+constexpr int GEOM_PLANE = 0;
+constexpr int GEOM_CYLINDER = 5;
+constexpr int MAX_SLOTS = 3;  // slots of the largest ported pair
+constexpr int PAIR_STRIDE = 33;
+enum PairField {
+  G1_POS = 0, G1_QUAT = 3, G1_SIZE = 7, G2_POS = 10, G2_QUAT = 13,
+  G2_SIZE = 17, PAIR_CONST = 20
+};
+// inside the pair's constants (dynamics/contact.py CONTACT_FIELDS)
+enum ContactField { C_MU = 0, C_RCONST = 3 };
+
+// (n, t1, t2): t1 = n x ref / max(|n x ref|, 1e-12), ref the x axis unless
+// |n_x| >= 0.5, then the y axis; t2 = n x t1
+__device__ __forceinline__ void frame_from_normal(const double* n,
+                                                  double (&fr)[3][3]) {
+  const double one = fabs(n[0]) < 0.5 ? 1.0 : 0.0;
+  const double ref[3] = {one, 1.0 - one, 0.0};
+  double t1[3];
+  cross3(n, ref, t1);
+  const double t1n = at_least(sqrt(dot3(t1, t1)), 1e-12);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    fr[0][k] = n[k];
+    fr[1][k] = t1[k] / t1n;
+  }
+  cross3(n, fr[1], fr[2]);
+}
+
+// world pose of a geom on a body frame: position, rotation matrix
+__device__ __forceinline__ void geom_pose(const double* bpos,
+                                          const double* bquat,
+                                          const double* gpos,
+                                          const double* gquat, double* xp,
+                                          double* xm) {
+  double q[4], t[3];
+  quat_mul(bquat, gquat, q);
+  quat_rotate(bquat, gpos, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) xp[k] = bpos[k] + t[k];
+  quat_to_mat(q, xm);
+}
+
+// collision.py:plane_cylinder: three rim points of the cap nearer the plane
+__device__ __forceinline__ void plane_cylinder(
+    const double* xp1, const double* xm1, const double* xp2,
+    const double* xm2, const double* s2, double* dist, double (*pos)[3],
+    double (&fr)[3][3]) {
+  const double n[3] = {xm1[2], xm1[5], xm1[8]};
+  const double r = s2[0], hl = s2[1];
+  const double axis[3] = {xm2[2], xm2[5], xm2[8]};
+  const double an = dot3(axis, n);
+  double sign = an > 0.0 ? -1.0 : (an < 0.0 ? 1.0 : (isnan(an) ? an : 1.0));
+  double cap[3], rad[3], radu[3], t[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    cap[k] = xp2[k] + axis[k] * (hl * sign);
+    rad[k] = n[k] - axis[k] * an;
+  }
+  const double rad_norm = sqrt(at_least(dot3(rad, rad), 1e-24));
+  const bool aligned = rad_norm < 1e-9;
+  const double den = at_least(rad_norm, 1e-9);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) radu[k] = aligned ? xm2[3 * k] : -rad[k] / den;
+  cross3(axis, radu, t);
+  const double half = -0.5 * r;
+  const double arc = 0.866 * r;
+  double p[3][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[0][k] = cap[k] + radu[k] * r;
+    p[1][k] = (cap[k] + radu[k] * half) + t[k] * arc;
+    p[2][k] = (cap[k] + radu[k] * half) + t[k] * (-arc);
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    double d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = p[s][k] - xp1[k];
+    dist[s] = dot3(n, d);
+    const double hd = 0.5 * dist[s];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pos[s][k] = p[s][k] - n[k] * hd;
+  }
+  frame_from_normal(n, fr);
+}
+
+// collision.py:capsule_capsule over _closest_seg_seg and
+// _sphere_sphere_core: one slot between the axis segments' closest points
+__device__ __forceinline__ void capsule_capsule(
+    const double* xp1, const double* xm1, const double* s1, const double* xp2,
+    const double* xm2, const double* s2, double* dist, double (*pos)[3],
+    double (&fr)[3][3]) {
+  double p0[3], p1[3], q0[3], q1[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double a = xm1[3 * k + 2] * s1[1];
+    const double b = xm2[3 * k + 2] * s2[1];
+    p0[k] = xp1[k] - a;
+    p1[k] = xp1[k] + a;
+    q0[k] = xp2[k] - b;
+    q1[k] = xp2[k] + b;
+  }
+  double d1[3], d2[3], rr[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    d1[k] = p1[k] - p0[k];
+    d2[k] = q1[k] - q0[k];
+    rr[k] = p0[k] - q0[k];
+  }
+  const double a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, rr);
+  const double c = dot3(d1, rr), b = dot3(d1, d2);
+  const double denom = a * e - b * b;
+  double s = denom > 1e-12
+                 ? clip((b * f - c * e) / at_least(denom, 1e-12), 0.0, 1.0)
+                 : 0.0;
+  const double t = (b * s + f) / at_least(e, 1e-12);
+  const double t_cl = clip(t, 0.0, 1.0);
+  s = clip((b * t_cl - c) / at_least(a, 1e-12), 0.0, 1.0);
+  double pa[3], pb[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    pa[k] = p0[k] + d1[k] * s;
+    pb[k] = q0[k] + d2[k] * t_cl;
+    d[k] = pb[k] - pa[k];
+  }
+  const double L = sqrt(dot3(d, d));
+  const bool deg = L < 1e-9;
+  const double Ld = at_least(L, 1e-9);
+  double n[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n[k] = deg ? (k == 2 ? 1.0 : 0.0) : d[k] / Ld;
+  dist[0] = (L - s1[0]) - s2[0];
+  const double off = s1[0] + 0.5 * dist[0];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pos[0][k] = pa[k] + n[k] * off;
+  frame_from_normal(n, fr);
+}
+
+// The rows of contact pair PI, written from row T::R_LIM + 4 first_slot(PI).
+template <class T, int PI>
+__device__ __forceinline__ void pair_rows(
+    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
+    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
+    const double* v, Rows<T::R, T::ROW_W>& rows) {
+  constexpr int t1 = T::pair_t1(PI), t2 = T::pair_t2(PI);
+  constexpr int b1 = T::pair_b1(PI), b2 = T::pair_b2(PI);
+  constexpr int NC = T::pair_ncon(PI), W = T::nsup(PI);
+  constexpr int ROW0 = 2 * T::NLIM + 4 * T::first_slot(PI);
+  const double* pp = P + T::PAIRB + PI * PAIR_STRIDE;
+  const double* pc = pp + PAIR_CONST;
+  double xp1[3], xm1[9], xp2[3], xm2[9];
+  geom_pose(xpos[b1], xquat[b1], pp + G1_POS, pp + G1_QUAT, xp1, xm1);
+  geom_pose(xpos[b2], xquat[b2], pp + G2_POS, pp + G2_QUAT, xp2, xm2);
+  double dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[3][3];
+  if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CYLINDER) {
+    plane_cylinder(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
+  } else {
+    static_assert(t1 == GEOM_CYLINDER && t2 == GEOM_CYLINDER,
+                  "the port's narrow phase has plane-cylinder and "
+                  "cylinder-cylinder pairs only");
+    capsule_capsule(xp1, xm1, pp + G1_SIZE, xp2, xm2, pp + G2_SIZE, dist, pos,
+                    fr);
+  }
+  const double mu = pc[C_MU];
+#pragma unroll
+  for (int s = 0; s < NC; ++s) {
+    const double inc = dist[s] < pc[L_MARGIN] ? 1.0 : 0.0;
+    const double imp = dist[s] - pc[L_MARGIN];
+    const double dd = impedance(pc, imp);
+    const double kk = dd / pc[L_KDEN];
+    const double Rr =
+        at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pc[C_RCONST];
+    const double invR = inc / Rr;
+    double J[3][W];  // Jn, Jt1, Jt2 over the support
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int i = T::supp(PI, w);
+      const double sg = T::supp_sign(PI, w);
+      double wp[3], jac[3];
+      cross3(cdof[i], pos[s], wp);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) jac[k] = (cdof[i][3 + k] + wp[k]) * sg;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        J[a][w] = (fr[a][0] * jac[0] + fr[a][1] * jac[1]) + fr[a][2] * jac[2];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = ROW0 + 4 * s + e;
+      const double* Jt = J[1 + e / 2];
+      const double smu = (e % 2 == 0) ? mu : -mu;
+      double vel = 0.0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const double c = J[0][w] + smu * Jt[w];
+        rows.coef[r][w] = c;
+        const double cv = c * v[T::supp(PI, w)];
+        vel = w == 0 ? cv : vel + cv;
+      }
+      rows.aref[r] = (-pc[L_B]) * vel - kk * imp;
+      rows.invR[r] = invR;
+    }
+  }
+}
+
+template <class T, int... PS>
+__device__ __forceinline__ void contact_rows_of(
+    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
+    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
+    const double* v, Rows<T::R, T::ROW_W>& rows,
+    std::integer_sequence<int, PS...>) {
+  (pair_rows<T, PS>(P, xpos, xquat, cdof, v, rows), ...);
+}
+
+// Rows 2 NLIM .. R-1: every pair's slots in pair order, four rows each.
+template <class T>
+__device__ __forceinline__ void contact_rows(
+    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
+    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
+    const double* v, Rows<T::R, T::ROW_W>& rows) {
+  contact_rows_of<T>(P, xpos, xquat, cdof, v, rows,
+                     std::make_integer_sequence<int, T::NPAIR>{});
+}
+
+}  // namespace trajopt

@@ -7,10 +7,14 @@
 // columns (trajoptkp_tpu/derivs/fd.py:83 fd_job_columns).  Plain twin:
 // trajoptkp_tpu_torch/derivs/fd.py:fd_slot_jacobians.
 //
-// Per lane: for each column c, the state or control is perturbed by +-eps
-// (adding eps times a 0/1 selector, bit-identical to the JAX engine), two
-// K1 steps run, and (out+ - out-) / (2 eps) fills J[:, c].  The interpolation
-// between slots stays torch (solver/lanes.py:jacobians_si).
+// Per lane: for each column c over the state vector's 2 ndof dofs and the
+// nu controls, the state or control is perturbed by +-eps (a position as
+// q (+) e with integrate_pos at dt 1, which also renormalises a free
+// joint's quaternion, as the twin's integrate_pos; a velocity or control by
+// adding eps times a 0/1 selector, bit-identical to the JAX engine), two K1
+// steps run, and (out+ - out-) / (2 eps) fills J[:, c] over the state
+// vector's dofs.  The interpolation between slots stays torch
+// (solver/lanes.py:jacobians_si).
 //
 // With joint limits each of those steps runs the constraint solve (K2a),
 // whose gates and step-length choices are branches: kernel and twin must
@@ -19,9 +23,9 @@
 // bit for bit at panda width with rows active.
 //
 // Bound: 2 (2n + nu) steps per lane against (2n)(2n + nu) x 8 bytes written;
-// K x B lanes (500 x 512 at acrobot SI_1, 1500 x 128 at reaching) fill the
-// card, so it is bound by the double-precision instruction rate, with
-// local-memory spills from pentabot width up.
+// K x B lanes (500 x 512 at acrobot SI_1, 1500 x 128 at reaching, 1000 x
+// 128 at push_ncl) fill the card, so it is bound by the double-precision
+// instruction rate, with local-memory spills from pentabot width up.
 #include "instances.cuh"
 #include "step.cuh"
 
@@ -35,58 +39,76 @@ fd_jacobian_kernel(const double* __restrict__ P,
                    const double* __restrict__ U,
                    const long long* __restrict__ times, double eps,
                    double* __restrict__ J, int K, int B) {
-  constexpr int NV = T::NV, NU = T::NU, NX = T::NX, NC = T::NX + T::NU;
+  constexpr int NQ = T::NQ, NV = T::NV, NU = T::NU, NX = T::NX;
+  constexpr int NDOF = T::NDOF, NC = T::NX + T::NU;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= K * B) return;
   const int s = idx / B;
   const int b = idx - s * B;
   const size_t t = static_cast<size_t>(times[s]);
-  double q0[NV], v0[NV], u0[NU];
+  double q0[NQ], v0[NV], u0[NU];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    q0[i] = qpos[(t * NV + i) * B + b];
-    v0[i] = qvel[(t * NV + i) * B + b];
-  }
+  for (int i = 0; i < NQ; ++i) q0[i] = qpos[(t * NQ + i) * B + b];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v0[i] = qvel[(t * NV + i) * B + b];
 #pragma unroll
   for (int a = 0; a < NU; ++a) u0[a] = U[(t * NU + a) * B + b];
   const double scale = 2.0 * eps;
 #pragma unroll 1
   for (int c = 0; c < NC; ++c) {
-    double qp[NV], vp[NV], up[NU], qm[NV], vm[NV], um[NU];
-    double qP[NV], vP[NV], qM[NV], vM[NV];
+    // the perturbed position, velocity and control index of column c
+    const int dq = c < NDOF ? T::sv(c) : -1;
+    const int dv = (c >= NDOF && c < NX) ? T::sv(c - NDOF) : -1;
+    const int du = c >= NX ? c - NX : -1;
+    double qp[NQ], vp[NV], up[NU], qm[NQ], vm[NV], um[NU];
+    double qP[NQ], vP[NV], qM[NQ], vM[NV];
+    if constexpr (T::NQ == T::NV) {
+      // hinge and slide joints only: q (+) e is q + e
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        qp[i] = q0[i] + (i == dq ? eps : 0.0);
+        qm[i] = q0[i] + (i == dq ? -eps : 0.0);
+      }
+    } else {
+      double ep[NV], em[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        ep[i] = i == dq ? eps : 0.0;
+        em[i] = i == dq ? -eps : 0.0;
+      }
+      integrate_pos<T>(q0, ep, 1.0, qp);
+      integrate_pos<T>(q0, em, 1.0, qm);
+    }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      qp[i] = q0[i] + (c == i ? eps : 0.0);
-      qm[i] = q0[i] + (c == i ? -eps : 0.0);
-      vp[i] = v0[i] + (c == NV + i ? eps : 0.0);
-      vm[i] = v0[i] + (c == NV + i ? -eps : 0.0);
+      vp[i] = v0[i] + (i == dv ? eps : 0.0);
+      vm[i] = v0[i] + (i == dv ? -eps : 0.0);
     }
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      up[a] = u0[a] + (c == NX + a ? eps : 0.0);
-      um[a] = u0[a] + (c == NX + a ? -eps : 0.0);
+      up[a] = u0[a] + (a == du ? eps : 0.0);
+      um[a] = u0[a] + (a == du ? -eps : 0.0);
     }
     smooth_step<T>(P, qp, vp, up, qP, vP);
     smooth_step<T>(P, qm, vm, um, qM, vM);
 #pragma unroll
-    for (int r = 0; r < NV; ++r) {
-      J[((size_t(s) * NX + r) * NC + c) * B + b] = (qP[r] - qM[r]) / scale;
-      J[((size_t(s) * NX + NV + r) * NC + c) * B + b] =
-          (vP[r] - vM[r]) / scale;
+    for (int r = 0; r < NDOF; ++r) {
+      const int iq = T::sv_q(r), iv = T::sv(r);
+      J[((size_t(s) * NX + r) * NC + c) * B + b] = (qP[iq] - qM[iq]) / scale;
+      J[((size_t(s) * NX + NDOF + r) * NC + c) * B + b] =
+          (vP[iv] - vM[iv]) / scale;
     }
   }
 }
 
 }  // namespace trajopt
 
-#define TRAJOPT_DEFINE_FD(tag, NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS, \
-                               BODYDOF, LIMITED)                        \
+#define TRAJOPT_DEFINE_FD(tag, ...)                                            \
   extern "C" int trajopt_fd_jacobian_##tag(                                   \
       const double* P, const double* qpos, const double* qvel,                \
       const double* U, const long long* times, double eps, double* J, int K,  \
       int B, void* stream) {                                                  \
-    using T = trajopt::Topo<NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS,     \
-                            BODYDOF, LIMITED>;                        \
+    using T = trajopt::Topo<__VA_ARGS__>;                                     \
     const int n = K * B;                                                      \
     if (n <= 0) return 0;                                                     \
     trajopt::fd_jacobian_kernel<T><<<(n + 63) / 64, 64, 0,                    \

@@ -5,8 +5,9 @@
 // twin: trajoptkp_tpu_torch/solver/ilqr.py:forward_pass_rollouts.
 //
 // Per lane: u_t = clip(u_nom,t + alpha k_t + K_t dx_t) with dx_t the tangent
-// difference of the rolled state from the nominal (hinge/slide: plain
-// difference), then the K3 body: residual, weighted cost, K1 step.  All
+// difference of the rolled state from the nominal over the state vector's
+// dofs (hinge, slide, free translation: plain differences), then the K3
+// body: residual, weighted cost, K1 step.  All
 // alphas' trajectories are written; the argmin over alphas and the accept
 // test stay torch (solver/lanes.py:forward_pass).
 //
@@ -30,7 +31,8 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
                   const double* __restrict__ tgt, double* __restrict__ qpos,
                   double* __restrict__ qvel, double* __restrict__ ctrl,
                   double* __restrict__ costs, int H, int A, int B) {
-  constexpr int NV = T::NV, NU = T::NU, NX = T::NX, NRES = T::NRES;
+  constexpr int NQ = T::NQ, NV = T::NV, NU = T::NU, NX = T::NX;
+  constexpr int NDOF = T::NDOF, NRES = T::NRES, NTGT = T::NTGT;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= A * B) return;
   const int a = idx / B;
@@ -38,22 +40,27 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
   const double alpha = alphas[a];
   const double* lo = W + 2 * NRES;
   const double* hi = lo + NU;
-  double q[NV], v[NV], tg[NRES];
+  const double* resc = hi + NU;  // the residual's constants
+  double q[NQ], v[NV], tg[NTGT];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    q[i] = qnom[i * B + b];
-    v[i] = vnom[i * B + b];
-  }
+  for (int i = 0; i < NQ; ++i) q[i] = qnom[i * B + b];
 #pragma unroll
-  for (int r = 0; r < NRES; ++r) tg[r] = tgt[r * B + b];
+  for (int i = 0; i < NV; ++i) v[i] = vnom[i * B + b];
+#pragma unroll
+  for (int r = 0; r < NTGT; ++r) tg[r] = tgt[r * B + b];
   for (int t = 0; t < H; ++t) {
-    double dx[NX], u[NU], r[NRES], qn[NV], vn[NV];
+    double dx[NX], u[NU], r[NRES], qn[NQ], vn[NV];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      qpos[((size_t(t) * NV + i) * A + a) * B + b] = q[i];
+    for (int i = 0; i < NQ; ++i)
+      qpos[((size_t(t) * NQ + i) * A + a) * B + b] = q[i];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
       qvel[((size_t(t) * NV + i) * A + a) * B + b] = v[i];
-      dx[i] = q[i] - qnom[(size_t(t) * NV + i) * B + b];
-      dx[NV + i] = v[i] - vnom[(size_t(t) * NV + i) * B + b];
+#pragma unroll
+    for (int k = 0; k < NDOF; ++k) {
+      const int iq = T::sv_q(k), iv = T::sv(k);
+      dx[k] = q[iq] - qnom[(size_t(t) * NQ + iq) * B + b];
+      dx[NDOF + k] = v[iv] - vnom[(size_t(t) * NV + iv) * B + b];
     }
 #pragma unroll
     for (int c = 0; c < NU; ++c) {
@@ -64,32 +71,32 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
       u[c] = clip(U[tc * B + b] + alpha * kff[tc * B + b] + fb, lo[c], hi[c]);
       ctrl[(tc * A + a) * B + b] = u[c];
     }
-    joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
+    residual_and_step<T>(P, q, v, u, tg, resc, r, qn, vn);
     costs[(size_t(t) * A + a) * B + b] =
         weighted_cost<NRES>(r, t == H - 1 ? W + NRES : W);
-    smooth_step<T>(P, q, v, u, qn, vn);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) { q[i] = qn[i]; v[i] = vn[i]; }
+    for (int i = 0; i < NQ; ++i) q[i] = qn[i];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] = vn[i];
   }
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    qpos[((size_t(H) * NV + i) * A + a) * B + b] = q[i];
+  for (int i = 0; i < NQ; ++i)
+    qpos[((size_t(H) * NQ + i) * A + a) * B + b] = q[i];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
     qvel[((size_t(H) * NV + i) * A + a) * B + b] = v[i];
-  }
 }
 
 }  // namespace trajopt
 
-#define TRAJOPT_DEFINE_LINESEARCH(tag, NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS, \
-                               BODYDOF, LIMITED)                \
+#define TRAJOPT_DEFINE_LINESEARCH(tag, ...)                                    \
   extern "C" int trajopt_linesearch_##tag(                                    \
       const double* P, const double* W, const double* qnom,                   \
       const double* vnom, const double* U, const double* kff,                 \
       const double* Kfb, const double* alphas, const double* tgt,             \
       double* qpos, double* qvel, double* ctrl, double* costs, int H, int A,  \
       int B, void* stream) {                                                  \
-    using T = trajopt::Topo<NV, NU, NJ, NUR, NBODY, SLIDE, PARENTS,     \
-                            BODYDOF, LIMITED>;                        \
+    using T = trajopt::Topo<__VA_ARGS__>;                                     \
     const int n = A * B;                                                      \
     if (n <= 0) return 0;                                                     \
     trajopt::linesearch_kernel<T><<<(n + 63) / 64, 64, 0,                     \

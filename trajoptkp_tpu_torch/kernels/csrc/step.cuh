@@ -7,74 +7,114 @@
 // kernels, not a kernel of its own.  Its plain twin is
 // trajoptkp_tpu_torch/dynamics/step.py:step_state.
 //
-// Scope: trees whose bodies carry one hinge or slide joint or none (a welded
-// body passes its inertia and force to its parent), qpos index = dof index,
-// joint limits through the constraint solve of constraint.cuh (K2a), no
-// contacts, no free or ball joints.  The topology is a template argument
-// (Topo); the numeric model is one double buffer whose layout
+// Scope: trees whose bodies carry one hinge, slide or free joint or none (a
+// welded body passes its inertia and force to its parent), joint limits and
+// contacts through the constraint solve of constraint.cuh (K2a) with the
+// rows of contact.cuh (K2b), no ball joints.  The topology is a template
+// argument (Topo); the numeric model is one double buffer whose layout
 // kernels/ops.py:pack_model writes: BODY_STRIDE per body 1..NBODY-1 (the
-// joint fields of a welded body are zero), ACT_STRIDE per actuator,
-// LIM_STRIDE per limited joint, gravity, timestep.
+// joint fields of a welded or free body are zero), DOF_STRIDE per dof,
+// ACT_STRIDE per actuator, LIM_STRIDE per limited joint, PAIR_STRIDE per
+// contact pair, gravity, timestep.
 //
 // Per body the step runs FK (quaternion frames, cdof), then RNE for the
 // bias force and CRBA over composite inertias for the mass matrix, in the
 // compact form of a spatial inertia (m, h = m c, J = I_c + m (c.c I - c c^T)).
-// The plain twin (dynamics/fk.py, smooth.py, step.py) runs the same
-// recursions.
+// A free joint's body takes its pose from qpos (position, normalised
+// quaternion); its translations move along world axes, its rotations about
+// the body's own axes, so their cdof turn with the whole body twist.  The
+// plain twin (dynamics/fk.py, smooth.py, integrate.py, step.py) runs the
+// same recursions.
 //
 // Rounding: built with -fmad=false, and the plain twin runs the same
 // operations in the same order, so on the card the two agree bit for bit
 // (FD divides rounding differences by 2 eps; bitwise-equal steps keep the
 // kernel and plain solves on the same path through a chaotic horizon).
 //
-// Bound: one step is ~1.3k (acrobot) to ~6k (panda, plus ~10k for its
-// constraint solve) dependent double operations per lane, so a kernel built
-// on it is bound by latency per thread, not by bytes; this first version
-// runs one lane per thread and spills the per-body arrays to local memory
-// from pentabot width up.
+// Bound: one step is ~1.3k (acrobot) to ~6k (panda) dependent double
+// operations per lane before its constraint solve (~10k more with panda's
+// limit rows, ~60k with push_ncl's limit and contact rows), so a kernel
+// built on it is bound by latency per thread, not by bytes; this first
+// version runs one lane per thread and spills the per-body arrays and the
+// rows to local memory from pentabot width up.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <utility>
+
 #include "constraint.cuh"
+#include "contact.cuh"
+#include "geometry.cuh"
 #include "linalg.cuh"
+#include "residuals.cuh"
 
 namespace trajopt {
 
-constexpr int BODY_STRIDE = 29;
+constexpr int BODY_STRIDE = 27;
 enum BodyField {
   F_BPOS = 0, F_BQUAT = 3, F_IPOS = 7, F_IQUAT = 10, F_MASS = 14,
   F_INERTIA = 15, F_JPOS = 18, F_JAXIS = 21, F_QPOS0 = 24, F_STIFF = 25,
-  F_QSPRING = 26, F_DAMP = 27, F_ARM = 28
+  F_QSPRING = 26
 };
+constexpr int DOF_STRIDE = 2;
+enum DofField { D_DAMP = 0, D_ARM = 1 };
 constexpr int ACT_STRIDE = 5;
 enum ActField { A_DOF = 0, A_GEAR = 1, A_LIMITED = 2, A_LO = 3, A_HI = 4 };
 
-// NV dofs, NU actuators, NBODY bodies (world included).  The residual is
-// joint-space over the first NJ joints with NUR control terms.  Bit codes:
-// joint of dof j is a slide when bit j of SLIDE is set; dof j is limited when
-// bit j of LIMITED is set; the parent of body b is (PARENTS >> 4b) & 15; the
-// dof of body b is ((BODYDOF >> 4b) & 15) - 1, -1 for a welded body.
-template <int NV_, int NU_, int NJ_, int NUR_, int NBODY_, unsigned SLIDE_,
+__host__ __device__ constexpr int popcount(unsigned long long x) {
+  int n = 0;
+  for (; x; x >>= 1) n += static_cast<int>(x & 1ull);
+  return n;
+}
+
+// NV dofs, NU actuators, NBODY bodies (world included).  Bit codes, 4 bits
+// per entry unless said otherwise: the joint of dof j is a slide when bit j
+// of SLIDE is set; body b's joint is free when bit b of FREE is set; dof j
+// is limited when bit j of LIMITED is set; the parent of body b is
+// (PARENTS >> 4b) & 15; its first dof is ((BODYDOF >> 4b) & 15) - 1, -1 for
+// a welded body; its joint's first qpos is (QADR >> 4b) & 15.  The state
+// vector holds NDOF dofs, state dof k being qvel index (SVDOF >> 4k) & 15.
+// Contact pair p is the 16 bits (PAIRS >> 16p): geom types (4 bits each)
+// and bodies (4 bits each) of geom1 and geom2.  RES, RESA, RESB: the
+// residual (RES_JOINT, RES_PUSH above).
+template <int NV_, int NU_, int NBODY_, unsigned SLIDE_, unsigned FREE_,
           unsigned long long PARENTS_, unsigned long long BODYDOF_,
-          unsigned LIMITED_>
+          unsigned long long QADR_, unsigned LIMITED_, int NDOF_,
+          unsigned long long SVDOF_, int NPAIR_, unsigned long long PAIRS_,
+          int RES_, int RESA_, int RESB_>
 struct Topo {
   static constexpr int NV = NV_;
   static constexpr int NU = NU_;
-  static constexpr int NX = 2 * NV_;
-  static constexpr int NJ = NJ_;
-  static constexpr int NUR = NUR_;
-  static constexpr int NRES = 2 * NJ_ + NUR_;
   static constexpr int NBODY = NBODY_;
+  static constexpr int NQ = NV_ + popcount(FREE_);
+  static constexpr int NDOF = NDOF_;
+  static constexpr int NX = 2 * NDOF_;
+  static constexpr int RES = RES_;
+  static constexpr int NJ = RESA_;     // joint-space residual sizes
+  static constexpr int NUR = RESB_;
+  static constexpr int GOAL = RESA_;   // push residual bodies
+  static constexpr int SITE_BODY = RESB_;
+  static constexpr int NRES = RES_ == RES_JOINT ? 2 * RESA_ + RESB_ : 4;
+  static constexpr int NTGT = RES_ == RES_JOINT ? NRES : 2;
   __host__ __device__ static constexpr int parent(int b) {
     return static_cast<int>((PARENTS_ >> (4 * b)) & 0xFull);
   }
   __host__ __device__ static constexpr bool slide(int j) {
     return ((SLIDE_ >> j) & 1u) != 0u;
   }
+  __host__ __device__ static constexpr bool free(int b) {
+    return ((FREE_ >> b) & 1u) != 0u;
+  }
   __host__ __device__ static constexpr int body_dof(int b) {
     return static_cast<int>((BODYDOF_ >> (4 * b)) & 0xFull) - 1;
+  }
+  __host__ __device__ static constexpr int body_ndof(int b) {
+    return body_dof(b) < 0 ? 0 : (free(b) ? 6 : 1);
+  }
+  __host__ __device__ static constexpr int qadr(int b) {
+    return static_cast<int>((QADR_ >> (4 * b)) & 0xFull);
   }
   // The inverse maps are folded into bit codes once, so that a lookup in an
   // unrolled loop is a shift of a constant like parent(): as loops over the
@@ -84,8 +124,8 @@ struct Topo {
   __host__ __device__ static constexpr unsigned long long make_dofbody() {
     unsigned long long code = 0;
     for (int b = 1; b < NBODY_; ++b)
-      if (body_dof(b) >= 0)
-        code |= static_cast<unsigned long long>(b) << (4 * body_dof(b));
+      for (int k = 0; k < body_ndof(b); ++k)
+        code |= static_cast<unsigned long long>(b) << (4 * (body_dof(b) + k));
     return code;
   }
   static constexpr unsigned long long DOFBODY = make_dofbody();
@@ -93,6 +133,25 @@ struct Topo {
   __host__ __device__ static constexpr int dof_body(int j) {
     return static_cast<int>((DOFBODY >> (4 * j)) & 0xFull);
   }
+  __host__ __device__ static constexpr unsigned long long make_dofq() {
+    unsigned long long code = 0;
+    for (int j = 0; j < NV_; ++j) {
+      const int b = dof_body(j);
+      code |= static_cast<unsigned long long>(qadr(b) + j - body_dof(b))
+              << (4 * j);
+    }
+    return code;
+  }
+  static constexpr unsigned long long DOFQ = make_dofq();
+  // the qpos of a hinge, slide or free-translation dof j
+  __host__ __device__ static constexpr int dof_q(int j) {
+    return static_cast<int>((DOFQ >> (4 * j)) & 0xFull);
+  }
+  // state dof k: its qvel index and its qpos (hinge, slide or translation)
+  __host__ __device__ static constexpr int sv(int k) {
+    return static_cast<int>((SVDOF_ >> (4 * k)) & 0xFull);
+  }
+  __host__ __device__ static constexpr int sv_q(int k) { return dof_q(sv(k)); }
   __host__ __device__ static constexpr int count_limited() {
     int n = 0;
     for (int j = 0; j < NV_; ++j) n += (LIMITED_ >> j) & 1u;
@@ -114,69 +173,138 @@ struct Topo {
     return static_cast<int>((LIMDOF >> (4 * k)) & 0xFull);
   }
   static constexpr int NLIM = count_limited();
-  // constraint rows (constraint.cuh): two per limited joint, one entry each
-  static constexpr int R = 2 * NLIM;
-  static constexpr int ROW_W = 1;
-  __host__ __device__ static constexpr int row_dof(int r, int /*w*/) {
-    return lim_dof(r < NLIM ? r : r - NLIM);
+
+  // ---- contact pairs (contact.cuh)
+  static constexpr int NPAIR = NPAIR_;
+  __host__ __device__ static constexpr int pair_field(int p, int f) {
+    return static_cast<int>((PAIRS_ >> (16 * p + 4 * f)) & 0xFull);
   }
-  static constexpr int ACT = (NBODY_ - 1) * BODY_STRIDE;  // actuator block
-  static constexpr int LIM = ACT + NU_ * ACT_STRIDE;      // limit block
-  static constexpr int GRAV = LIM + NLIM * LIM_STRIDE;
+  __host__ __device__ static constexpr int pair_t1(int p) {
+    return pair_field(p, 0);
+  }
+  __host__ __device__ static constexpr int pair_t2(int p) {
+    return pair_field(p, 1);
+  }
+  __host__ __device__ static constexpr int pair_b1(int p) {
+    return pair_field(p, 2);
+  }
+  __host__ __device__ static constexpr int pair_b2(int p) {
+    return pair_field(p, 3);
+  }
+  // slots per pair (dynamics/collision.py PAIR_NCON)
+  __host__ __device__ static constexpr int pair_ncon(int p) {
+    return pair_t1(p) == GEOM_PLANE && pair_t2(p) == GEOM_CYLINDER ? 3 : 1;
+  }
+  // dof j on body b's root path
+  __host__ __device__ static constexpr bool on_path(int b, int j) {
+    for (; b > 0; b = parent(b))
+      if (body_ndof(b) > 0 && j >= body_dof(b) &&
+          j < body_dof(b) + body_ndof(b))
+        return true;
+    return false;
+  }
+  // support of pair p: the dofs on exactly one of the two root paths, in
+  // dof order, 4 bits each; a sign bit per support entry, set on geom2's
+  // path (+1), clear on geom1's (-1)
+  __host__ __device__ static constexpr unsigned long long make_supp(int p) {
+    unsigned long long code = 0;
+    int w = 0;
+    for (int j = 0; j < NV_; ++j)
+      if (on_path(pair_b1(p), j) != on_path(pair_b2(p), j))
+        code |= static_cast<unsigned long long>(j) << (4 * w++);
+    return code;
+  }
+  __host__ __device__ static constexpr unsigned make_sgn(int p) {
+    unsigned code = 0;
+    int w = 0;
+    for (int j = 0; j < NV_; ++j)
+      if (on_path(pair_b1(p), j) != on_path(pair_b2(p), j)) {
+        if (on_path(pair_b2(p), j)) code |= 1u << w;
+        ++w;
+      }
+    return code;
+  }
+  __host__ __device__ static constexpr int make_nsup(int p) {
+    int w = 0;
+    for (int j = 0; j < NV_; ++j)
+      w += on_path(pair_b1(p), j) != on_path(pair_b2(p), j);
+    return w;
+  }
+  static constexpr unsigned long long SUPP0 = NPAIR_ > 0 ? make_supp(0) : 0;
+  static constexpr unsigned long long SUPP1 = NPAIR_ > 1 ? make_supp(1) : 0;
+  static constexpr unsigned long long SUPP2 = NPAIR_ > 2 ? make_supp(2) : 0;
+  static constexpr unsigned long long SUPP3 = NPAIR_ > 3 ? make_supp(3) : 0;
+  static constexpr unsigned SGN0 = NPAIR_ > 0 ? make_sgn(0) : 0;
+  static constexpr unsigned SGN1 = NPAIR_ > 1 ? make_sgn(1) : 0;
+  static constexpr unsigned SGN2 = NPAIR_ > 2 ? make_sgn(2) : 0;
+  static constexpr unsigned SGN3 = NPAIR_ > 3 ? make_sgn(3) : 0;
+  static constexpr int NSUP0 = NPAIR_ > 0 ? make_nsup(0) : 0;
+  static constexpr int NSUP1 = NPAIR_ > 1 ? make_nsup(1) : 0;
+  static constexpr int NSUP2 = NPAIR_ > 2 ? make_nsup(2) : 0;
+  static constexpr int NSUP3 = NPAIR_ > 3 ? make_nsup(3) : 0;
+  // the w-th support dof of pair p, its sign, the pair's support size
+  __host__ __device__ static constexpr int supp(int p, int w) {
+    return static_cast<int>(
+        ((p == 0 ? SUPP0 : p == 1 ? SUPP1 : p == 2 ? SUPP2 : SUPP3) >>
+         (4 * w)) & 0xFull);
+  }
+  __host__ __device__ static constexpr double supp_sign(int p, int w) {
+    return (((p == 0 ? SGN0 : p == 1 ? SGN1 : p == 2 ? SGN2 : SGN3) >> w) &
+            1u) ? 1.0 : -1.0;
+  }
+  __host__ __device__ static constexpr int nsup(int p) {
+    return p == 0 ? NSUP0 : p == 1 ? NSUP1 : p == 2 ? NSUP2 : NSUP3;
+  }
+  __host__ __device__ static constexpr int count_slots() {
+    int n = 0;
+    for (int p = 0; p < NPAIR_; ++p) n += pair_ncon(p);
+    return n;
+  }
+  static constexpr int NSLOT = count_slots();
+  // pair of contact slot s (2 bits per slot)
+  __host__ __device__ static constexpr unsigned long long make_slotpair() {
+    unsigned long long code = 0;
+    int s = 0;
+    for (int p = 0; p < NPAIR_; ++p)
+      for (int c = 0; c < pair_ncon(p); ++c)
+        code |= static_cast<unsigned long long>(p) << (2 * s++);
+    return code;
+  }
+  static constexpr unsigned long long SLOTPAIR = make_slotpair();
+  __host__ __device__ static constexpr int slot_pair(int s) {
+    return static_cast<int>((SLOTPAIR >> (2 * s)) & 3ull);
+  }
+  __host__ __device__ static constexpr int first_slot(int p) {
+    int s = 0;
+    for (int q = 0; q < p; ++q) s += pair_ncon(q);
+    return s;
+  }
+  __host__ __device__ static constexpr int max_sup() {
+    int w = 1;
+    for (int p = 0; p < NPAIR_; ++p) w = nsup(p) > w ? nsup(p) : w;
+    return w;
+  }
+
+  // constraint rows (constraint.cuh): two one-entry rows per limited joint,
+  // then four rows per contact slot over its pair's support
+  static constexpr int R = 2 * NLIM + 4 * NSLOT;
+  static constexpr int ROW_W = max_sup();
+  __host__ __device__ static constexpr int row_dof(int r, int w) {
+    return r < 2 * NLIM ? lim_dof(r < NLIM ? r : r - NLIM)
+                        : supp(slot_pair((r - 2 * NLIM) / 4), w);
+  }
+  __host__ __device__ static constexpr int row_w(int r) {
+    return r < 2 * NLIM ? 1 : nsup(slot_pair((r - 2 * NLIM) / 4));
+  }
+
+  // ---- the model buffer
+  static constexpr int DOFB = (NBODY_ - 1) * BODY_STRIDE;  // per-dof block
+  static constexpr int ACT = DOFB + NV_ * DOF_STRIDE;      // actuator block
+  static constexpr int LIM = ACT + NU_ * ACT_STRIDE;       // limit block
+  static constexpr int PAIRB = LIM + NLIM * LIM_STRIDE;    // contact pairs
+  static constexpr int GRAV = PAIRB + NPAIR_ * PAIR_STRIDE;
   static constexpr int DT = GRAV + 3;
 };
-
-__device__ __forceinline__ void cross3(const double* a, const double* b,
-                                       double* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ void quat_mul(const double* a, const double* b,
-                                         double* o) {
-  const double w = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  const double x = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  const double y = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  const double z = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
-  o[0] = w; o[1] = x; o[2] = y; o[3] = z;
-}
-
-// R(q) v = v + 2 w (u x v) + 2 u x (u x v)
-__device__ __forceinline__ void quat_rotate(const double* q, const double* v,
-                                            double* o) {
-  const double u[3] = {q[1], q[2], q[3]};
-  double uv[3], uuv[3];
-  cross3(u, v, uv);
-  cross3(u, uv, uuv);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0 * (q[0] * uv[k] + uuv[k]);
-}
-
-__device__ __forceinline__ void quat_to_mat(const double* q, double* R) {
-  const double w = q[0], x = q[1], y = q[2], z = q[3];
-  R[0] = 1 - 2 * (y * y + z * z); R[1] = 2 * (x * y - w * z);
-  R[2] = 2 * (x * z + w * y);     R[3] = 2 * (x * y + w * z);
-  R[4] = 1 - 2 * (x * x + z * z); R[5] = 2 * (y * z - w * x);
-  R[6] = 2 * (x * z - w * y);     R[7] = 2 * (y * z + w * x);
-  R[8] = 1 - 2 * (x * x + y * y);
-}
-
-// rotation vector -> quaternion, with the series form near zero
-__device__ __forceinline__ void quat_exp(const double* v, double* o) {
-  const double sumsq = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
-  double w, s;
-  if (sumsq < 1e-18) {
-    s = 0.5 - sumsq * (1.0 / 48.0);
-    w = 1.0 - sumsq / 8.0;
-  } else {
-    const double angle = sqrt(sumsq);
-    const double half = 0.5 * angle;
-    s = sin(half) / angle;
-    w = cos(half);
-  }
-  o[0] = w; o[1] = v[0] * s; o[2] = v[1] * s; o[3] = v[2] * s;
-}
 
 // Spatial inertia about the world origin in compact form.
 struct Inertia {
@@ -235,13 +363,57 @@ __device__ __forceinline__ double dot6(const double* a, const double* b) {
          a[4] * b[4] + a[5] * b[5];
 }
 
-// (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
-// actuator forces, the constraint force of the limit rows (K2a),
-// (M + h D) qacc = f, semi-implicit Euler.
+// qn = q (+) v dt: hinge, slide and free translation q + dt v; a free
+// rotation q * exp(omega dt), normalised (dynamics/integrate.py).
 template <class T>
+__device__ __forceinline__ void integrate_pos(const double* q, const double* v,
+                                              double dt, double* qn) {
+#pragma unroll
+  for (int b = 1; b < T::NBODY; ++b) {
+    const int j = T::body_dof(b);
+    const int a = T::qadr(b);
+    if (j < 0) continue;
+    if (T::free(b)) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) qn[a + k] = q[a + k] + dt * v[j + k];
+      double w[3], ql[4], qq[4];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) w[k] = v[j + 3 + k] * dt;
+      quat_exp(w, ql);
+      quat_mul(q + a + 3, ql, qq);
+      quat_normalize(qq, qn + a + 3);
+    } else {
+      qn[a] = q[a] + dt * v[j];
+    }
+  }
+}
+
+// Where fk_bias writes the FK products and the bias force of one lane,
+// batch last: xpos (NBODY, 3, B), xquat (NBODY, 4, B), cdof (NV, 6, B),
+// bias (NV, B).
+struct FkBiasOut {
+  double* xpos;
+  double* xquat;
+  double* cdof;
+  double* bias;
+  int B;
+  int b;
+};
+
+// (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
+// actuator forces, the constraint force of the limit rows (K2a) and contact
+// rows (K2b), (M + h D) qacc = f, semi-implicit Euler.  With WANT_RES the
+// FK residual of the state (q, v) (RES_PUSH, with its constants `resc`
+// from the task buffer) is written to `res`, from the same FK products the
+// step uses.  With FK_BIAS the step stops after the
+// RNE and writes its FK products and bias force to `out` (fk_bias below).
+template <class T, bool WANT_RES = false, bool FK_BIAS = false>
 __device__ void smooth_step(const double* __restrict__ P, const double* q,
                             const double* v, const double* u, double* qn,
-                            double* vn) {
+                            double* vn, const double* tg = nullptr,
+                            const double* resc = nullptr,
+                            double* res = nullptr,
+                            const FkBiasOut* out = nullptr) {
   constexpr int NV = T::NV;
   constexpr int NU = T::NU;
   constexpr int NB = T::NBODY;
@@ -264,15 +436,37 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
     const double* pb = P + (b - 1) * BODY_STRIDE;
     const int p = T::parent(b);
     const int j = T::body_dof(b);
+    const int qa = T::qadr(b);
     double xq[4], xp[3], tmp[3];
-    quat_mul(xquat[p], pb + F_BQUAT, xq);
-    quat_rotate(xquat[p], pb + F_BPOS, tmp);
+    if (T::free(b)) {
+      // the body's world pose is its qpos: position, normalised quaternion
 #pragma unroll
-    for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
-    if (j < 0) {
+      for (int k = 0; k < 3; ++k) xp[k] = q[qa + k];
+      quat_normalize(q + qa + 3, xq);
+      double Rf[9];
+      quat_to_mat(xq, Rf);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        double a[3] = {Rf[k], Rf[3 + k], Rf[6 + k]}, ax[3];
+        cross3(xp, a, ax);
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          cdof[j + k][m] = 0.0;
+          cdof[j + k][3 + m] = m == k ? 1.0 : 0.0;
+          cdof[j + 3 + k][m] = a[m];
+          cdof[j + 3 + k][3 + m] = ax[m];
+        }
+      }
+    } else {
+      quat_mul(xquat[p], pb + F_BQUAT, xq);
+      quat_rotate(xquat[p], pb + F_BPOS, tmp);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
+    }
+    if (j < 0 || T::free(b)) {
       // welded body: the parent's frame moved by the body offset
     } else if (T::slide(j)) {
-      const double dq = q[j] - pb[F_QPOS0];
+      const double dq = q[qa] - pb[F_QPOS0];
       double aw[3];
       quat_rotate(xq, pb + F_JAXIS, aw);
 #pragma unroll
@@ -282,7 +476,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
         cdof[j][3 + k] = aw[k];
       }
     } else {
-      const double dq = q[j] - pb[F_QPOS0];
+      const double dq = q[qa] - pb[F_QPOS0];
       double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
       quat_rotate(xq, pb + F_JPOS, anchor);
 #pragma unroll
@@ -345,6 +539,25 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
         cvel[b][k] = cvel[p][k];
         cacc[b][k] = cacc[p][k];
       }
+    } else if (T::free(b)) {
+      // the rotations' cdof turn with the whole body twist
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cvel[b][k] = cvel[p][k];
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          cvel[b][k] = cvel[b][k] + cdof[j + i][k] * v[j + i];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cacc[b][k] = cacc[p][k];
+#pragma unroll
+      for (int i = 3; i < 6; ++i) {
+        double cm[6];
+        cross_motion(cvel[b], cdof[j + i], cm);
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          cacc[b][k] = cacc[b][k] + cm[k] * v[j + i];
+      }
     } else {
       double cm[6];
 #pragma unroll
@@ -359,6 +572,8 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 #pragma unroll
     for (int k = 0; k < 6; ++k) cfrc[b][k] = Ia[k] + cf[k];
   }
+  if constexpr (WANT_RES && T::RES == RES_PUSH)
+    push_residual<T>(resc, xpos, xquat, v, tg, res);
 
   // ---- RNE backward (bias) and composite inertias (CRBA)
   double bias[NV];
@@ -366,72 +581,136 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
   for (int b = NB - 1; b >= 1; --b) {
     const int p = T::parent(b);
     const int j = T::body_dof(b);
-    if (j >= 0) bias[j] = dot6(cdof[j], cfrc[b]);
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      if (k < T::body_ndof(b)) bias[j + k] = dot6(cdof[j + k], cfrc[b]);
     if (p > 0) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) cfrc[p][k] += cfrc[b][k];
       inertia_add(In[p], In[b]);
     }
   }
-  double M[NV][NV];
+  if constexpr (FK_BIAS) {
+    const int B = out->B, l = out->b;
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
+    for (int b = 0; b < NB; ++b) {
 #pragma unroll
-    for (int k = 0; k < NV; ++k) M[i][k] = 0.0;
+      for (int k = 0; k < 3; ++k) out->xpos[(b * 3 + k) * B + l] = xpos[b][k];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int bi = T::dof_body(i);
-    double F[6];
-    inertia_mul(In[bi], cdof[i], F);
-    M[i][i] = dot6(cdof[i], F) + P[(bi - 1) * BODY_STRIDE + F_ARM];
+      for (int k = 0; k < 4; ++k)
+        out->xquat[(b * 4 + k) * B + l] = xquat[b][k];
+    }
 #pragma unroll
-    for (int a = T::parent(bi); a > 0; a = T::parent(a)) {
-      const int ja = T::body_dof(a);
-      if (ja >= 0) {
-        const double mij = dot6(cdof[ja], F);
-        M[i][ja] = mij;
-        M[ja][i] = mij;
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) out->cdof[(i * 6 + k) * B + l] = cdof[i][k];
+      out->bias[i * B + l] = bias[i];
+    }
+  } else {
+    double M[NV][NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) M[i][k] = 0.0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int bi = T::dof_body(i);
+      double F[6];
+      inertia_mul(In[bi], cdof[i], F);
+      M[i][i] = dot6(cdof[i], F) + P[T::DOFB + i * DOF_STRIDE + D_ARM];
+      // the body's own earlier dofs (a free joint's), then its ancestors';
+      // loops of constant trip count with guards, which the unroller folds
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        const int ik = T::body_dof(bi) + k;
+        if (ik < i) {
+          const double mik = dot6(cdof[ik], F);
+          M[i][ik] = mik;
+          M[ik][i] = mik;
+        }
+      }
+#pragma unroll
+      for (int a = T::parent(bi); a > 0; a = T::parent(a)) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          if (k < T::body_ndof(a)) {
+            const int ja = T::body_dof(a) + k;
+            const double mij = dot6(cdof[ja], F);
+            M[i][ja] = mij;
+            M[ja][i] = mij;
+          }
+        }
       }
     }
-  }
 
-  // ---- forces, constraint force, implicit damping, Euler
-  const double h = P[T::DT];
-  double f[NV];
+    // ---- forces, constraint force, implicit damping, Euler
+    const double h = P[T::DT];
+    double f[NV];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const double* pb = P + (T::dof_body(i) - 1) * BODY_STRIDE;
-    const double passive =
-        -pb[F_DAMP] * v[i] + (-pb[F_STIFF] * (q[i] - pb[F_QSPRING]));
-    double act = 0.0;
+    for (int i = 0; i < NV; ++i) {
+      const int bi = T::dof_body(i);
+      const double* pb = P + (bi - 1) * BODY_STRIDE;
+      const double damp = P[T::DOFB + i * DOF_STRIDE + D_DAMP];
+      double passive = -damp * v[i];
+      if (!T::free(bi))
+        passive = passive + (-pb[F_STIFF] * (q[T::qadr(bi)] - pb[F_QSPRING]));
+      double act = 0.0;
 #pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      const double* pa = P + T::ACT + a * ACT_STRIDE;
-      if (static_cast<int>(pa[A_DOF]) == i) {
-        double c = u[a];
-        if (pa[A_LIMITED] != 0.0) c = clip(c, pa[A_LO], pa[A_HI]);
-        act += c * pa[A_GEAR];
+      for (int a = 0; a < NU; ++a) {
+        const double* pa = P + T::ACT + a * ACT_STRIDE;
+        if (static_cast<int>(pa[A_DOF]) == i) {
+          double c = u[a];
+          if (pa[A_LIMITED] != 0.0) c = clip(c, pa[A_LO], pa[A_HI]);
+          act += c * pa[A_GEAR];
+        }
       }
+      f[i] = passive + act - bias[i];
     }
-    f[i] = passive + act - bias[i];
+    if constexpr (T::R > 0) {
+      Rows<T::R, T::ROW_W> rows;
+      double qc[NV];
+      if constexpr (T::NLIM > 0) limit_rows<T>(P, q, v, rows);
+      if constexpr (T::NPAIR > 0)
+        contact_rows<T>(P, xpos, xquat, cdof, v, rows);
+      constraint_solve<T>(M, f, rows, qc);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) f[i] = f[i] + qc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      M[i][i] += h * P[T::DOFB + i * DOF_STRIDE + D_DAMP];
+    chol_factor<NV>(M);
+    chol_solve<NV>(M, f);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) vn[i] = v[i] + h * f[i];
+    integrate_pos<T>(q, vn, h, qn);
   }
-  if constexpr (T::R > 0) {
-    Rows<T::R, T::ROW_W> rows;
-    double qc[NV];
-    limit_rows<T>(P, q, v, rows);
-    constraint_solve<T>(M, f, rows, qc);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) f[i] = f[i] + qc[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    M[i][i] += h * P[(T::dof_body(i) - 1) * BODY_STRIDE + F_DAMP];
-  chol_factor<NV>(M);
-  chol_solve<NV>(M, f);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    vn[i] = v[i] + h * f[i];
-    qn[i] = q[i] + h * vn[i];
+}
+
+// The FK products and the bias force (mj_rne at qacc = 0) of one lane: the
+// first part of smooth_step, for the pushing tasks' end-effector servo
+// (tasks/pushing.py), whose control law needs the end-effector pose, cdof
+// and qfrc_bias at every servo step.
+template <class T>
+__device__ __forceinline__ void fk_bias(const double* __restrict__ P,
+                                        const double* q, const double* v,
+                                        const FkBiasOut& out) {
+  smooth_step<T, false, true>(P, q, v, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, &out);
+}
+
+// the residual at (q, v, u) and one step, from the step's FK for an FK
+// residual; `resc` holds the residual's constants (task buffer)
+template <class T>
+__device__ __forceinline__ void residual_and_step(
+    const double* __restrict__ P, const double* q, const double* v,
+    const double* u, const double* tg, const double* resc, double* r,
+    double* qn, double* vn) {
+  if constexpr (T::RES == RES_JOINT) {
+    joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
+    smooth_step<T>(P, q, v, u, qn, vn);
+  } else {
+    smooth_step<T, true>(P, q, v, u, qn, vn, tg, resc, r);
   }
 }
 

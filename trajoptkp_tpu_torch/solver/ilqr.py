@@ -114,22 +114,32 @@ def rollout(task: Task, qpos0, qvel0, U, targets):
 # ---------------------------------------------------------------------------
 
 
-def _mm(X, Y):
-    """(p, q, B) @ (q, r, B) -> (p, r, B)."""
-    return torch.einsum("pqb,qrb->prb", X, Y)
+def _contract(X, Y):
+    """sum_j X[j] * Y[j] over the leading axis, left to right (no fused
+    multiply-add), as the kernel's loops run: X (J, *a), Y (J, *b) with
+    broadcasting shapes."""
+    s = X[0] * Y[0]
+    for j in range(1, X.shape[0]):
+        s = s + X[j] * Y[j]
+    return s
 
 
-def _mv(X, y):
-    """(p, q, B) @ (q, B) -> (p, B)."""
-    return torch.einsum("pqb,qb->pb", X, y)
+def sum_contract(X, Y):
+    """The same contraction as `_contract` in torch's own reduction order,
+    which is not the kernel's: the reference that tells rounding-order
+    differences from faults (chip_smoke.py holds K7 against both)."""
+    n = max(X.dim(), Y.dim())        # X[j] * Y[j] broadcasts from the right
+    X = X.reshape(X.shape[:1] + (1,) * (n - X.dim()) + X.shape[1:])
+    Y = Y.reshape(Y.shape[:1] + (1,) * (n - Y.dim()) + Y.shape[1:])
+    return (X * Y).sum(0)
 
 
-def _tr(X):
-    return X.transpose(0, 1)
-
-
-def backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb):
-    """One Riccati sweep with per-lane λ (B,).
+def backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb, contract=_contract):
+    """One Riccati sweep with per-lane λ (B,), in the operation order of
+    kernel K7 (kernels/csrc/backward.cu:riccati_sweep): every sum runs
+    left to right over its index, so that on the card the two agree bit
+    for bit (a matrix product would sum in cuBLAS's order, with fused
+    multiply-adds).  `contract=sum_contract` sums in another order.
 
     A (H, 2n, 2n, B), Bm (H, 2n, nu, B), l_x (H, 2n, B), l_xx (H, 2n, 2n, B),
     l_u (H, nu, B), l_uu (H, nu, nu, B) -> k (H, nu, B), K (H, nu, 2n, B),
@@ -141,8 +151,9 @@ def backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb):
     ks, Ks, dJ = [None] * H, [None] * H, torch.zeros_like(lamb)
     for t in reversed(range(H)):
         AB = torch.cat([A[t], Bm[t]], dim=1)           # (2n, 2n+nu, B)
-        g = _mv(_tr(AB), V_x)
-        G = _mm(_tr(AB), _mm(V_xx, AB))
+        W = contract(V_xx.transpose(0, 1)[:, :, None], AB[:, None])
+        g = contract(AB, V_x[:, None])                 # (2n+nu, B)
+        G = contract(AB[:, :, None], W[:, None])       # (2n+nu, 2n+nu, B)
         Q_x = l_x[t] + g[:nx]
         Q_u = l_u[t] + g[nx:]
         Q_xx = l_xx[t] + G[:nx, :nx]
@@ -151,13 +162,15 @@ def backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb):
         L = chol_unrolled(Q_uu + lamb * eye_u)
         k_t = -chol_solve_unrolled(L, Q_u)
         K_t = -chol_solve_unrolled(L, Q_ux)
-        Kt_T = _tr(K_t)
-        V_x = (Q_x + _mv(Kt_T, _mv(Q_uu, k_t)) + _mv(Kt_T, Q_u)
-               + _mv(_tr(Q_ux), k_t))
-        V_xx = (Q_xx + _mm(Kt_T, _mm(Q_uu, K_t)) + _mm(Kt_T, Q_ux)
-                + _mm(_tr(Q_ux), K_t))
-        V_xx = 0.5 * (V_xx + _tr(V_xx))
-        dJ = dJ + (torch.sum(k_t * Q_u, 0) + torch.sum(k_t * _mv(Q_uu, k_t), 0))
+        Quu_k = contract(Q_uu.transpose(0, 1), k_t)              # (nu, B)
+        Quu_K = contract(Q_uu.transpose(0, 1)[:, :, None], K_t[:, None])
+        V_x = ((Q_x + contract(K_t, Quu_k[:, None]))
+               + contract(K_t, Q_u[:, None])) + contract(Q_ux, k_t[:, None])
+        V_xx = (((Q_xx + contract(K_t[:, :, None], Quu_K[:, None]))
+                 + contract(K_t[:, :, None], Q_ux[:, None]))
+                + contract(Q_ux[:, :, None], K_t[:, None]))
+        V_xx = 0.5 * (V_xx + V_xx.transpose(0, 1))
+        dJ = dJ + (contract(k_t, Q_u) + contract(k_t, Quu_k))
         ks[t], Ks[t] = k_t, K_t
     k, K = torch.stack(ks), torch.stack(Ks)
     valid = (torch.isfinite(k).all(dim=(0, 1))
@@ -175,14 +188,16 @@ def update_lambda(cfg: ILQRConfig, lamb, valid):
 
 
 def backward_pass_lambda_loop(A, Bm, l_x, l_xx, l_u, l_uu, lamb,
-                              cfg: ILQRConfig):
+                              cfg: ILQRConfig, contract=_contract):
     """while (!valid): BP; update λ — per lane.  Returns (k, K, dJ,
     new λ (B,), λ-exit (B,) bool)."""
-    k, K, dJ, valid = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb)
+    k, K, dJ, valid = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb,
+                                    contract)
     lam, exited = update_lambda(cfg, lamb, valid)
     retry = ~valid & ~exited
     while bool(retry.any()):
-        k2, K2, dJ2, valid2 = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lam)
+        k2, K2, dJ2, valid2 = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lam,
+                                            contract)
         lam2, exited2 = update_lambda(cfg, lam, valid2)
         k = torch.where(retry, k2, k)
         K = torch.where(retry, K2, K)

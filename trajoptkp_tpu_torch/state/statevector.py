@@ -2,7 +2,9 @@
 `trajoptkp_tpu/state/statevector.py:58-148`).
 
 The optimisation state x = [position tangent; velocity] over the selected
-dofs, quaternion-aware through integrate_pos / differentiate_pos.  Arrays
+dofs (all nv, or a reduced set with ndof < nv, e.g. the pushing tasks' arm
+joints and object translations), quaternion-aware through integrate_pos /
+differentiate_pos.  Arrays
 keep the component axis first and the batch axes last.
 """
 
@@ -65,6 +67,18 @@ def full_state_vector(model: Model) -> StateVector:
     return StateVector(
         names=dof_names(model), order=tuple(range(model.nv)),
         active=torch.ones(model.nv, dtype=model.dtype, device=model.device),
+    )
+
+
+def state_vector_from_names(model: Model, selected) -> StateVector:
+    """The state over the named dofs, in the given order (JAX
+    `state_vector_from_names`): joint names for hinge/slide dofs,
+    `<body>_lin_x` ... `<body>_ang_z` for free-joint dofs."""
+    all_names = dof_names(model)
+    order = tuple(all_names.index(n) for n in selected)
+    return StateVector(
+        names=tuple(selected), order=order,
+        active=torch.ones(len(order), dtype=model.dtype, device=model.device),
     )
 
 

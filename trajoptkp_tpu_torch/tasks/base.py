@@ -7,7 +7,9 @@ twice: as the plain torch function `residual_fn` and as a CUDA device
 function of the same name for the kernels; `residual_kind` names it and its
 static sizes: ("joint_space", nj, nr) is position and velocity errors of the
 first nj joints and nr control terms, nres = 2 nj + nr (reaching has nr = 0
-although its arm has seven actuators).
+although its arm has seven actuators); ("push", n_obstacles, goal body, ee
+site) is the pushing tasks' FK residual (tasks/pushing.py), read from
+forward kinematics of the state, with the goal xy as its targets.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ class Task:
     keypoint_cfg: Optional[KeypointConfig] = None
     # task_complete_fn(qpos (nq,*L), targets (nres,*L)) -> (done, distance)
     task_complete_fn: Optional[Callable] = None
+    # init_controls_fn(task, H, qpos (nq, B), qvel (nv, B), targets) ->
+    # (qpos, qvel, U (H, nu, B)): the solve's start and initial controls
+    # (setup and init servo of the pushing tasks); None = zero controls
+    init_controls_fn: Optional[Callable] = None
     openloop_horizon: int = 500
     mpc_horizon: int = 100
 

@@ -1,8 +1,9 @@
 """Quaternion and spatial helpers (counterpart of `trajoptkp_tpu/utils/math.py`).
 
-Only what forward kinematics, the smooth dynamics and integration use (JAX
-`utils/math.py:33-85, 161-208, 251-266`).  Every function takes its vector component axis FIRST
-and broadcasts over any trailing batch axes: a quaternion is (4, *L), a
+Only what forward kinematics, the smooth dynamics, integration and the
+pushing tasks' end-effector servo use (JAX `utils/math.py:33-208,
+251-266`).  Every function takes its vector component axis FIRST and
+broadcasts over any trailing batch axes: a quaternion is (4, *L), a
 3-vector (3, *L), a spatial vector (6, *L).  Quaternions are wxyz.
 """
 
@@ -20,8 +21,10 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    norm = torch.sqrt(torch.sum(q * q, dim=0, keepdim=True))
-    return q / torch.clamp(norm, min=eps)
+    """q / max(|q|, eps), the squares summed left to right as the kernels do
+    (kernels/csrc/step.cuh:quat_normalize)."""
+    sumsq = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]
+    return q / torch.clamp(torch.sqrt(sumsq), min=eps)[None]
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -71,6 +74,33 @@ def quat_exp(v: torch.Tensor) -> torch.Tensor:
                             torch.sin(half) / angle)
     w = torch.where(small, 1.0 - sumsq / 8.0, torch.cos(half))
     return torch.cat([w, v * sinc_half])
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (3, 3, *L) -> quaternion (4, *L), the four Shepperd
+    cases selected branch-free (JAX `mat_to_quat`)."""
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+
+    def case(wsq, build):
+        return build(torch.sqrt(torch.clamp(wsq, min=1e-16)) * 2.0)
+
+    q0 = case(tr + 1.0, lambda s: torch.stack([
+        s / 4.0, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+        (m[1, 0] - m[0, 1]) / s]))
+    q1 = case(1.0 + m[0, 0] - m[1, 1] - m[2, 2], lambda s: torch.stack([
+        (m[2, 1] - m[1, 2]) / s, s / 4.0, (m[0, 1] + m[1, 0]) / s,
+        (m[0, 2] + m[2, 0]) / s]))
+    q2 = case(1.0 - m[0, 0] + m[1, 1] - m[2, 2], lambda s: torch.stack([
+        (m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, s / 4.0,
+        (m[1, 2] + m[2, 1]) / s]))
+    q3 = case(1.0 - m[0, 0] - m[1, 1] + m[2, 2], lambda s: torch.stack([
+        (m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s,
+        (m[1, 2] + m[2, 1]) / s, s / 4.0]))
+    c0 = (tr > 0)[None]
+    c1 = ((m[0, 0] > m[1, 1]) & (m[0, 0] > m[2, 2]))[None]
+    c2 = (m[1, 1] > m[2, 2])[None]
+    q = torch.where(c0, q0, torch.where(c1, q1, torch.where(c2, q2, q3)))
+    return quat_normalize(q)
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
