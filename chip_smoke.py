@@ -3,39 +3,50 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from kernels/csrc and holds each against its
-plain PyTorch twin on the card: acrobot at its main path's shapes, pentabot,
-reaching (panda, joint limits: the constraint solve inside the step) and
-push_ncl (panda pushing a free cylinder: the contact rows and narrow phase
-inside the step as well) at a smaller size, half of reaching's lanes started
-at their joint limits and push_ncl's from its servo with all three contact
-pairs touching (the contact rows K2b and the constraint solve K2a run inside
-the step of the rollout, line-search and FD kernels); the servo's fk_bias is
-held against its twin there too.  The backward pass is also held against
-its twin summed in another order (`sum_contract`) on the card and on the
-CPU.  It replays the acrobot SI_5 H=200 golden solve on the kernel path,
-then drives the three main paths through `make_lane_phase_optimise` with
-launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1 (H=1500, 128
-scenes) and push_ncl SI_1 (H=1000, 128 scenes from the task's scene
-generator, started by its setup and init servo), 10 iterations each,
-float64.  Three iterations of each are compared with the plain path on the
-card (reaching and push_ncl at a reduced horizon), the four kernels are
-timed at reaching's and push_ncl's full shapes and held against their twins
-there too (the rollout and the line search step by step, see
-`stepwise_check`), the push_ncl servo's first steps and its fk_bias are
-held against the plain servo at its own 128 lanes (`check_servo`), and the
-CLI solves the three tasks.
+Builds the five CUDA kernels from kernels/csrc (one nvcc per library and
+model instance, all in parallel) and holds each against its plain PyTorch
+twin on the card: acrobot at its main path's shapes, pentabot, reaching
+(panda, joint limits: the constraint solve inside the step), push_ncl (panda
+pushing a free cylinder: the contact rows and narrow phase inside the step
+as well) and the walker (three joints on its torso, plane-capsule and
+capsule-capsule rows; with the MPC replan's apply step, K8) at a smaller
+size, half of reaching's lanes started at their joint limits, push_ncl's
+from its servo with all three contact pairs touching and the walker's
+pressed into the floor or folded with a shin in the torso (the contact rows
+K2b and the constraint solve K2a run inside the step of the rollout,
+line-search, FD and apply kernels); the servo's fk_bias is held against its
+twin too.  The backward pass is also held against its twin summed in
+another order (`sum_contract`) on the card and on the CPU.  It replays the
+acrobot SI_5 H=200 golden solve on the kernel path, then drives the main
+paths with launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1
+(H=1500, 128 scenes) and push_ncl SI_1 (H=1000, 128 scenes from the task's
+scene generator, started by its setup and init servo) through
+`make_lane_phase_optimise`, 10 iterations each, and walker_run sync MPC
+through the campaign entry point (`sync_mpc_horizon_sweep`: H=40, 200
+replans of one iteration and one applied control, one episode and 128
+episodes, and H=20 and 80), float64.  Three iterations of each open-loop
+path are compared with the plain path on the card (reaching and push_ncl at
+a reduced horizon), the first walker MPC replans (one episode), each
+kernel phase of the first replan of the 128 episodes, and six acrobot MPC
+replans too, bit for bit; the four open-loop kernels are timed at
+reaching's and push_ncl's full shapes and held against their twins there
+too (the rollout and the line search step by step, see `stepwise_check`),
+the push_ncl servo's first steps and its fk_bias are held against the plain
+servo at its own 128 lanes (`check_servo`), each phase of a walker replan is
+timed, and the CLI solves the three open-loop tasks and runs the walker's
+`Generate_syncronus_mpc_data --horizon 40`.
 
 Prints the card's name and power limit, the kernel build time, the seconds
 of each phase, a `record` line with every measurement, one
 `{"kernels": [...]}` line (one entry per kernel and model) and, last,
 `{"ok": true, "device": {...}}`.  Any failed check is printed as it happens
 and makes the script exit non-zero at the end without a result; it also
-fails where no CUDA device is present.
+fails where no CUDA device is present.  The MPC campaigns write their
+`mpc_horizons.csv` under chip_smoke_out/mpc/.
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
-golden, main_acrobot, main_reaching, main_push, cli) while developing; a
-subset never prints a result.
+walker, golden, main_acrobot, main_reaching, main_push, main_mpc, cli) while
+developing; a subset never prints a result.
 """
 
 import argparse
@@ -56,12 +67,16 @@ from trajoptkp_tpu_torch.dynamics.contact import (ALPHA_LADDER, NEWTON_ITERS,
                                                   limits_active)
 from trajoptkp_tpu_torch.dynamics.model import FREE, HINGE, SLIDE
 from trajoptkp_tpu_torch.dynamics.step import step_state
+from trajoptkp_tpu_torch.bench.campaigns import (episode_starts,
+                                                 sync_mpc_horizon_sweep)
 from trajoptkp_tpu_torch.kernels import build, ops
+from trajoptkp_tpu_torch.mpc import sync as mpc_sync
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
 from trajoptkp_tpu_torch.state.statevector import to_tangent
 from trajoptkp_tpu_torch.tasks import pushing
 from trajoptkp_tpu_torch.tasks.base import control_limits
+from trajoptkp_tpu_torch.tasks.locomotion import make_walker
 from trajoptkp_tpu_torch.tasks.reaching import make_reaching
 from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
 
@@ -72,14 +87,24 @@ H, B, ITERS = 500, 512, 10          # the acrobot main path
 RH, RB = 1500, 128                  # the reaching main path
 UH, UB = 1000, 128                  # the push_ncl main path
 PH, PB = 100, 64                    # pentabot, reaching and push check size
-# kernel-vs-plain solve horizons: cut from reaching's 200 to 100 to make
-# room for push_ncl (a plain reaching step at 64 lanes takes ~170 ms on an
-# H100)
-RH3 = 100
-UH3 = 40                            # push kernel-vs-plain solve horizon
+# kernel-vs-plain 3-iteration solve horizons: reaching's cut from 200 to
+# 100 to make room for push_ncl, then to 50 and push_ncl's from 40 to 20 to
+# make room for the walker MPC (a plain reaching step at 64 lanes takes ~170
+# ms on an H100; every kernel is also held at the full shape, stepwise_check)
+RH3 = 50
+UH3 = 20
 SERVO_CHECK = 10                    # servo steps held against the plain servo
-PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "golden",
-          "main_acrobot", "main_reaching", "main_push", "cli")
+WH, WB = 20, 16                     # walker check size
+MH, MB = 40, 128                    # walker MPC: make_walker's mpc_horizon,
+#                                     and the episodes of the batched run
+N_REPLANS = 200                     # replans per episode (the JAX campaign)
+SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
+MPC_PLAIN_REPLANS = 2               # replans held against the plain path
+MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_smoke_out", "mpc")
+PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "walker",
+          "golden", "main_acrobot", "main_reaching", "main_push", "main_mpc",
+          "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -150,19 +175,18 @@ class Sizes:
         self.nq, self.nv, self.nu, self.nres = m.nq, m.nv, m.nu, task.nres
         self.nx = task.sv.nx                        # 2 x state-vector dofs
         self.ntgt = task.residual_targets.shape[0]
-        kinds = [m.jnt_type[j] if j >= 0 else None
-                 for j in ops.body_joints(m)[1:]]
+        joints = ops.body_joints(m)
+        kinds = [m.jnt_type[j] for js in joints[1:] for j in js]
         self.n_scalar = sum(k in (HINGE, SLIDE) for k in kinds)
-        self.n_welded = kinds.count(None)
+        self.n_welded = sum(not js for js in joints[1:])
         self.n_free = kinds.count(FREE)
         # (i, k < i) pairs of the mass matrix the CRBA fills: per body with
         # n dofs, its own earlier dofs and its ancestors' dofs
         anc = m.ancestor_mask.sum(1).tolist()
         self.m_pairs = 0
-        for b, j in enumerate(ops.body_joints(m)):
-            if j >= 0:
-                n = 6 if m.jnt_type[j] == FREE else 1
-                self.m_pairs += n * (n - 1) // 2 + n * (int(anc[b]) - n)
+        for b, js in enumerate(joints):
+            n = sum(6 if m.jnt_type[j] == FREE else 1 for j in js)
+            self.m_pairs += n * (n - 1) // 2 + n * (int(anc[b]) - n)
         lim = 2 * len(limit_constants(m).joints)
         pairs = [(len(p.support), p.ncon)
                  for p in contact_constants(m).pairs]
@@ -265,6 +289,32 @@ def backward_bound(nx, nu, Hh, Bb, sweeps):
     return bound(ops_, byt)
 
 
+def cost_expansion_bound(s, Hh, Bb):
+    """K6 (stays torch): per step the residual and its forward-mode
+    Jacobian over the 2n + nu tangent columns (~3x the residual's
+    operations per column, with the FK for an FK residual) and the
+    Gauss-Newton products 2 nres (2n + nu)^2 + 2 nres (2n + nu), against
+    reading the nominal and writing l_x, l_xx, l_u, l_uu."""
+    nz = s.nx + s.nu
+    res = cost_ops(s) + (fk_bias_ops(s) if s.fk_residual else 0)
+    ops_ = Hh * Bb * (3 * nz * res + 2 * s.nres * nz * nz + 2 * s.nres * nz)
+    byt = F8 * (Hh * Bb * (s.nq + s.nv + s.nu) + s.ntgt * Bb
+                + Hh * Bb * (s.nx + s.nx * s.nx + s.nu + s.nu * s.nu))
+    return bound(ops_, byt)
+
+
+def apply_bound(s, Hh, NA, Bb):
+    """K8: NA steps with their residual, noise and clip, and the blend of
+    H nu controls, against reading U, U_n, the state, z, std, the targets
+    and the flags and writing the shifted controls, the histories and the
+    new state."""
+    nu, ns = s.nu, s.nq + s.nv
+    ops_ = Bb * (NA * (step_ops(s) + cost_ops(s) + 3 * nu) + 4 * Hh * nu)
+    byt = F8 * (Bb * (ns + 2 * Hh * nu + 3 + NA * nu + s.ntgt) + nu
+                + Bb * (ns + Hh * nu + NA * (ns + nu + 1) + 1))
+    return bound(ops_, byt)
+
+
 # ---- phases -----------------------------------------------------------------
 
 
@@ -364,6 +414,64 @@ def push_inputs(task, Hh, Bb, seed):
     k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
     K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
     return qp0, qv0, tgl, U, k, K
+
+
+def walker_inputs(task, Hh, Bb, seed):
+    """Check inputs for the walker: a quarter of the lanes with a shin
+    pressed ~1 cm into the torso (legs folded far past their +-1 degree
+    limits: a capsule-capsule pair, tests/test_torch_walker.py), the rest
+    with the torso 0-4 cm into the floor, tilted, and random leg angles
+    (plane-capsule pairs); controls U(-1, 1), gains as lane_inputs."""
+    rng = np.random.default_rng(seed)
+    m = task.model
+    nu, nx = m.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    qp = np.tile(task.qpos_start.cpu().numpy()[:, None], (1, Bb))
+    n4 = Bb // 4
+    qp[0, :n4] = 0.5
+    qp[3:, :n4] = np.array([0.78, 2.86, 2.57, -2.66, -2.88, 2.59])[:, None]
+    qp[0, n4:] = rng.uniform(-0.04, 0.0, Bb - n4)
+    qp[2, n4:] = rng.uniform(-0.3, 0.3, Bb - n4)
+    qp[3:, n4:] = rng.uniform(-0.5, 0.5, (6, Bb - n4))
+    qv = 0.3 * rng.standard_normal((m.nv, Bb))
+    U = rng.uniform(-1.0, 1.0, (Hh, nu, Bb))
+    k = 0.1 * rng.standard_normal((Hh, nu, Bb))
+    K = 0.05 * rng.standard_normal((Hh, nu, nx, Bb))
+    tg = task.residual_targets[:, None].expand(-1, Bb)
+    return tuple(torch.as_tensor(x, **f64).contiguous()
+                 for x in (qp, qv, tg, U, k, K))
+
+
+def check_apply(task, qp0, qv0, tg, U, seed, num_apply=1):
+    """K8 against its twin (mpc/sync.py:apply_controls) on the same inputs:
+    blended controls from U and a second control sequence, half of the
+    lanes accepted, standard-normal noise."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Un = torch.as_tensor(rng.uniform(-1.0, 1.0, U.shape), **f64)
+    z = torch.as_tensor(rng.standard_normal((num_apply, task.model.nu, Bb)),
+                        **f64)
+    accept = torch.arange(Bb, device="cuda") % 2 == 0
+    best = torch.as_tensor(rng.random(Bb), **f64)
+    old = best + 1.0
+    std = mpc_sync.noise_std(task, 5.0)
+    args = (task, qp0, qv0, U, Un, accept, best, old, z, std, tg)
+    ka = ops.mpc_apply(*args)
+    pa, plain_ms = cuda_timed(lambda: ops.mpc_apply(*args, plain=True))
+    e = max((err(a, b, "rel") for a, b in zip(ka, pa)), key=lambda x: x[1])
+    same = all(bool(torch.equal(a, b)) for a, b in zip(ka, pa))
+    row = dict(err=e, bitwise=same, plain_ms=plain_ms,
+               ms=cuda_ms(lambda: ops.mpc_apply(*args), 5),
+               bound=apply_bound(Sizes(task), Hh, num_apply, Bb),
+               tol="rel 1e-12")
+    print(f"  {task.name} mpc_apply (H={Hh}, B={Bb}, num_apply "
+          f"{num_apply}): kernel vs plain max abs err {e[0]:.3e} (compared "
+          f"{e[1]:.3e}), bitwise equal {same}, {row['ms']:.4f} ms (plain "
+          f"{plain_ms:.4f} ms)", flush=True)
+    check(math.isfinite(e[1]) and e[1] <= 1e-12,
+          f"{task.name} mpc_apply: kernel vs plain error {e[1]:.3e}")
+    return row
 
 
 def fk_bias_ops(s):
@@ -509,10 +617,12 @@ def fd_slot_agreement(kj, pj, tol):
 
 
 def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
-                  inputs=None):
+                  inputs=None, pair_types=False):
     """Each kernel against its plain twin on the same inputs (`inputs`, or
     lane_inputs).  With constraint rows (limits at `at_limits`, or contacts)
-    FD is held slot by slot (fd_slot_agreement)."""
+    FD is held slot by slot (fd_slot_agreement).  Every contact pair must be
+    active in the plain rollout, or with `pair_types` every type of pair
+    (the walker's capsule pairs touch only far past their joint limits)."""
     s = Sizes(task)
     gated = at_limits or bool(task.model.contact_pairs)
     qp0, qv0, tg, U, k, K = inputs or lane_inputs(task, Hh, Bb, seed=3,
@@ -548,8 +658,21 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
               f"{c['lane_steps_by_pair']} of {c['of']} lane-steps and "
               f"{c['lanes_by_pair']} of {Bb} lanes of the plain rollout",
               flush=True)
-        check(all(n_ > 0 for n_ in c["lane_steps_by_pair"]),
-              f"{task.name}: a contact pair was never active in the check")
+        if pair_types:
+            kinds = [pr.types for pr in contact_constants(task.model).pairs]
+            c["lane_steps_by_type"] = {
+                f"{t1}-{t2}": sum(n_ for n_, k in zip(
+                    c["lane_steps_by_pair"], kinds) if k == (t1, t2))
+                for t1, t2 in sorted(set(kinds))}
+            print(f"  {task.name}: contact rows active per pair type (geom "
+                  f"types): {json.dumps(c['lane_steps_by_type'])} lane-steps",
+                  flush=True)
+            check(all(n_ > 0 for n_ in c["lane_steps_by_type"].values()),
+                  f"{task.name}: a contact pair type was never active")
+        else:
+            check(all(n_ > 0 for n_ in c["lane_steps_by_pair"]),
+                  f"{task.name}: a contact pair was never active in the "
+                  "check")
     if task.init_controls_fn is not None:
         rows["fk_bias"] = check_fk_bias(task, pr[0][:Hh], pr[1][:Hh])
     if time_them:
@@ -836,6 +959,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     }
     out = dict(mean_cost_reduction=mean_red, wall_s=wall,
                solves_per_s=Bb / wall, launches=launches, phases_ms=phases,
+               cost_expansion_bound=cost_expansion_bound(s, Hh, Bb),
                iterations_mean=float(res.num_iterations.double().mean()),
                peak_memory_bytes=peak,
                limit_active_lane_steps=int(active.sum()),
@@ -881,8 +1005,11 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     U3 = U0[:B3, :H3].contiguous()
     r_k = lanes.make_lane_phase_optimise(task, cfg3, H3)(
         qp[:B3], qv[:B3], U3, tg[:B3])
+    t0 = time.perf_counter()
     r_p = lanes.make_lane_phase_optimise(task, cfg3, H3, plain=True)(
         qp[:B3], qv[:B3], U3, tg[:B3])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
     diff = (r_k.cost_reduction - r_p.cost_reduction).abs()
     agree = float((diff < 1e-4).double().mean())
     worst = torch.argsort(diff, descending=True)[:8]
@@ -891,8 +1018,10 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
           f"{float((diff < 1e-6).double().mean()):.4f}, 1e-4 {agree:.4f}, "
           f"1e-2 {float((diff < 1e-2).double().mean()):.4f}; worst lanes "
           f"{worst.tolist()} kernel {r_k.cost_reduction[worst].tolist()} "
-          f"plain {r_p.cost_reduction[worst].tolist()}", flush=True)
-    out.update(plain_agree_3it=agree, plain_agree_shape=f"H={H3} B={B3}")
+          f"plain {r_p.cost_reduction[worst].tolist()} (plain path "
+          f"{plain_s:.1f} s)", flush=True)
+    out.update(plain_agree_3it=agree, plain_agree_shape=f"H={H3} B={B3}",
+               plain_3it_s=plain_s)
     if not task.model.has_constraints:
         check(agree >= 0.99, f"{name}: only {agree:.3f} of lanes agree with "
                              "the plain path within 1e-4")
@@ -923,11 +1052,205 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     return out
 
 
+def flat(x):
+    """The tensors of a (nested) tuple of phase outputs, in order."""
+    if torch.is_tensor(x):
+        return [x]
+    return [t for y in x for t in flat(y)]
+
+
+def outputs_gap(a, b):
+    """(bit for bit, max abs err) of two phase outputs."""
+    a, b = flat(a), flat(b)
+    same = len(a) == len(b) and all(bool(torch.equal(x, y))
+                                    for x, y in zip(a, b))
+    gap = max((float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b) if x.numel()), default=0.0)
+    return same, gap
+
+
+def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
+    """Per-phase device ms of one lane-last replan from (qp, qv, U) (each
+    phase alone, 3 launches after a warm-up), the kernels' ms among them,
+    and the first backward pass's sweeps.  With `hold`, each kernel phase
+    (K3, K5 with its lerp, K7, K4 with its argmin, K8 with noise drawn from
+    seed 0) runs again as its plain twin on the same inputs, and the
+    outputs must be equal bit for bit: the fourth value holds
+    (bit for bit, max abs err) by kernel."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    ph = lanes.lane_phases(task, cfg, Hh)
+    qpos, qvel, costs = ph["rollout"](qp, qv, U, tg)
+    old = costs.sum(0)
+    A, Bm = ph["jacobians"](qpos, qvel, U)
+    l = ph["cost_expansion"](qpos, qvel, U, tg)
+    lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
+                     device="cuda")
+    bp = ph["bp"](A, Bm, *l, lam)
+    k, K, _, lam_out, _ = bp
+    fp = ph["fp"](qpos, qvel, U, old, k, K, tg)
+    traj, _, best, accept = fp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    z = torch.randn((1, task.model.nu, Bb), generator=gen,
+                    dtype=torch.float64, device="cuda")
+    std = mpc_sync.noise_std(task, 5.0)
+    apply = lambda plain=False: ops.mpc_apply(  # noqa: E731
+        task, qp, qv, U, traj[2], accept, best, old, z, std, tg, plain=plain)
+    held = {}
+    if hold:
+        pp = lanes.lane_phases(task, cfg, Hh, plain=True)
+        held = {
+            "rollout": outputs_gap((qpos, qvel, costs),
+                                   pp["rollout"](qp, qv, U, tg)),
+            "fd_jacobian": outputs_gap((A, Bm),
+                                       pp["jacobians"](qpos, qvel, U)),
+            "backward": outputs_gap(bp, pp["bp"](A, Bm, *l, lam)),
+            "linesearch": outputs_gap(fp, pp["fp"](qpos, qvel, U, old, k, K,
+                                                   tg)),
+            "mpc_apply": outputs_gap(apply(), apply(plain=True)),
+        }
+        torch.cuda.synchronize()
+    phases = {
+        "rollout": cuda_ms(lambda: ph["rollout"](qp, qv, U, tg), 3),
+        "jacobians": cuda_ms(lambda: ph["jacobians"](qpos, qvel, U), 3),
+        "cost_expansion": cuda_ms(lambda: ph["cost_expansion"](
+            qpos, qvel, U, tg), 3),
+        "bp": cuda_ms(lambda: ph["bp"](A, Bm, *l, lam), 3),
+        "fp": cuda_ms(lambda: ph["fp"](qpos, qvel, U, old, k, K, tg), 3),
+        "apply": cuda_ms(apply, 3),
+    }
+    plan = lanes.si_plan(task, Hh)
+    kernel = {
+        "rollout": phases["rollout"],
+        "linesearch": cuda_ms(lambda: ops.linesearch(
+            task, qpos, qvel, U, k, K, ph["alphas"], tg), 3),
+        "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
+            task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
+        "backward": phases["bp"],
+        "mpc_apply": phases["apply"],
+    }
+    return phases, kernel, sweeps_from_lambda(lam_out, lam, cfg), held
+
+
+def main_mpc(task, acro):
+    """The walker MPC main path: walker_run SI_1 (the task's own keypoints)
+    at its MPC horizon, one iteration and one applied control per replan,
+    N_REPLANS replans, through the campaign entry point
+    (bench/campaigns.py:sync_mpc_horizon_sweep, mpc/sync.py's host-timed
+    lane executor), with launch counts: one episode at H = MH (the main
+    path), the sweep's other horizons, and MB episodes at MH.  Then the
+    device ms of each phase inside one replan, each kernel phase of the
+    first replan of the MB episodes against its twin, and the kernel path
+    against the plain path over the first MPC_PLAIN_REPLANS replans
+    (walker, one episode) and over 6 replans of acrobot, bit for bit; the
+    launches of both walker runs at MH are counted."""
+    cfg = ILQRConfig()
+    out = {}
+    os.makedirs(MPC_OUT, exist_ok=True)
+    ops.reset_launch_counts()
+    row = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=N_REPLANS,
+                                 out_dir=os.path.join(MPC_OUT, "b1_h40"))[0]
+    launches = dict(ops.LAUNCHES)
+    out["main"] = dict(row=row, launches=launches)
+    for kname in ops.KERNELS + ops.MPC_KERNELS:
+        check(launches[kname] == N_REPLANS,
+              f"walker MPC main path launched {kname} {launches[kname]} "
+              f"times, not once per replan ({N_REPLANS})")
+    out["sweep"] = [row] + sync_mpc_horizon_sweep(
+        task, cfg, [h for h in SWEEP if h != MH], n_replans=N_REPLANS,
+        out_dir=os.path.join(MPC_OUT, "sweep"))
+    ops.reset_launch_counts()
+    row_b = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=N_REPLANS,
+                                   B=MB, out_dir=os.path.join(MPC_OUT,
+                                                              "b128_h40"))[0]
+    out["batched"] = dict(row=row_b, launches=dict(ops.LAUNCHES))
+    for kname in ops.KERNELS + ops.MPC_KERNELS:
+        got = out["batched"]["launches"][kname]
+        check(got == N_REPLANS,
+              f"walker MPC at B={MB} launched {kname} {got} times, not once "
+              f"per replan ({N_REPLANS})")
+    for r in out["sweep"] + [row_b]:
+        check(all(math.isfinite(r[k]) for k in ("median_opt_time_ms",
+                                                "p95_opt_time_ms",
+                                                "mean_running_cost")),
+              f"walker MPC H={r['horizon']} B={r['B']}: non-finite row {r}")
+        print(f"  walker_run sync MPC H={r['horizon']} B={r['B']}: "
+              f"{N_REPLANS} replans, ms per replan median "
+              f"{r['median_opt_time_ms']:.3f} p95 {r['p95_opt_time_ms']:.3f} "
+              f"(mean {r['opt_time_ms']:.3f}), episode replans/s "
+              f"{r['episode_replans_per_s']:.1f}, mean running cost "
+              f"{r['mean_running_cost']:.6f}, launches per replan "
+              f"{json.dumps(r['launches_per_replan'])}", flush=True)
+
+    # device ms per phase inside one replan, from the episodes' start; at
+    # MB episodes (two blocks of lanes) each kernel phase of that first
+    # replan is also held against its twin, bit for bit
+    s = Sizes(task)
+    for name, Bb in (("b1", 1), ("b128", MB)):
+        qp, qv, tg = (x.T.contiguous() for x in episode_starts(task, Bb))
+        U = torch.zeros((MH, task.model.nu, Bb), dtype=torch.float64,
+                        device="cuda")
+        t0 = time.perf_counter()
+        phases, kms, sweeps, held = mpc_kernel_ms(task, qp, qv, U, tg, cfg,
+                                                  hold=Bb == MB)
+        if held:
+            out[f"held_{name}"] = {k: dict(bitwise=v[0], max_abs_err=v[1])
+                                   for k, v in held.items()}
+            print(f"  walker_run first replan H={MH} B={Bb}, each kernel "
+                  f"phase vs its twin (bitwise, max abs err): "
+                  f"{json.dumps(held)} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            for k, (same, gap) in held.items():
+                check(same, f"walker {k} at H={MH} B={Bb} differs from its "
+                            f"twin by {gap:.3e}")
+        out[f"phases_ms_{name}"] = phases
+        out[f"kernel_ms_{name}"] = kms
+        out[f"bounds_{name}"] = {
+            "rollout": rollout_bound(s, MH, Bb),
+            "linesearch": linesearch_bound(s, MH, 6, Bb),
+            "fd_jacobian": fd_bound(s, MH, Bb),
+            "backward": backward_bound(s.nx, s.nu, MH, Bb, sweeps),
+            "mpc_apply": apply_bound(s, MH, 1, Bb),
+            "cost_expansion": cost_expansion_bound(s, MH, Bb),
+        }
+        print(f"  walker_run one replan H={MH} B={Bb}: phases ms "
+              f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}, "
+              f"bounds {json.dumps(out[f'bounds_{name}'])}", flush=True)
+
+    # kernel path against the plain path, bit for bit
+    for t, Hh, na, n, Bb in ((task, MH, 1, MPC_PLAIN_REPLANS, 1),
+                             (si1(acro), 40, 2, 6, 4)):
+        qp, qv, tg = episode_starts(t, Bb)
+        U0 = torch.zeros((Bb, Hh, t.model.nu), dtype=torch.float64,
+                         device="cuda")
+        runs, secs = [], []
+        for plain in (False, True):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            t0 = time.perf_counter()
+            runs.append(mpc_sync.make_lane_sync_mpc(
+                t, cfg, Hh, na, plain=plain)(qp, qv, U0, tg, n, gen))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+        gap = max(float((a - b).abs().max()) for a, b in zip(*runs))
+        out[f"plain_{t.name}"] = dict(bitwise=same, max_abs_err=gap,
+                                      replans=n, H=Hh, B=Bb, num_apply=na,
+                                      kernel_s=secs[0], plain_s=secs[1])
+        print(f"  {t.name} MPC kernel path vs plain path, {n} replans H={Hh}"
+              f" B={Bb} num_apply {na}: bitwise equal {same}, max abs err "
+              f"{gap:.3e} ({secs[0]:.2f} s vs {secs[1]:.2f} s)", flush=True)
+        check(same, f"{t.name} MPC: the kernel path differs from the plain "
+                    f"path by {gap:.3e}")
+    return out
+
+
 def report_main(name, Hh, Bb, mp):
     print(f"main path {name} SI_1 H={Hh} B={Bb} x{ITERS} it: mean cost "
           f"reduction {mp['mean_cost_reduction']:.4f}, {mp['solves_per_s']:.1f}"
           f" solves/s ({mp['wall_s']:.3f} s), phases ms "
           f"{json.dumps({k: round(v, 3) for k, v in mp['phases_ms'].items()})}"
+          f", cost expansion bound {json.dumps(mp['cost_expansion_bound'])}"
           f", launches {json.dumps(mp['launches'])}, limit rows active in "
           f"{mp['limit_active_lane_steps']} lane-steps of the first rollout, "
           f"contacts {json.dumps(mp['contacts'])}, "
@@ -951,6 +1274,26 @@ def cli(task_name, extra=()):
     return line, proc.stdout
 
 
+def cli_mpc():
+    """The CLI's sync MPC campaign on the walker at one horizon."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "trajoptkp_tpu_torch.app", "--task",
+         "walker_run", "--runMode", "Generate_syncronus_mpc_data",
+         "--horizon", str(MH), "--out_dir", os.path.join(MPC_OUT, "cli")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"CLI walker_run MPC failed:\n{proc.stdout}\n{proc.stderr}")
+    if proc.returncode != 0:
+        return None
+    line = proc.stdout.strip().splitlines()[-1]
+    (row,) = json.loads(line)["rows"]
+    check(row["horizon"] == MH and row["timing"].startswith("cuda")
+          and math.isfinite(row["median_opt_time_ms"])
+          and math.isfinite(row["mean_running_cost"]),
+          f"CLI walker_run MPC row {row}")
+    return line
+
+
 def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                    bounds=None, shape=None, check_shape=None, full=None):
     """Entries of the `kernels` line for one model.  `ms` and `bounds`, when
@@ -961,7 +1304,7 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
     `step_counts` holds the double operations per step of the device
     functions inside the rollout, line-search and FD kernels."""
     out = []
-    for name in ops.KERNELS:
+    for name in [k for k in ops.KERNELS + ops.MPC_KERNELS if k in rows]:
         r = rows[name]
         b = bounds[name] if bounds else r["bound"]
         e = {
@@ -977,10 +1320,11 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
         }
         if shape:
             e.update(shape=shape, plain_shape=check_shape,
-                     max_abs_err=max(r["err"][0], full[name][0]),
                      max_abs_err_at_plain_shape=r["err"][0],
                      ms_at_plain_shape=r["ms"],
                      bound_ms_at_plain_shape=r["bound"][0])
+            if full:
+                e["max_abs_err"] = max(r["err"][0], full[name][0])
         if name != "backward":
             # the step's device functions this model instantiates (held
             # against their twins through this kernel's check)
@@ -1019,8 +1363,8 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
 
     build_s, logs = build.build_all_timed()
-    print(f"kernel build: {build_s:.1f} s ({len(build.SOURCES)} nvcc in "
-          "parallel)", flush=True)
+    print(f"kernel build: {build_s:.1f} s ({len(build.libraries())} nvcc in "
+          "parallel, one per library and instance)", flush=True)
     for name, text in logs.items():
         for ln in text.splitlines():
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
@@ -1032,8 +1376,9 @@ def main():
     penta = make_pentabot(device="cuda")
     reach = make_reaching(device="cuda")
     push = pushing.make_pushing(device="cuda")
+    walk = make_walker(run=True, device="cuda")
     record = {"card": card, "build_s": build_s, "phase_s": phase_s}
-    rows = prow = rrow = urow = None
+    rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
         rows = check_kernels(acro, H, B, TOL["fd_jacobian"][1],
                              time_them=True)
@@ -1056,9 +1401,21 @@ def main():
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in urow.items()}
         done("push")
-    for name in ops.KERNELS:
+    if "walker" in phases:
+        inputs = walker_inputs(walk, WH, WB, seed=3)
+        wrow = check_kernels(walk, WH, WB, REACHING_FD_ABS, time_them=True,
+                             inputs=inputs, pair_types=True)
+        wrow["mpc_apply"] = check_apply(walk, *inputs[:4], seed=4)
+        record["walker_check"] = {
+            k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+            for k, v in wrow.items()}
+        done("walker")
+    for name in ops.KERNELS + ops.MPC_KERNELS:
         for model, r in (("acrobot", rows), ("pentabot", prow),
-                         ("reaching", rrow), ("push_ncl", urow)):
+                         ("reaching", rrow), ("push_ncl", urow),
+                         ("walker", wrow)):
+            if r and name not in r:
+                continue
             if r:
                 print(f"check {name}: {model} {r[name]['tol']} err "
                       f"{r[name]['err'][1]:.3e}", flush=True)
@@ -1094,6 +1451,10 @@ def main():
         else:
             ump = m
         done(phase)
+    wmp = None
+    if "main_mpc" in phases:
+        wmp = record["main_mpc"] = main_mpc(walk, acro)
+        done("main_mpc")
 
     if "cli" in phases:
         cli_line, record["cli"] = cli("acrobot")
@@ -1108,6 +1469,8 @@ def main():
             red = json.loads(cli_line)["cost_reduction"]
             check(0.0 < red < 1.0, f"CLI pushing_no_clutter cost reduction "
                                    f"{red} not in (0, 1)")
+        cli_line = record["cli_mpc"] = cli_mpc()
+        print(f"cli: {cli_line}", flush=True)
         done("cli")
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -1117,7 +1480,7 @@ def main():
         sys.exit(4)
 
     sizes = {"acrobot": Sizes(acro), "reaching": Sizes(si1(reach)),
-             "push_ncl": Sizes(si1(push))}
+             "push_ncl": Sizes(si1(push)), "walker": Sizes(walk)}
     # per step: the whole step, and the parts of the constraint solve and
     # the contact rows in it
     counts = record["ops_per_step"] = {
@@ -1138,7 +1501,20 @@ def main():
                                 counts["push_ncl"],
                                 ump["kernel_ms"], ump["bounds"],
                                 f"H={UH} B={UB}", f"H={PH} B={PB}",
-                                ump["full_shape_err"]))
+                                ump["full_shape_err"])
+               + kernel_entries("walker", wrow, wmp["main"]["launches"],
+                                counts["walker"], wmp["kernel_ms_b1"],
+                                wmp["bounds_b1"],
+                                f"H={MH} B=1, {N_REPLANS} replans",
+                                f"H={WH} B={WB}"))
+    for e in kernels:
+        if e["model"] == "walker":
+            # the same kernels at MB episodes, and the whole kernel path
+            # against the plain path over the first replans
+            e["at_B128"] = {"ms": wmp["kernel_ms_b128"][e["name"]],
+                            "bound_ms": wmp["bounds_b128"][e["name"]][0],
+                            **wmp["held_b128"][e["name"]]}
+            e["mpc_vs_plain"] = wmp["plain_walker_run"]
     # fk_bias at the main path's own shape (UB lanes: the init servo's
     # start), its other checks beside it
     sc = ump["servo_check"]

@@ -42,6 +42,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "trajoptkp_tpu_torch.tasks.reaching",
                 "trajoptkp_tpu_torch.dynamics.collision",
                 "trajoptkp_tpu_torch.tasks.pushing",
+                "trajoptkp_tpu_torch.tasks.locomotion",
+                "trajoptkp_tpu_torch.mpc.sync",
+                "trajoptkp_tpu_torch.bench.campaigns",
                 "trajoptkp_tpu_torch.app"):
         assert mod in res["modules"]
 
@@ -84,7 +87,8 @@ def test_cli_solves_reaching_and_names_the_ported_tasks(capsys):
     from trajoptkp_tpu_torch.config.loader import make_task, task_names
 
     assert task_names() == ("acrobot", "pentabot", "pushing_no_clutter",
-                            "reaching")
+                            "reaching", "walker_run", "walker_uneven",
+                            "walker_walk")
     with pytest.raises(KeyError, match="reaching"):
         make_task("push_ncl", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):

@@ -165,3 +165,53 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
     assert ops.LAUNCHES["rollout"] == 1
     with pytest.raises(ValueError, match="contiguous"):
         ops.rollout(task, qp.T, qv.T.contiguous(), U, tg.T.contiguous())
+
+
+def test_walker_kernels_and_mpc_apply_match_plain(cuda):
+    """The walker's instance (three joints on the torso, plane-capsule and
+    capsule-capsule rows, the selected-coordinate residual) and K8: every
+    kernel bit for bit against its twin, with the feet pressed into the
+    floor, and one lane-last replan of the kernel path equal to the plain
+    path's."""
+    from trajoptkp_tpu_torch.mpc import sync as psync
+    from trajoptkp_tpu_torch.tasks.locomotion import make_walker
+
+    task = make_walker(run=True, device=cuda)
+    m = task.model
+    Hw, Bw = 20, 8
+    g = torch.Generator(device="cpu").manual_seed(0)
+    f64 = dict(dtype=torch.float64)
+    qp = task.qpos_start[:, None].repeat(1, Bw)
+    qp[0] = (-0.04 * torch.rand(Bw, generator=g, **f64)).to(cuda)
+    qp[3:] = (torch.rand((6, Bw), generator=g, **f64) - 0.5).to(cuda)
+    qp = qp.contiguous()
+    qv = (0.3 * torch.randn((m.nv, Bw), generator=g, **f64)).to(cuda)
+    tg = task.residual_targets[:, None].repeat(1, Bw).contiguous()
+    U = (2 * torch.rand((Hw, m.nu, Bw), generator=g, **f64) - 1).to(cuda)
+    kr = ops.rollout(task, qp, qv, U, tg)
+    pr = ops.rollout(task, qp, qv, U, tg, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(kr, pr))
+    assert bool(contacts_active(m, pr[0][:Hw].transpose(0, 1))[:7].any())
+    times = torch.arange(Hw, device=cuda)
+    assert torch.equal(ops.fd_jacobian(task, *kr[:2], U, times, 1e-6),
+                       ops.fd_jacobian(task, *kr[:2], U, times, 1e-6,
+                                       plain=True))
+    accept = torch.arange(Bw, device=cuda) % 2 == 0
+    Un = (2 * torch.rand((Hw, m.nu, Bw), generator=g, **f64) - 1).to(cuda)
+    z = torch.randn((2, m.nu, Bw), generator=g, **f64).to(cuda)
+    std = psync.noise_std(task, 5.0)
+    cost = kr[2].sum(0)
+    args = (task, qp, qv, U, Un, accept, cost, 2 * cost, z, std, tg)
+    before = ops.LAUNCHES["mpc_apply"]
+    ka = ops.mpc_apply(*args)
+    assert ops.LAUNCHES["mpc_apply"] == before + 1
+    pa = ops.mpc_apply(*args, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(ka, pa))
+    runs = []
+    for plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        mpc = psync.make_lane_sync_mpc(task, ILQRConfig(), 10, 1, 5.0,
+                                       plain=plain)
+        runs.append(mpc(qp.T, qv.T, torch.zeros((Bw, 10, m.nu), device=cuda,
+                                                 **f64), tg.T, 1, gen))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -28,7 +28,7 @@ jax.config.update("jax_enable_x64", True)
 
 XML_DIR = os.path.join(os.path.dirname(__file__), "..", "trajoptkp_tpu",
                        "models")
-PORTED = ("acrobot", "pentabot", "panda", "push_ncl")
+PORTED = ("acrobot", "pentabot", "panda", "push_ncl", "walker")
 
 
 def jax_model(name: str):
@@ -104,12 +104,15 @@ def test_model_from_numpy_matches_load_mjcf(name, tmp_path):
 @pytest.mark.parametrize("task_name,tag,nlim",
                          [("acrobot", "acrobot", 0), ("pentabot", "pentabot", 0),
                           ("reaching", "reaching", 7),
-                          ("pushing_no_clutter", "push_ncl", 7)])
+                          ("pushing_no_clutter", "push_ncl", 7),
+                          ("walker_run", "walker", 6)])
 def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     """Each ported task finds its instance in kernels/csrc/instances.cuh,
-    and the packed model buffer has the layout step.cuh reads: 27 per body,
-    2 per dof, 5 per actuator, the limit constants, the contact pairs (geom
-    poses and sizes, then the pair's constants), gravity, timestep."""
+    and the packed model buffer has the layout step.cuh reads: 18 per body,
+    11 per dof (damping, armature, then its joint's position, axis, qpos0,
+    stiffness and spring reference, zero for a free joint's dofs), 5 per
+    actuator, the limit constants, the contact pairs (geom poses and sizes,
+    then the pair's constants), gravity, timestep."""
     from trajoptkp_tpu_torch.config.loader import make_task
     from trajoptkp_tpu_torch.dynamics.contact import (CONTACT_FIELDS,
                                                       LIMIT_FIELDS,
@@ -121,13 +124,18 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     m = task.model
     ka = ops.kernel_args(task, torch.device("cpu"))
     assert ka.tag == tag
+    # the entry ops.instance_line writes is the one instances.cuh holds
+    text = (ops.build.CSRC / "instances.cuh").read_text()
+    flat = "".join(text.replace("\\\n", "").split())
+    assert "".join(ops.instance_line(task, tag).split()) in flat
     # packed once per task: the launch path must not pack again
     assert ops.kernel_args(task, torch.device("cpu")) is ka
     nb = m.nbody - 1
     lim = nlim * len(LIMIT_FIELDS)
     cc = contact_constants(m)
     pair = 20 + len(CONTACT_FIELDS)
-    assert ka.model_buf.numel() == (27 * nb + 2 * m.nv + 5 * m.nu + lim
+    dofb = 18 * nb
+    assert ka.model_buf.numel() == (dofb + 11 * m.nv + 5 * m.nu + lim
                                     + pair * len(cc.pairs) + 4)
     # the pushing residual's constants (the ee site on its body) close the
     # task buffer
@@ -137,7 +145,7 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
         np.testing.assert_array_equal(
             ka.task_buf[-3:].numpy(),
             m.site_pos[m.site_names.index("ee")].numpy())
-    off = 27 * nb + 2 * m.nv + 5 * m.nu
+    off = dofb + 11 * m.nv + 5 * m.nu
     np.testing.assert_array_equal(
         ka.model_buf[off:off + lim].numpy(),
         limit_constants(m).table.reshape(-1).numpy())
@@ -148,20 +156,22 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
                                       m.geom_size[cc.pairs[p].g1].numpy())
     np.testing.assert_array_equal(ka.model_buf[-4:-1].numpy(),
                                   m.gravity.numpy())
+    dofs = ka.model_buf[dofb:dofb + 11 * m.nv].reshape(m.nv, 11)
     np.testing.assert_array_equal(
-        ka.model_buf[27 * nb:27 * nb + 2 * m.nv].reshape(m.nv, 2).numpy(),
+        dofs[:, :2].numpy(),
         torch.stack([m.dof_damping, m.dof_armature], 1).numpy())
-    # a body without a joint or with a free one packs zero joint fields; a
-    # hinge or slide body its own
-    joints = ops.body_joints(m)
     for b in range(1, m.nbody):
-        rec = ka.model_buf[27 * (b - 1):27 * b]
+        rec = ka.model_buf[18 * (b - 1):18 * b]
         assert float(rec[14]) == float(m.body_mass[b])
-        if joints[b] < 0 or m.jnt_type[joints[b]] == pm.FREE:
-            assert float(rec[18:].abs().max()) == 0.0
+    # a free joint's dofs pack zero joint fields; a hinge's or slide's its
+    # own, on every joint of a body that carries several
+    for j in range(m.njnt):
+        d = m.jnt_dofadr[j]
+        if m.jnt_type[j] == pm.FREE:
+            assert float(dofs[d:d + 6, 2:].abs().max()) == 0.0
         else:
-            np.testing.assert_array_equal(rec[21:24].numpy(),
-                                          m.jnt_axis[joints[b]].numpy())
+            np.testing.assert_array_equal(dofs[d, 5:8].numpy(),
+                                          m.jnt_axis[j].numpy())
     # the limited mask is part of the key: without limits, no instance
     if nlim:
         free = task.replace(model=m.replace(jnt_limited=(False,) * m.njnt))

@@ -142,7 +142,15 @@ def test_panda_smooth_dynamics_with_jointless_bodies_match_jax():
 
 
 def test_step_refuses_constraints():
+    """A contact pair the port has no collider for (a box: ROADMAP Queue 1
+    item 7b) is refused; pentabot's own capsule pairs are ported."""
     pm = load_model("pentabot", device="cpu")
+    g = pm.contact_pairs[0][0]
+    boxed = pm.replace(geom_type=tuple(
+        6 if i == g else t for i, t in enumerate(pm.geom_type)))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        step_state(pm, torch.zeros(5, 1), torch.zeros(5, 1),
+        step_state(boxed, torch.zeros(5, 1), torch.zeros(5, 1),
                    torch.zeros(3, 1))
+    qn, vn = step_state(pm, torch.zeros(5, 1), torch.zeros(5, 1),
+                        torch.zeros(3, 1))
+    assert bool(torch.isfinite(qn).all() and torch.isfinite(vn).all())

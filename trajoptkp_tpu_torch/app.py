@@ -1,5 +1,5 @@
-"""Command-line entry point (counterpart of `trajoptkp_tpu/app.py`,
-Optimise_once only).
+"""Command-line entry point (counterpart of `trajoptkp_tpu/app.py`):
+Optimise_once and Generate_syncronus_mpc_data.
 
     python -m trajoptkp_tpu_torch.app --task acrobot --runMode Optimise_once \\
         --keypoint SI_1 [--horizon H --maxIter N --minIter N --device cuda]
@@ -7,41 +7,58 @@ Optimise_once only).
         --keypoint SI_1
     python -m trajoptkp_tpu_torch.app --task pushing_no_clutter \\
         --runMode Optimise_once --keypoint SI_1
+    python -m trajoptkp_tpu_torch.app --task walker_run \\
+        --runMode Generate_syncronus_mpc_data [--horizon 40]
 
 Tasks: acrobot, pentabot, reaching (panda arm with joint limits),
-pushing_no_clutter (panda pushes a free cylinder on a table: contacts).  The
-horizon defaults to the task's (500, 500, 1500, 1000).  The controls start
-at zero, or for pushing from the task's servo: a 1000-step setup servo
-behind the object, whose end state is the solve's start, then the init
-servo over the horizon (the JAX app's `_batch_init_controls`).  Runs on the
-card by default; `--device cpu` runs the plain PyTorch path.
-Prints per-iteration banner lines and a final JSON line with the initial
-and final cost and the cost reduction.
+pushing_no_clutter (panda pushes a free cylinder on a table: contacts),
+walker_walk and walker_run (planar walker: three joints on its torso,
+capsule contacts).  For Optimise_once the horizon defaults to the task's
+(500, 500, 1500, 1000, 500).  The controls start at zero, or for pushing
+from the task's servo: a 1000-step setup servo behind the object, whose end
+state is the solve's start, then the init servo over the horizon (the JAX
+app's `_batch_init_controls`).  Prints per-iteration banner lines and a
+final JSON line with the initial and final cost and the cost reduction.
+
+Generate_syncronus_mpc_data is the JAX app's `_sync_mpc_campaign`
+(GenDataMPCHorizons): synchronous MPC of one episode from the task's start,
+one iLQR iteration per replan, one control applied with 5% noise, 200
+replans at each horizon 20, 30, ..., 80, or at `--horizon` alone; it writes
+`mpc_horizons.csv` under `--out_dir` (trajoptkp_tpu_torch_out/) and prints a
+final JSON line with one row per horizon (median and p95 ms per replan).
+
+Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
 
+RUN_MODES = ("Optimise_once", "Generate_syncronus_mpc_data")
 RUN_MODES_LATER = {
     "Init_controls": "ROADMAP Queue 1 item 12",
-    "MPC_until_completion": "ROADMAP Queue 1 item 8",
+    "MPC_until_completion": "ROADMAP Queue 1 item 8, the async executor of "
+                            "the next slice",
     "Generate_test_scenes": "ROADMAP Queue 1 item 12",
     "Generate_openloop_data": "ROADMAP Queue 1 item 12",
-    "Generate_syncronus_mpc_data": "ROADMAP Queue 1 item 8",
-    "Generate_asynchronus_mpc_data": "ROADMAP Queue 1 item 8",
+    "Generate_asynchronus_mpc_data": "ROADMAP Queue 1 item 8, the async "
+                                     "executor of the next slice",
 }
+SYNC_MPC_HORIZONS = (20, 30, 40, 50, 60, 70, 80)
+SYNC_MPC_REPLANS = 200          # replans per horizon, as the JAX campaign
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--task", default="acrobot",
-                   help="acrobot, pentabot, reaching or pushing_no_clutter")
+                   help="acrobot, pentabot, reaching, pushing_no_clutter, "
+                   "walker_walk or walker_run")
     p.add_argument("--runMode", default="Optimise_once")
     p.add_argument("--keypoint", help="keypoint method, SI_n (set_interval "
                    "every n steps); the task's own method when omitted")
@@ -50,6 +67,11 @@ def build_parser():
     p.add_argument("--minIter", type=int, default=5)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu for the plain path")
+    p.add_argument("--out_dir", default="trajoptkp_tpu_torch_out",
+                   help="where Generate_syncronus_mpc_data writes its "
+                   "campaign directory")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the MPC exploration noise")
     return p
 
 
@@ -68,18 +90,20 @@ def main(argv=None):
     from .config.loader import make_task
     from .solver.ilqr import ILQRConfig, optimise
 
-    if args.runMode != "Optimise_once":
+    if args.runMode not in RUN_MODES:
         later = RUN_MODES_LATER.get(args.runMode, "a later ROADMAP item")
         raise NotImplementedError(
-            f"run mode {args.runMode!r} is not ported yet ({later}); this "
-            "slice has Optimise_once")
+            f"run mode {args.runMode!r} is not ported yet ({later}); the "
+            f"port has {', '.join(RUN_MODES)}")
     task = make_task(args.task, device=args.device)
     if args.keypoint:
         task = task.replace(
             keypoint_cfg=parse_keypoint_name(task.keypoint_cfg, args.keypoint))
-    H = args.horizon or task.openloop_horizon
     cfg = ILQRConfig(max_iterations=args.maxIter,
                      min_iterations=args.minIter)
+    if args.runMode == "Generate_syncronus_mpc_data":
+        return sync_mpc_campaign(task, cfg, args)
+    H = args.horizon or task.openloop_horizon
     qpos0, qvel0 = task.qpos_start, task.qvel_start
     U = torch.zeros((H, task.model.nu), dtype=task.model.dtype,
                     device=task.model.device)
@@ -103,6 +127,20 @@ def main(argv=None):
         "opt_time_ms": stats.opt_time_ms,
         "init_controls_s": init_s,
     }), flush=True)
+
+
+def sync_mpc_campaign(task, cfg, args):
+    """GenDataMPCHorizons (JAX `app.py:_sync_mpc_campaign`): the replan
+    time against horizon, or at `--horizon` alone."""
+    from .bench.campaigns import sync_mpc_horizon_sweep
+
+    horizons = [args.horizon] if args.horizon else list(SYNC_MPC_HORIZONS)
+    out_dir = os.path.join(
+        args.out_dir, f"{task.name}_sync_mpc_{time.strftime('%Y%m%d_%H%M')}")
+    rows = sync_mpc_horizon_sweep(task, cfg, horizons,
+                                  n_replans=SYNC_MPC_REPLANS, out_dir=out_dir,
+                                  seed=args.seed)
+    print(json.dumps({"campaign": out_dir, "rows": rows}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""Time the four kernels alone at a task's main-path shape on the card.
+"""Time the kernels alone at a task's main-path shape on the card.
 
     python -m trajoptkp_tpu_torch.bench_kernels --task acrobot --H 500 --B 512
     python -m trajoptkp_tpu_torch.bench_kernels --task reaching --H 1500 --B 128
+    python -m trajoptkp_tpu_torch.bench_kernels --task walker_run --H 40 --B 128
 
+The rollout, line search, FD slot Jacobians and backward pass, and the MPC
+replan's apply step (K8, one applied control) where the tree has it.
 Each kernel is launched `--reps` times between two CUDA events, after two
 warm-up launches, `--rounds` times over; the inputs are the zero-control
 nominal of `lanes.scenes(seed=0)` with SI_1 slots, as chip_smoke.py's main
@@ -72,6 +75,16 @@ def main(argv=None):
                                                plan.times, cfg.fd_eps),
         "backward": lambda: ops.backward(A, Bm, *l, lam, cfg),
     }
+    if hasattr(ops, "mpc_apply"):
+        from trajoptkp_tpu_torch.mpc.sync import noise_std
+
+        costs = ops.rollout(task, qp0, qv0, U, tgl)[2].sum(0)
+        accept = torch.arange(B, device="cuda") % 2 == 0
+        z = torch.zeros((1, task.model.nu, B), dtype=torch.float64,
+                        device="cuda")
+        std = noise_std(task, 5.0)
+        calls["mpc_apply"] = lambda: ops.mpc_apply(
+            task, qp0, qv0, U, U, accept, costs, costs, z, std, tgl)
     ms = {name: [event_ms(fn, args.reps) for _ in range(args.rounds)]
           for name, fn in calls.items()}
     card = subprocess.run(

@@ -1,8 +1,10 @@
 """Narrow phase (counterpart of `trajoptkp_tpu/dynamics/collision.py`).
 
 The geom pairs the ported tasks collide: plane-cylinder (three rim points of
-the lower cap) and cylinder-cylinder (cylinders as equal-radius capsules,
-the JAX package's dispatch).  Each pair function returns a FIXED number of
+the lower cap), plane-capsule (the two end points of the axis),
+capsule-capsule (one slot between the axis segments' closest points) and
+cylinder-cylinder (cylinders as equal-radius capsules, the JAX package's
+dispatch).  Each pair function returns a FIXED number of
 contact slots, dist > 0 meaning separated; the constraint assembler
 (dynamics/contact.py) gates each slot on dist < margin.  Normals point from
 geom1 into geom2; a frame's rows are (normal, tangent1, tangent2).
@@ -17,8 +19,8 @@ quaternion (quaternion product and rotation, as the kernel's FK), and the
 plane-cylinder radial norm is sqrt(max(r.r, 1e-24)) as in the JAX lane
 engine (`dynamics/lanes.py:862`).
 
-Other geom pairs raise: box pairs, spheres, capsules and clutter are ROADMAP
-Queue 1 item 7b.
+Other geom pairs raise: box pairs, spheres and clutter are ROADMAP Queue 1
+item 7b.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .model import Data, Model
 
 GEOM_PLANE = 0
 GEOM_SPHERE = 2
+GEOM_CAPSULE = 3
 GEOM_CYLINDER = 5
 GEOM_BOX = 6
 
@@ -99,6 +102,21 @@ def plane_cylinder(xp1, xm1, s1, xp2, xm2, s2) -> Slots:
     return Slots(tuple(dists), tuple(poss), frame_from_normal(n))
 
 
+def plane_capsule(xp1, xm1, s1, xp2, xm2, s2) -> Slots:
+    """The capsule's two axis end points, +half-length first (JAX
+    `plane_capsule`, lane form `dynamics/lanes.py:841-852`)."""
+    n = xm1[:, 2]
+    r, hl = s2[0], s2[1]
+    axis = xm2[:, 2]
+    dists, poss = [], []
+    for sgn in (1.0, -1.0):
+        e = xp2 + axis * (hl * sgn)
+        dist = _dot(n, e - xp1) - r
+        dists.append(dist)
+        poss.append(e - n * (r + 0.5 * dist)[None])
+    return Slots(tuple(dists), tuple(poss), frame_from_normal(n))
+
+
 def sphere_sphere_core(p1, r1, p2, r2):
     """(dist, pos, n) between two spheres; n = +z when the centres meet."""
     d = p2 - p1
@@ -135,8 +153,9 @@ def closest_seg_seg(p0, p1, q0, q1):
 
 
 def capsule_capsule(xp1, xm1, s1, xp2, xm2, s2) -> Slots:
-    """One slot between the two axis segments' closest points (cylinders
-    dispatch here as equal-radius capsules)."""
+    """One slot between the two axis segments' closest points, each geom's
+    own radius (JAX `capsule_capsule`; cylinders dispatch here as
+    equal-radius capsules)."""
     a_axis = xm1[:, 2] * s1[1]
     b_axis = xm2[:, 2] * s2[1]
     pa, pb = closest_seg_seg(xp1 - a_axis, xp1 + a_axis,
@@ -148,6 +167,8 @@ def capsule_capsule(xp1, xm1, s1, xp2, xm2, s2) -> Slots:
 # (contact slots, collider) per (geom1 type, geom2 type) of the ported pairs
 _COLLIDERS = {
     (GEOM_PLANE, GEOM_CYLINDER): (3, plane_cylinder),
+    (GEOM_PLANE, GEOM_CAPSULE): (2, plane_capsule),
+    (GEOM_CAPSULE, GEOM_CAPSULE): (1, capsule_capsule),
     (GEOM_CYLINDER, GEOM_CYLINDER): (1, capsule_capsule),
 }
 
@@ -156,8 +177,9 @@ def _collider(t1: int, t2: int):
     if (t1, t2) not in _COLLIDERS:
         raise NotImplementedError(
             f"no collider for geom types ({t1}, {t2}): the port's narrow "
-            "phase has plane-cylinder and cylinder-cylinder; the other geom "
-            "pairs are ROADMAP Queue 1 item 7b")
+            "phase has plane-cylinder, plane-capsule, capsule-capsule and "
+            "cylinder-cylinder; the other geom pairs (boxes: plane-box for "
+            "walker_uneven) are ROADMAP Queue 1 item 7b")
     return _COLLIDERS[(t1, t2)]
 
 

@@ -34,17 +34,20 @@ _JROWS = ((0, 3, 4), (3, 1, 5), (4, 5, 2))  # symmetric 3x3 from SYM6
 
 
 def body_dofs(model: Model):
-    """Per body, its joint's dofs in order (() for a body without a joint),
-    or raise outside the scope."""
+    """Per body, its joints' dofs in declaration order (() for a body
+    without a joint), or raise outside the scope: hinge and slide joints,
+    or one free joint alone."""
     dofs = [()] * model.nbody
+    free = free_bodies(model)
     for j, b in enumerate(model.jnt_bodyid):
         jt = model.jnt_type[j]
-        if jt not in (HINGE, SLIDE, FREE) or dofs[b]:
+        if jt not in (HINGE, SLIDE, FREE) or (b in free and dofs[b]):
             raise NotImplementedError(
-                "smooth dynamics take at most one hinge, slide or free joint "
-                "per body; ball joints are ROADMAP Queue 1 item 11")
-        dofs[b] = tuple(range(model.jnt_dofadr[j],
-                              model.jnt_dofadr[j] + dof_width(jt)))
+                "smooth dynamics take hinge and slide joints, or one free "
+                "joint alone, per body; ball joints are ROADMAP Queue 1 "
+                "item 11")
+        dofs[b] = dofs[b] + tuple(range(model.jnt_dofadr[j],
+                                        model.jnt_dofadr[j] + dof_width(jt)))
     return dofs
 
 
@@ -89,14 +92,15 @@ def bias_force(model: Model, data: Data) -> torch.Tensor:
     for b in range(1, model.nbody):
         p = model.body_parent[b]
         cv, ca = cvel[p], cacc[p]        # welded: moves with its parent
-        for i in dofs[b]:
-            cv = cv + cdof[i] * v[i]
         if b in free:                    # rotations: the whole body twist
+            for i in dofs[b]:
+                cv = cv + cdof[i] * v[i]
             for i in dofs[b][3:]:
                 ca = ca + cross_motion(cv, cdof[i]) * v[i]
-        elif dofs[b]:
-            i = dofs[b][0]
-            ca = ca + cross_motion(cvel[p], cdof[i]) * v[i]
+        else:                            # the twist of the dofs before i
+            for i in dofs[b]:
+                ca = ca + cross_motion(cv, cdof[i]) * v[i]
+                cv = cv + cdof[i] * v[i]
         cvel.append(cv)
         cacc.append(ca)
         inert = data.cinert[b]

@@ -1,26 +1,33 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
-compiled by its own `nvcc` for sm_90a into `_build/<name>-<hash>.so`; the
-compilers run in parallel.  The hash covers the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the library already there.  `torch.utils.cpp_extension` is imported only
-here, inside the build, to find the CUDA toolkit; nothing at import time
-touches it, so machines without `nvcc` can import the package.
+Each `csrc/<source>.cu` has a plain C interface (no PyTorch headers).  Each
+instance of it (a model topology, or a backward-pass size, listed in
+`csrc/instances.cuh`) is compiled by its own `nvcc` for sm_90a, naming the
+instance with `-DTRAJOPT_ONLY`, into `_build/<source>-<instance>-<hash>.so`;
+the compilers run in parallel, so a large instance (the backward pass at
+nx 20, nu 7) no longer holds up the others of its source.  The hash covers
+the sources, the flags and the instance, so an edited source rebuilds and an
+unchanged one loads the library already there.  `torch.utils.cpp_extension`
+is imported only here, inside the build, to find the CUDA toolkit; nothing
+at import time touches it, so machines without `nvcc` can import the
+package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-SOURCES = ("rollout", "linesearch", "fd_jacobian", "backward")
+# sources built per model instance, and the backward pass per (nx, nu)
+MODEL_SOURCES = ("rollout", "linesearch", "fd_jacobian", "mpc_apply")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
 # their plain PyTorch twins do (csrc/step.cuh)
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +35,23 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas=-v")
 
 _LIBS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def instance_names() -> tuple:
+    """(model tags, backward-pass names "nx<NX>_nu<NU>") of instances.cuh."""
+    text = (CSRC / "instances.cuh").read_text()
+    models = tuple(m for m in re.findall(r"#define TRAJOPT_MODEL_(\w+)\(X\)",
+                                         text) if m != "INSTANCES")
+    bps = tuple(re.findall(r"#define TRAJOPT_BP_(nx\d+_nu\d+)\(B\)", text))
+    return models, bps
+
+
+def libraries() -> tuple:
+    """Every (source, instance) library the kernels are built into."""
+    models, bps = instance_names()
+    return (tuple((s, m) for s in MODEL_SOURCES for m in models)
+            + tuple(("backward", b) for b in bps))
 
 
 def nvcc() -> str:
@@ -42,39 +66,47 @@ def nvcc() -> str:
     return path
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+def _only(source: str, instance: str) -> str:
+    kind = "BP" if source == "backward" else "MODEL"
+    return f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}"
+
+
+def _digest(source: str, instance: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS + (_only(source, instance),)).encode())
+    for p in [CSRC / f"{source}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> pathlib.Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+def library_path(source: str, instance: str) -> pathlib.Path:
+    return BUILD_DIR / f"{source}-{instance}-{_digest(source, instance)}.so"
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every library in `names` that is missing, in parallel.
+def build(libs=None) -> dict:
+    """Compile every (source, instance) library in `libs` (default: all)
+    that is missing, all nvcc started together.
 
-    Returns {name: compiler output} for the libraries compiled here (ptxas
-    prints each kernel's registers, shared memory and spills)."""
+    Returns {"source-instance": compiler output} for the libraries compiled
+    here (ptxas prints each kernel's registers, stack frame and spills, and
+    the last line the seconds until that nvcc was done)."""
+    libs = libraries() if libs is None else tuple(libs)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [lib for lib in libs if not library_path(*lib).exists()]
     if not todo:
         return {}
     cc = nvcc()
     procs = {}
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, *FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
     t0 = time.perf_counter()
+    for source, instance in todo:
+        out = library_path(source, instance)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cc, *FLAGS, _only(source, instance), "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / f"{source}.cu")]
+        procs[f"{source}-{instance}"] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         # the compilers run side by side: seconds until this one was done
@@ -90,29 +122,30 @@ def build(names=SOURCES) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
-    lib = _LIBS.get(name)
+def load(source: str, instance: str) -> ctypes.CDLL:
+    """The loaded library of one instance of a kernel source, built first
+    if needed."""
+    key = (source, instance)
+    lib = _LIBS.get(key)
     if lib is None:
-        path = library_path(name)
+        path = library_path(source, instance)
         if not path.exists():
-            build((name,))
+            build((key,))
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 
 def build_all_timed() -> tuple:
     """(seconds, logs): build every kernel library, as a set-up step."""
     t0 = time.perf_counter()
-    logs = build(SOURCES)
-    for name in SOURCES:
-        load(name)
+    logs = build()
+    for lib in libraries():
+        load(*lib)
     return time.perf_counter() - t0, logs
 
 
-def error_string(err: int) -> str:
-    lib = load(SOURCES[0])
+def error_string(lib: ctypes.CDLL, err: int) -> str:
     fn = lib.trajopt_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p

@@ -221,4 +221,5 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-TRAJOPT_BP_INSTANCES(TRAJOPT_DEFINE_BACKWARD)
+TRAJOPT_BP_BUILT(TRAJOPT_DEFINE_BACKWARD)
+TRAJOPT_DEFINE_ERROR_STRING

@@ -22,14 +22,15 @@
 // f = -min(y, 0) / R.  The solution x itself is not used: the integrator
 // solves (M + h D) qacc = qfrc + qfrc_con.
 //
-// Row format: sparse.  Row r touches the dofs T::row_dof(r, w),
+// Row format: sparse.  Row r touches the dofs code_dof(T::row_code(r), w),
 // w < T::row_w(r) <= ROW_W, known at compile time, with coefficients
 // rows.coef[r][w]; a limit row has one entry, +1 (q - lo) or -1 (hi - q).
 // Row order: every limited joint's lower side, then every upper side (the
 // JAX generic engine's order), then the contact rows of contact.cuh (K2b),
-// four per slot over the support of the slot's pair.  R, ROW_W, row_dof and
-// row_w come from the topology; every loop over a row's entries runs to
-// ROW_W with a guard w < row_w(r), which folds once the loops are unrolled.
+// four per slot over the support of the slot's pair.  R, ROW_W, row_code and
+// row_w come from the topology; the loops over the rows run at compile time
+// (static_for), so each row's dofs and width are constants of its own
+// iteration, with any number of pairs.
 // The per-joint constants (range, margin, impedance and solref products) are
 // folded on the host in doubles and read from the model buffer, LIM_STRIDE
 // per limited joint (kernels/ops.py:pack_model, dynamics/contact.py
@@ -119,18 +120,24 @@ __device__ __forceinline__ void limit_rows(
   }
 }
 
-// out[r] = sum_w coef[r][w] x[row_dof(r, w)], left to right
+// the w-th dof of a row whose dofs are `code` (T::row_code)
+__host__ __device__ constexpr int code_dof(unsigned long long code, int w) {
+  return static_cast<int>((code >> (4 * w)) & 0xFull);
+}
+
+// out[r] = sum_w coef[r][w] x[row dof w], left to right
 template <class T>
 __device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W>& rows,
                                            const double* x, double* out) {
+  static_for<T::R>([&](auto rc) {
+    constexpr int r = decltype(rc)::value;
+    constexpr unsigned long long D = T::row_code(r);
+    constexpr int RW = T::row_w(r);
+    double s = rows.coef[r][0] * x[code_dof(D, 0)];
 #pragma unroll
-  for (int r = 0; r < T::R; ++r) {
-    double s = rows.coef[r][0] * x[T::row_dof(r, 0)];
-#pragma unroll
-    for (int w = 1; w < T::ROW_W; ++w)
-      if (w < T::row_w(r)) s += rows.coef[r][w] * x[T::row_dof(r, w)];
+    for (int w = 1; w < RW; ++w) s += rows.coef[r][w] * x[code_dof(D, w)];
     out[r] = s;
-  }
+  });
 }
 
 // sum_r invR_r min(y_r + al jdx_r, 0)^2, left to right
@@ -154,7 +161,7 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
                                  const double (&qfrc)[T::NV],
                                  const Rows<T::R, T::ROW_W>& rows,
                                  double (&qc)[T::NV]) {
-  constexpr int NV = T::NV, R = T::R, W = T::ROW_W;
+  constexpr int NV = T::NV, R = T::R;
   double H[NV][NV], a0[NV], x[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -192,22 +199,22 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
 #pragma unroll
       for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
+    static_for<R>([&](auto rc) {
+      constexpr int r = decltype(rc)::value;
+      constexpr unsigned long long D = T::row_code(r);
+      constexpr int RW = T::row_w(r);
       const double gy = g[r] * y[r];
 #pragma unroll
-      for (int w1 = 0; w1 < W; ++w1) {
-        if (w1 >= T::row_w(r)) continue;
-        const int d1 = T::row_dof(r, w1);
+      for (int w1 = 0; w1 < RW; ++w1) {
+        const int d1 = code_dof(D, w1);
         dx[d1] = dx[d1] + rows.coef[r][w1] * gy;
 #pragma unroll
-        for (int w2 = 0; w2 < W; ++w2) {
-          if (w2 >= T::row_w(r)) continue;
-          const int d2 = T::row_dof(r, w2);
+        for (int w2 = 0; w2 < RW; ++w2) {
+          const int d2 = code_dof(D, w2);
           H[d1][d2] = H[d1][d2] + (rows.coef[r][w1] * g[r]) * rows.coef[r][w2];
         }
       }
-    }
+    });
 #pragma unroll
     for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + HESSIAN_JITTER;
     chol_factor<NV>(H);
@@ -254,17 +261,18 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
   rows_times<T>(rows, x, y);
 #pragma unroll
   for (int i = 0; i < NV; ++i) qc[i] = 0.0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
+  static_for<R>([&](auto rc) {
+    constexpr int r = decltype(rc)::value;
+    constexpr unsigned long long D = T::row_code(r);
+    constexpr int RW = T::row_w(r);
     const double yr = y[r] - rows.aref[r];
     const double f = (-(yr < 0.0 ? yr : 0.0)) * rows.invR[r];
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      if (w >= T::row_w(r)) continue;
-      const int d = T::row_dof(r, w);
+    for (int w = 0; w < RW; ++w) {
+      const int d = code_dof(D, w);
       qc[d] = qc[d] + rows.coef[r][w] * f;
     }
-  }
+  });
 }
 
 }  // namespace trajopt

@@ -4,7 +4,8 @@
 // Replaces, in the JAX lane engine trajoptkp_tpu/dynamics/lanes.py, the
 // contact rows (_contact_rows_regs:989) over the pair slots
 // (_pair_slots_regs:963) of the narrow phase (_collide_regs:826:
-// plane-cylinder :853-881, cylinder-cylinder :897-913), i.e. the semantics
+// plane-capsule :841-852, plane-cylinder :853-881, capsule-capsule and
+// cylinder-cylinder :897-913), i.e. the semantics
 // of trajoptkp_tpu/dynamics/contact.py:_contact_rows:190 and collision.py.
 // It is a __device__ function called by smooth_step (step.cuh) between the
 // force assembly and the constraint solve of constraint.cuh (K2a), from the
@@ -15,11 +16,12 @@
 //
 // Per contact pair (geom types and bodies are compile-time, T::pair_*): the
 // geom poses from their bodies' frames, the pair's fixed slots (3 for
-// plane-cylinder: rim points of the cap nearer the plane; 1 for
-// cylinder-cylinder, as equal-radius capsules), and four rows per slot,
+// plane-cylinder: rim points of the cap nearer the plane; 2 for
+// plane-capsule: the axis end points; 1 for capsule-capsule, and for
+// cylinder-cylinder as equal-radius capsules), and four rows per slot,
 // J = Jn + mu Jt1, Jn - mu Jt1, Jn + mu Jt2, Jn - mu Jt2, over the pair's
 // support: the dofs on exactly one of the two bodies' root paths (known at
-// compile time, T::supp), the point Jacobian cdof_lin + cdof_ang x pos
+// compile time, T::supp_code), the point Jacobian cdof_lin + cdof_ang x pos
 // signed +1 on geom2's path and -1 on geom1's.  aref = -b (J qvel) -
 // k (dist - margin); R = max((1-d)/max(d, 1e-6), 1e-9) rconst, one per
 // slot; the row is active when dist < margin.  The rows are written after
@@ -50,6 +52,7 @@
 namespace trajopt {
 
 constexpr int GEOM_PLANE = 0;
+constexpr int GEOM_CAPSULE = 3;
 constexpr int GEOM_CYLINDER = 5;
 constexpr int MAX_SLOTS = 3;  // slots of the largest ported pair
 constexpr int PAIR_STRIDE = 33;
@@ -135,6 +138,32 @@ __device__ __forceinline__ void plane_cylinder(
   frame_from_normal(n, fr);
 }
 
+// collision.py:plane_capsule: the two end points of the capsule's axis,
+// +half-length first
+__device__ __forceinline__ void plane_capsule(
+    const double* xp1, const double* xm1, const double* xp2,
+    const double* xm2, const double* s2, double* dist, double (*pos)[3],
+    double (&fr)[3][3]) {
+  const double n[3] = {xm1[2], xm1[5], xm1[8]};
+  const double r = s2[0], hl = s2[1];
+  const double axis[3] = {xm2[2], xm2[5], xm2[8]};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const double h = s == 0 ? hl : -hl;
+    double e[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      e[k] = xp2[k] + axis[k] * h;
+      d[k] = e[k] - xp1[k];
+    }
+    dist[s] = dot3(n, d) - r;
+    const double off = r + 0.5 * dist[s];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pos[s][k] = e[k] - n[k] * off;
+  }
+  frame_from_normal(n, fr);
+}
+
 // collision.py:capsule_capsule over _closest_seg_seg and
 // _sphere_sphere_core: one slot between the axis segments' closest points
 __device__ __forceinline__ void capsule_capsule(
@@ -197,6 +226,9 @@ __device__ __forceinline__ void pair_rows(
   constexpr int b1 = T::pair_b1(PI), b2 = T::pair_b2(PI);
   constexpr int NC = T::pair_ncon(PI), W = T::nsup(PI);
   constexpr int ROW0 = 2 * T::NLIM + 4 * T::first_slot(PI);
+  // the support's dofs (4 bits each) and signs (a bit each), constants
+  constexpr unsigned long long SUP = T::supp_code(PI);
+  constexpr unsigned SGN = T::sgn_code(PI);
   const double* pp = P + T::PAIRB + PI * PAIR_STRIDE;
   const double* pc = pp + PAIR_CONST;
   double xp1[3], xm1[9], xp2[3], xm2[9];
@@ -205,10 +237,14 @@ __device__ __forceinline__ void pair_rows(
   double dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[3][3];
   if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CYLINDER) {
     plane_cylinder(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
+  } else if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CAPSULE) {
+    plane_capsule(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
   } else {
-    static_assert(t1 == GEOM_CYLINDER && t2 == GEOM_CYLINDER,
-                  "the port's narrow phase has plane-cylinder and "
-                  "cylinder-cylinder pairs only");
+    static_assert((t1 == GEOM_CYLINDER && t2 == GEOM_CYLINDER) ||
+                      (t1 == GEOM_CAPSULE && t2 == GEOM_CAPSULE),
+                  "the port's narrow phase has plane-cylinder, "
+                  "plane-capsule, capsule-capsule and cylinder-cylinder "
+                  "pairs only");
     capsule_capsule(xp1, xm1, pp + G1_SIZE, xp2, xm2, pp + G2_SIZE, dist, pos,
                     fr);
   }
@@ -225,8 +261,8 @@ __device__ __forceinline__ void pair_rows(
     double J[3][W];  // Jn, Jt1, Jt2 over the support
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const int i = T::supp(PI, w);
-      const double sg = T::supp_sign(PI, w);
+      const int i = code_dof(SUP, w);
+      const double sg = ((SGN >> w) & 1u) ? 1.0 : -1.0;
       double wp[3], jac[3];
       cross3(cdof[i], pos[s], wp);
 #pragma unroll
@@ -245,7 +281,7 @@ __device__ __forceinline__ void pair_rows(
       for (int w = 0; w < W; ++w) {
         const double c = J[0][w] + smu * Jt[w];
         rows.coef[r][w] = c;
-        const double cv = c * v[T::supp(PI, w)];
+        const double cv = c * v[code_dof(SUP, w)];
         vel = w == 0 ? cv : vel + cv;
       }
       rows.aref[r] = (-pc[L_B]) * vel - kk * imp;

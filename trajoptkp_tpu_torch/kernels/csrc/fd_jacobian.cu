@@ -117,4 +117,5 @@ fd_jacobian_kernel(const double* __restrict__ P,
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_FD)
+TRAJOPT_INSTANCES(TRAJOPT_DEFINE_FD)
+TRAJOPT_DEFINE_ERROR_STRING

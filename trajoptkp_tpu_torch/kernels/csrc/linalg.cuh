@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <utility>
+
 namespace trajopt {
 
 // clamp that keeps NaN, as torch.clamp and jnp.clip do (fmin/fmax drop it)
@@ -17,6 +19,19 @@ __device__ __forceinline__ double clip(double x, double lo, double hi) {
 // max(x, lo) that keeps NaN, as torch.clamp(min=) and jnp.maximum do
 __device__ __forceinline__ double at_least(double x, double lo) {
   return x < lo ? lo : x;
+}
+
+// Loops whose index must be a compile-time constant: f(integral_constant<
+// int, I>) for I = 0..N-1 in order (a fold over the comma operator), so a
+// lookup by I is a constant expression, whatever its table.
+template <class F, int... I>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
 }
 
 // In-place lower Cholesky factor of SPD A (NaN where A is not PD).

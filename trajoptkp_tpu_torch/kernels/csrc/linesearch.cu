@@ -106,4 +106,5 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_LINESEARCH)
+TRAJOPT_INSTANCES(TRAJOPT_DEFINE_LINESEARCH)
+TRAJOPT_DEFINE_ERROR_STRING

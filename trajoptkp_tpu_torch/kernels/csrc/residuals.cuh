@@ -9,6 +9,7 @@ namespace trajopt {
 // Residual kinds (tasks/base.py residual_kind; Topo's RES)
 constexpr int RES_JOINT = 0;  // ("joint_space", nj, nr)
 constexpr int RES_PUSH = 1;   // ("push", 0): the FK residual below
+constexpr int RES_SELECT = 2;  // ("select", rows): selected coordinates
 constexpr int PUSH_JOINT5 = 5;  // tasks/pushing.py JOINT5
 
 // tasks/toys.py:joint_space_residual — [q_i - tq_i] (NJ), [v_i - tv_i] (NJ),
@@ -27,6 +28,23 @@ __device__ __forceinline__ void joint_space_residual(const double* q,
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a) r[2 * NJ + a] = u[a] - tg[2 * NJ + a];
+}
+
+// tasks/locomotion.py:select_residual — r_k = x_k - tg_k for the k-th
+// selected coordinate of x = [q (NQ), v (NV), u (NU)]: entry k of SELECT (5
+// bits each) indexes x.  The walker's residual (torso height and angle,
+// forward velocity, the six controls) is this with its selection.
+template <int NQ, int NV, int NRES, unsigned long long SELECT>
+__device__ __forceinline__ void select_residual(const double* q,
+                                                const double* v,
+                                                const double* u,
+                                                const double* tg, double* r) {
+#pragma unroll
+  for (int k = 0; k < NRES; ++k) {
+    const int i = static_cast<int>((SELECT >> (5 * k)) & 0x1Full);
+    const double x = i < NQ ? q[i] : (i < NQ + NV ? v[i - NQ] : u[i - NQ - NV]);
+    r[k] = x - tg[k];
+  }
 }
 
 // sqrt(sum of squares left to right + 1e-12)

@@ -102,7 +102,7 @@ fk_bias_kernel(const double* __restrict__ P, const double* __restrict__ qp,
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_FK_BIAS)
+TRAJOPT_INSTANCES(TRAJOPT_DEFINE_FK_BIAS)
 
 #define TRAJOPT_DEFINE_ROLLOUT(tag, ...)                                       \
   extern "C" int trajopt_rollout_##tag(                                       \
@@ -117,8 +117,5 @@ TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_FK_BIAS)
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-TRAJOPT_MODEL_INSTANCES(TRAJOPT_DEFINE_ROLLOUT)
-
-extern "C" const char* trajopt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+TRAJOPT_INSTANCES(TRAJOPT_DEFINE_ROLLOUT)
+TRAJOPT_DEFINE_ERROR_STRING

@@ -7,15 +7,17 @@
 // kernels, not a kernel of its own.  Its plain twin is
 // trajoptkp_tpu_torch/dynamics/step.py:step_state.
 //
-// Scope: trees whose bodies carry one hinge, slide or free joint or none (a
-// welded body passes its inertia and force to its parent), joint limits and
-// contacts through the constraint solve of constraint.cuh (K2a) with the
-// rows of contact.cuh (K2b), no ball joints.  The topology is a template
-// argument (Topo); the numeric model is one double buffer whose layout
-// kernels/ops.py:pack_model writes: BODY_STRIDE per body 1..NBODY-1 (the
-// joint fields of a welded or free body are zero), DOF_STRIDE per dof,
-// ACT_STRIDE per actuator, LIM_STRIDE per limited joint, PAIR_STRIDE per
-// contact pair, gravity, timestep.
+// Scope: trees whose bodies carry hinge and slide joints (several per body
+// compose in declaration order, as the walker's torso: rootz, rootx, rooty),
+// one free joint alone, or none (a welded body passes its inertia and force
+// to its parent), joint limits and contacts through the constraint solve of
+// constraint.cuh (K2a) with the rows of contact.cuh (K2b), no ball joints.
+// The topology is a template argument (Topo); the numeric model is one
+// double buffer whose layout kernels/ops.py:pack_model writes: BODY_STRIDE
+// per body 1..NBODY-1, DOF_STRIDE per dof (its damping and armature, then
+// its joint's fields, zero for a free joint's dofs), ACT_STRIDE per
+// actuator, LIM_STRIDE per limited joint, PAIR_STRIDE per contact pair,
+// gravity, timestep.
 //
 // Per body the step runs FK (quaternion frames, cdof), then RNE for the
 // bias force and CRBA over composite inertias for the mass matrix, in the
@@ -33,7 +35,8 @@
 //
 // Bound: one step is ~1.3k (acrobot) to ~6k (panda) dependent double
 // operations per lane before its constraint solve (~10k more with panda's
-// limit rows, ~60k with push_ncl's limit and contact rows), so a kernel
+// limit rows, ~86k with push_ncl's 42 rows, ~131k with the walker's 128;
+// chip_smoke.py counts them), so a kernel
 // built on it is bound by latency per thread, not by bytes; this first
 // version runs one lane per thread and spills the per-body arrays and the
 // rows to local memory from pentabot width up.
@@ -52,14 +55,18 @@
 
 namespace trajopt {
 
-constexpr int BODY_STRIDE = 27;
+constexpr int BODY_STRIDE = 18;
 enum BodyField {
   F_BPOS = 0, F_BQUAT = 3, F_IPOS = 7, F_IQUAT = 10, F_MASS = 14,
-  F_INERTIA = 15, F_JPOS = 18, F_JAXIS = 21, F_QPOS0 = 24, F_STIFF = 25,
-  F_QSPRING = 26
+  F_INERTIA = 15
 };
-constexpr int DOF_STRIDE = 2;
-enum DofField { D_DAMP = 0, D_ARM = 1 };
+// per dof: damping, armature, then its joint's fields (zero for a free
+// joint's dofs)
+constexpr int DOF_STRIDE = 11;
+enum DofField {
+  D_DAMP = 0, D_ARM = 1, D_JPOS = 2, D_JAXIS = 5, D_QPOS0 = 8, D_STIFF = 9,
+  D_QSPRING = 10
+};
 constexpr int ACT_STRIDE = 5;
 enum ActField { A_DOF = 0, A_GEAR = 1, A_LIMITED = 2, A_LO = 3, A_HI = 4 };
 
@@ -74,16 +81,20 @@ __host__ __device__ constexpr int popcount(unsigned long long x) {
 // of SLIDE is set; body b's joint is free when bit b of FREE is set; dof j
 // is limited when bit j of LIMITED is set; the parent of body b is
 // (PARENTS >> 4b) & 15; its first dof is ((BODYDOF >> 4b) & 15) - 1, -1 for
-// a welded body; its joint's first qpos is (QADR >> 4b) & 15.  The state
-// vector holds NDOF dofs, state dof k being qvel index (SVDOF >> 4k) & 15.
-// Contact pair p is the 16 bits (PAIRS >> 16p): geom types (4 bits each)
-// and bodies (4 bits each) of geom1 and geom2.  RES, RESA, RESB: the
-// residual (RES_JOINT, RES_PUSH above).
+// a welded body, and it has (BODYNDOF >> 4b) & 15 dofs (hinges and slides in
+// declaration order, or 6 for a free joint); its first joint's first qpos is
+// (QADR >> 4b) & 15.  The state vector holds NDOF dofs, state dof k being
+// qvel index (SVDOF >> 4k) & 15.  RES, RESA, RESB: the residual (RES_JOINT,
+// RES_PUSH, RES_SELECT of residuals.cuh).  PAIRS: one 16-bit code per
+// contact pair, geom types (4 bits each) and bodies (4 bits each) of geom1
+// and geom2; every lookup of a pair, a slot or a row is evaluated at compile
+// time (pair_rows<T, PI>, static_for over the rows), so any number of pairs
+// costs no runtime table.
 template <int NV_, int NU_, int NBODY_, unsigned SLIDE_, unsigned FREE_,
           unsigned long long PARENTS_, unsigned long long BODYDOF_,
-          unsigned long long QADR_, unsigned LIMITED_, int NDOF_,
-          unsigned long long SVDOF_, int NPAIR_, unsigned long long PAIRS_,
-          int RES_, int RESA_, int RESB_>
+          unsigned long long BODYNDOF_, unsigned long long QADR_,
+          unsigned LIMITED_, int NDOF_, unsigned long long SVDOF_, int RES_,
+          int RESA_, unsigned long long RESB_, unsigned... PAIRS_>
 struct Topo {
   static constexpr int NV = NV_;
   static constexpr int NU = NU_;
@@ -93,11 +104,14 @@ struct Topo {
   static constexpr int NX = 2 * NDOF_;
   static constexpr int RES = RES_;
   static constexpr int NJ = RESA_;     // joint-space residual sizes
-  static constexpr int NUR = RESB_;
+  static constexpr int NUR = static_cast<int>(RESB_);
   static constexpr int GOAL = RESA_;   // push residual bodies
-  static constexpr int SITE_BODY = RESB_;
-  static constexpr int NRES = RES_ == RES_JOINT ? 2 * RESA_ + RESB_ : 4;
-  static constexpr int NTGT = RES_ == RES_JOINT ? NRES : 2;
+  static constexpr int SITE_BODY = static_cast<int>(RESB_);
+  static constexpr unsigned long long SELECT = RESB_;  // select residual
+  static constexpr int NRES = RES_ == RES_JOINT    ? 2 * RESA_ + NUR
+                              : RES_ == RES_SELECT ? RESA_
+                                                   : 4;
+  static constexpr int NTGT = RES_ == RES_PUSH ? 2 : NRES;
   __host__ __device__ static constexpr int parent(int b) {
     return static_cast<int>((PARENTS_ >> (4 * b)) & 0xFull);
   }
@@ -111,7 +125,7 @@ struct Topo {
     return static_cast<int>((BODYDOF_ >> (4 * b)) & 0xFull) - 1;
   }
   __host__ __device__ static constexpr int body_ndof(int b) {
-    return body_dof(b) < 0 ? 0 : (free(b) ? 6 : 1);
+    return static_cast<int>((BODYNDOF_ >> (4 * b)) & 0xFull);
   }
   __host__ __device__ static constexpr int qadr(int b) {
     return static_cast<int>((QADR_ >> (4 * b)) & 0xFull);
@@ -174,10 +188,16 @@ struct Topo {
   }
   static constexpr int NLIM = count_limited();
 
-  // ---- contact pairs (contact.cuh)
-  static constexpr int NPAIR = NPAIR_;
+  // ---- contact pairs (contact.cuh); compile time only
+  static constexpr int NPAIR = static_cast<int>(sizeof...(PAIRS_));
+  __host__ __device__ static constexpr unsigned pair_code(int p) {
+    unsigned out = 0;
+    int i = 0;
+    ((out = (i++ == p ? PAIRS_ : out)), ...);
+    return out;
+  }
   __host__ __device__ static constexpr int pair_field(int p, int f) {
-    return static_cast<int>((PAIRS_ >> (16 * p + 4 * f)) & 0xFull);
+    return static_cast<int>((pair_code(p) >> (4 * f)) & 0xFu);
   }
   __host__ __device__ static constexpr int pair_t1(int p) {
     return pair_field(p, 0);
@@ -191,9 +211,11 @@ struct Topo {
   __host__ __device__ static constexpr int pair_b2(int p) {
     return pair_field(p, 3);
   }
-  // slots per pair (dynamics/collision.py PAIR_NCON)
+  // slots per pair (dynamics/collision.py _COLLIDERS)
   __host__ __device__ static constexpr int pair_ncon(int p) {
-    return pair_t1(p) == GEOM_PLANE && pair_t2(p) == GEOM_CYLINDER ? 3 : 1;
+    return pair_t1(p) == GEOM_PLANE
+               ? (pair_t2(p) == GEOM_CYLINDER ? 3 : 2)
+               : 1;
   }
   // dof j on body b's root path
   __host__ __device__ static constexpr bool on_path(int b, int j) {
@@ -206,7 +228,7 @@ struct Topo {
   // support of pair p: the dofs on exactly one of the two root paths, in
   // dof order, 4 bits each; a sign bit per support entry, set on geom2's
   // path (+1), clear on geom1's (-1)
-  __host__ __device__ static constexpr unsigned long long make_supp(int p) {
+  __host__ __device__ static constexpr unsigned long long supp_code(int p) {
     unsigned long long code = 0;
     int w = 0;
     for (int j = 0; j < NV_; ++j)
@@ -214,7 +236,7 @@ struct Topo {
         code |= static_cast<unsigned long long>(j) << (4 * w++);
     return code;
   }
-  __host__ __device__ static constexpr unsigned make_sgn(int p) {
+  __host__ __device__ static constexpr unsigned sgn_code(int p) {
     unsigned code = 0;
     int w = 0;
     for (int j = 0; j < NV_; ++j)
@@ -224,55 +246,25 @@ struct Topo {
       }
     return code;
   }
-  __host__ __device__ static constexpr int make_nsup(int p) {
+  __host__ __device__ static constexpr int nsup(int p) {
     int w = 0;
     for (int j = 0; j < NV_; ++j)
       w += on_path(pair_b1(p), j) != on_path(pair_b2(p), j);
     return w;
   }
-  static constexpr unsigned long long SUPP0 = NPAIR_ > 0 ? make_supp(0) : 0;
-  static constexpr unsigned long long SUPP1 = NPAIR_ > 1 ? make_supp(1) : 0;
-  static constexpr unsigned long long SUPP2 = NPAIR_ > 2 ? make_supp(2) : 0;
-  static constexpr unsigned long long SUPP3 = NPAIR_ > 3 ? make_supp(3) : 0;
-  static constexpr unsigned SGN0 = NPAIR_ > 0 ? make_sgn(0) : 0;
-  static constexpr unsigned SGN1 = NPAIR_ > 1 ? make_sgn(1) : 0;
-  static constexpr unsigned SGN2 = NPAIR_ > 2 ? make_sgn(2) : 0;
-  static constexpr unsigned SGN3 = NPAIR_ > 3 ? make_sgn(3) : 0;
-  static constexpr int NSUP0 = NPAIR_ > 0 ? make_nsup(0) : 0;
-  static constexpr int NSUP1 = NPAIR_ > 1 ? make_nsup(1) : 0;
-  static constexpr int NSUP2 = NPAIR_ > 2 ? make_nsup(2) : 0;
-  static constexpr int NSUP3 = NPAIR_ > 3 ? make_nsup(3) : 0;
-  // the w-th support dof of pair p, its sign, the pair's support size
-  __host__ __device__ static constexpr int supp(int p, int w) {
-    return static_cast<int>(
-        ((p == 0 ? SUPP0 : p == 1 ? SUPP1 : p == 2 ? SUPP2 : SUPP3) >>
-         (4 * w)) & 0xFull);
-  }
-  __host__ __device__ static constexpr double supp_sign(int p, int w) {
-    return (((p == 0 ? SGN0 : p == 1 ? SGN1 : p == 2 ? SGN2 : SGN3) >> w) &
-            1u) ? 1.0 : -1.0;
-  }
-  __host__ __device__ static constexpr int nsup(int p) {
-    return p == 0 ? NSUP0 : p == 1 ? NSUP1 : p == 2 ? NSUP2 : NSUP3;
-  }
   __host__ __device__ static constexpr int count_slots() {
     int n = 0;
-    for (int p = 0; p < NPAIR_; ++p) n += pair_ncon(p);
+    for (int p = 0; p < NPAIR; ++p) n += pair_ncon(p);
     return n;
   }
   static constexpr int NSLOT = count_slots();
-  // pair of contact slot s (2 bits per slot)
-  __host__ __device__ static constexpr unsigned long long make_slotpair() {
-    unsigned long long code = 0;
-    int s = 0;
-    for (int p = 0; p < NPAIR_; ++p)
-      for (int c = 0; c < pair_ncon(p); ++c)
-        code |= static_cast<unsigned long long>(p) << (2 * s++);
-    return code;
-  }
-  static constexpr unsigned long long SLOTPAIR = make_slotpair();
+  // pair of contact slot s
   __host__ __device__ static constexpr int slot_pair(int s) {
-    return static_cast<int>((SLOTPAIR >> (2 * s)) & 3ull);
+    for (int p = 0; p < NPAIR; ++p) {
+      if (s < pair_ncon(p)) return p;
+      s -= pair_ncon(p);
+    }
+    return -1;
   }
   __host__ __device__ static constexpr int first_slot(int p) {
     int s = 0;
@@ -281,17 +273,20 @@ struct Topo {
   }
   __host__ __device__ static constexpr int max_sup() {
     int w = 1;
-    for (int p = 0; p < NPAIR_; ++p) w = nsup(p) > w ? nsup(p) : w;
+    for (int p = 0; p < NPAIR; ++p) w = nsup(p) > w ? nsup(p) : w;
     return w;
   }
 
   // constraint rows (constraint.cuh): two one-entry rows per limited joint,
-  // then four rows per contact slot over its pair's support
+  // then four rows per contact slot over its pair's support; compile time
+  // only: row r's dofs (4 bits each) and its width
   static constexpr int R = 2 * NLIM + 4 * NSLOT;
   static constexpr int ROW_W = max_sup();
-  __host__ __device__ static constexpr int row_dof(int r, int w) {
-    return r < 2 * NLIM ? lim_dof(r < NLIM ? r : r - NLIM)
-                        : supp(slot_pair((r - 2 * NLIM) / 4), w);
+  __host__ __device__ static constexpr unsigned long long row_code(int r) {
+    return r < 2 * NLIM
+               ? static_cast<unsigned long long>(lim_dof(r < NLIM ? r
+                                                                  : r - NLIM))
+               : supp_code(slot_pair((r - 2 * NLIM) / 4));
   }
   __host__ __device__ static constexpr int row_w(int r) {
     return r < 2 * NLIM ? 1 : nsup(slot_pair((r - 2 * NLIM) / 4));
@@ -302,7 +297,7 @@ struct Topo {
   static constexpr int ACT = DOFB + NV_ * DOF_STRIDE;      // actuator block
   static constexpr int LIM = ACT + NU_ * ACT_STRIDE;       // limit block
   static constexpr int PAIRB = LIM + NLIM * LIM_STRIDE;    // contact pairs
-  static constexpr int GRAV = PAIRB + NPAIR_ * PAIR_STRIDE;
+  static constexpr int GRAV = PAIRB + NPAIR * PAIR_STRIDE;
   static constexpr int DT = GRAV + 3;
 };
 
@@ -383,7 +378,9 @@ __device__ __forceinline__ void integrate_pos(const double* q, const double* v,
       quat_mul(q + a + 3, ql, qq);
       quat_normalize(qq, qn + a + 3);
     } else {
-      qn[a] = q[a] + dt * v[j];
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        if (k < T::body_ndof(b)) qn[a + k] = q[a + k] + dt * v[j + k];
     }
   }
 }
@@ -435,7 +432,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
   for (int b = 1; b < NB; ++b) {
     const double* pb = P + (b - 1) * BODY_STRIDE;
     const int p = T::parent(b);
-    const int j = T::body_dof(b);
+    const int j0 = T::body_dof(b);
     const int qa = T::qadr(b);
     double xq[4], xp[3], tmp[3];
     if (T::free(b)) {
@@ -451,10 +448,10 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
         cross3(xp, a, ax);
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
-          cdof[j + k][m] = 0.0;
-          cdof[j + k][3 + m] = m == k ? 1.0 : 0.0;
-          cdof[j + 3 + k][m] = a[m];
-          cdof[j + 3 + k][3 + m] = ax[m];
+          cdof[j0 + k][m] = 0.0;
+          cdof[j0 + k][3 + m] = m == k ? 1.0 : 0.0;
+          cdof[j0 + 3 + k][m] = a[m];
+          cdof[j0 + 3 + k][3 + m] = ax[m];
         }
       }
     } else {
@@ -462,39 +459,47 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       quat_rotate(xquat[p], pb + F_BPOS, tmp);
 #pragma unroll
       for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
-    }
-    if (j < 0 || T::free(b)) {
-      // welded body: the parent's frame moved by the body offset
-    } else if (T::slide(j)) {
-      const double dq = q[qa] - pb[F_QPOS0];
-      double aw[3];
-      quat_rotate(xq, pb + F_JAXIS, aw);
+      // the body's hinges and slides in declaration order, each from the
+      // frame the joints before it left (none: a welded body)
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        xp[k] = xp[k] + aw[k] * dq;
-        cdof[j][k] = 0.0;
-        cdof[j][3 + k] = aw[k];
+      for (int n = 0; n < 6; ++n) {
+        if (n >= T::body_ndof(b)) continue;
+        const int j = j0 + n;
+        const double* pd = P + T::DOFB + j * DOF_STRIDE;
+        const double dq = q[T::dof_q(j)] - pd[D_QPOS0];
+        if (T::slide(j)) {
+          double aw[3];
+          quat_rotate(xq, pd + D_JAXIS, aw);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            xp[k] = xp[k] + aw[k] * dq;
+            cdof[j][k] = 0.0;
+            cdof[j][3 + k] = aw[k];
+          }
+        } else {
+          double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
+          quat_rotate(xq, pd + D_JPOS, anchor);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            anchor[k] += xp[k];
+            rv[k] = pd[D_JAXIS + k] * dq;
+          }
+          quat_exp(rv, ql);
+          quat_mul(xq, ql, xq2);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) xq[k] = xq2[k];
+          quat_rotate(xq, pd + D_JPOS, tmp);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) xp[k] = anchor[k] - tmp[k];
+          quat_rotate(xq, pd + D_JAXIS, a);
+          cross3(anchor, a, ax);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            cdof[j][k] = a[k];
+            cdof[j][3 + k] = ax[k];
+          }
+        }
       }
-    } else {
-      const double dq = q[qa] - pb[F_QPOS0];
-      double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
-      quat_rotate(xq, pb + F_JPOS, anchor);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        anchor[k] += xp[k];
-        rv[k] = pb[F_JAXIS + k] * dq;
-      }
-      quat_exp(rv, ql);
-      quat_mul(xq, ql, xq2);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xq[k] = xq2[k];
-      quat_rotate(xq, pb + F_JPOS, tmp);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) xp[k] = anchor[k] - tmp[k];
-      quat_rotate(xq, pb + F_JAXIS, a);
-      cross3(anchor, a, ax);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) { cdof[j][k] = a[k]; cdof[j][3 + k] = ax[k]; }
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) xpos[b][k] = xp[k];
@@ -533,38 +538,41 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 
     // RNE forward: body velocity, acceleration and force
     double Iv[6], Ia[6], cf[6];
-    if (j < 0) {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        cvel[b][k] = cvel[p][k];
-        cacc[b][k] = cacc[p][k];
-      }
-    } else if (T::free(b)) {
+    for (int k = 0; k < 6; ++k) {
+      cvel[b][k] = cvel[p][k];
+      cacc[b][k] = cacc[p][k];
+    }
+    if (T::free(b)) {
       // the rotations' cdof turn with the whole body twist
-#pragma unroll
-      for (int k = 0; k < 6; ++k) cvel[b][k] = cvel[p][k];
 #pragma unroll
       for (int i = 0; i < 6; ++i)
 #pragma unroll
         for (int k = 0; k < 6; ++k)
-          cvel[b][k] = cvel[b][k] + cdof[j + i][k] * v[j + i];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) cacc[b][k] = cacc[p][k];
+          cvel[b][k] = cvel[b][k] + cdof[j0 + i][k] * v[j0 + i];
 #pragma unroll
       for (int i = 3; i < 6; ++i) {
         double cm[6];
-        cross_motion(cvel[b], cdof[j + i], cm);
+        cross_motion(cvel[b], cdof[j0 + i], cm);
 #pragma unroll
         for (int k = 0; k < 6; ++k)
-          cacc[b][k] = cacc[b][k] + cm[k] * v[j + i];
+          cacc[b][k] = cacc[b][k] + cm[k] * v[j0 + i];
       }
     } else {
-      double cm[6];
+      // hinge or slide dof j's cdof turns with the twist of the dofs before
+      // it: the parent's and the body's own earlier ones
 #pragma unroll
-      for (int k = 0; k < 6; ++k) cvel[b][k] = cvel[p][k] + cdof[j][k] * v[j];
-      cross_motion(cvel[p], cdof[j], cm);
+      for (int n = 0; n < 6; ++n) {
+        if (n >= T::body_ndof(b)) continue;
+        const int j = j0 + n;
+        double cm[6];
+        cross_motion(cvel[b], cdof[j], cm);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) cacc[b][k] = cacc[p][k] + cm[k] * v[j];
+        for (int k = 0; k < 6; ++k) {
+          cacc[b][k] = cacc[b][k] + cm[k] * v[j];
+          cvel[b][k] = cvel[b][k] + cdof[j][k] * v[j];
+        }
+      }
     }
     inertia_mul(I, cvel[b], Iv);
     inertia_mul(I, cacc[b], Ia);
@@ -649,11 +657,11 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int bi = T::dof_body(i);
-      const double* pb = P + (bi - 1) * BODY_STRIDE;
-      const double damp = P[T::DOFB + i * DOF_STRIDE + D_DAMP];
+      const double* pd = P + T::DOFB + i * DOF_STRIDE;
+      const double damp = pd[D_DAMP];
       double passive = -damp * v[i];
       if (!T::free(bi))
-        passive = passive + (-pb[F_STIFF] * (q[T::qadr(bi)] - pb[F_QSPRING]));
+        passive = passive + (-pd[D_STIFF] * (q[T::dof_q(i)] - pd[D_QSPRING]));
       double act = 0.0;
 #pragma unroll
       for (int a = 0; a < NU; ++a) {
@@ -708,6 +716,9 @@ __device__ __forceinline__ void residual_and_step(
     double* qn, double* vn) {
   if constexpr (T::RES == RES_JOINT) {
     joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
+    smooth_step<T>(P, q, v, u, qn, vn);
+  } else if constexpr (T::RES == RES_SELECT) {
+    select_residual<T::NQ, T::NV, T::NRES, T::SELECT>(q, v, u, tg, r);
     smooth_step<T>(P, q, v, u, qn, vn);
   } else {
     smooth_step<T, true>(P, q, v, u, qn, vn, tg, resc, r);

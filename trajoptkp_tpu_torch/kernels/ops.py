@@ -8,16 +8,18 @@ version on the card.  Each wrapper adds one to `LAUNCHES[name]` where it
 launches its kernel, so a run can show that its main path went through the
 kernels.
 
-The kernels cover trees whose bodies carry one hinge, slide or free joint or
-none, joint limits and plane-cylinder and cylinder-cylinder contacts (the
-contact rows K2b, csrc/contact.cuh, and the constraint solve K2a,
+The kernels cover trees whose bodies carry hinge and slide joints (several
+per body), one free joint alone, or none, joint limits and plane-cylinder,
+plane-capsule, capsule-capsule and cylinder-cylinder contacts (the contact
+rows K2b, csrc/contact.cuh, and the constraint solve K2a,
 csrc/constraint.cuh, device functions inside the step), a state vector of
-hinge, slide and free-translation dofs, and the joint-space or the pushing
-tasks' FK residual.  Their topology (sizes, joint masks and codes, qpos
-addresses, state-vector dofs, contact pairs, residual kind) is a template
-argument; the instances built are listed in csrc/instances.cuh.  One more
-entry point runs a device function of the step alone: `fk_bias` (the FK
-products and bias force, for the pushing tasks' servo).
+hinge, slide and free-translation dofs, and the joint-space, the pushing
+tasks' FK or the walker's selected-coordinate residual.  Their topology
+(sizes, joint masks and codes, qpos addresses, state-vector dofs, residual
+kind, contact pairs) is a template argument; the instances built are listed
+in csrc/instances.cuh.  `mpc_apply` (K8) is the MPC replan's apply step.
+One more entry point runs a device function of the step alone: `fk_bias`
+(the FK products and bias force, for the pushing tasks' servo).
 """
 
 from __future__ import annotations
@@ -40,10 +42,12 @@ from ..tasks.base import Task, control_limits
 from . import build
 
 KERNELS = ("rollout", "linesearch", "fd_jacobian", "backward")
+# the MPC replan's apply step (K8), launched once per replan
+MPC_KERNELS = ("mpc_apply",)
 # the FK products and bias force of the pushing tasks' servo (in the rollout
 # library), launched by the servo that starts a push solve
 SERVO_KERNELS = ("fk_bias",)
-LAUNCHES = {name: 0 for name in KERNELS + SERVO_KERNELS}
+LAUNCHES = {name: 0 for name in KERNELS + MPC_KERNELS + SERVO_KERNELS}
 
 # replaced lane program of the JAX package, per kernel
 REPLACES = {
@@ -51,10 +55,11 @@ REPLACES = {
     "linesearch": "trajoptkp_tpu/solver/lanes.py:750",
     "fd_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
     "backward": "trajoptkp_tpu/solver/lanes.py:632",
+    "mpc_apply": "trajoptkp_tpu/mpc/sync.py:100",
 }
-# device functions inside rollout, linesearch and fd_jacobian: the step (K1),
-# for a model with joint limits or contacts the constraint solve (K2a), and
-# for a model with contacts the narrow phase and contact rows (K2b)
+# device functions inside rollout, linesearch, fd_jacobian and mpc_apply: the
+# step (K1), for a model with joint limits or contacts the constraint solve
+# (K2a), and for a model with contacts the narrow phase and contact rows (K2b)
 DEVICE_FUNCTIONS = {
     "step": ("trajoptkp_tpu_torch/kernels/csrc/step.cuh",
              "trajoptkp_tpu/dynamics/lanes.py:1595"),
@@ -66,16 +71,16 @@ DEVICE_FUNCTIONS = {
 
 # numeric model buffer layout, mirrored by csrc/step.cuh
 BODY_FIELDS = (("body_pos", 3), ("body_quat", 4), ("body_ipos", 3),
-               ("body_iquat", 4), ("body_mass", 1), ("body_inertia", 3),
-               ("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
-               ("jnt_stiffness", 1), ("qpos_spring", 1))
+               ("body_iquat", 4), ("body_mass", 1), ("body_inertia", 3))
 DOF_FIELDS = ("dof_damping", "dof_armature")
-# per body 1..nbody-1 (joint fields zero for a body without a joint or with
-# a free one); per dof DOF_FIELDS; per actuator: dof, gear, ctrllimited, lo,
-# hi; per limited joint: dynamics/contact.py LIMIT_FIELDS; per contact pair:
-# geom1 pos, quat, size, geom2 pos, quat, size, CONTACT_FIELDS; gravity (3);
-# timestep
-RES_KINDS = {"joint_space": 0, "push": 1}
+JOINT_FIELDS = (("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
+                ("jnt_stiffness", 1), ("qpos_spring", 1))
+# per body 1..nbody-1 BODY_FIELDS; per dof DOF_FIELDS then its joint's
+# JOINT_FIELDS (zero for a free joint's dofs); per actuator: dof, gear,
+# ctrllimited, lo, hi; per limited joint: dynamics/contact.py LIMIT_FIELDS;
+# per contact pair: geom1 pos, quat, size, geom2 pos, quat, size,
+# CONTACT_FIELDS; gravity (3); timestep
+RES_KINDS = {"joint_space": 0, "push": 1, "select": 2}
 
 
 def reset_launch_counts() -> None:
@@ -89,52 +94,43 @@ def reset_launch_counts() -> None:
 
 
 def body_joints(model: Model):
-    """joint of each body, -1 for a body without a joint, or raise."""
-    joints = [-1] * model.nbody
+    """The joints of each body in declaration order ([] for a body without a
+    joint)."""
+    joints = [[] for _ in range(model.nbody)]
     for j, b in enumerate(model.jnt_bodyid):
-        if joints[b] != -1:
-            raise NotImplementedError(
-                "the kernels take at most one joint per body")
-        joints[b] = j
+        joints[b].append(j)
     return joints
-
-
-def body_dofs(model: Model):
-    """first dof of each body, -1 for a body without a joint, or raise."""
-    return [model.jnt_dofadr[j] if j >= 0 else -1
-            for j in body_joints(model)]
 
 
 def _scope_error(why: str):
     return NotImplementedError(
         f"the kernels take trees of up to 16 bodies (qpos and qvel up to 15 "
-        f"entries) with one hinge, slide or free joint per body or none: "
-        f"{why}; ball joints are ROADMAP Queue 1 item 11")
+        f"entries) whose bodies carry hinge and slide joints, one free joint "
+        f"alone, or none: {why}; ball joints are ROADMAP Queue 1 item 11")
 
 
 def model_topology(model: Model) -> Tuple[int, ...]:
     """(NV, NU, NBODY, slide mask, free mask, parent code, body-dof code,
-    qpos-address code, limited mask, contact-pair count, pair code) of a
-    kernel-ready model, or raise."""
+    body-ndof code, qpos-address code, limited mask) of a kernel-ready model,
+    and its contact pairs' codes, or raise."""
     nv, nq = model.nv, model.nq
     if nv > 15 or nq > 15 or model.nbody > 16:
         raise _scope_error(f"nq {nq}, nv {nv}, nbody {model.nbody}")
     joints = body_joints(model)
     dof = 0
     for b in range(1, model.nbody):
-        j = joints[b]
         if model.body_parent[b] >= b:
             raise _scope_error("bodies must follow their parents")
-        if j < 0:
-            continue
-        jt = model.jnt_type[j]
-        if jt not in (HINGE, SLIDE, FREE):
-            raise _scope_error(f"joint {model.joint_names[j]} is a ball")
-        if jt == FREE and model.body_parent[b] != 0:
-            raise _scope_error("a free joint's body must hang from the world")
-        if model.jnt_dofadr[j] != dof:
-            raise _scope_error("dofs must follow the body order")
-        dof += 6 if jt == FREE else 1
+        kinds = [model.jnt_type[j] for j in joints[b]]
+        if any(k not in (HINGE, SLIDE, FREE) for k in kinds):
+            raise _scope_error(f"body {model.body_names[b]} has a ball joint")
+        if FREE in kinds and (len(kinds) > 1 or model.body_parent[b] != 0):
+            raise _scope_error("a free joint must be its body's only joint "
+                               "and the body must hang from the world")
+        for j in joints[b]:
+            if model.jnt_dofadr[j] != dof:
+                raise _scope_error("dofs must follow the body order")
+            dof += 6 if model.jnt_type[j] == FREE else 1
     for a in range(model.nu):
         if model.jnt_type[model.actuator_trnid[a]] not in (HINGE, SLIDE):
             raise _scope_error("actuators must drive hinge or slide joints")
@@ -143,30 +139,30 @@ def model_topology(model: Model) -> Tuple[int, ...]:
             "the kernels multiply the impedance power out: solimp[4] must "
             "be an integer from 1 to 8")
     cc = contact_constants(model)
-    if len(cc.pairs) > 4 or cc.nslot > 32:
-        raise _scope_error(f"{len(cc.pairs)} contact pairs, {cc.nslot} slots "
-                           "(the kernels take 4 pairs, 32 slots)")
     if cc.pairs and not cc.int_power:
         raise NotImplementedError(
             "the kernels multiply the impedance power out: contact solimp[4] "
             "must be an integer from 1 to 8")
-    dofs = body_dofs(model)
+    if any(len(p.support) > 15 for p in cc.pairs):
+        raise _scope_error("a contact pair's support exceeds 15 dofs")
     slide = sum(1 << model.jnt_dofadr[j] for j in range(model.njnt)
                 if model.jnt_type[j] == SLIDE)
     free = sum(1 << b for b in range(1, model.nbody)
-               if joints[b] >= 0 and model.jnt_type[joints[b]] == FREE)
+               if joints[b] and model.jnt_type[joints[b][0]] == FREE)
     parents = sum(model.body_parent[b] << (4 * b)
                   for b in range(1, model.nbody))
-    bodydof = sum((dofs[b] + 1) << (4 * b) for b in range(1, model.nbody))
-    qadr = sum(model.jnt_qposadr[joints[b]] << (4 * b)
-               for b in range(1, model.nbody) if joints[b] >= 0)
+    bodydof = sum((model.jnt_dofadr[joints[b][0]] + 1) << (4 * b)
+                  for b in range(1, model.nbody) if joints[b])
+    ndof = sum(sum(6 if model.jnt_type[j] == FREE else 1 for j in joints[b])
+               << (4 * b) for b in range(1, model.nbody))
+    qadr = sum(model.jnt_qposadr[joints[b][0]] << (4 * b)
+               for b in range(1, model.nbody) if joints[b])
     limited = sum(1 << model.jnt_dofadr[j]
                   for j in limit_constants(model).joints)
-    pairs = sum((pr.types[0] | pr.types[1] << 4 | pr.bodies[0] << 8
-                 | pr.bodies[1] << 12) << (16 * p)
-                for p, pr in enumerate(cc.pairs))
-    return (nv, model.nu, model.nbody, slide, free, parents, bodydof, qadr,
-            limited, len(cc.pairs), pairs)
+    pairs = tuple(pr.types[0] | pr.types[1] << 4 | pr.bodies[0] << 8
+                  | pr.bodies[1] << 12 for pr in cc.pairs)
+    return (nv, model.nu, model.nbody, slide, free, parents, bodydof, ndof,
+            qadr, limited), pairs
 
 
 def state_key(model: Model, sv) -> Tuple[int, int]:
@@ -204,11 +200,20 @@ def residual_key(task: Task) -> Tuple[int, int, int]:
         return RES_KINDS["joint_space"], kind[1], kind[2]
     if _push_kind(task):
         return RES_KINDS["push"], kind[2], model.site_bodyid[kind[3]]
+    if len(kind) == 2 and kind[0] == "select" and len(kind[1]) == task.nres:
+        sizes = (model.nq, model.nv, model.nu)
+        base = (0, model.nq, model.nq + model.nv)
+        idx = [base[s_] + i for s_, i in kind[1] if 0 <= i < sizes[s_]]
+        if len(idx) == task.nres <= 12 and max(idx) < 32:
+            return (RES_KINDS["select"], task.nres,
+                    sum(i << (5 * k) for k, i in enumerate(idx)))
     raise NotImplementedError(
         "the kernels compute the joint-space residual (\"joint_space\", "
-        "nj <= nv, nr <= nu) and the pushing FK residual (\"push\", 0, "
-        f"goal body, ee site); task residual is {kind}; clutter (\"push\", "
-        "n > 0) is ROADMAP Queue 1 item 7b")
+        "nj <= nv, nr <= nu), the pushing FK residual (\"push\", 0, "
+        "goal body, ee site) and a residual of selected coordinates "
+        "(\"select\", ((source, index), ...)) of at most 12 rows; task "
+        f"residual is {kind}; clutter (\"push\", n > 0) is ROADMAP Queue 1 "
+        "item 7b")
 
 
 def residual_constants(task: Task) -> torch.Tensor:
@@ -220,24 +225,23 @@ def residual_constants(task: Task) -> torch.Tensor:
     return torch.zeros(0, dtype=model.dtype, device=model.device)
 
 
-_HEX = r",\s*(0x[0-9a-fA-F]+)u(?:ll)?"
-_INT = r",\s*(\d+)"
+def _int(x: str) -> int:
+    return int(x.strip().rstrip("uUlL"), 0)
 
 
 @functools.lru_cache(maxsize=None)
 def instances() -> dict:
-    """(NV, NU, NBODY, slide mask, free mask, parent code, body-dof code,
-    qpos-address code, limited mask, NDOF, state-dof code, NPAIR, pair
-    code, RES, RESA, RESB) -> instance tag, from instances.cuh (read once).
-    The limited mask and the pairs in the key fix the rows of the constraint
-    solve, so a model with limits or contacts never runs through an instance
-    without them."""
+    """instance key -> instance tag, from instances.cuh (read once): the key
+    is (NV, NU, NBODY, slide mask, free mask, parent code, body-dof code,
+    body-ndof code, qpos-address code, limited mask, NDOF, state-dof code,
+    RES, RESA, RESB, pair codes...).  The limited mask and the pairs in the
+    key fix the rows of the constraint solve, so a model with limits or
+    contacts never runs through an instance without them."""
     text = (build.CSRC / "instances.cuh").read_text().replace("\\\n", " ")
-    pat = (r"X\((\w+)" + _INT * 3 + _HEX * 6 + _INT + _HEX + _INT + _HEX
-           + _INT * 3 + r"\)")
     out = {}
-    for m in re.findall(pat, text):
-        out[tuple(int(x, 0) for x in m[1:])] = m[0]
+    for tag, args in re.findall(r"\bX\((\w+),([\s0-9a-fA-FxuUlL,]*)\)",
+                                text):
+        out[tuple(_int(x) for x in args.split(","))] = tag
     return out
 
 
@@ -247,14 +251,25 @@ def backward_instances() -> frozenset:
     (read once)."""
     text = (build.CSRC / "instances.cuh").read_text()
     return frozenset((int(a), int(b))
-                     for a, b in re.findall(r"B\((\d+),\s*(\d+)\)", text))
+                     for a, b in re.findall(r"\bB\((\d+),\s*(\d+)\)", text))
 
 
 def instance_key(task: Task) -> Tuple[int, ...]:
     """The instances.cuh key of a task, or raise outside the scope."""
-    topo = model_topology(task.model)
-    return (topo[:9] + state_key(task.model, task.sv) + topo[9:]
-            + residual_key(task))
+    topo, pairs = model_topology(task.model)
+    return topo + state_key(task.model, task.sv) + residual_key(task) + pairs
+
+
+def instance_line(task: Task, tag: str) -> str:
+    """The instances.cuh entry of a task (to add a topology)."""
+    key = instance_key(task)
+    hexes = {3, 4, 5, 6, 7, 8, 9, 11}
+    words = [tag] + [hex(v) + ("u" if i in (3, 4, 9) else "ull")
+                     if i in hexes else str(v)
+                     for i, v in enumerate(key[:15])]
+    words[15] = hex(key[14]) + "ull"
+    words += [hex(p) + "u" for p in key[15:]]
+    return f"X({', '.join(words)})"
 
 
 class KernelArgs(NamedTuple):
@@ -276,23 +291,24 @@ _ARGS_CACHE: dict = {}
 def pack_model(model: Model) -> torch.Tensor:
     """The model buffer that csrc/step.cuh reads (layout above)."""
     rows = []
-    joints = body_joints(model)
     dt = dict(dtype=model.dtype, device=model.device)
     for b in range(1, model.nbody):
-        j = joints[b]
-        scalar = j >= 0 and model.jnt_type[j] in (HINGE, SLIDE)
         for field, width in BODY_FIELDS:
-            x = getattr(model, field)
-            if field.startswith("body_"):
-                rows.append(x[b].reshape(width))
-            elif not scalar:
-                rows.append(torch.zeros(width, **dt))
-            elif field in ("qpos0", "qpos_spring"):
-                rows.append(x[model.jnt_qposadr[j]].reshape(width))
-            else:
-                rows.append(x[j].reshape(width))
-    rows.append(torch.stack([getattr(model, f) for f in DOF_FIELDS],
-                            1).reshape(-1))
+            rows.append(getattr(model, field)[b].reshape(width))
+    for j in range(model.njnt):
+        scalar = model.jnt_type[j] in (HINGE, SLIDE)
+        da, qa = model.jnt_dofadr[j], model.jnt_qposadr[j]
+        for k in range(6 if model.jnt_type[j] == FREE else 1):
+            rows.append(torch.stack([getattr(model, f)[da + k]
+                                     for f in DOF_FIELDS]))
+            for field, width in JOINT_FIELDS:
+                x = getattr(model, field)
+                if not scalar:
+                    rows.append(torch.zeros(width, **dt))
+                elif field in ("qpos0", "qpos_spring"):
+                    rows.append(x[qa].reshape(width))
+                else:
+                    rows.append(x[j].reshape(width))
     for a in range(model.nu):
         j = model.actuator_trnid[a]
         rng = model.actuator_ctrlrange[a]
@@ -360,14 +376,18 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(kernel: str, symbol: str, *args, library: str = None):
-    fn = getattr(build.load(library or kernel), symbol)
+def _launch(kernel: str, instance: str, symbol: str, *args,
+            source: str = None):
+    """Launch `symbol` of the library of `source` (default: the kernel's
+    own) at `instance`, and count it."""
+    lib = build.load(source or kernel, instance)
+    fn = getattr(lib, symbol)
     fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError {err} "
-                           f"({build.error_string(err)})")
+                           f"({build.error_string(lib, err)})")
     LAUNCHES[kernel] += 1
 
 
@@ -401,9 +421,10 @@ def rollout(task: Task, qpos0, qvel0, U, targets, plain: bool = False):
     qpos = torch.empty((H + 1, nq, B), **f64)
     qvel = torch.empty((H + 1, nv, B), **f64)
     costs = torch.empty((H, B), **f64)
-    _launch("rollout", f"trajopt_rollout_{ka.tag}", _p(ka.model_buf),
-            _p(ka.task_buf), _p(qpos0), _p(qvel0), _p(U), _p(targets),
-            _p(qpos), _p(qvel), _p(costs), ctypes.c_int(H), ctypes.c_int(B))
+    _launch("rollout", ka.tag, f"trajopt_rollout_{ka.tag}",
+            _p(ka.model_buf), _p(ka.task_buf), _p(qpos0), _p(qvel0), _p(U),
+            _p(targets), _p(qpos), _p(qvel), _p(costs), ctypes.c_int(H),
+            ctypes.c_int(B))
     return qpos, qvel, costs
 
 
@@ -431,9 +452,10 @@ def linesearch(task: Task, qpos, qvel, U, k, K, alphas, targets,
     qvs = torch.empty((H + 1, nv, nA, B), **f64)
     us = torch.empty((H, nu, nA, B), **f64)
     cs = torch.empty((H, nA, B), **f64)
-    _launch("linesearch", f"trajopt_linesearch_{ka.tag}", _p(ka.model_buf),
-            _p(ka.task_buf), _p(qpos), _p(qvel), _p(U), _p(k), _p(K),
-            _p(alphas), _p(targets), _p(qps), _p(qvs), _p(us), _p(cs),
+    _launch("linesearch", ka.tag, f"trajopt_linesearch_{ka.tag}",
+            _p(ka.model_buf), _p(ka.task_buf), _p(qpos), _p(qvel), _p(U),
+            _p(k), _p(K), _p(alphas), _p(targets), _p(qps), _p(qvs), _p(us),
+            _p(cs),
             ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B))
     return qps, qvs, us, cs
 
@@ -461,7 +483,8 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
         raise ValueError(f"slot times must lie in [0, {H})")
     J = torch.empty((nK, nx, nx + nu, B), dtype=torch.float64,
                     device=U.device)
-    _launch("fd_jacobian", f"trajopt_fd_jacobian_{ka.tag}", _p(ka.model_buf),
+    _launch("fd_jacobian", ka.tag,
+            f"trajopt_fd_jacobian_{ka.tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times), ctypes.c_double(eps),
             _p(J), ctypes.c_int(nK), ctypes.c_int(B))
     return J
@@ -513,10 +536,57 @@ def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False):
     dJ = torch.empty((B,), **f64)
     lam = torch.empty((B,), **f64)
     exited = torch.empty((B,), dtype=torch.uint8, device=A.device)
-    _launch("backward", symbol, _p(A), _p(Bm), _p(l_x), _p(l_xx), _p(l_u),
-            _p(l_uu), _p(lamb), _p(sched), _p(k), _p(K), _p(dJ), _p(lam),
-            _p(exited), ctypes.c_int(H), ctypes.c_int(B))
+    _launch("backward", f"nx{nx}_nu{nu}", symbol, _p(A), _p(Bm), _p(l_x),
+            _p(l_xx), _p(l_u), _p(l_uu), _p(lamb), _p(sched), _p(k), _p(K),
+            _p(dJ), _p(lam), _p(exited), ctypes.c_int(H), ctypes.c_int(B))
     return k, K, dJ, lam, exited.bool()
+
+
+def mpc_apply(task: Task, qp, qv, U, U_n, accept, best, old, z, std,
+              targets, plain: bool = False):
+    """K8: the MPC replan after the forward pass (csrc/mpc_apply.cu): the
+    accept blend of the controls and the replan cost, `num_apply` noisy
+    controls applied (clip, running cost of the pre-step state, K1 step)
+    and the shift-pad.  qp (nq, B), qv (nv, B), U and U_n (H, nu, B),
+    accept (B,) bool, best, old (B,), z (num_apply, nu, B), std (nu,),
+    targets (ntgt, B) -> qp2, qv2, U_shift (H, nu, B), qps (num_apply, nq,
+    B), qvs (num_apply, nv, B), us (num_apply, nu, B), cs (num_apply, B),
+    rcost (B,).  Plain twin: mpc/sync.py:apply_controls."""
+    if _on_cpu(qp, qv, U, U_n, accept, best, old, z, std, targets) or plain:
+        from ..mpc.sync import apply_controls
+        return apply_controls(task, qp, qv, U, U_n, accept, best, old, z,
+                              std, targets)
+    ka = kernel_args(task, U.device)
+    H, B = U.shape[0], U.shape[-1]
+    nq, nv, nu, nA = ka.nq, ka.nv, ka.nu, z.shape[0]
+    _check("qp", qp, (nq, B))
+    _check("qv", qv, (nv, B))
+    _check("U", U, (H, nu, B))
+    _check("U_n", U_n, (H, nu, B))
+    _check("accept", accept, (B,), torch.bool)
+    _check("best", best, (B,))
+    _check("old", old, (B,))
+    _check("z", z, (nA, nu, B))
+    _check("std", std, (nu,))
+    _check("targets", targets, (ka.ntgt, B))
+    if not 1 <= nA <= H:
+        raise ValueError(f"num_apply {nA} must lie in [1, {H}]")
+    f64 = dict(dtype=torch.float64, device=U.device)
+    acc = accept.to(torch.float64)
+    qp2 = torch.empty((nq, B), **f64)
+    qv2 = torch.empty((nv, B), **f64)
+    U_shift = torch.empty((H, nu, B), **f64)
+    qps = torch.empty((nA, nq, B), **f64)
+    qvs = torch.empty((nA, nv, B), **f64)
+    us = torch.empty((nA, nu, B), **f64)
+    cs = torch.empty((nA, B), **f64)
+    rcost = torch.empty((B,), **f64)
+    _launch("mpc_apply", ka.tag, f"trajopt_mpc_apply_{ka.tag}",
+            _p(ka.model_buf), _p(ka.task_buf), _p(qp), _p(qv), _p(U),
+            _p(U_n), _p(acc), _p(best), _p(old), _p(z), _p(std), _p(targets),
+            _p(qp2), _p(qv2), _p(U_shift), _p(qps), _p(qvs), _p(us), _p(cs),
+            _p(rcost), ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B))
+    return qp2, qv2, U_shift, qps, qvs, us, cs, rcost
 
 
 def fk_bias(task: Task, qpos, qvel, plain: bool = False):
@@ -537,7 +607,7 @@ def fk_bias(task: Task, qpos, qvel, plain: bool = False):
     xquat = torch.empty((model.nbody, 4, B), **f64)
     cdof = torch.empty((model.nv, 6, B), **f64)
     bias = torch.empty((model.nv, B), **f64)
-    _launch("fk_bias", f"trajopt_fk_bias_{ka.tag}", _p(ka.model_buf),
-            _p(qpos), _p(qvel), _p(xpos), _p(xquat), _p(cdof), _p(bias),
-            ctypes.c_int(B), library="rollout")
+    _launch("fk_bias", ka.tag, f"trajopt_fk_bias_{ka.tag}",
+            _p(ka.model_buf), _p(qpos), _p(qvel), _p(xpos), _p(xquat),
+            _p(cdof), _p(bias), ctypes.c_int(B), source="rollout")
     return xpos, xquat, cdof, bias

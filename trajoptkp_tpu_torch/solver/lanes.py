@@ -3,13 +3,16 @@
 
 B scenes ("lanes") are solved together with the lane axis last in every
 array.  One host loop drives the phases with per-lane λ, per-lane accept and
-per-lane early exit:
+per-lane early exit.  `lane_phases` hands out the phases of one iteration
+by name, as the JAX `make_lane_batch_optimise(...).phases` does
+(`solver/lanes.py:861-864`), for this loop and for the MPC replan
+(mpc/sync.py):
 
   rollout         kernels.ops.rollout        (K3)
-  jacobians_si    kernels.ops.fd_jacobian    (K5) + SI lerp in torch
+  jacobians       kernels.ops.fd_jacobian    (K5) + SI lerp in torch
   cost_expansion  torch.func.jacfwd of the residual + einsum (K6 stays torch)
-  backward        kernels.ops.backward       (K7, λ retry per lane)
-  forward_pass    kernels.ops.linesearch     (K4) + argmin/accept in torch
+  bp              kernels.ops.backward       (K7, λ retry per lane)
+  fp              kernels.ops.linesearch     (K4) + argmin/accept in torch
 
 On a CUDA device the ops launch the hand-written kernels; on the CPU they
 run the plain twins.  `rule` picks the stopping rule: "lane" stops a lane
@@ -128,6 +131,41 @@ def forward_pass(task: Task, qpos, qvel, U, k, K, alphas, targets, old_cost,
     return (pick(qps), pick(qvs), pick(us), pick(cs)), best, best_cost, accept
 
 
+def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False) -> dict:
+    """The phases of one lane iteration at horizon H, by name (the JAX
+    `.phases` dict): rollout(qp, qv, U, targets), jacobians(qpos, qvel, U)
+    -> (A, Bm), cost_expansion(qpos, qvel, U, targets), bp(A, Bm, l_x, l_xx,
+    l_u, l_uu, λ) -> (k, K, dJ, λ, λ-exit), fp(qpos, qvel, U, old, k, K,
+    targets) -> (best trajectory (qpos, qvel, ctrl, costs), best alpha's
+    index, its cost, accept); "pct" is the SI plan's percentage of steps
+    with derivatives.  `plain` as in `solve_lanes`."""
+    if not isinstance(plain, bool):
+        unknown = set(plain) - set(ops.KERNELS + ops.MPC_KERNELS)
+        if unknown:
+            raise ValueError(f"unknown kernels {sorted(unknown)}")
+
+    def twin(name: str) -> bool:
+        return plain if isinstance(plain, bool) else name in plain
+
+    plan = si_plan(task, H)
+    alphas = default_alphas(cfg.num_parallel_rollouts, task.model.dtype,
+                            task.model.device)
+    return {
+        "rollout": lambda qp, qv, U, tg: ops.rollout(
+            task, qp, qv, U, tg, plain=twin("rollout")),
+        "jacobians": lambda qpos, qvel, U: jacobians_si(
+            task, plan, qpos, qvel, U, cfg.fd_eps, twin("fd_jacobian")),
+        "cost_expansion": lambda qpos, qvel, U, tg: cost_expansion(
+            task, qpos, qvel, U, tg),
+        "bp": lambda A, Bm, l_x, l_xx, l_u, l_uu, lamb: ops.backward(
+            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward")),
+        "fp": lambda qpos, qvel, U, old, k, K, tg: forward_pass(
+            task, qpos, qvel, U, k, K, alphas, tg, old, twin("linesearch")),
+        "pct": plan.pct,
+        "alphas": alphas,
+    }
+
+
 class LaneSolve(NamedTuple):
     qpos: torch.Tensor            # (H+1, nq, B) final nominal
     qvel: torch.Tensor            # (H+1, nv, B)
@@ -158,24 +196,15 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
     apart the kernels a difference between the two paths comes from."""
     if rule not in ("lane", "generic"):
         raise ValueError(f"rule must be 'lane' or 'generic', not {rule!r}")
-    if not isinstance(plain, bool):
-        unknown = set(plain) - set(ops.KERNELS)
-        if unknown:
-            raise ValueError(f"unknown kernels {sorted(unknown)}")
-
-    def twin(name: str) -> bool:
-        return plain if isinstance(plain, bool) else name in plain
-
     dev = qpos0.device
     H, B = U.shape[0], U.shape[-1]
-    plan = si_plan(task, H)
-    alphas = default_alphas(cfg.num_parallel_rollouts, U.dtype, dev)
+    ph = lane_phases(task, cfg, H, plain)
+    pct, alphas = ph["pct"], ph["alphas"]
     log = {k: [] for k in ("cost", "pct", "alpha", "lambda", "retried",
                            "derivs_ms", "bp_ms", "fp_ms")}
 
     t_start = time.perf_counter()
-    qpos, qvel, costs = ops.rollout(task, qpos0, qvel0, U, targets,
-                                    plain=twin("rollout"))
+    qpos, qvel, costs = ph["rollout"](qpos0, qvel0, U, targets)
     initial = costs.sum(0)
     old = initial
     lamb = torch.full((B,), cfg.lambda_init, dtype=U.dtype, device=dev)
@@ -186,14 +215,13 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
     for it in range(cfg.max_iterations):
         t0 = time.perf_counter()
         if need_derivs:
-            A, Bm = jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps,
-                                 twin("fd_jacobian"))
-            l_x, l_xx, l_u, l_uu = cost_expansion(task, qpos, qvel, U,
-                                                  targets)
+            A, Bm = ph["jacobians"](qpos, qvel, U)
+            l_x, l_xx, l_u, l_uu = ph["cost_expansion"](qpos, qvel, U,
+                                                        targets)
             _sync(dev)
         t1 = time.perf_counter()
-        k, K, dJ, lam_n, lam_exit = ops.backward(
-            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward"))
+        k, K, dJ, lam_n, lam_exit = ph["bp"](A, Bm, l_x, l_xx, l_u, l_uu,
+                                             lamb)
         # live lanes whose backward pass went through the λ retry, read from
         # λ: a lane valid at once leaves clamp(λ / factor).  (One retry from
         # min_lambda leaves the same value and is not seen.)
@@ -210,9 +238,8 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
             iters = torch.where(~done, it + 1, iters)
             done = torch.ones_like(done)
             break
-        best_traj, best, best_cost, accept = forward_pass(
-            task, qpos, qvel, U, k, K, alphas, targets, old,
-            twin("linesearch"))
+        best_traj, best, best_cost, accept = ph["fp"](qpos, qvel, U, old, k,
+                                                      K, targets)
         upd = accept & active
         qpos = torch.where(upd, best_traj[0], qpos)
         qvel = torch.where(upd, best_traj[1], qvel)
@@ -230,14 +257,14 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
         _sync(dev)
         t3 = time.perf_counter()
         log["cost"].append(float(new[0]))
-        log["pct"].append(plan.pct)
+        log["pct"].append(pct)
         log["alpha"].append(float(alphas[best[0]]))
         log["derivs_ms"].append((t1 - t0) * 1e3)
         log["bp_ms"].append((t2 - t1) * 1e3)
         log["fp_ms"].append((t3 - t2) * 1e3)
         if verbose:
             print(f"iter {it}: cost {float(old[0]):.5f} -> {float(new[0]):.5f}"
-                  f" lambda {log['lambda'][-1]:.2e} %derivs {plan.pct:.1f} "
+                  f" lambda {log['lambda'][-1]:.2e} %derivs {pct:.1f} "
                   f"t(d/bp/fp) {log['derivs_ms'][-1]:.1f}/"
                   f"{log['bp_ms'][-1]:.1f}/{log['fp_ms'][-1]:.1f} ms")
         old = new
@@ -251,7 +278,7 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
     return LaneSolve(
         qpos=qpos, qvel=qvel, ctrl=U, costs=costs, initial_cost=initial,
         final_cost=old, num_iterations=iters,
-        pct_derivs=torch.full((B,), plan.pct, dtype=U.dtype, device=dev),
+        pct_derivs=torch.full((B,), pct, dtype=U.dtype, device=dev),
         log=log, opt_time_ms=(time.perf_counter() - t_start) * 1e3,
     )
 
