@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from kernels/csrc (one nvcc per library and
-model instance, all in parallel) and holds each against its plain PyTorch
-twin on the card: acrobot at its main path's shapes, pentabot, reaching
+Builds the CUDA kernels from kernels/csrc (one nvcc per library and model
+instance, all in parallel) and holds each against its plain PyTorch twin
+on the card: acrobot at its main path's shapes, pentabot (folded, so that
+its capsule pairs touch), reaching
 (panda, joint limits: the constraint solve inside the step), push_ncl (panda
 pushing a free cylinder: the contact rows and narrow phase inside the step
 as well) and the walker (three joints on its torso, plane-capsule and
@@ -33,8 +34,17 @@ reaching's and push_ncl's full shapes and held against their twins there
 too (the rollout and the line search step by step, see `stepwise_check`),
 the push_ncl servo's first steps and its fk_bias are held against the plain
 servo at its own 128 lanes (`check_servo`), each phase of a walker replan is
-timed, and the CLI solves the three open-loop tasks and runs the walker's
-`Generate_syncronus_mpc_data --horizon 40`.
+timed.  The keypoint kernels (K9a, K9b, K9c and K5 at per-lane slots) are
+held against their twins bit for bit in the `keypoints` phase (acrobot
+VC/AJ/AA/IE, pentabot AA, reaching and push_ncl AJ_5_100, the walker VC, a
+slot budget that overflows, and reaching's and push_ncl's full shapes), and
+the `main_adaptive` phase drives acrobot AJ_1_50, VC_1_200 and IE_1_50
+(H=500, 512 scenes) and reaching AJ_5_100 (H=1500, 128 scenes) through
+`make_lane_phase_optimise` with launch counts, 3 acrobot iterations each
+against twins.  The CLI solves the three open-loop tasks with their own
+keypoint methods and acrobot with IE_1_50 and runs the walker's
+`Generate_syncronus_mpc_data --horizon 40`, the five processes side by
+side.
 
 Prints the card's name and power limit, the kernel build time, the seconds
 of each phase, a `record` line with every measurement, one
@@ -45,8 +55,8 @@ fails where no CUDA device is present.  The MPC campaigns write their
 `mpc_horizons.csv` under chip_smoke_out/mpc/.
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
-walker, golden, main_acrobot, main_reaching, main_push, main_mpc, cli) while
-developing; a subset never prints a result.
+walker, keypoints, golden, main_acrobot, main_reaching, main_push, main_mpc,
+main_adaptive, cli) while developing; a subset never prints a result.
 """
 
 import argparse
@@ -103,8 +113,8 @@ MPC_PLAIN_REPLANS = 2               # replans held against the plain path
 MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke_out", "mpc")
 PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "walker",
-          "golden", "main_acrobot", "main_reaching", "main_push", "main_mpc",
-          "cli")
+          "keypoints", "golden", "main_acrobot", "main_reaching", "main_push",
+          "main_mpc", "main_adaptive", "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -435,6 +445,25 @@ def walker_inputs(task, Hh, Bb, seed):
     qp[3:, n4:] = rng.uniform(-0.5, 0.5, (6, Bb - n4))
     qv = 0.3 * rng.standard_normal((m.nv, Bb))
     U = rng.uniform(-1.0, 1.0, (Hh, nu, Bb))
+    k = 0.1 * rng.standard_normal((Hh, nu, Bb))
+    K = 0.05 * rng.standard_normal((Hh, nu, nx, Bb))
+    tg = task.residual_targets[:, None].expand(-1, Bb)
+    return tuple(torch.as_tensor(x, **f64).contiguous()
+                 for x in (qp, qv, tg, U, k, K))
+
+
+def pentabot_inputs(task, Hh, Bb, seed):
+    """Check inputs for pentabot: every joint folded at random (U(-3, 3)
+    rad), so that its non-adjacent links touch (its six capsule-capsule
+    pairs, tests/test_torch_pentabot.py), qvel 0.3 N(0, 1), controls
+    0.3 N(0, 1), gains as lane_inputs."""
+    rng = np.random.default_rng(seed)
+    m = task.model
+    nu, nx = m.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    qp = rng.uniform(-3.0, 3.0, (m.nq, Bb))
+    qv = 0.3 * rng.standard_normal((m.nv, Bb))
+    U = 0.3 * rng.standard_normal((Hh, nu, Bb))
     k = 0.1 * rng.standard_normal((Hh, nu, Bb))
     K = 0.05 * rng.standard_normal((Hh, nu, nx, Bb))
     tg = task.residual_targets[:, None].expand(-1, Bb)
@@ -1052,6 +1081,398 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     return out
 
 
+# ---- the keypoint kernels (K9a, K9b, K9c) and K5 at per-lane slots --------
+
+# (model, method, min_N, max_N) of the keypoints phase at the check size
+KP_CASES = (("acrobot", "velocity_change", 1, 100),
+            ("acrobot", "adaptive_jerk", 1, 50),
+            ("acrobot", "adaptive_accel", 1, 50),
+            ("acrobot", "iterative_error", 1, 50),
+            ("pentabot", "adaptive_accel", 1, 10),
+            ("reaching", "adaptive_jerk", 5, 100),
+            ("push_ncl", "adaptive_jerk", 5, 100),
+            ("walker", "velocity_change", 1, 20))
+KP_TIGHT = 12          # the forced slot budget of the overflow case
+# the adaptive main paths: acrobot with the reference campaign's methods,
+# reaching with adaptive_jerk; each with the twins its 3 iterations are held
+# against: acrobot's own method against the plain path, AJ and IE against
+# the path whose keypoint kernels (K9a, K9b, K9c and K5) are the twins,
+# which holds each of them inside the solve loop in ~1 s where the plain
+# path takes ~40 s (its rollout, line-search and backward twins are held in
+# main_acrobot and in the VC run)
+KP_TWINS = frozenset(ops.KEYPOINT_KERNELS + ("fd_jacobian",))
+ADAPTIVE_MAIN = (("acrobot", "adaptive_jerk", 1, 50, KP_TWINS),
+                 ("acrobot", "velocity_change", 1, 200, True),
+                 ("acrobot", "iterative_error", 1, 50, KP_TWINS),
+                 ("reaching", "adaptive_jerk", 5, 100, None))
+KP_SHORT = {"adaptive_jerk": "AJ", "adaptive_accel": "AA",
+            "velocity_change": "VC", "iterative_error": "IE"}
+
+
+def with_method(task, name, min_N, max_N, **extra):
+    return task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name=name, min_N=min_N, max_N=max_N, **extra))
+
+
+def method_tag(name, min_N, max_N):
+    return f"{KP_SHORT[name]}_{min_N}_{max_N}"
+
+
+def plan_bound(H_, n, Bb, K_max):
+    """K9a: the state dofs' velocities read once and the plan written (mask
+    1 byte, two slots 4 and the weight 8 per (t, dof); K_max slot times;
+    count, overflow and pct), a few operations per (t, dof)."""
+    byt = F8 * H_ * n * Bb + H_ * n * Bb * 17 + F8 * K_max * Bb + 16 * Bb
+    return bound(10 * H_ * n * Bb, byt)
+
+
+def interp_bound(live, H_, nx, C, n, Bb):
+    """K9b: the live slots' Jacobians read once, the plan's slots and
+    weights read once, A and Bm written; three operations per entry."""
+    byt = F8 * live * nx * C + 16 * H_ * n * Bb + F8 * H_ * nx * C * Bb
+    return bound(3 * H_ * nx * C * Bb, byt)
+
+
+def mse_bound(times, m, n, Bb):
+    """K9c: the velocity rows of the two columns of each dof at the nodes'
+    distinct times read once, the mse written; ~8 operations per entry."""
+    byt = F8 * times * n * 2 * n * Bb + 12 * m + F8 * m * n * Bb
+    return bound(8 * m * n * n * Bb, byt)
+
+
+def fd_lane_bound(s, live, K_max, Bb):
+    """K5 at per-lane slots: the live slots' work and bytes (fd_bound per
+    live (slot, lane)), with the slot times and counts read."""
+    nx, nc = s.nx, s.nx + s.nu
+    ops_ = live * (2 * nc * step_ops(s) + 2 * nc * nx)
+    byt = F8 * (live * (s.nq + s.nv + s.nu + nx * nc) + K_max * Bb) + 4 * Bb
+    return bound(ops_, byt)
+
+
+def fd_lane_plain(task, qpos, qvel, U, slot_t, count, eps, chunk):
+    """K5's per-lane twin over chunks of slots (it steps 2 (2n + nu) copies
+    of every slot)."""
+    outs = []
+    for i in range(0, slot_t.shape[0], chunk):
+        c = torch.clamp(count - i, 0, chunk).to(torch.int32)
+        outs.append(ops.fd_jacobian(task, qpos, qvel, U,
+                                    slot_t[i:i + chunk].contiguous(), eps,
+                                    plain=True, counts=c))
+    return torch.cat(outs)
+
+
+def hold(name, kern, plain):
+    """(bit for bit, max abs err) of a kernel's outputs against its twin's;
+    a difference is a failed check."""
+    same, gap = outputs_gap(kern, plain)
+    check(same, f"{name}: kernel differs from its twin by {gap:.3e}")
+    return dict(bitwise=same, max_abs_err=gap)
+
+
+def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
+               fd_chunk=0):
+    """K9a, K5 at the plan's per-lane slots and K9b on the nominal (qpos,
+    qvel, U), each against its twin bit for bit, with device ms, the
+    twin's ms and the bounds (the live slots counted from this run)."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    s = Sizes(task)
+    n, nx, nc = task.sv.ndof, s.nx, s.nx + s.nu
+    pa = ops.keypoint_plan_args(task)
+    col = torch.as_tensor(lanes.column_dofs(n, s.nu), dtype=torch.int32,
+                          device="cuda")
+    kp = ops.keypoint_plan(pa, qvel, Hh, K_max)
+    pp, plan_plain_ms = cuda_timed(
+        lambda: ops.keypoint_plan(pa, qvel, Hh, K_max, plain=True))
+    live = int(kp.count.sum())
+    out = {"keypoint_plan": dict(
+        hold(f"{label} keypoint_plan", kp, pp), plain_ms=plan_plain_ms,
+        bound=plan_bound(Hh, n, Bb, K_max))}
+    kj = ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, cfg.fd_eps,
+                         counts=kp.count)
+    if fd_chunk:
+        t0 = time.perf_counter()
+        pj = fd_lane_plain(task, qpos, qvel, U, kp.slot_t, kp.count,
+                           cfg.fd_eps, fd_chunk)
+        torch.cuda.synchronize()
+        fd_plain_ms = (time.perf_counter() - t0) * 1e3
+    else:
+        pj, fd_plain_ms = cuda_timed(lambda: ops.fd_jacobian(
+            task, qpos, qvel, U, kp.slot_t, cfg.fd_eps, plain=True,
+            counts=kp.count))
+    out["fd_jacobian"] = dict(hold(f"{label} fd_jacobian (per-lane slots)",
+                                   kj, pj), plain_ms=fd_plain_ms,
+                              bound=fd_lane_bound(s, live, K_max, Bb))
+    del pj
+    ki = ops.kp_interp(kj, kp.pslot, kp.nslot, kp.w, col, nx)
+    pi, interp_plain_ms = cuda_timed(lambda: ops.kp_interp(
+        kj, kp.pslot, kp.nslot, kp.w, col, nx, plain=True))
+    out["kp_interp"] = dict(hold(f"{label} kp_interp", ki, pi),
+                            plain_ms=interp_plain_ms,
+                            bound=interp_bound(live, Hh, nx, nc, n, Bb))
+    del pi, ki
+    if time_it:
+        out["keypoint_plan"]["ms"] = cuda_ms(
+            lambda: ops.keypoint_plan(pa, qvel, Hh, K_max), 3)
+        out["fd_jacobian"]["ms"] = cuda_ms(lambda: ops.fd_jacobian(
+            task, qpos, qvel, U, kp.slot_t, cfg.fd_eps, counts=kp.count), 3)
+        out["kp_interp"]["ms"] = cuda_ms(lambda: ops.kp_interp(
+            kj, kp.pslot, kp.nslot, kp.w, col, nx), 3)
+    out.update(shape=f"H={Hh} B={Bb}", K_max=K_max, live_slots=live,
+               overflow_max=int(kp.overflow.max()),
+               pct_mean=float(kp.pct.mean()))
+    return out
+
+
+def check_ie(label, task, qpos, qvel, U, cfg):
+    """iterative_error: the whole jacobians phase (K5 into the cache, K9c,
+    K9a with time slots, K9b) against its twins' phase bit for bit, and K9c
+    alone on a full cache at the bisection tree's levels."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    n = task.sv.ndof
+    ph = lanes.lane_phases(task, cfg, Hh)
+    pp = lanes.lane_phases(task, cfg, Hh, plain=True)
+    jk, phase_ms = cuda_timed(lambda: ph["jacobians"](qpos, qvel, U))
+    mk = ph["keypoints"]["mask"]
+    jp, phase_plain_ms = cuda_timed(lambda: pp["jacobians"](qpos, qvel, U))
+    out = {"phase": dict(hold(f"{label} jacobians phase", (jk, mk),
+                              (jp, pp["keypoints"]["mask"])),
+                         ms=phase_ms, plain_ms=phase_plain_ms,
+                         pct_mean=float(jk[2].mean()))}
+    # K9c alone: a cache filled at every time, every level of the tree
+    nx, C = task.sv.nx, task.sv.nx + task.model.nu
+    cache = torch.zeros((Hh, nx, C, Bb), dtype=torch.float64, device="cuda")
+    every = torch.arange(Hh, device="cuda")[:, None].expand(Hh, Bb)
+    ops.fd_jacobian(task, qpos, qvel, U, every.contiguous(), cfg.fd_eps,
+                    counts=torch.full((Bb,), Hh, dtype=torch.int32,
+                                      device="cuda"), cache=cache)
+    levels = lanes.ie_levels(Hh, max(task.keypoint_cfg.min_N, 1))
+    gaps, ms, plain_ms, m_all, t_all = [], 0.0, 0.0, 0, 0
+    for s_arr, mid_arr, e_arr, _ in levels:
+        nodes = [torch.as_tensor(a, dtype=torch.int32, device="cuda")
+                 for a in (s_arr, mid_arr, e_arr)]
+        k9c = ops.ie_mse(cache, *nodes, n)
+        p9c, pms = cuda_timed(lambda: ops.ie_mse(cache, *nodes, n,
+                                                 plain=True))
+        gaps.append(outputs_gap(k9c, p9c))
+        ms += cuda_ms(lambda: ops.ie_mse(cache, *nodes, n), 3)
+        plain_ms += pms
+        m_all += len(s_arr)
+        t_all += len(set(np.concatenate([s_arr, mid_arr, e_arr]).tolist()))
+    same = all(g[0] for g in gaps)
+    gap = max(g[1] for g in gaps)
+    check(same, f"{label} ie_mse: kernel differs from its twin by {gap:.3e}")
+    out["ie_mse"] = dict(bitwise=same, max_abs_err=gap, ms=ms,
+                         plain_ms=plain_ms, levels=len(levels), nodes=m_all,
+                         bound=mse_bound(t_all, m_all, n, Bb),
+                         launches_timed=len(levels))
+    return out
+
+
+def keypoints_phase(tasks, inputs):
+    """K9a, K5 at per-lane slots, K9b and K9c against their twins on the
+    card at the check size (PH, PB; the walker at WH, WB) for each case of
+    KP_CASES from each model's check inputs (push_ncl from its servo), one
+    case under a forced small slot budget (overflow), and K9a, K5 and K9b
+    at reaching's and push_ncl's full shapes from their main paths'
+    nominals.  Returns the rows by case, each with the launches of each
+    kernel in that case."""
+    cfg = ILQRConfig()
+    out = {}
+    counted = ops.KEYPOINT_KERNELS + ("fd_jacobian",)
+    for model, name, min_N, max_N in KP_CASES:
+        ops.reset_launch_counts()
+        task = with_method(tasks[model], name, min_N, max_N)
+        qp0, qv0, tg, U = inputs[model][:4]
+        qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tg)
+        label = f"{model} {method_tag(name, min_N, max_N)}"
+        t0 = time.perf_counter()
+        if name == "iterative_error":
+            row = check_ie(label, task, qpos, qvel, U, cfg)
+        else:
+            row = check_plan(label, task, qpos, qvel, U,
+                             lanes.kp_budget(cfg, task, U.shape[0]), cfg)
+        row["s"] = time.perf_counter() - t0
+        row["launches"] = {k: ops.LAUNCHES[k] for k in counted}
+        out[label] = row
+        print(f"  keypoints {label} (H={U.shape[0]}, B={U.shape[-1]}): "
+              f"{json.dumps(row)}", flush=True)
+    # overflow: acrobot adaptive_jerk under KP_TIGHT slots
+    task = with_method(tasks["acrobot"], "adaptive_jerk", 1, 50)
+    qp0, qv0, tg, U = inputs["acrobot"][:4]
+    qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tg)
+    row = check_plan("acrobot AJ_1_50 overflow", task, qpos, qvel, U,
+                     KP_TIGHT, cfg, time_it=False)
+    check(row["overflow_max"] > 0, "the tight slot budget did not overflow")
+    out["acrobot AJ_1_50 budget 12"] = row
+    print(f"  keypoints acrobot AJ_1_50 under a budget of {KP_TIGHT} slots: "
+          f"{json.dumps(row)}", flush=True)
+    # full shapes: reaching's and push_ncl's main path nominals
+    for model, name, Hh, Bb, chunk in (("reaching", "adaptive_jerk", RH, RB,
+                                        150),
+                                       ("push_ncl", "adaptive_jerk", UH, UB,
+                                        100)):
+        task = with_method(si1(tasks[model]), name, 5, 100)
+        if model == "push_ncl":
+            st = push_start(task)
+            qp0, qv0, tg, U = st["qpos"], st["qvel"], st["targets"], st["U"]
+        else:
+            qp, qv, tgb = lanes.scenes(task, Bb, seed=0)
+            qp0, qv0, tg = (x.T.contiguous() for x in (qp, qv, tgb))
+            U = torch.zeros((Hh, task.model.nu, Bb), dtype=torch.float64,
+                            device="cuda")
+        qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tg)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        row = check_plan(f"{model} AJ_5_100 full shape", task, qpos, qvel, U,
+                         lanes.kp_budget(cfg, task, Hh), cfg,
+                         fd_chunk=chunk)
+        row["s"] = time.perf_counter() - t0
+        row["launches"] = {k: ops.LAUNCHES[k] for k in counted}
+        out[f"{model} AJ_5_100 full shape"] = row
+        print(f"  keypoints {model} AJ_5_100 at H={Hh} B={Bb}: "
+              f"{json.dumps(row)}", flush=True)
+        del qpos, qvel
+        torch.cuda.empty_cache()
+    return out
+
+
+def adaptive_path(task, Hh, Bb, plain3):
+    """An adaptive keypoint main path: one batched solve of ITERS iterations
+    through make_lane_phase_optimise (after a one-iteration warm-up) from
+    lanes.scenes and zero controls, with launch counts, solves/s, mean cost
+    reduction, mean %derivs and the largest overflow; the device ms of each
+    phase at the initial nominal and of each kernel of the jacobians phase;
+    with `plain3` 3 iterations of the kernel path against the path with
+    those twins (True: the plain path; a set: those kernels as twins, the
+    others as kernels), bit for bit."""
+    name = task.name
+    kp = task.keypoint_cfg
+    qp, qv, tg = lanes.scenes(task, Bb, seed=0)
+    U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
+                     device="cuda")
+    lanes.make_lane_phase_optimise(
+        task, ILQRConfig(max_iterations=1, min_iterations=1), Hh)(
+            qp, qv, U0, tg)
+    run = lanes.make_lane_phase_optimise(
+        task, ILQRConfig(max_iterations=ITERS, min_iterations=ITERS), Hh)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(qp, qv, U0, tg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    red = res.cost_reduction
+    mean_red = float(red.mean())
+    check(bool(torch.isfinite(red).all()) and 0.0 < mean_red < 1.0,
+          f"{name} {kp.name} main path: mean cost reduction {mean_red}")
+    want = ops.KERNELS + ("kp_interp", "keypoint_plan") + (
+        ("ie_mse",) if kp.name == "iterative_error" else ())
+    for kname in want:
+        check(launches.get(kname, 0) > 0,
+              f"{name} {kp.name} main path never launched {kname}")
+    out = dict(mean_cost_reduction=mean_red, wall_s=wall,
+               solves_per_s=Bb / wall, launches=launches,
+               pct_derivs_mean=float(res.pct_derivs.mean()),
+               kp_overflow_max=int(res.kp_overflow.max()),
+               iterations_mean=float(res.num_iterations.double().mean()))
+    # device ms per phase at the initial nominal
+    cfg = ILQRConfig()
+    s = Sizes(task)
+    qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
+    U = U0.permute(1, 2, 0).contiguous()
+    ph = lanes.lane_phases(task, cfg, Hh)
+    qpos, qvel, costs = ph["rollout"](qp0, qv0, U, tgl)
+    A, Bm, pct, _ = ph["jacobians"](qpos, qvel, U)
+    l = ph["cost_expansion"](qpos, qvel, U, tgl)
+    lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
+                     device="cuda")
+    k, K, *_ = ph["bp"](A, Bm, *l, lam)
+    old = costs.sum(0)
+    out["phases_ms"] = {
+        "rollout": cuda_ms(lambda: ph["rollout"](qp0, qv0, U, tgl), 3),
+        "jacobians": cuda_ms(lambda: ph["jacobians"](qpos, qvel, U), 3),
+        "cost_expansion": cuda_ms(lambda: ph["cost_expansion"](
+            qpos, qvel, U, tgl), 3),
+        "bp": cuda_ms(lambda: ph["bp"](A, Bm, *l, lam), 3),
+        "fp": cuda_ms(lambda: ph["fp"](qpos, qvel, U, old, k, K, tgl), 3),
+    }
+    out["pct_first"] = float(pct.mean())
+    del A, Bm, l, k, K
+    if kp.name != "iterative_error":
+        # the kernels of the jacobians phase alone, with their bounds
+        K_max = lanes.kp_budget(cfg, task, Hh)
+        pa = ops.keypoint_plan_args(task)
+        plan = ops.keypoint_plan(pa, qvel, Hh, K_max)
+        live = int(plan.count.sum())
+        J = ops.fd_jacobian(task, qpos, qvel, U, plan.slot_t, cfg.fd_eps,
+                            counts=plan.count)
+        col = torch.as_tensor(lanes.column_dofs(task.sv.ndof, s.nu),
+                              dtype=torch.int32, device="cuda")
+        out["kernel_ms"] = {
+            "keypoint_plan": cuda_ms(lambda: ops.keypoint_plan(
+                pa, qvel, Hh, K_max), 3),
+            "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
+                task, qpos, qvel, U, plan.slot_t, cfg.fd_eps,
+                counts=plan.count), 3),
+            "kp_interp": cuda_ms(lambda: ops.kp_interp(
+                J, plan.pslot, plan.nslot, plan.w, col, s.nx), 3),
+        }
+        # their twins at this shape (K5's: the keypoints phase, in chunks)
+        out["plain_ms"] = {
+            "keypoint_plan": cuda_timed(lambda: ops.keypoint_plan(
+                pa, qvel, Hh, K_max, plain=True))[1],
+            "kp_interp": cuda_timed(lambda: ops.kp_interp(
+                J, plan.pslot, plan.nslot, plan.w, col, s.nx,
+                plain=True))[1],
+        }
+        out["bounds"] = {
+            "keypoint_plan": plan_bound(Hh, task.sv.ndof, Bb, K_max),
+            "fd_jacobian": fd_lane_bound(s, live, K_max, Bb),
+            "kp_interp": interp_bound(live, Hh, s.nx, s.nx + s.nu,
+                                      task.sv.ndof, Bb),
+        }
+        out.update(K_max=K_max, live_slots_first=live)
+        del J
+    torch.cuda.empty_cache()
+    if plain3:
+        cfg3 = ILQRConfig(max_iterations=3, min_iterations=3)
+        r_k = lanes.make_lane_phase_optimise(task, cfg3, Hh)(qp, qv, U0, tg)
+        t0 = time.perf_counter()
+        r_p = lanes.make_lane_phase_optimise(task, cfg3, Hh, plain=plain3)(
+            qp, qv, U0, tg)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(r_k, r_p))
+        gap = float((r_k.cost_reduction - r_p.cost_reduction).abs().max())
+        out.update(plain3_bitwise=same, plain3_max_abs_err=gap,
+                   plain3_s=time.perf_counter() - t0,
+                   plain3_twins="all" if plain3 is True else sorted(plain3))
+        check(same, f"{name} {kp.name}: 3 iterations of the kernel path "
+                    f"differ from the path with twins {plain3} by "
+                    f"{gap:.3e}")
+    return out
+
+
+def main_adaptive(tasks):
+    """The adaptive keypoint main paths of ADAPTIVE_MAIN: acrobot at H, B
+    with the reference campaign's methods (3 iterations each also against
+    twins), reaching at RH, RB with adaptive_jerk."""
+    out = {}
+    for model, name, min_N, max_N, twins in ADAPTIVE_MAIN:
+        Hh, Bb = (H, B) if model == "acrobot" else (RH, RB)
+        task = with_method(tasks[model], name, min_N, max_N)
+        tag = f"{model} {method_tag(name, min_N, max_N)}"
+        t0 = time.perf_counter()
+        r = out[tag] = adaptive_path(task, Hh, Bb, twins)
+        r["s"] = time.perf_counter() - t0
+        print(f"main path {tag} H={Hh} B={Bb} x{ITERS} it: mean cost "
+              f"reduction {r['mean_cost_reduction']:.6f}, "
+              f"{r['solves_per_s']:.2f} solves/s, mean %derivs "
+              f"{r['pct_derivs_mean']:.3f}, max overflow "
+              f"{r['kp_overflow_max']}: {json.dumps(r)}", flush=True)
+    return out
+
+
 def flat(x):
     """The tensors of a (nested) tuple of phase outputs, in order."""
     if torch.is_tensor(x):
@@ -1081,7 +1502,8 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
     ph = lanes.lane_phases(task, cfg, Hh)
     qpos, qvel, costs = ph["rollout"](qp, qv, U, tg)
     old = costs.sum(0)
-    A, Bm = ph["jacobians"](qpos, qvel, U)
+    jac = ph["jacobians"](qpos, qvel, U)
+    A, Bm = jac[:2]
     l = ph["cost_expansion"](qpos, qvel, U, tg)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
@@ -1102,8 +1524,7 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
         held = {
             "rollout": outputs_gap((qpos, qvel, costs),
                                    pp["rollout"](qp, qv, U, tg)),
-            "fd_jacobian": outputs_gap((A, Bm),
-                                       pp["jacobians"](qpos, qvel, U)),
+            "fd_jacobian": outputs_gap(jac, pp["jacobians"](qpos, qvel, U)),
             "backward": outputs_gap(bp, pp["bp"](A, Bm, *l, lam)),
             "linesearch": outputs_gap(fp, pp["fp"](qpos, qvel, U, old, k, K,
                                                    tg)),
@@ -1258,40 +1679,67 @@ def report_main(name, Hh, Bb, mp):
           f"({mp['plain_agree_shape']})", flush=True)
 
 
-def cli(task_name, extra=()):
-    proc = subprocess.run(
-        [sys.executable, "-m", "trajoptkp_tpu_torch.app", "--task", task_name,
-         "--runMode", "Optimise_once", "--keypoint", "SI_1", *extra],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"CLI {task_name} failed:\n{proc.stdout}\n{proc.stderr}")
-    if proc.returncode != 0:
-        return None, proc.stdout
-    line = proc.stdout.strip().splitlines()[-1]
-    out = json.loads(line)
-    check(math.isfinite(out["cost_reduction"]) and out["cost_reduction"] > 0,
-          f"CLI {task_name} cost reduction {out['cost_reduction']}")
-    return line, proc.stdout
+def cli_start(args):
+    """Start one CLI run (python -m trajoptkp_tpu_torch.app ...)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "trajoptkp_tpu_torch.app", *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def cli_mpc():
-    """The CLI's sync MPC campaign on the walker at one horizon."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "trajoptkp_tpu_torch.app", "--task",
-         "walker_run", "--runMode", "Generate_syncronus_mpc_data",
-         "--horizon", str(MH), "--out_dir", os.path.join(MPC_OUT, "cli")],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"CLI walker_run MPC failed:\n{proc.stdout}\n{proc.stderr}")
+def cli_finish(name, proc):
+    """(its last line, parsed, and its whole output) of a CLI run started by
+    cli_start; a failed run is a failed check."""
+    try:
+        out, errs = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, errs = proc.communicate()
+    check(proc.returncode == 0, f"CLI {name} failed:\n{out}\n{errs}")
     if proc.returncode != 0:
-        return None
-    line = proc.stdout.strip().splitlines()[-1]
-    (row,) = json.loads(line)["rows"]
-    check(row["horizon"] == MH and row["timing"].startswith("cuda")
-          and math.isfinite(row["median_opt_time_ms"])
-          and math.isfinite(row["mean_running_cost"]),
-          f"CLI walker_run MPC row {row}")
-    return line
+        return None, None, out
+    line = out.strip().splitlines()[-1]
+    return line, json.loads(line), out
+
+
+def cli_runs():
+    """The CLI on every task with its own keypoint method (acrobot and
+    reaching velocity_change, push_ncl adaptive_jerk; reaching and push_ncl
+    3 iterations), acrobot IE_1_50, and the walker's sync MPC campaign at
+    one horizon, all started together (each a process of its own on the one
+    card, so their times are taken side by side): {name: (last line,
+    parsed, output)}."""
+    runs = {
+        "acrobot": ["--task", "acrobot", "--runMode", "Optimise_once"],
+        "acrobot_ie": ["--task", "acrobot", "--runMode", "Optimise_once",
+                       "--keypoint", "IE_1_50"],
+        "reaching": ["--task", "reaching", "--runMode", "Optimise_once",
+                     "--maxIter", "3", "--minIter", "3"],
+        "push": ["--task", "pushing_no_clutter", "--runMode",
+                 "Optimise_once", "--maxIter", "3", "--minIter", "3"],
+        "mpc": ["--task", "walker_run", "--runMode",
+                "Generate_syncronus_mpc_data", "--horizon", str(MH),
+                "--out_dir", os.path.join(MPC_OUT, "cli")],
+    }
+    procs = {k: cli_start(v) for k, v in runs.items()}
+    out = {k: cli_finish(k, p) for k, p in procs.items()}
+    own = {"acrobot": "velocity_change", "acrobot_ie": "iterative_error",
+           "reaching": "velocity_change", "push": "adaptive_jerk"}
+    for k, method in own.items():
+        res = out[k][1]
+        if res is None:
+            continue
+        check(math.isfinite(res["cost_reduction"])
+              and 0.0 < res["cost_reduction"] < 1.0
+              and res["keypoint_method"] == method
+              and 0.0 < res["mean_pct_derivs"] <= 100.0,
+              f"CLI {k}: {res}")
+    if out["mpc"][1] is not None:
+        (row,) = out["mpc"][1]["rows"]
+        check(row["horizon"] == MH and row["timing"].startswith("cuda")
+              and math.isfinite(row["median_opt_time_ms"])
+              and math.isfinite(row["mean_running_cost"]),
+              f"CLI walker_run MPC row {row}")
+    return out
 
 
 def kernel_entries(model_name, rows, launches, step_counts, ms=None,
@@ -1334,6 +1782,76 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                 for k, v in ops.DEVICE_FUNCTIONS.items()
                 if step_counts[k] > 0]
         out.append(e)
+    return out
+
+
+def keypoint_entries(kps, amp):
+    """Entries of the `kernels` line for K9a, K9b and K9c: acrobot's and
+    reaching's from their adaptive main paths (ms and launches of that
+    solve, the twin's time and the bound at its first nominal; ie_mse from
+    acrobot IE_1_50, timed per launch over the bisection tree's levels at
+    the check size), the error from the keypoints phase; pentabot's, push_ncl's and the
+    walker's from the keypoints phase (launched there, at the check size;
+    push_ncl's at its full shape)."""
+    out = []
+    src = "trajoptkp_tpu_torch/kernels/csrc/{}.cu"
+
+    def entry(name, model, launches, ms, plain_ms, bnd, err, same, shape,
+              **extra):
+        return {"name": name, "model": model, "route": "cuda",
+                "source": src.format(ops.SOURCES.get(name, name)),
+                "replaces": ops.REPLACES[name], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                "tolerance": "bit for bit", "bitwise": same, "shape": shape,
+                **extra}
+
+    for model, tag, check_tag in (("acrobot", "acrobot AJ_1_50",
+                                   "acrobot AJ_1_50"),
+                                  ("reaching", "reaching AJ_5_100",
+                                   "reaching AJ_5_100")):
+        a = amp[tag]
+        for name in ("keypoint_plan", "kp_interp"):
+            c = kps[check_tag][name]
+            full = kps.get(f"{model} AJ_5_100 full shape", {}).get(name)
+            err = max([c["max_abs_err"]] + ([full["max_abs_err"]] if full
+                                            else []))
+            same = c["bitwise"] and (full is None or full["bitwise"])
+            out.append(entry(
+                name, model, a["launches"].get(name, 0), a["kernel_ms"][name],
+                a["plain_ms"][name], a["bounds"][name], err, same,
+                f"{'H=500 B=512' if model == 'acrobot' else 'H=1500 B=128'}, "
+                f"{tag.split()[1]} main path",
+                max_abs_err_shape=kps[check_tag]["shape"],
+                full_shape_check=full and {k: full[k] for k in (
+                    "bitwise", "max_abs_err", "plain_ms", "ms")},
+                other_methods={t: {"ms": r["kernel_ms"][name],
+                                   "launches": r["launches"].get(name, 0)}
+                               for t, r in amp.items() if t.startswith(model)
+                               and "kernel_ms" in r and t != tag}))
+    ie = amp["acrobot IE_1_50"]
+    c = kps["acrobot IE_1_50"]
+    out.append(entry(
+        "ie_mse", "acrobot", ie["launches"].get("ie_mse", 0), c["ie_mse"]["ms"]
+        / c["ie_mse"]["launches_timed"], c["ie_mse"]["plain_ms"]
+        / c["ie_mse"]["launches_timed"], c["ie_mse"]["bound"],
+        c["ie_mse"]["max_abs_err"], c["ie_mse"]["bitwise"],
+        f"H={PH} B={PB}, mean over the bisection tree's "
+        f"{c['ie_mse']['levels']} levels ({c['ie_mse']['nodes']} nodes)",
+        ms_note="per launch at the check size; the IE_1_50 main path "
+        f"launches it {ie['launches'].get('ie_mse', 0)} times at H={H} B={B}",
+        phase_check=c["phase"]))
+    for model, tag in (("pentabot", "pentabot AA_1_10"),
+                       ("push_ncl", "push_ncl AJ_5_100 full shape"),
+                       ("walker", "walker VC_1_20")):
+        c = kps[tag]
+        for name in ("keypoint_plan", "kp_interp"):
+            r = c[name]
+            out.append(entry(
+                name, model, c["launches"][name], r["ms"], r["plain_ms"],
+                r["bound"], r["max_abs_err"], r["bitwise"], c["shape"],
+                launched_by="the keypoints phase (this model runs no "
+                            "adaptive main path)"))
     return out
 
 
@@ -1384,7 +1902,9 @@ def main():
                              time_them=True)
         done("acrobot")
     if "pentabot" in phases:
-        prow = check_kernels(penta, PH, PB, PENTABOT_FD_ABS, time_them=False)
+        prow = check_kernels(penta, PH, PB, PENTABOT_FD_ABS, time_them=False,
+                             inputs=pentabot_inputs(penta, PH, PB, seed=3),
+                             pair_types=True)
         record["pentabot"] = {k: prow[k]["err"] for k in ops.KERNELS}
         done("pentabot")
     if "reaching" in phases:
@@ -1419,6 +1939,21 @@ def main():
             if r:
                 print(f"check {name}: {model} {r[name]['tol']} err "
                       f"{r[name]['err'][1]:.3e}", flush=True)
+
+    kps = None
+    if "keypoints" in phases:
+        kp_inputs = {
+            "acrobot": lane_inputs(acro, PH, PB, seed=3),
+            "pentabot": pentabot_inputs(penta, PH, PB, seed=3),
+            "reaching": lane_inputs(reach, PH, PB, seed=3, at_limits=True),
+            "push_ncl": push_inputs(si1(push), PH, PB, seed=3),
+            "walker": walker_inputs(walk, WH, WB, seed=3),
+        }
+        kps = record["keypoints"] = keypoints_phase(
+            {"acrobot": acro, "pentabot": penta, "reaching": reach,
+             "push_ncl": push, "walker": walk}, kp_inputs)
+        del kp_inputs
+        done("keypoints")
 
     if "golden" in phases:
         gold = record["golden"] = golden_replay()
@@ -1456,21 +1991,17 @@ def main():
         wmp = record["main_mpc"] = main_mpc(walk, acro)
         done("main_mpc")
 
+    amp = None
+    if "main_adaptive" in phases:
+        amp = record["main_adaptive"] = main_adaptive(
+            {"acrobot": acro, "reaching": reach})
+        done("main_adaptive")
+
     if "cli" in phases:
-        cli_line, record["cli"] = cli("acrobot")
-        print(f"cli: {cli_line}", flush=True)
-        cli_line, record["cli_reaching"] = cli(
-            "reaching", ("--maxIter", "3", "--minIter", "3"))
-        print(f"cli: {cli_line}", flush=True)
-        cli_line, record["cli_push"] = cli(
-            "pushing_no_clutter", ("--maxIter", "3", "--minIter", "3"))
-        print(f"cli: {cli_line}", flush=True)
-        if cli_line:
-            red = json.loads(cli_line)["cost_reduction"]
-            check(0.0 < red < 1.0, f"CLI pushing_no_clutter cost reduction "
-                                   f"{red} not in (0, 1)")
-        cli_line = record["cli_mpc"] = cli_mpc()
-        print(f"cli: {cli_line}", flush=True)
+        runs = cli_runs()
+        for k, (line, _, out) in runs.items():
+            record[f"cli_{k}"] = out
+            print(f"cli {k}: {line}", flush=True)
         done("cli")
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -1543,6 +2074,32 @@ def main():
     for e in kernels:
         if e["model"] == "acrobot":
             e["pentabot_err"] = prow[e["name"]]["err"][0]
+    kernels += keypoint_entries(kps, amp)
+    for e in kernels:
+        if e["name"] == "fd_jacobian" and e["model"] in ("acrobot",
+                                                         "reaching"):
+            # K5 at the adaptive main path's per-lane slots
+            tag = f"{e['model']} " + ("AJ_1_50" if e["model"] == "acrobot"
+                                      else "AJ_5_100")
+            a = amp[tag]
+            e["adaptive_slots"] = {
+                "method": tag, "shape": f"H={H if e['model'] == 'acrobot' else RH} "
+                f"B={B if e['model'] == 'acrobot' else RB}, K_max "
+                f"{a['K_max']}, {a['live_slots_first']} live slots",
+                "ms": a["kernel_ms"]["fd_jacobian"],
+                "launches": a["launches"].get("fd_jacobian", 0),
+                "bound_ms": a["bounds"]["fd_jacobian"][0],
+                "bound_by": a["bounds"]["fd_jacobian"][1]}
+        if e["name"] == "fd_jacobian" and e["model"] == "push_ncl":
+            full = kps["push_ncl AJ_5_100 full shape"]
+            e["adaptive_slots"] = {
+                "method": "AJ_5_100", "shape": f"{full['shape']}, K_max "
+                f"{full['K_max']}, {full['live_slots']} live slots",
+                "ms": full["fd_jacobian"]["ms"],
+                "plain_ms": full["fd_jacobian"]["plain_ms"],
+                "bound_ms": full["fd_jacobian"]["bound"][0],
+                "bound_by": full["fd_jacobian"]["bound"][1],
+                "bitwise": full["fd_jacobian"]["bitwise"]}
     record["seconds"] = time.perf_counter() - t_start
     print("record " + json.dumps(record), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -67,11 +67,10 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 def test_cli_refuses_what_is_not_ported(capsys):
     from trajoptkp_tpu_torch import app
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        app.main(["--device", "cpu", "--keypoint", "VC_1_100"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        # acrobot's own method is velocity_change
-        app.main(["--device", "cpu", "--horizon", "10"])
+    with pytest.raises(ValueError, match="want SI_n, AJ_a_b"):
+        app.main(["--device", "cpu", "--keypoint", "XY_1_100"])
+    with pytest.raises(ValueError, match="want SI_n, AJ_a_b"):
+        app.main(["--device", "cpu", "--keypoint", "VC_1"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         app.main(["--device", "cpu", "--runMode", "MPC_until_completion"])
     app.main(["--device", "cpu", "--keypoint", "SI_2", "--horizon", "12",
@@ -91,9 +90,12 @@ def test_cli_solves_reaching_and_names_the_ported_tasks(capsys):
                             "walker_walk")
     with pytest.raises(KeyError, match="reaching"):
         make_task("push_ncl", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        # reaching's own method is velocity_change
-        app.main(["--device", "cpu", "--task", "reaching", "--horizon", "6"])
+    # reaching's own method, velocity_change
+    app.main(["--device", "cpu", "--task", "reaching", "--horizon", "6",
+              "--maxIter", "1", "--minIter", "1"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["keypoint_method"] == "velocity_change"
+    assert 0.0 < out["mean_pct_derivs"] <= 100.0
     app.main(["--device", "cpu", "--task", "reaching", "--keypoint", "SI_3",
               "--horizon", "8", "--maxIter", "2", "--minIter", "2"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -44,7 +44,8 @@ def _rel(a, b):
 def test_kernels_match_plain(cuda, make):
     """Reaching starts half its lanes with every joint at a limit, under
     controls of 5 N Nm, so the constraint solve inside the step (K2a) runs
-    with active rows."""
+    with active rows; pentabot starts folded, so its capsule pairs touch
+    (the contact rows K2b)."""
     task = make(device=cuda)
     task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
         name="set_interval", min_N=3))
@@ -53,7 +54,10 @@ def test_kernels_match_plain(cuda, make):
     f64 = dict(dtype=torch.float64)
     qp, qv, tg = lanes.scenes(task, B, seed=1)
     scale = 0.3
-    if task.model.has_constraints:
+    if task.model.contact_pairs:
+        # pentabot folded at random (+-3 rad a joint), so its links touch
+        qp = (6.0 * torch.rand(qp.shape, generator=g, **f64) - 3.0).to(cuda)
+    elif task.model.has_constraints:
         rng = task.model.jnt_range
         side = torch.randint(0, 2, (B // 2, nv), generator=g).to(cuda)
         qp[:B // 2] = torch.where(side == 0, rng[:, 0], rng[:, 1]) + (
@@ -120,7 +124,7 @@ def test_push_kernels_match_plain(cuda):
     task = make_pushing(device=cuda)
     task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
         name="set_interval", min_N=3))
-    assert ops.kernel_args(task, cuda).tag == "push_ncl"
+    assert ops.kernel_args(task, task.model.device).tag == "push_ncl"
     m = task.model
     g = torch.Generator(device="cpu").manual_seed(0)
     f64 = dict(dtype=torch.float64)
@@ -215,3 +219,56 @@ def test_walker_kernels_and_mpc_apply_match_plain(cuda):
         runs.append(mpc(qp.T, qv.T, torch.zeros((Bw, 10, m.nu), device=cuda,
                                                  **f64), tg.T, 1, gen))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("name", ["adaptive_jerk", "adaptive_accel",
+                                  "velocity_change"])
+def test_keypoint_kernels_match_plain(cuda, name):
+    """K9a (the method's mask and slot plan, also under a slot budget that
+    overflows and from a given mask with time slots), K5 at per-lane slots
+    and into an iterative_error cache, K9b and K9c, each bit for bit against
+    its twin on an acrobot nominal."""
+    task = make_acrobot(device=cuda)
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name=name, min_N=1, max_N=20))
+    qp, qv, tg = lanes.scenes(task, B, seed=2)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    U = (0.5 * torch.randn((H, 1, B), generator=g,
+                           dtype=torch.float64)).to(cuda)
+    qpos, qvel, _ = ops.rollout(task, qp.T.contiguous(), qv.T.contiguous(),
+                                U, tg.T.contiguous())
+    pa = ops.keypoint_plan_args(task)
+    col = torch.tensor([0, 1, 0, 1, 0], dtype=torch.int32, device=cuda)
+    for K_max in (H, 3):
+        before = ops.LAUNCHES["keypoint_plan"]
+        kp = ops.keypoint_plan(pa, qvel, H, K_max)
+        assert ops.LAUNCHES["keypoint_plan"] == before + 1
+        pp = ops.keypoint_plan(pa, qvel, H, K_max, plain=True)
+        assert all(torch.equal(a, b) for a, b in zip(kp, pp))
+        if K_max == 3:
+            assert bool((kp.overflow > 0).any())
+        kj = ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, 1e-6,
+                             counts=kp.count)
+        pj = ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, 1e-6,
+                             counts=kp.count, plain=True)
+        assert torch.equal(kj, pj)
+        ka = ops.kp_interp(kj, kp.pslot, kp.nslot, kp.w, col, 4)
+        pa_ = ops.kp_interp(kj, kp.pslot, kp.nslot, kp.w, col, 4, plain=True)
+        assert all(torch.equal(a, b) for a, b in zip(ka, pa_))
+    # iterative_error: the cache, K9c, K9a from a mask with time slots
+    cache = torch.zeros((H, 4, 5, B), dtype=torch.float64, device=cuda)
+    pcache = cache.clone()
+    ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, 1e-6, counts=kp.count,
+                    cache=cache)
+    ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, 1e-6, counts=kp.count,
+                    cache=pcache, plain=True)
+    assert torch.equal(cache, pcache)
+    nodes = [torch.tensor(x, dtype=torch.int32, device=cuda)
+             for x in ([0, 0, 29], [29, 14, 44], [59, 29, 59])]
+    assert torch.equal(ops.ie_mse(cache, *nodes, 2),
+                       ops.ie_mse(cache, *nodes, 2, plain=True))
+    pm = ops.keypoint_plan_args(task, "mask")
+    km = ops.keypoint_plan(pm, qvel, H, H, mask=kp.mask, time_slots=True)
+    pmp = ops.keypoint_plan(pm, qvel, H, H, mask=kp.mask, time_slots=True,
+                            plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(km, pmp))

@@ -292,7 +292,8 @@ def test_walker_replan_phases_match_jax(walker):
         np.testing.assert_allclose(qpos[t + 1].numpy(), q, rtol=0, atol=1e-9)
         np.testing.assert_allclose(qvel[t + 1].numpy(), v, rtol=0, atol=1e-7)
     Ut = torch.from_numpy(U)
-    A, Bm = ph["jacobians"](qpos, qvel, Ut)
+    A, Bm, pct, ovf = ph["jacobians"](qpos, qvel, Ut)
+    assert float(pct[0]) == 100.0 and int(ovf[0]) == 0      # SI_1
     l = ph["cost_expansion"](qpos, qvel, Ut, torch.from_numpy(tg))
     lamb = torch.full((1,), cfg.lambda_init, dtype=torch.float64)
     k, K, dJ, lam, ex = ph["bp"](A, Bm, *l, lamb)

@@ -2,11 +2,10 @@
 Optimise_once and Generate_syncronus_mpc_data.
 
     python -m trajoptkp_tpu_torch.app --task acrobot --runMode Optimise_once \\
-        --keypoint SI_1 [--horizon H --maxIter N --minIter N --device cuda]
-    python -m trajoptkp_tpu_torch.app --task reaching --runMode Optimise_once \\
-        --keypoint SI_1
+        [--keypoint VC_1_200 --horizon H --maxIter N --minIter N --device cuda]
+    python -m trajoptkp_tpu_torch.app --task reaching --runMode Optimise_once
     python -m trajoptkp_tpu_torch.app --task pushing_no_clutter \\
-        --runMode Optimise_once --keypoint SI_1
+        --runMode Optimise_once --keypoint AJ_5_100
     python -m trajoptkp_tpu_torch.app --task walker_run \\
         --runMode Generate_syncronus_mpc_data [--horizon 40]
 
@@ -18,7 +17,14 @@ capsule contacts).  For Optimise_once the horizon defaults to the task's
 from the task's servo: a 1000-step setup servo behind the object, whose end
 state is the solve's start, then the init servo over the horizon (the JAX
 app's `_batch_init_controls`).  Prints per-iteration banner lines and a
-final JSON line with the initial and final cost and the cost reduction.
+final JSON line with the initial and final cost, the cost reduction and the
+mean %derivs.
+
+Keypoint methods (`--keypoint`; each task's own when omitted: acrobot and
+reaching velocity_change, pushing adaptive_jerk, pentabot and the walkers
+set_interval): SI_n (set_interval every n steps), AJ_a_b (adaptive_jerk),
+AA_a_b (adaptive_accel), VC_a_b (velocity_change) and IE_a_b
+(iterative_error), with min_N = a and max_N = b and the task's thresholds.
 
 Generate_syncronus_mpc_data is the JAX app's `_sync_mpc_campaign`
 (GenDataMPCHorizons): synchronous MPC of one episode from the task's start,
@@ -60,8 +66,9 @@ def build_parser():
                    help="acrobot, pentabot, reaching, pushing_no_clutter, "
                    "walker_walk or walker_run")
     p.add_argument("--runMode", default="Optimise_once")
-    p.add_argument("--keypoint", help="keypoint method, SI_n (set_interval "
-                   "every n steps); the task's own method when omitted")
+    p.add_argument("--keypoint", help="keypoint method: SI_n, AJ_a_b, "
+                   "AA_a_b, VC_a_b or IE_a_b (min_N a, max_N b); the task's "
+                   "own method when omitted")
     p.add_argument("--horizon", type=int, default=None)
     p.add_argument("--maxIter", type=int, default=10)
     p.add_argument("--minIter", type=int, default=5)
@@ -75,14 +82,27 @@ def build_parser():
     return p
 
 
+KEYPOINT_KINDS = {"SI": "set_interval", "AJ": "adaptive_jerk",
+                  "AA": "adaptive_accel", "VC": "velocity_change",
+                  "IE": "iterative_error"}
+
+
 def parse_keypoint_name(kp_cfg, name: str):
-    """SI_n -> set_interval with min_N = n; other methods are not ported."""
+    """SI_n / AJ_a_b / AA_a_b / VC_a_b / IE_a_b -> the task's keypoint
+    config with that method, min_N and max_N (JAX `app.py:251-265`; the
+    thresholds stay the task's)."""
     parts = name.split("_")
-    if parts[0] == "SI" and len(parts) == 2 and parts[1].isdigit():
-        return kp_cfg.replace(name="set_interval", min_N=int(parts[1]))
-    raise NotImplementedError(
-        f"keypoint method {name!r}: ROADMAP Queue 1 item 9 ports AJ, AA, VC "
-        "and IE; this slice has SI_n only")
+    kind = KEYPOINT_KINDS.get(parts[0])
+    sizes = parts[1:]
+    if (kind is None or not all(p.isdigit() for p in sizes)
+            or len(sizes) != (1 if parts[0] == "SI" else 2)):
+        raise ValueError(
+            f"keypoint method {name!r}: want SI_n, AJ_a_b, AA_a_b, VC_a_b "
+            "or IE_a_b")
+    if parts[0] == "SI":
+        return kp_cfg.replace(name=kind, min_N=int(sizes[0]))
+    return kp_cfg.replace(name=kind, min_N=int(sizes[0]),
+                          max_N=int(sizes[1]))
 
 
 def main(argv=None):
@@ -124,6 +144,9 @@ def main(argv=None):
         "final_cost": stats.final_cost,
         "cost_reduction": stats.cost_reduction,
         "iterations": stats.num_iterations,
+        "keypoint_method": task.keypoint_cfg.name,
+        "mean_pct_derivs": (sum(stats.percent_derivs)
+                            / max(len(stats.percent_derivs), 1)),
         "opt_time_ms": stats.opt_time_ms,
         "init_controls_s": init_s,
     }), flush=True)

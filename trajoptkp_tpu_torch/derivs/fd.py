@@ -70,3 +70,28 @@ def fd_slot_jacobians(model: Model, sv: StateVector, qpos, qvel, ctrl,
     J = _tangent_out(model, sv, qp2[:, :, 1], qv2[:, :, 1], qp2[:, :, 0],
                      qv2[:, :, 0], scale)
     return J                                           # (2n, ncol, *L)
+
+
+def fd_lane_slots(model: Model, sv: StateVector, qpos, qvel, U, slot_t,
+                  counts, eps: float = 1e-6, cache=None) -> torch.Tensor:
+    """Per-lane slot times: the plain twin of K5's per-lane and cache
+    modes.  qpos (>=H, nq, B), qvel, U (H, nu, B), slot_t (K, B) int64,
+    counts (B,) live slots -> J (K, 2n, 2n+nu, B), zero past a lane's
+    count; or, given cache (H, 2n, 2n+nu, B), the live slots' Jacobians
+    written into it at their times (in place) and the cache returned."""
+    H, B = U.shape[0], U.shape[-1]
+    K = slot_t.shape[0]
+
+    def at(x):
+        return x[:H].gather(0, slot_t[:, None, :].expand(K, x.shape[1], B))
+
+    J = fd_slot_jacobians(model, sv, at(qpos).transpose(0, 1),
+                          at(qvel).transpose(0, 1), at(U).transpose(0, 1),
+                          eps).movedim(2, 0)           # (K, 2n, C, B)
+    live = torch.arange(K, device=U.device)[:, None] < counts[None, :]
+    if cache is None:
+        return torch.where(live[:, None, None, :], J, torch.zeros_like(J))
+    s_idx, b_idx = live.nonzero(as_tuple=True)
+    cache.permute(0, 3, 1, 2)[slot_t[s_idx, b_idx], b_idx] = \
+        J.permute(0, 3, 1, 2)[s_idx, b_idx]
+    return cache

@@ -3,7 +3,9 @@
 Each `csrc/<source>.cu` has a plain C interface (no PyTorch headers).  Each
 instance of it (a model topology, or a backward-pass size, listed in
 `csrc/instances.cuh`) is compiled by its own `nvcc` for sm_90a, naming the
-instance with `-DTRAJOPT_ONLY`, into `_build/<source>-<instance>-<hash>.so`;
+instance with `-DTRAJOPT_ONLY`, into `_build/<source>-<instance>-<hash>.so`
+(the keypoint kernels take their sizes at run time and are built once, as
+the instance "generic");
 the compilers run in parallel, so a large instance (the backward pass at
 nx 20, nu 7) no longer holds up the others of its source.  The hash covers
 the sources, the flags and the instance, so an edited source rebuilds and an
@@ -28,6 +30,8 @@ CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 # sources built per model instance, and the backward pass per (nx, nu)
 MODEL_SOURCES = ("rollout", "linesearch", "fd_jacobian", "mpc_apply")
+# sources built once for every model
+GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
 # their plain PyTorch twins do (csrc/step.cuh)
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +55,8 @@ def libraries() -> tuple:
     """Every (source, instance) library the kernels are built into."""
     models, bps = instance_names()
     return (tuple((s, m) for s in MODEL_SOURCES for m in models)
-            + tuple(("backward", b) for b in bps))
+            + tuple(("backward", b) for b in bps)
+            + tuple((s, "generic") for s in GENERIC_SOURCES))
 
 
 def nvcc() -> str:
@@ -66,13 +71,15 @@ def nvcc() -> str:
     return path
 
 
-def _only(source: str, instance: str) -> str:
+def _only(source: str, instance: str) -> tuple:
+    if source in GENERIC_SOURCES:
+        return ()
     kind = "BP" if source == "backward" else "MODEL"
-    return f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}"
+    return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",)
 
 
 def _digest(source: str, instance: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS + (_only(source, instance),)).encode())
+    h = hashlib.sha256(" ".join(FLAGS + _only(source, instance)).encode())
     for p in [CSRC / f"{source}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -101,7 +108,7 @@ def build(libs=None) -> dict:
     for source, instance in todo:
         out = library_path(source, instance)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, *FLAGS, _only(source, instance), "-I", str(CSRC), "-o",
+        cmd = [cc, *FLAGS, *_only(source, instance), "-I", str(CSRC), "-o",
                str(tmp), str(CSRC / f"{source}.cu")]
         procs[f"{source}-{instance}"] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -13,8 +13,20 @@
 // joint's quaternion, as the twin's integrate_pos; a velocity or control by
 // adding eps times a 0/1 selector, bit-identical to the JAX engine), two K1
 // steps run, and (out+ - out-) / (2 eps) fills J[:, c] over the state
-// vector's dofs.  The interpolation between slots stays torch
-// (solver/lanes.py:jacobians_si).
+// vector's dofs.  The set_interval lerp between slots stays torch
+// (solver/lanes.py:jacobians_si); the adaptive methods' per-column lerp is
+// kernel K9b (kp_interp.cu).
+//
+// Slot times: times[s * ts_s + b * ts_b], so one launch takes the
+// set_interval times shared by every lane (ts_s 1, ts_b 0) or per-lane
+// times (K_max, B) (ts_s B, ts_b 1) with a live count per lane, as the
+// adaptive methods' slot plan (K9a) gives them.  A thread whose slot is past
+// its lane's count writes zeros and exits: the JAX program computes its
+// padding slots, which nothing reads, and at min_N = 1 (K_max = H) a full
+// launch would cost as much as set_interval 1.  With `scatter` (the
+// iterative_error rounds, JAX solver/lanes.py:_ie_eval_scatter:431) a live
+// slot writes its Jacobian into the full-horizon cache (H, 2n, 2n+nu, B) at
+// its time and a dead slot writes nothing (JAX mode="drop").
 //
 // With joint limits each of those steps runs the constraint solve (K2a),
 // whose gates and step-length choices are branches: kernel and twin must
@@ -37,15 +49,25 @@ fd_jacobian_kernel(const double* __restrict__ P,
                    const double* __restrict__ qpos,
                    const double* __restrict__ qvel,
                    const double* __restrict__ U,
-                   const long long* __restrict__ times, double eps,
-                   double* __restrict__ J, int K, int B) {
+                   const long long* __restrict__ times, long long ts_s,
+                   long long ts_b, const int* __restrict__ counts,
+                   int scatter, double eps, double* __restrict__ J, int K,
+                   int B) {
   constexpr int NQ = T::NQ, NV = T::NV, NU = T::NU, NX = T::NX;
   constexpr int NDOF = T::NDOF, NC = T::NX + T::NU;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= K * B) return;
   const int s = idx / B;
   const int b = idx - s * B;
-  const size_t t = static_cast<size_t>(times[s]);
+  if (counts != nullptr && s >= counts[b]) {
+    if (!scatter) {
+      for (int e = 0; e < NX * NC; ++e) J[(size_t(s) * NX * NC + e) * B + b] = 0.0;
+    }
+    return;
+  }
+  const size_t t = static_cast<size_t>(times[s * ts_s + b * ts_b]);
+  // the output row: the slot, or in the cache the slot's time
+  const size_t o = scatter ? t : size_t(s);
   double q0[NQ], v0[NV], u0[NU];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) q0[i] = qpos[(t * NQ + i) * B + b];
@@ -94,8 +116,8 @@ fd_jacobian_kernel(const double* __restrict__ P,
 #pragma unroll
     for (int r = 0; r < NDOF; ++r) {
       const int iq = T::sv_q(r), iv = T::sv(r);
-      J[((size_t(s) * NX + r) * NC + c) * B + b] = (qP[iq] - qM[iq]) / scale;
-      J[((size_t(s) * NX + NDOF + r) * NC + c) * B + b] =
+      J[((o * NX + r) * NC + c) * B + b] = (qP[iq] - qM[iq]) / scale;
+      J[((o * NX + NDOF + r) * NC + c) * B + b] =
           (vP[iv] - vM[iv]) / scale;
     }
   }
@@ -106,14 +128,15 @@ fd_jacobian_kernel(const double* __restrict__ P,
 #define TRAJOPT_DEFINE_FD(tag, ...)                                            \
   extern "C" int trajopt_fd_jacobian_##tag(                                   \
       const double* P, const double* qpos, const double* qvel,                \
-      const double* U, const long long* times, double eps, double* J, int K,  \
-      int B, void* stream) {                                                  \
+      const double* U, const long long* times, long long ts_s,               \
+      long long ts_b, const int* counts, int scatter, double eps, double* J,  \
+      int K, int B, void* stream) {                                           \
     using T = trajopt::Topo<__VA_ARGS__>;                                     \
     const int n = K * B;                                                      \
     if (n <= 0) return 0;                                                     \
     trajopt::fd_jacobian_kernel<T><<<(n + 63) / 64, 64, 0,                    \
                                      static_cast<cudaStream_t>(stream)>>>(    \
-        P, qpos, qvel, U, times, eps, J, K, B);                               \
+        P, qpos, qvel, U, times, ts_s, ts_b, counts, scatter, eps, J, K, B);  \
     return static_cast<int>(cudaGetLastError());                              \
   }
 

@@ -29,7 +29,8 @@
     0x0u, 2, 0x10ull, 0, 2, 0x1ull)
 #define TRAJOPT_MODEL_pentabot(X)                                              \
   X(pentabot, 5, 3, 6, 0x0u, 0x0u, 0x432100ull, 0x543210ull, 0x111110ull,     \
-    0x432100ull, 0x0u, 5, 0x43210ull, 0, 5, 0x3ull)
+    0x432100ull, 0x0u, 5, 0x43210ull, 0, 5, 0x3ull, 0x3133u, 0x4133u,         \
+    0x5133u, 0x4233u, 0x5233u, 0x5333u)
 #define TRAJOPT_MODEL_reaching(X)                                              \
   X(reaching, 7, 7, 10, 0x0u, 0x0u, 0x8765432100ull, 0x765432100ull,         \
     0x111111100ull, 0x654321000ull, 0x7fu, 7, 0x6543210ull, 0, 7, 0x0ull)

@@ -20,6 +20,15 @@ kind, contact pairs) is a template argument; the instances built are listed
 in csrc/instances.cuh.  `mpc_apply` (K8) is the MPC replan's apply step.
 One more entry point runs a device function of the step alone: `fk_bias`
 (the FK products and bias force, for the pushing tasks' servo).
+
+The keypoint kernels K9 take no model topology and are built once, with
+the sizes as runtime arguments: `keypoint_plan` (K9a, csrc/keypoints.cu:
+the adaptive keypoint selectors and the per-lane slot plan),
+`kp_interp` (K9b, csrc/kp_interp.cu: the per-column gather and lerp of the
+slot Jacobians to the full horizon) and `ie_mse` (K9c, csrc/kp_interp.cu:
+the iterative_error bisection test).  `fd_jacobian` (K5) takes slot times
+shared by every lane, or per lane with a live count, or per lane scattered
+into a full-horizon cache at their times (iterative_error).
 """
 
 from __future__ import annotations
@@ -31,12 +40,14 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..derivs.fd import fd_slot_jacobians
+from ..derivs.fd import fd_lane_slots, fd_slot_jacobians
 from ..dynamics.contact import (LIMIT_FIELDS, contact_constants,
                                 limit_constants)
 from ..dynamics.fk import forward_kinematics
 from ..dynamics.model import FREE, HINGE, SLIDE, Data, Model
 from ..dynamics.smooth import bias_force
+from ..keypoints import methods as kp_methods
+from ..keypoints.interpolate import lerp_columns
 from ..solver import ilqr as twins
 from ..tasks.base import Task, control_limits
 from . import build
@@ -47,7 +58,10 @@ MPC_KERNELS = ("mpc_apply",)
 # the FK products and bias force of the pushing tasks' servo (in the rollout
 # library), launched by the servo that starts a push solve
 SERVO_KERNELS = ("fk_bias",)
-LAUNCHES = {name: 0 for name in KERNELS + MPC_KERNELS + SERVO_KERNELS}
+# the keypoint kernels K9 of the adaptive and iterative_error methods
+KEYPOINT_KERNELS = ("keypoint_plan", "kp_interp", "ie_mse")
+LAUNCHES = {name: 0 for name in KERNELS + MPC_KERNELS + SERVO_KERNELS
+            + KEYPOINT_KERNELS}
 
 # replaced lane program of the JAX package, per kernel
 REPLACES = {
@@ -56,7 +70,13 @@ REPLACES = {
     "fd_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
     "backward": "trajoptkp_tpu/solver/lanes.py:632",
     "mpc_apply": "trajoptkp_tpu/mpc/sync.py:100",
+    "keypoint_plan": "trajoptkp_tpu/keypoints/methods.py:266",
+    "kp_interp": "trajoptkp_tpu/solver/lanes.py:415",
+    "ie_mse": "trajoptkp_tpu/solver/lanes.py:459",
 }
+# the library each kernel is built into, where it is not its own name
+SOURCES = {"fk_bias": "rollout", "ie_mse": "kp_interp",
+           "keypoint_plan": "keypoints"}
 # device functions inside rollout, linesearch, fd_jacobian and mpc_apply: the
 # step (K1), for a model with joint limits or contacts the constraint solve
 # (K2a), and for a model with contacts the narrow phase and contact rows (K2b)
@@ -376,11 +396,10 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(kernel: str, instance: str, symbol: str, *args,
-            source: str = None):
-    """Launch `symbol` of the library of `source` (default: the kernel's
-    own) at `instance`, and count it."""
-    lib = build.load(source or kernel, instance)
+def _launch(kernel: str, instance: str, symbol: str, *args):
+    """Launch `symbol` of the kernel's library (`SOURCES`) at `instance`,
+    and count it."""
+    lib = build.load(SOURCES.get(kernel, kernel), instance)
     fn = getattr(lib, symbol)
     fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -461,31 +480,63 @@ def linesearch(task: Task, qpos, qvel, U, k, K, alphas, targets,
 
 
 def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
-                plain: bool = False):
-    """K5.  Central-FD [A|B] over the state vector at the slot times: qpos
-    (>=H, nq, B) trajectory, times (K,) int64 -> J (K, 2n, 2n+nu, B)."""
+                plain: bool = False, counts=None, cache=None):
+    """K5.  Central-FD [A|B] over the state vector at slot times of the
+    trajectory qpos (>=H, nq, B), qvel, U (H, nu, B):
+
+    - times (K,) int64, shared by every lane -> J (K, 2n, 2n+nu, B);
+    - times (K, B) int64 per lane with counts (B,) int32 live slots -> J
+      (K, 2n, 2n+nu, B), zero at the slots past a lane's count;
+    - the same with cache (H, 2n, 2n+nu, B): each live slot's Jacobian is
+      written into the cache at its time, in place, and the cache returned
+      (iterative_error's full-horizon column cache; dead slots write
+      nothing).
+
+    Per-lane times are not checked against H on the card: that would read
+    them back to the host."""
+    lanes = times.dim() == 2
+    if (cache is not None or counts is not None) and not lanes:
+        raise ValueError("counts and cache go with per-lane times (K, B)")
+    if lanes and counts is None:
+        raise ValueError("per-lane times need their live counts")
     if _on_cpu(qpos, qvel, U, times) or plain:
-        J = fd_slot_jacobians(task.model, task.sv,
-                              qpos[times].transpose(0, 1),
-                              qvel[times].transpose(0, 1),
-                              U[times].transpose(0, 1), eps)
-        return J.movedim(2, 0)                         # (K, 2n, C, B)
+        if not lanes:
+            J = fd_slot_jacobians(task.model, task.sv,
+                                  qpos[times].transpose(0, 1),
+                                  qvel[times].transpose(0, 1),
+                                  U[times].transpose(0, 1), eps)
+            return J.movedim(2, 0)                     # (K, 2n, C, B)
+        return fd_lane_slots(task.model, task.sv, qpos, qvel, U, times,
+                             counts, eps, cache)
     ka = kernel_args(task, U.device)
     H, B = U.shape[0], U.shape[-1]
     nq, nv, nu, nx, nK = ka.nq, ka.nv, ka.nu, ka.sv.nx, times.shape[0]
     _check("qpos", qpos, (qpos.shape[0], nq, B))
     _check("qvel", qvel, (qvel.shape[0], nv, B))
     _check("U", U, (H, nu, B))
-    _check("times", times, (nK,), torch.int64)
     if qpos.shape[0] < H or qvel.shape[0] < H:
         raise ValueError("trajectory shorter than the controls")
-    if nK and not (0 <= int(times.min()) and int(times.max()) < H):
-        raise ValueError(f"slot times must lie in [0, {H})")
-    J = torch.empty((nK, nx, nx + nu, B), dtype=torch.float64,
-                    device=U.device)
+    if lanes:
+        _check("times", times, (nK, B), torch.int64)
+        _check("counts", counts, (B,), torch.int32)
+        stride = (B, 1)
+    else:
+        _check("times", times, (nK,), torch.int64)
+        if nK and not (0 <= int(times.min()) and int(times.max()) < H):
+            raise ValueError(f"slot times must lie in [0, {H})")
+        stride = (1, 0)
+    if cache is not None:
+        _check("cache", cache, (H, nx, nx + nu, B))
+        J = cache
+    else:
+        J = torch.empty((nK, nx, nx + nu, B), dtype=torch.float64,
+                        device=U.device)
     _launch("fd_jacobian", ka.tag,
             f"trajopt_fd_jacobian_{ka.tag}", _p(ka.model_buf),
-            _p(qpos), _p(qvel), _p(U), _p(times), ctypes.c_double(eps),
+            _p(qpos), _p(qvel), _p(U), _p(times),
+            ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
+            ctypes.c_void_p(counts.data_ptr() if lanes else None),
+            ctypes.c_int(cache is not None), ctypes.c_double(eps),
             _p(J), ctypes.c_int(nK), ctypes.c_int(B))
     return J
 
@@ -609,5 +660,156 @@ def fk_bias(task: Task, qpos, qvel, plain: bool = False):
     bias = torch.empty((model.nv, B), **f64)
     _launch("fk_bias", ka.tag, f"trajopt_fk_bias_{ka.tag}",
             _p(ka.model_buf), _p(qpos), _p(qvel), _p(xpos), _p(xquat),
-            _p(cdof), _p(bias), ctypes.c_int(B), source="rollout")
+            _p(cdof), _p(bias), ctypes.c_int(B))
     return xpos, xquat, cdof, bias
+
+
+# ---------------------------------------------------------------------------
+# the keypoint kernels (K9), built once for every model
+# ---------------------------------------------------------------------------
+
+# K9a's selectors: a mask given, or a method's profile and scan
+SELECTORS = {"mask": 0, "adaptive_jerk": 1, "adaptive_accel": 2,
+             "velocity_change": 3}
+MAX_KP_DOFS = 15      # per-dof counters a K9a thread keeps in registers
+
+
+class KeypointPlanArgs(NamedTuple):
+    """K9a's constant arguments for one task and method (cached)."""
+
+    name: str               # a key of SELECTORS
+    order: torch.Tensor     # (n,) int32 qvel index of each state dof
+    thr: torch.Tensor       # (n,) float64 thresholds (zeros for "mask")
+    min_N: int
+    max_N: int
+    inv_dt: float           # 1 / timestep, as the JAX program folds it
+
+
+def keypoint_plan_args(task: Task, name: str = None) -> KeypointPlanArgs:
+    """The plan's arguments for the task's keypoint method (or `name`, of
+    SELECTORS); reads the timestep back once."""
+    kp, sv, model = task.keypoint_cfg, task.sv, task.model
+    name = name or kp.name
+    if name not in SELECTORS:
+        raise ValueError(f"no keypoint plan for method {name!r}")
+    if sv.ndof > MAX_KP_DOFS:
+        raise NotImplementedError(
+            f"the keypoint plan takes at most {MAX_KP_DOFS} state dofs; "
+            f"{task.name} has {sv.ndof}")
+    thr = kp_methods.thresholds_of(kp.replace(name=name))
+    if thr is None:
+        thr = torch.zeros(sv.ndof, dtype=torch.float64, device=model.device)
+    return KeypointPlanArgs(
+        name, torch.as_tensor([int(i) for i in sv.order], dtype=torch.int32,
+                              device=model.device),
+        thr.to(torch.float64).contiguous(), kp.min_N, kp.max_N,
+        1.0 / float(model.timestep))
+
+
+def keypoint_plan(pa: KeypointPlanArgs, qvel, H: int, K_max: int,
+                  mask=None, time_slots: bool = False, plain: bool = False):
+    """K9a: the keypoint mask of the method (`pa`) over the nominal's
+    velocities qvel (>=H, nv, B), or the given mask (H, n, B) for
+    pa.name == "mask", and its per-lane slot plan under the budget K_max
+    -> methods.LanePlan.  Plain twin: methods.generate_keypoints on the
+    state dofs' velocities, then methods.lane_plan."""
+    n, B = pa.order.shape[0], qvel.shape[-1]
+    if (mask is None) != (pa.name != "mask"):
+        raise ValueError("a mask goes with the \"mask\" selector alone")
+    if _on_cpu(qvel, pa.order) or plain:
+        if mask is None:
+            vel = qvel[:H].index_select(1, pa.order.long())
+            cfg = kp_methods.KeypointConfig(
+                name=pa.name, min_N=pa.min_N, max_N=pa.max_N,
+                jerk_thresholds=pa.thr, accel_thresholds=pa.thr,
+                velocity_change_thresholds=pa.thr)
+            mask = kp_methods.generate_keypoints(cfg, vel, pa.inv_dt)
+        return kp_methods.lane_plan(mask.clone(), K_max, time_slots)
+    nv = qvel.shape[1]
+    _check("qvel", qvel, (qvel.shape[0], nv, B))
+    if qvel.shape[0] < H or not 2 <= K_max <= H:
+        raise ValueError(f"need H={H} <= the trajectory's length and "
+                         f"2 <= K_max={K_max} <= H")
+    if mask is not None:
+        _check("mask", mask, (H, n, B), torch.bool)
+    dev = qvel.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = kp_methods.LanePlan(
+        mask=torch.empty((H, n, B), dtype=torch.bool, device=dev),
+        slot_t=torch.empty((K_max, B), dtype=torch.int64, device=dev),
+        count=torch.empty((B,), **i32), overflow=torch.empty((B,), **i32),
+        pslot=torch.empty((H, n, B), **i32),
+        nslot=torch.empty((H, n, B), **i32),
+        w=torch.empty((H, n, B), **f64), pct=torch.empty((B,), **f64))
+    _launch("keypoint_plan", "generic", "trajopt_keypoint_plan",
+            _p(qvel), _p(pa.order), _p(pa.thr),
+            ctypes.c_void_p(mask.data_ptr() if mask is not None else None),
+            ctypes.c_int(SELECTORS[pa.name]), ctypes.c_int(pa.min_N),
+            ctypes.c_int(pa.max_N), ctypes.c_int(K_max),
+            ctypes.c_int(int(time_slots)), ctypes.c_double(pa.inv_dt),
+            ctypes.c_double(100.0 / (H * n)), ctypes.c_int(H),
+            ctypes.c_int(n), ctypes.c_int(nv), ctypes.c_int(B),
+            *(_p(x) for x in out))
+    return out
+
+
+def kp_interp(J, pslot, nslot, w, col_dof, nx: int, plain: bool = False):
+    """K9b: slot Jacobians J (K, 2n, C, B) lerped per column to the full
+    horizon between each column's dof's previous and next slot (pslot,
+    nslot (H, n, B) int32, w (H, n, B)); col_dof (C,) int32 -> A (H, 2n,
+    2n, B), Bm (H, 2n, C - 2n, B).  Plain twin:
+    keypoints/interpolate.py:lerp_columns."""
+    if _on_cpu(J, pslot, nslot, w, col_dof) or plain:
+        return lerp_columns(J, pslot, nslot, w, col_dof.long(), nx)
+    K, rows, C, B = J.shape
+    H, n = pslot.shape[:2]
+    _check("J", J, (K, nx, C, B))
+    _check("pslot", pslot, (H, n, B), torch.int32)
+    _check("nslot", nslot, (H, n, B), torch.int32)
+    _check("w", w, (H, n, B))
+    _check("col_dof", col_dof, (C,), torch.int32)
+    f64 = dict(dtype=torch.float64, device=J.device)
+    A = torch.empty((H, nx, nx, B), **f64)
+    Bm = torch.empty((H, nx, C - nx, B), **f64)
+    _launch("kp_interp", "generic", "trajopt_kp_interp", _p(J), _p(pslot),
+            _p(nslot), _p(w), _p(col_dof), ctypes.c_int(K), ctypes.c_int(H),
+            ctypes.c_int(n), ctypes.c_int(nx), ctypes.c_int(C),
+            ctypes.c_int(B), _p(A), _p(Bm))
+    return A, Bm
+
+
+def ie_node_mse_plain(cache, s, mid, e, n: int):
+    """K9c's twin: per (node, dof, lane) the mean squared difference over
+    the n velocity rows between dof d's A columns d and n + d at the
+    midpoint and the mean of the two ends, halved over the two columns;
+    each sum runs left to right over the rows, as the kernel's, and the
+    means multiply by 1/n, as the JAX program's."""
+    inv_n = 1.0 / n
+    cols = torch.arange(n, device=cache.device)
+    s0 = s1 = None
+    for r in range(n, 2 * n):
+        X = cache[:, r]                                # (H, C, B)
+        diff = X[mid] - 0.5 * (X[s] + X[e])            # (m, C, B)
+        d0, d1 = diff[:, cols], diff[:, n + cols]
+        s0 = d0 * d0 if s0 is None else s0 + d0 * d0
+        s1 = d1 * d1 if s1 is None else s1 + d1 * d1
+    return 0.5 * (s0 * inv_n + s1 * inv_n)
+
+
+def ie_mse(cache, s, mid, e, n: int, plain: bool = False):
+    """K9c: the iterative_error bisection test (JAX `solver/lanes.py:
+    _ie_node_mse:459`) on the column cache (H, 2n, C, B) at nodes s, mid,
+    e (m,) int32 -> mse (m, n, B)."""
+    if _on_cpu(cache, s, mid, e) or plain:
+        return ie_node_mse_plain(cache, s.long(), mid.long(), e.long(), n)
+    H, nx, C, B = cache.shape
+    m = s.shape[0]
+    _check("cache", cache, (H, 2 * n, C, B))
+    for name, x in (("s", s), ("mid", mid), ("e", e)):
+        _check(name, x, (m,), torch.int32)
+    out = torch.empty((m, n, B), dtype=torch.float64, device=cache.device)
+    _launch("ie_mse", "generic", "trajopt_ie_mse", _p(cache), _p(s),
+            _p(mid), _p(e), ctypes.c_int(m), ctypes.c_int(n), ctypes.c_int(C),
+            ctypes.c_int(B), ctypes.c_double(1.0 / n), _p(out))
+    return out

@@ -4,6 +4,12 @@
 Single trajectory: A_kp (H, 2n, 2n), B_kp (H, 2n, nu), mask (H, n).  For
 state dof i the A columns i and n+i, and B column i when i < nu, are lerped
 between dof i's previous and next keypoint times.
+
+Lane-last (`lerp_columns`, JAX `solver/lanes.py:415-428` and `_ie_interp:
+477`): slot Jacobians J (K, 2n, 2n+nu, B), each column c gathered at the
+previous and next slot of the dof it follows (`column_dofs`) and lerped.
+This is the plain twin of kernel K9b (kernels/csrc/kp_interp.cu), in its
+operation order.
 """
 
 from __future__ import annotations
@@ -52,3 +58,25 @@ def interpolate_derivatives(A_kp, B_kp, mask, nu: int):
     if nu > n:
         B = torch.cat([B, B_kp[:, :, n:]], dim=2)
     return A, B
+
+
+def column_dofs(n: int, nu: int) -> list:
+    """The dof each column of [A|B] follows: state column j follows dof
+    j mod n, control column c dof min(c, n-1) (JAX `solver/lanes.py:
+    232-235`)."""
+    return [j % n for j in range(2 * n)] + [min(c, n - 1) for c in range(nu)]
+
+
+def lerp_columns(J, pslot, nslot, w, col_dof, nx: int):
+    """J (K, 2n, C, B) slot Jacobians; pslot, nslot (H, n, B) int slots and
+    w (H, n, B) lerp weights per dof; col_dof (C,) int64 -> A (H, 2n, 2n,
+    B), Bm (H, 2n, C - 2n, B): column c at step t is J_p + w (J_n - J_p),
+    with J_p, J_n at dof col_dof[c]'s previous and next slot."""
+    H, B = pslot.shape[0], pslot.shape[-1]
+    rows, C = J.shape[1], J.shape[2]
+    idx_p = pslot[:, col_dof, :].long()[:, None].expand(H, rows, C, B)
+    idx_n = nslot[:, col_dof, :].long()[:, None].expand(H, rows, C, B)
+    Jp = J.gather(0, idx_p)
+    Jn = J.gather(0, idx_n)
+    Jf = Jp + w[:, col_dof, :][:, None] * (Jn - Jp)
+    return Jf[:, :, :nx].contiguous(), Jf[:, :, nx:].contiguous()

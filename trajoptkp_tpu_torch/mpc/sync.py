@@ -11,8 +11,10 @@ Two executors, as in the JAX package:
 
 - the lane replan (`_build_lane_replan`, JAX `sync.py:100-179`), B episodes
   batch last, through the phases of solver/lanes.py and kernel K8: the
-  rollout (K3), the FD slot Jacobians with their lerp (K5), the torch cost
-  expansion, the backward pass (K7), the line search (K4), then `mpc_apply`
+  rollout (K3), the keypoint Jacobians (set_interval: K5 and its lerp;
+  adaptive_jerk, adaptive_accel, velocity_change: K9a, K5 at per-lane slots,
+  K9b), the torch cost expansion, the backward pass (K7), the line search
+  (K4), then `mpc_apply`
   (K8, kernels/csrc/mpc_apply.cu), the part of the JAX replan after the
   forward pass.  `make_lane_sync_mpc` runs the replans back to back,
   `make_lane_sync_mpc_host` synchronises after each and times it;
@@ -102,6 +104,11 @@ def _build_lane_replan(task: Task, cfg: ILQRConfig, horizon: int,
     targets (ntgt,B)) -> (qp2, qv2, U_shift, qps, qvs, us, cs, rcost): one
     lane-last replan (JAX `sync.py:100`).  `plain` as in
     `solver/lanes.py:solve_lanes`, where K8 is named "mpc_apply"."""
+    if task.keypoint_cfg.name == "iterative_error":
+        raise NotImplementedError(
+            "the lane MPC replan takes set_interval, adaptive_jerk, "
+            "adaptive_accel and velocity_change keypoints; iterative_error's "
+            "rounds are host-driven (as JAX mpc/sync.py:118 refuses it)")
     ph = lane_phases(task, cfg, horizon, plain)
     std = noise_std(task, noise_pct)
     plain_apply = plain if isinstance(plain, bool) else "mpc_apply" in plain
@@ -112,7 +119,7 @@ def _build_lane_replan(task: Task, cfg: ILQRConfig, horizon: int,
                            device=qp.device)
         qpos, qvel, costs = ph["rollout"](qp, qv, U, targets)
         old = costs.sum(0)
-        A, Bm = ph["jacobians"](qpos, qvel, U)
+        A, Bm, _, _ = ph["jacobians"](qpos, qvel, U)
         l_x, l_xx, l_u, l_uu = ph["cost_expansion"](qpos, qvel, U, targets)
         k, K, _, _, _ = ph["bp"](A, Bm, l_x, l_xx, l_u, l_uu, lamb0)
         traj, _, best, accept = ph["fp"](qpos, qvel, U, old, k, K, targets)

@@ -14,13 +14,15 @@ all batch-last over B lanes:
 The λ retry is per lane with the generic semantics of
 `backward_pass_lambda_loop`: a lane reruns only while it is itself invalid.
 `optimise` drives solver/lanes.py's host loop at B = 1 with the generic
-convergence rule.
+convergence rule and the generic solve's keypoint semantics (every keypoint
+method, iterative_error through the lane bisection at B = 1, `filtering`,
+`auto_adjust`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +44,13 @@ class ILQRConfig:
     min_lambda: float = 1e-4
     max_lambda: float = 10.0
     eps_converge: float = 0.02
+    # the generic solve (`optimise`) filters A's velocity rows along time:
+    # "none", "low_pass" or "FIR" (keypoints/filtering.py)
+    filtering: str = "none"
+    # adaptive keypoints on lanes: slot budget K_max per lane (None: the
+    # worst case min(H, 2 (H // min_N) + 2)); the latest middle keypoint
+    # times past it are dropped and counted in LaneSolve.kp_overflow
+    lane_kp_budget: Optional[int] = None
 
 
 class Trajectory(NamedTuple):

@@ -9,15 +9,34 @@ by name, as the JAX `make_lane_batch_optimise(...).phases` does
 (mpc/sync.py):
 
   rollout         kernels.ops.rollout        (K3)
-  jacobians       kernels.ops.fd_jacobian    (K5) + SI lerp in torch
+  jacobians       set_interval: kernels.ops.fd_jacobian (K5) + lerp in torch;
+                  adaptive_jerk, adaptive_accel, velocity_change:
+                  ops.keypoint_plan (K9a) + ops.fd_jacobian at per-lane
+                  slots (K5) + ops.kp_interp (K9b);
+                  iterative_error: host-driven bisection rounds of
+                  ops.fd_jacobian into a full-horizon cache (K5) and
+                  ops.ie_mse (K9c), then K9a + K9b on the cache
   cost_expansion  torch.func.jacfwd of the residual + einsum (K6 stays torch)
   bp              kernels.ops.backward       (K7, λ retry per lane)
   fp              kernels.ops.linesearch     (K4) + argmin/accept in torch
+
+The jacobians phase returns (A, Bm, pct (B,), overflow (B,)) as the JAX
+one does.  pct is each solver's own: the share of steps with a keypoint
+(set_interval), the masked share sum(mask) / (H n) (adaptive), the share of
+computed times (iterative_error on lanes); the generic solve (`optimise`)
+reports the mean over dofs of each dof's share, as JAX `optimise`.  No
+phase of the adaptive methods reads anything back to the host; the
+iterative_error rounds are host-driven, as in JAX.
 
 On a CUDA device the ops launch the hand-written kernels; on the CPU they
 run the plain twins.  `rule` picks the stopping rule: "lane" stops a lane
 when converged and it + 1 >= min_iterations (JAX `lanes.py:942-944`),
 "generic" when converged and it >= min_iterations (JAX `ilqr.py:699`).
+The generic rule also takes the generic solver's keypoint semantics
+(`solver/ilqr.py:optimise:564-700`): no slot budget, `cfg.filtering`
+applied to A, and with `auto_adjust` the surprise-driven mask of the last
+iteration in place of the method's.  The lane rule refuses both, where the
+JAX lane solver ignores them.
 """
 
 from __future__ import annotations
@@ -29,7 +48,10 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..keypoints.methods import (NOT_PORTED, percentage_derivs, set_interval,
+from ..keypoints.filtering import FILTERS, filter_dynamics
+from ..keypoints.interpolate import column_dofs
+from ..keypoints.methods import (METHODS, auto_adjust_mask,
+                                 percentage_derivs, set_interval,
                                  si_keypoint_times)
 from ..state.statevector import scatter_tangent
 from ..dynamics.integrate import integrate_pos
@@ -48,10 +70,8 @@ class SIPlan(NamedTuple):
 
 
 def si_plan(task: Task, H: int) -> SIPlan:
+    """The set_interval schedule every task.keypoint_cfg.min_N steps."""
     kp = task.keypoint_cfg
-    if kp is None or kp.name != "set_interval":
-        name = kp.name if kp is not None else None
-        raise NotImplementedError(f"keypoint method {name!r}: {NOT_PORTED}")
     times = si_keypoint_times(H, kp.min_N)
     t = np.arange(H)
     pidx = np.searchsorted(times, t, side="right") - 1
@@ -131,38 +151,222 @@ def forward_pass(task: Task, qpos, qvel, U, k, K, alphas, targets, old_cost,
     return (pick(qps), pick(qvs), pick(us), pick(cs)), best, best_cost, accept
 
 
-def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False) -> dict:
+def kp_budget(cfg: ILQRConfig, task: Task, H: int) -> int:
+    """K_max, the slot budget per lane of the adaptive methods (JAX
+    `solver/lanes.py:223-226`): cfg.lane_kp_budget, or the worst case
+    min(H, 2 (H // min_N) + 2)."""
+    K_max = cfg.lane_kp_budget or min(
+        H, 2 * (H // max(task.keypoint_cfg.min_N, 1)) + 2)
+    if not 2 <= K_max <= H:
+        raise ValueError(f"lane_kp_budget {K_max} must lie in [2, H={H}]")
+    return K_max
+
+
+def ie_levels(H: int, min_split: int):
+    """The static dyadic bisection tree over [0, H-1] (JAX `solver/lanes.py:
+    _ie_levels:55`): levels [(s, mid, e, parent)], a segment tested while
+    e - s > min_split, parent[j] the previous level's node that spawned
+    node j (None at level 0)."""
+    levels = []
+    nodes = [(0, H - 1)] if (H - 1) > min_split else []
+    parent = None
+    while nodes:
+        s = np.array([a for a, _ in nodes], np.int32)
+        e = np.array([b for _, b in nodes], np.int32)
+        levels.append((s, (s + e) // 2, e, parent))
+        nxt, par = [], []
+        for i, (a, b) in enumerate(nodes):
+            m = (a + b) // 2
+            for ca, cb in ((a, m), (m, b)):
+                if (cb - ca) > min_split:
+                    nxt.append((ca, cb))
+                    par.append(i)
+        nodes = nxt
+        parent = np.array(par, np.int32) if par else None
+    return levels
+
+
+def jacobians_adaptive(task: Task, pa, K_max: int, col_dof, qpos, qvel, U,
+                       eps: float, twin, mask=None):
+    """AJ, AA, VC on lanes (JAX `jacobians_adaptive:363`): K9a's keypoint
+    mask (or `mask`, (H, n, B)) and per-lane slot plan, K5 at each lane's
+    live slots, K9b's per-column lerp -> (A, Bm, plan)."""
+    H = U.shape[0]
+    plan = ops.keypoint_plan(pa, qvel, H, K_max, mask=mask,
+                             plain=twin("keypoint_plan"))
+    J = ops.fd_jacobian(task, qpos, qvel, U, plan.slot_t, eps,
+                        plain=twin("fd_jacobian"), counts=plan.count)
+    A, Bm = ops.kp_interp(J, plan.pslot, plan.nslot, plan.w, col_dof,
+                          task.sv.nx, plain=twin("kp_interp"))
+    return A, Bm, plan
+
+
+def jacobians_ie(task: Task, levels, threshold: float, pa_mask, col_dof,
+                 qpos, qvel, U, eps: float, twin):
+    """iterative_error on lanes (JAX `jacobians_ie:507`): host-driven
+    bisection rounds.  Each round evaluates the FD Jacobians at the times
+    some lane still needs (K5 into the full-horizon cache (H, 2n, 2n+nu,
+    B)), then tests every open node per (dof, lane) on the cache (K9c);
+    finally each dof's keypoints are the pairs it computed, and K9a (time
+    slots) and K9b lerp the cache between them -> (A, Bm, pct of computed
+    times (B,), the pair mask (H, n, B) bool)."""
+    n, nx = task.sv.ndof, task.sv.nx
+    H, B = U.shape[0], U.shape[-1]
+    dev = U.device
+    C = nx + task.model.nu
+    computed_t = np.zeros((H, B), bool)
+    pair = np.zeros((H, n, B), bool)
+    cache = torch.zeros((H, nx, C, B), dtype=U.dtype, device=dev)
+    tcol = np.arange(H)[:, None]
+
+    def eval_times(need):
+        need = need & ~computed_t
+        counts = need.sum(axis=0)
+        K = int(counts.max())
+        if K == 0:
+            return
+        order = np.argsort(np.where(need, tcol, H + 1 + tcol), axis=0,
+                           kind="stable")[:K]
+        ops.fd_jacobian(task, qpos, qvel, U,
+                        torch.as_tensor(order, dtype=torch.int64, device=dev),
+                        eps, plain=twin("fd_jacobian"),
+                        counts=torch.as_tensor(counts, dtype=torch.int32,
+                                               device=dev), cache=cache)
+        computed_t[:] = computed_t | need
+
+    # seed: both ends and the root midpoint, every dof and lane
+    seed = np.zeros((H, B), bool)
+    ends = [0, H - 1, (H - 1) // 2]
+    seed[ends] = True
+    eval_times(seed)
+    pair[ends] = True
+    open_ = split_prev = None
+    for s_arr, mid_arr, e_arr, parent in levels:
+        open_ = (np.ones((len(s_arr), n, B), bool) if open_ is None
+                 else split_prev[parent])
+        if not open_.any():
+            break
+        open_any = open_.any(axis=1)                   # (m, B)
+        need = np.zeros((H, B), bool)
+        for arr in (s_arr, mid_arr, e_arr):
+            np.logical_or.at(need, arr, open_any)
+        eval_times(need)
+        for arr in (s_arr, mid_arr, e_arr):
+            np.logical_or.at(pair, arr, open_)
+        nodes = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+                 for a in (s_arr, mid_arr, e_arr)]
+        mse = ops.ie_mse(cache, *nodes, n, plain=twin("ie_mse")).cpu().numpy()
+        split_prev = open_ & (mse >= threshold)
+    mask = torch.as_tensor(pair, device=dev)
+    plan = ops.keypoint_plan(pa_mask, qvel, H, H, mask=mask, time_slots=True,
+                             plain=twin("keypoint_plan"))
+    A, Bm = ops.kp_interp(cache, plan.pslot, plan.nslot, plan.w, col_dof, nx,
+                          plain=twin("kp_interp"))
+    pct = torch.as_tensor(100.0 * computed_t.mean(axis=0), dtype=U.dtype,
+                          device=dev)
+    return A, Bm, pct, mask
+
+
+def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
+                generic: bool = False) -> dict:
     """The phases of one lane iteration at horizon H, by name (the JAX
-    `.phases` dict): rollout(qp, qv, U, targets), jacobians(qpos, qvel, U)
-    -> (A, Bm), cost_expansion(qpos, qvel, U, targets), bp(A, Bm, l_x, l_xx,
-    l_u, l_uu, λ) -> (k, K, dJ, λ, λ-exit), fp(qpos, qvel, U, old, k, K,
-    targets) -> (best trajectory (qpos, qvel, ctrl, costs), best alpha's
-    index, its cost, accept); "pct" is the SI plan's percentage of steps
-    with derivatives.  `plain` as in `solve_lanes`."""
+    `.phases` dict): rollout(qp, qv, U, targets), jacobians(qpos, qvel, U,
+    mask=None) -> (A, Bm, pct (B,), overflow (B,)), cost_expansion(qpos,
+    qvel, U, targets), bp(A, Bm, l_x, l_xx, l_u, l_uu, λ) -> (k, K, dJ, λ,
+    λ-exit), fp(qpos, qvel, U, old, k, K, targets) -> (best trajectory
+    (qpos, qvel, ctrl, costs), best alpha's index, its cost, accept).
+    "keypoints" holds the last jacobians call's keypoint mask (H, n, B)
+    under "mask".  `plain` as in `solve_lanes`.  `generic` takes the
+    generic solve's keypoint semantics (module docstring); the jacobians
+    phase then takes a mask (H, n, B) that replaces an adaptive method's
+    (auto-adjust)."""
     if not isinstance(plain, bool):
-        unknown = set(plain) - set(ops.KERNELS + ops.MPC_KERNELS)
+        unknown = set(plain) - set(ops.KERNELS + ops.MPC_KERNELS
+                                   + ops.KEYPOINT_KERNELS)
         if unknown:
             raise ValueError(f"unknown kernels {sorted(unknown)}")
 
     def twin(name: str) -> bool:
         return plain if isinstance(plain, bool) else name in plain
 
-    plan = si_plan(task, H)
-    alphas = default_alphas(cfg.num_parallel_rollouts, task.model.dtype,
-                            task.model.device)
+    kp = task.keypoint_cfg
+    if kp is None or kp.name not in METHODS:
+        raise ValueError(f"keypoint method {getattr(kp, 'name', None)!r}; "
+                         f"known: {METHODS}")
+    if cfg.filtering not in FILTERS:
+        raise ValueError(f"unknown filtering {cfg.filtering!r}; known: "
+                         f"{FILTERS}")
+    if not generic and (cfg.filtering != "none" or kp.auto_adjust):
+        raise NotImplementedError(
+            "the lane solver applies neither filtering nor auto_adjust "
+            "(the JAX lane solver ignores them; its generic `optimise` "
+            "applies them): use solver/ilqr.py:optimise")
+    model = task.model
+    dev = model.device
+    n, f64 = task.sv.ndof, dict(dtype=model.dtype, device=dev)
+    alphas = default_alphas(cfg.num_parallel_rollouts, model.dtype, dev)
+    col_dof = torch.as_tensor(column_dofs(n, model.nu), dtype=torch.int32,
+                              device=dev)
+    state = {"mask": None}
+    pa_mask = ops.keypoint_plan_args(task, "mask")
+
+    def filtered(A):
+        return filter_dynamics(A, cfg.filtering) if generic else A
+
+    if generic:
+        def given(qpos, qvel, U, mask):
+            """auto-adjust: the generic solve's mask replaces the method's"""
+            A, Bm, lp = jacobians_adaptive(task, pa_mask, H, col_dof, qpos,
+                                           qvel, U, cfg.fd_eps, twin, mask)
+            state["mask"] = lp.mask
+            return filtered(A), Bm, lp.pct, lp.overflow
+
+    if kp.name == "set_interval":
+        plan = si_plan(task, H)
+        si_mask = set_interval(H, n, kp.min_N).to(dev)
+
+        def jacobians(qpos, qvel, U, mask=None):
+            if mask is not None:
+                return given(qpos, qvel, U, mask)
+            B = U.shape[-1]
+            A, Bm = jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps,
+                                 twin("fd_jacobian"))
+            state["mask"] = si_mask[:, :, None].expand(H, n, B)
+            return (filtered(A), Bm, torch.full((B,), plan.pct, **f64),
+                    torch.zeros(B, dtype=torch.int32, device=dev))
+    elif kp.name == "iterative_error":
+        levels = ie_levels(H, max(kp.min_N, 1))
+
+        def jacobians(qpos, qvel, U, mask=None):
+            A, Bm, pct, state["mask"] = jacobians_ie(
+                task, levels, float(kp.iterative_error_threshold), pa_mask,
+                col_dof, qpos, qvel, U, cfg.fd_eps, twin)
+            return (filtered(A), Bm, pct,
+                    torch.zeros(U.shape[-1], dtype=torch.int32, device=dev))
+    else:
+        pa = ops.keypoint_plan_args(task)
+        K_max = H if generic else kp_budget(cfg, task, H)
+
+        def jacobians(qpos, qvel, U, mask=None):
+            if mask is not None:
+                return given(qpos, qvel, U, mask)
+            A, Bm, lp = jacobians_adaptive(task, pa, K_max, col_dof, qpos,
+                                           qvel, U, cfg.fd_eps, twin)
+            state["mask"] = lp.mask
+            return filtered(A), Bm, lp.pct, lp.overflow
+
     return {
         "rollout": lambda qp, qv, U, tg: ops.rollout(
             task, qp, qv, U, tg, plain=twin("rollout")),
-        "jacobians": lambda qpos, qvel, U: jacobians_si(
-            task, plan, qpos, qvel, U, cfg.fd_eps, twin("fd_jacobian")),
+        "jacobians": jacobians,
         "cost_expansion": lambda qpos, qvel, U, tg: cost_expansion(
             task, qpos, qvel, U, tg),
         "bp": lambda A, Bm, l_x, l_xx, l_u, l_uu, lamb: ops.backward(
             A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward")),
         "fp": lambda qpos, qvel, U, old, k, K, tg: forward_pass(
             task, qpos, qvel, U, k, K, alphas, tg, old, twin("linesearch")),
-        "pct": plan.pct,
         "alphas": alphas,
+        "keypoints": state,
     }
 
 
@@ -175,6 +379,9 @@ class LaneSolve(NamedTuple):
     final_cost: torch.Tensor      # (B,)
     num_iterations: torch.Tensor  # (B,)
     pct_derivs: torch.Tensor      # (B,)
+    kp_overflow: torch.Tensor     # (B,) int32: the most keypoint times the
+    #                               slot budget dropped in one iteration
+    #                               (adaptive methods; 0 elsewhere)
     log: dict                     # per-iteration values of lane 0; "retried"
     #                               counts the lanes that took the λ retry
     opt_time_ms: float
@@ -192,14 +399,23 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
 
     qpos0 (nq, B), qvel0 (nv, B), U (H, nu, B), targets (nres, B).
     `plain=True` runs the kernels' PyTorch twins on any device; a collection
-    of kernel names (of `ops.KERNELS`) runs only those as twins, which tells
-    apart the kernels a difference between the two paths comes from."""
+    of kernel names (of `ops.KERNELS` and `ops.KEYPOINT_KERNELS`) runs only
+    those as twins, which tells apart the kernels a difference between the
+    two paths comes from.  rule="generic" also takes the generic solve's
+    keypoint semantics (module docstring)."""
     if rule not in ("lane", "generic"):
         raise ValueError(f"rule must be 'lane' or 'generic', not {rule!r}")
+    generic = rule == "generic"
     dev = qpos0.device
     H, B = U.shape[0], U.shape[-1]
-    ph = lane_phases(task, cfg, H, plain)
-    pct, alphas = ph["pct"], ph["alphas"]
+    ph = lane_phases(task, cfg, H, plain, generic=generic)
+    alphas, kp_state = ph["alphas"], ph["keypoints"]
+    kp = task.keypoint_cfg
+    adjust = generic and kp.auto_adjust and kp.name != "iterative_error"
+    if adjust:
+        inv_dt = 1.0 / float(task.model.timestep)
+        order = torch.as_tensor(list(task.sv.order), device=dev)
+        importances = torch.ones(task.sv.ndof, dtype=U.dtype, device=dev)
     log = {k: [] for k in ("cost", "pct", "alpha", "lambda", "retried",
                            "derivs_ms", "bp_ms", "fp_ms")}
 
@@ -211,11 +427,20 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.full((B,), cfg.max_iterations, dtype=torch.int64,
                        device=dev)
+    pct_b = torch.zeros(B, dtype=U.dtype, device=dev)
+    ovf = torch.zeros(B, dtype=torch.int32, device=dev)
+    adjusted = None
     need_derivs = True
     for it in range(cfg.max_iterations):
         t0 = time.perf_counter()
         if need_derivs:
-            A, Bm = ph["jacobians"](qpos, qvel, U)
+            A, Bm, pct_i, ovf_i = ph["jacobians"](qpos, qvel, U, adjusted)
+            pct_b = torch.where(done, pct_b, pct_i)
+            ovf = torch.maximum(ovf, torch.where(done, 0, ovf_i))
+            if generic:
+                # the generic solve's %derivs: the mean of the per-dof shares
+                pct_dof = percentage_derivs(kp_state["mask"][..., 0])
+                pct_b = pct_dof.mean().reshape(1).to(U.dtype)
             l_x, l_xx, l_u, l_uu = ph["cost_expansion"](qpos, qvel, U,
                                                         targets)
             _sync(dev)
@@ -241,6 +466,17 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
         best_traj, best, best_cost, accept = ph["fp"](qpos, qvel, U, old, k,
                                                       K, targets)
         upd = accept & active
+        if adjust:
+            # AdjustKeyPointMethod (JAX ilqr.py:661-669): expected against
+            # actual cost reduction sets the next derivatives' mask
+            a, dj = float(alphas[best[0]]), float(dJ[0])
+            expected = -(a * dj + (a * a / 2.0) * dj)
+            actual = float(old[0]) - float(torch.where(upd, best_cost,
+                                                       old)[0])
+            vel = torch.where(upd, best_traj[1], qvel)[:H, order, 0]
+            adjusted = auto_adjust_mask(vel, inv_dt, expected, actual,
+                                        pct_dof, importances,
+                                        kp.max_N)[:, :, None]
         qpos = torch.where(upd, best_traj[0], qpos)
         qvel = torch.where(upd, best_traj[1], qvel)
         U = torch.where(upd, best_traj[2], U)
@@ -252,21 +488,22 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
             torch.clamp(lamb * cfg.lambda_factor ** 2, cfg.min_lambda,
                         cfg.max_lambda))
         converged = (old - new) / torch.clamp(new, min=1e-12) < cfg.eps_converge
-        min_ok = (it >= cfg.min_iterations) if rule == "generic" \
+        min_ok = (it >= cfg.min_iterations) if generic \
             else (it + 1 >= cfg.min_iterations)
         _sync(dev)
         t3 = time.perf_counter()
         log["cost"].append(float(new[0]))
-        log["pct"].append(pct)
+        log["pct"].append(float(pct_b[0]))
         log["alpha"].append(float(alphas[best[0]]))
         log["derivs_ms"].append((t1 - t0) * 1e3)
         log["bp_ms"].append((t2 - t1) * 1e3)
         log["fp_ms"].append((t3 - t2) * 1e3)
         if verbose:
             print(f"iter {it}: cost {float(old[0]):.5f} -> {float(new[0]):.5f}"
-                  f" lambda {log['lambda'][-1]:.2e} %derivs {pct:.1f} "
-                  f"t(d/bp/fp) {log['derivs_ms'][-1]:.1f}/"
-                  f"{log['bp_ms'][-1]:.1f}/{log['fp_ms'][-1]:.1f} ms")
+                  f" lambda {log['lambda'][-1]:.2e} %derivs "
+                  f"{log['pct'][-1]:.1f} t(d/bp/fp) "
+                  f"{log['derivs_ms'][-1]:.1f}/{log['bp_ms'][-1]:.1f}/"
+                  f"{log['fp_ms'][-1]:.1f} ms")
         old = new
         newly = ~done & (lam_exit | (converged & min_ok))
         iters = torch.where(newly, it + 1, iters)
@@ -277,9 +514,9 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
     _sync(dev)
     return LaneSolve(
         qpos=qpos, qvel=qvel, ctrl=U, costs=costs, initial_cost=initial,
-        final_cost=old, num_iterations=iters,
-        pct_derivs=torch.full((B,), pct, dtype=U.dtype, device=dev),
-        log=log, opt_time_ms=(time.perf_counter() - t_start) * 1e3,
+        final_cost=old, num_iterations=iters, pct_derivs=pct_b,
+        kp_overflow=ovf, log=log,
+        opt_time_ms=(time.perf_counter() - t_start) * 1e3,
     )
 
 
@@ -289,6 +526,7 @@ class LaneBatchResult(NamedTuple):
     final_cost: torch.Tensor      # (B,)
     num_iterations: torch.Tensor  # (B,)
     pct_derivs: torch.Tensor      # (B,)
+    kp_overflow: torch.Tensor     # (B,) int32, as LaneSolve's
 
     @property
     def cost_reduction(self):
@@ -302,7 +540,7 @@ def make_lane_phase_optimise(task: Task, cfg: ILQRConfig, H: int,
     -> LaneBatchResult, on the task's device, with the lane stopping rule;
     `plain=True` runs the kernels' PyTorch twins (a reference on the card),
     a collection of kernel names only those (see `solve_lanes`)."""
-    si_plan(task, H)  # refuse an unported keypoint method up front
+    lane_phases(task, cfg, H, plain)  # refuse what the lane path lacks
     model = task.model
     f64 = dict(dtype=model.dtype, device=model.device)
 
@@ -320,7 +558,7 @@ def make_lane_phase_optimise(task: Task, cfg: ILQRConfig, H: int,
         return LaneBatchResult(
             ctrl=res.ctrl.permute(2, 0, 1), initial_cost=res.initial_cost,
             final_cost=res.final_cost, num_iterations=res.num_iterations,
-            pct_derivs=res.pct_derivs,
+            pct_derivs=res.pct_derivs, kp_overflow=res.kp_overflow,
         )
 
     return run

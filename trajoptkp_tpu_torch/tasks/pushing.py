@@ -24,8 +24,7 @@ horizon.  The control law (end-effector pose and error, pinv of the 6x7
 Jacobian) is batched torch over the scenes; its FK products and bias force
 come from one launch of the step's device function (`ops.fk_bias`) and the
 dynamics step is kernel K3 at H = 1 on the card (their plain twins on the
-CPU).  The task's own keypoint method, adaptive_jerk, is ROADMAP Queue 1
-item 9: pass SI_n.
+CPU).  The task's own keypoint method is adaptive_jerk.
 """
 
 from __future__ import annotations

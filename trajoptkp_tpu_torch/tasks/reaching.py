@@ -6,7 +6,7 @@ the seven joint velocities (0.01, terminal 1): the joint-space residual with
 no control term, so l_uu = 0 and the backward pass leans on its λ.  All
 seven hinges are limited; every step runs the joint-limit constraint solve
 (dynamics/contact.py, kernels/csrc/constraint.cuh).  The task's own keypoint
-method is velocity_change (ROADMAP Queue 1 item 9); pass SI_n to run it now.
+method is velocity_change.
 """
 
 from __future__ import annotations

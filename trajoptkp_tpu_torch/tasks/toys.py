@@ -76,14 +76,12 @@ def make_acrobot(device=None) -> Task:
 
 
 def make_pentabot(device=None) -> Task:
-    """Pentabot: 5-link chain, joints 1-3 actuated.
-
-    The model's six capsule self-contact pairs (non-adjacent links) are
-    dropped: contacts are not ported yet (ROADMAP Queue 1 item 7b), so the
-    port's pentabot is the smooth subset of the JAX one and agrees with it
-    while no two links touch."""
+    """Pentabot: 5-link chain, joints 1-3 actuated, with the model's six
+    capsule-capsule pairs between non-adjacent links (0-2, 0-3, 0-4, 1-3,
+    1-4, 2-4), as JAX `make_pentabot`: a folded chain touches itself and
+    the contact rows (K2b) enter the step."""
     device = resolve_device(device)
-    model = load_model("pentabot", device=device).replace(contact_pairs=())
+    model = load_model("pentabot", device=device)
     nj, nu = 5, 3
     f64 = dict(dtype=model.dtype, device=device)
     return _joint_space_task(
