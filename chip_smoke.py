@@ -16,7 +16,8 @@ from its servo with all three contact pairs touching and the walker's
 pressed into the floor or folded with a shin in the torso (the contact rows
 K2b and the constraint solve K2a run inside the step of the rollout,
 line-search, FD and apply kernels); the servo's fk_bias is held against its
-twin too.  The backward pass is also held against its twin summed in
+twin too, and the cost expansion (K6) bit for bit at every model, at these
+shapes and at the main paths' full shapes.  The backward pass is also held against its twin summed in
 another order (`sum_contract`) on the card and on the CPU.  It replays the
 acrobot SI_5 H=200 golden solve on the kernel path, then drives the main
 paths with launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1
@@ -29,7 +30,7 @@ episodes, and H=20 and 80), float64.  Three iterations of each open-loop
 path are compared with the plain path on the card (reaching and push_ncl at
 a reduced horizon), the first walker MPC replans (one episode), each
 kernel phase of the first replan of the 128 episodes, and six acrobot MPC
-replans too, bit for bit; the four open-loop kernels are timed at
+replans too, bit for bit; the five open-loop kernels are timed at
 reaching's and push_ncl's full shapes and held against their twins there
 too (the rollout and the line search step by step, see `stepwise_check`),
 the push_ncl servo's first steps and its fk_bias are held against the plain
@@ -41,10 +42,20 @@ slot budget that overflows, and reaching's and push_ncl's full shapes), and
 the `main_adaptive` phase drives acrobot AJ_1_50, VC_1_200 and IE_1_50
 (H=500, 512 scenes) and reaching AJ_5_100 (H=1500, 128 scenes) through
 `make_lane_phase_optimise` with launch counts, 3 acrobot iterations each
-against twins.  The CLI solves the three open-loop tasks with their own
-keypoint methods and acrobot with IE_1_50 and runs the walker's
-`Generate_syncronus_mpc_data --horizon 40`, the five processes side by
-side.
+against twins.  The `main_async` phase runs asynchronous MPC in real
+time (`mpc/async_mpc.py`: a planner thread replanning one iteration at a
+time on its own CUDA stream, the actor stepping through K3 on another):
+push_ncl SI_1 over 5 scenes of the async campaign's generator, 500 steps
+each at 125 Hz (`async_mpc_campaign`), and one walker_run episode of 2000
+steps at 200 Hz, with exact launch counts and a planner that lowers its
+plan's cost, and first holds one planner step (at H=5), the actor's step
+and its gravity hold against their twins, bit for bit, and each kernel
+phase of a push_ncl planner step at its own shape (H=50, B=1; run while
+the CLI processes run).  The CLI solves the three open-loop tasks with their own keypoint
+methods and acrobot with IE_1_50, runs the walker's
+`Generate_syncronus_mpc_data --horizon 40`, push_ncl's
+`Generate_asynchronus_mpc_data --num_scenes 3 --keypoint SI_1` and
+acrobot's `MPC_until_completion`, the seven processes side by side.
 
 Prints the card's name and power limit, the kernel build time, the seconds
 of each phase, a `record` line with every measurement, one
@@ -52,11 +63,12 @@ of each phase, a `record` line with every measurement, one
 `{"ok": true, "device": {...}}`.  Any failed check is printed as it happens
 and makes the script exit non-zero at the end without a result; it also
 fails where no CUDA device is present.  The MPC campaigns write their
-`mpc_horizons.csv` under chip_smoke_out/mpc/.
+`mpc_horizons.csv` and `async_mpc.csv` under chip_smoke_out/mpc/.
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
 walker, keypoints, golden, main_acrobot, main_reaching, main_push, main_mpc,
-main_adaptive, cli) while developing; a subset never prints a result.
+main_adaptive, main_async, cli) while developing; a subset never prints a
+result.
 """
 
 import argparse
@@ -65,6 +77,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -77,10 +90,14 @@ from trajoptkp_tpu_torch.dynamics.contact import (ALPHA_LADDER, NEWTON_ITERS,
                                                   limits_active)
 from trajoptkp_tpu_torch.dynamics.model import FREE, HINGE, SLIDE
 from trajoptkp_tpu_torch.dynamics.step import step_state
-from trajoptkp_tpu_torch.bench.campaigns import (episode_starts,
+from trajoptkp_tpu_torch import app
+from trajoptkp_tpu_torch.bench.campaigns import (async_mpc_campaign,
+                                                 async_scenes, episode_starts,
                                                  sync_mpc_horizon_sweep)
 from trajoptkp_tpu_torch.kernels import build, ops
+from trajoptkp_tpu_torch.mpc import native_executor
 from trajoptkp_tpu_torch.mpc import sync as mpc_sync
+from trajoptkp_tpu_torch.mpc.async_mpc import AsyncMPC
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
 from trajoptkp_tpu_torch.state.statevector import to_tangent
@@ -112,9 +129,21 @@ SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
 MPC_PLAIN_REPLANS = 2               # replans held against the plain path
 MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke_out", "mpc")
+# async MPC (main_async), real time: push_ncl SI_1 over the campaign's
+# scenes, the walker one MPC_until_completion-style episode
+ASYNC_PUSH_SCENES, ASYNC_PUSH_STEPS = 5, 500
+ASYNC_WALKER_STEPS = 2000
+ASYNC_MIN_PLANS = 10                # plans published per episode, at least
+# the whole async planner step (`AsyncMPC.replan`) held against its
+# all-twin path at this horizon: a plain push_ncl or walker step is ~0.3-0.5
+# s of the card's time, and a plain replan ~2H + 1 of them.  The kernels
+# are held at the planners' own shapes too: push_ncl's at H=50 B=1 phase by
+# phase (main_async's hold, run beside the CLI), the walker's at H=40 B=1
+# in main_mpc's kernel path against the plain path
+ASYNC_HOLD_H = 5
 PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "walker",
           "keypoints", "golden", "main_acrobot", "main_reaching", "main_push",
-          "main_mpc", "main_adaptive", "cli")
+          "main_mpc", "main_adaptive", "main_async", "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -128,6 +157,7 @@ TOL = {
     "rollout": ("rel", 1e-10),
     "linesearch": ("rel", 1e-10),
     "fd_jacobian": ("abs", 1e-7),
+    "cost_expansion": ("rel", 0.0),     # and bit for bit
     "backward": ("rel", 1e-9),
 }
 PENTABOT_FD_ABS = 1e-6  # five-link FD noise (the JAX FD itself: 5.5e-8)
@@ -299,15 +329,23 @@ def backward_bound(nx, nu, Hh, Bb, sweeps):
     return bound(ops_, byt)
 
 
+def fk_ops(s):
+    """The FK part of the step (csrc/step.cuh: fk_frames): ~230 per hinge
+    or slide body, ~60 per welded one, ~100 per free one."""
+    return 230 * s.n_scalar + 60 * s.n_welded + 100 * s.n_free
+
+
 def cost_expansion_bound(s, Hh, Bb):
-    """K6 (stays torch): per step the residual and its forward-mode
-    Jacobian over the 2n + nu tangent columns (~3x the residual's
-    operations per column, with the FK for an FK residual) and the
-    Gauss-Newton products 2 nres (2n + nu)^2 + 2 nres (2n + nu), against
-    reading the nominal and writing l_x, l_xx, l_u, l_uu."""
+    """K6 (csrc/cost_expansion.cu): per (t, b) the residual, its closed-form
+    Jacobian (a constant selection; for the FK residual the FK, two point
+    Jacobians and the norms' derivatives, ~40 per state dof) and the
+    Gauss-Newton products, l_z 2 nres nz and the (x, x) and (u, u) blocks
+    3 nres (nx^2 + nu^2), against reading the state and control and
+    writing l_x, l_xx, l_u, l_uu."""
     nz = s.nx + s.nu
-    res = cost_ops(s) + (fk_bias_ops(s) if s.fk_residual else 0)
-    ops_ = Hh * Bb * (3 * nz * res + 2 * s.nres * nz * nz + 2 * s.nres * nz)
+    jac = fk_ops(s) + 40 * (s.nx // 2) if s.fk_residual else 0
+    ops_ = Hh * Bb * (cost_ops(s) + jac + 2 * s.nres * nz
+                      + 3 * s.nres * (s.nx * s.nx + s.nu * s.nu))
     byt = F8 * (Hh * Bb * (s.nq + s.nv + s.nu) + s.ntgt * Bb
                 + Hh * Bb * (s.nx + s.nx * s.nx + s.nu + s.nu * s.nu))
     return bound(ops_, byt)
@@ -746,8 +784,23 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
             task, q0, v0, U0, plan.times, cfg.fd_eps), 5)
         rows["fd_jacobian"]["plain_ms"] = plain_ms
 
+    # K6 on the nominal the backward pass below reads
+    l = ops.cost_expansion(task, q0, v0, U0, tg)
+    pc, plain_ms = cuda_timed(lambda: ops.cost_expansion(
+        task, q0, v0, U0, tg, plain=True))
+    rows["cost_expansion"] = dict(
+        err=max((err(a, b, "rel") for a, b in zip(l, pc)),
+                key=lambda x: x[1]),
+        bitwise=all(bool(torch.equal(a, b)) for a, b in zip(l, pc)),
+        bound=cost_expansion_bound(s, Hh, Bb))
+    note(task, "cost_expansion", rows)
+    del pc
+    if time_them:
+        rows["cost_expansion"]["ms"] = cuda_ms(lambda: ops.cost_expansion(
+            task, q0, v0, U0, tg), 5)
+        rows["cost_expansion"]["plain_ms"] = plain_ms
+
     A, Bm = lanes.jacobians_si(task, plan, q0, v0, U0, cfg.fd_eps)
-    l = lanes.cost_expansion(task, q0, v0, U0, tg)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     kb = ops.backward(A, Bm, *l, lam, cfg)
@@ -783,6 +836,11 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
         if name == "fd_jacobian":
             tol = fd_abs
         got = row["err"][1]
+        if name == "cost_expansion":
+            check(row["bitwise"], f"{task.name} cost_expansion: kernel vs "
+                                  f"plain not bit for bit (error {got:.3e})")
+            row["tol"] = "bit for bit"
+            continue
         if name == "fd_jacobian" and gated:
             check(row["share"] >= REACHING_FD_SHARE and row["within"] <= tol,
                   f"{task.name} fd_jacobian: only {row['share']:.6f} of the "
@@ -890,6 +948,14 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
     out["fd_bitwise"] = bool(torch.equal(kj, pj))
     del kj, pj
 
+    # K6 whole, bit for bit
+    kc = ops.cost_expansion(task, qpos, qvel, U, tgl)
+    pc = ops.cost_expansion(task, qpos, qvel, U, tgl, plain=True)
+    out["cost_expansion"] = worst(zip(kc, pc))
+    out["cost_expansion_bitwise"] = all(bool(torch.equal(a, b))
+                                        for a, b in zip(kc, pc))
+    del kc, pc
+
     # K7 whole
     kb = ops.backward(A, Bm, *l, lam, cfg)
     pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
@@ -957,6 +1023,11 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
           f"{name} main path: mean cost reduction {mean_red}")
     for kname in ops.KERNELS:
         check(launches[kname] > 0, f"{name} main path never launched {kname}")
+    # K6 runs once per derivative evaluation, as K5 does (ten at acrobot)
+    check(launches["cost_expansion"] == launches["fd_jacobian"],
+          f"{name} main path launched cost_expansion "
+          f"{launches['cost_expansion']} times, fd_jacobian "
+          f"{launches['fd_jacobian']}")
     servo_check = check_servo(task, st) if servo else None
 
     # per-phase device times at the initial nominal
@@ -971,7 +1042,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
                 else None)
     A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps)
-    l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
+    l = ops.cost_expansion(task, qpos, qvel, U, tgl)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     k, K, _, lam_out, _ = ops.backward(A, Bm, *l, lam, cfg)
@@ -980,7 +1051,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
         "rollout": cuda_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl), 3),
         "jacobians": cuda_ms(lambda: lanes.jacobians_si(
             task, plan, qpos, qvel, U, cfg.fd_eps), 3),
-        "cost_expansion": cuda_ms(lambda: lanes.cost_expansion(
+        "cost_expansion": cuda_ms(lambda: ops.cost_expansion(
             task, qpos, qvel, U, tgl), 3),
         "bp": cuda_ms(lambda: ops.backward(A, Bm, *l, lam, cfg), 3),
         "fp": cuda_ms(lambda: lanes.forward_pass(
@@ -1003,6 +1074,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
                 task, qpos, qvel, U, k, K, alphas, tgl), 3),
             "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
                 task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
+            "cost_expansion": phases["cost_expansion"],
             "backward": phases["bp"],
         }
         full = out["full_shape_err"] = stepwise_check(
@@ -1018,10 +1090,13 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
             check(math.isfinite(got) and got <= tol,
                   f"{name} {kname} at the full shape: kernel vs plain error "
                   f"{got:.3e} > {kind} {tol:.0e}")
+        check(full["cost_expansion_bitwise"], f"{name} cost_expansion at "
+                                              "the full shape: not bit for bit")
         out["bounds"] = {
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
             "fd_jacobian": fd_bound(s, len(plan.times), Bb),
+            "cost_expansion": cost_expansion_bound(s, Hh, Bb),
             "backward": backward_bound(s.nx, s.nu, Hh, Bb,
                                        out["bp_sweeps_first"]),
         }
@@ -1490,21 +1565,26 @@ def outputs_gap(a, b):
     return same, gap
 
 
-def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
+def mpc_kernel_ms(task, qp, qv, U, tg, cfg):
     """Per-phase device ms of one lane-last replan from (qp, qv, U) (each
     phase alone, 3 launches after a warm-up), the kernels' ms among them,
-    and the first backward pass's sweeps.  With `hold`, each kernel phase
-    (K3, K5 with its lerp, K7, K4 with its argmin, K8 with noise drawn from
-    seed 0) runs again as its plain twin on the same inputs, and the
-    outputs must be equal bit for bit: the fourth value holds
-    (bit for bit, max abs err) by kernel."""
+    and the first backward pass's sweeps; the cost expansion phase must
+    launch K6 once.  The fourth value is the hold of that replan: a
+    function that runs each kernel phase (K3, K5 with its lerp, K6, K7, K4
+    with its argmin, K8 with noise drawn from seed 0) again as its plain
+    twin on the same inputs and returns {kernel: (bit for bit, max abs
+    err)}; the caller checks that they are equal bit for bit."""
     Hh, Bb = U.shape[0], U.shape[-1]
     ph = lanes.lane_phases(task, cfg, Hh)
     qpos, qvel, costs = ph["rollout"](qp, qv, U, tg)
     old = costs.sum(0)
     jac = ph["jacobians"](qpos, qvel, U)
     A, Bm = jac[:2]
+    before = ops.LAUNCHES["cost_expansion"]
     l = ph["cost_expansion"](qpos, qvel, U, tg)
+    check(ops.LAUNCHES["cost_expansion"] == before + 1,
+          f"{task.name} replan's cost_expansion phase launched K6 "
+          f"{ops.LAUNCHES['cost_expansion'] - before} times, not once")
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     bp = ph["bp"](A, Bm, *l, lam)
@@ -1518,19 +1598,24 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
     std = mpc_sync.noise_std(task, 5.0)
     apply = lambda plain=False: ops.mpc_apply(  # noqa: E731
         task, qp, qv, U, traj[2], accept, best, old, z, std, tg, plain=plain)
-    held = {}
-    if hold:
+    applied = apply()
+
+    def held():
         pp = lanes.lane_phases(task, cfg, Hh, plain=True)
-        held = {
+        out = {
             "rollout": outputs_gap((qpos, qvel, costs),
                                    pp["rollout"](qp, qv, U, tg)),
             "fd_jacobian": outputs_gap(jac, pp["jacobians"](qpos, qvel, U)),
+            "cost_expansion": outputs_gap(l, pp["cost_expansion"](
+                qpos, qvel, U, tg)),
             "backward": outputs_gap(bp, pp["bp"](A, Bm, *l, lam)),
             "linesearch": outputs_gap(fp, pp["fp"](qpos, qvel, U, old, k, K,
                                                    tg)),
-            "mpc_apply": outputs_gap(apply(), apply(plain=True)),
+            "mpc_apply": outputs_gap(applied, apply(plain=True)),
         }
         torch.cuda.synchronize()
+        return out
+
     phases = {
         "rollout": cuda_ms(lambda: ph["rollout"](qp, qv, U, tg), 3),
         "jacobians": cuda_ms(lambda: ph["jacobians"](qpos, qvel, U), 3),
@@ -1547,13 +1632,43 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg, hold=False):
             task, qpos, qvel, U, k, K, ph["alphas"], tg), 3),
         "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
             task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
+        "cost_expansion": phases["cost_expansion"],
         "backward": phases["bp"],
         "mpc_apply": phases["apply"],
     }
     return phases, kernel, sweeps_from_lambda(lam_out, lam, cfg), held
 
 
-def main_mpc(task, acro):
+def mpc_plain_cases(walk, acro):
+    """(task, H, num_apply, replans, B) of main_mpc's kernel-vs-plain MPC
+    holds: the walker's first replans of one episode and 6 acrobot
+    replans."""
+    return ((walk, MH, 1, MPC_PLAIN_REPLANS, 1), (si1(acro), 40, 2, 6, 4))
+
+
+def mpc_run(t, Hh, na, n, Bb, plain):
+    """(MPCRunResult, seconds) of n lane replans from the episode starts,
+    noise from seed 0, on the kernels or (`plain`) on their twins."""
+    qp, qv, tg = episode_starts(t, Bb)
+    U0 = torch.zeros((Bb, Hh, t.model.nu), dtype=torch.float64,
+                     device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    res = mpc_sync.make_lane_sync_mpc(t, ILQRConfig(), Hh, na, plain=plain)(
+        qp, qv, U0, tg, n, gen)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def plain_mpc_runs(walk, acro):
+    """The plain halves of main_mpc's holds, {task name: (result, s)}: they
+    launch no kernel, so they run while the kernels build."""
+    return {t.name: mpc_run(t, Hh, na, n, Bb, True)
+            for t, Hh, na, n, Bb in mpc_plain_cases(walk, acro)}
+
+
+def main_mpc(task, acro, plain_runs):
     """The walker MPC main path: walker_run SI_1 (the task's own keypoints)
     at its MPC horizon, one iteration and one applied control per replan,
     N_REPLANS replans, through the campaign entry point
@@ -1563,8 +1678,9 @@ def main_mpc(task, acro):
     device ms of each phase inside one replan, each kernel phase of the
     first replan of the MB episodes against its twin, and the kernel path
     against the plain path over the first MPC_PLAIN_REPLANS replans
-    (walker, one episode) and over 6 replans of acrobot, bit for bit; the
-    launches of both walker runs at MH are counted."""
+    (walker, one episode) and over 6 replans of acrobot, bit for bit (the
+    plain runs `plain_runs`, from plain_mpc_runs); the launches of both
+    walker runs at MH are counted."""
     cfg = ILQRConfig()
     out = {}
     os.makedirs(MPC_OUT, exist_ok=True)
@@ -1612,9 +1728,9 @@ def main_mpc(task, acro):
         U = torch.zeros((MH, task.model.nu, Bb), dtype=torch.float64,
                         device="cuda")
         t0 = time.perf_counter()
-        phases, kms, sweeps, held = mpc_kernel_ms(task, qp, qv, U, tg, cfg,
-                                                  hold=Bb == MB)
-        if held:
+        phases, kms, sweeps, hold = mpc_kernel_ms(task, qp, qv, U, tg, cfg)
+        if Bb == MB:
+            held = hold()
             out[f"held_{name}"] = {k: dict(bitwise=v[0], max_abs_err=v[1])
                                    for k, v in held.items()}
             print(f"  walker_run first replan H={MH} B={Bb}, each kernel "
@@ -1638,21 +1754,17 @@ def main_mpc(task, acro):
               f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}, "
               f"bounds {json.dumps(out[f'bounds_{name}'])}", flush=True)
 
-    # kernel path against the plain path, bit for bit
-    for t, Hh, na, n, Bb in ((task, MH, 1, MPC_PLAIN_REPLANS, 1),
-                             (si1(acro), 40, 2, 6, 4)):
-        qp, qv, tg = episode_starts(t, Bb)
-        U0 = torch.zeros((Bb, Hh, t.model.nu), dtype=torch.float64,
-                         device="cuda")
+    # kernel path against the plain path (run during the build), bit for
+    # bit
+    for t, Hh, na, n, Bb in mpc_plain_cases(task, acro):
         runs, secs = [], []
         for plain in (False, True):
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(0)
-            t0 = time.perf_counter()
-            runs.append(mpc_sync.make_lane_sync_mpc(
-                t, cfg, Hh, na, plain=plain)(qp, qv, U0, tg, n, gen))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
+            if plain:
+                res, sec = plain_runs[t.name]
+            else:
+                res, sec = mpc_run(t, Hh, na, n, Bb, False)
+            runs.append(res)
+            secs.append(sec)
         same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
         gap = max(float((a - b).abs().max()) for a, b in zip(*runs))
         out[f"plain_{t.name}"] = dict(bitwise=same, max_abs_err=gap,
@@ -1664,6 +1776,168 @@ def main_mpc(task, acro):
         check(same, f"{t.name} MPC: the kernel path differs from the plain "
                     f"path by {gap:.3e}")
     return out
+
+
+def async_hold(task, qpos0):
+    """At the task's first state: one async planner step (`AsyncMPC.replan`,
+    optimise at one iteration, horizon ASYNC_HOLD_H) against the same step
+    with every kernel as its twin, and the actor's step (K3 at H = 1) and
+    gravity hold (fk_bias) against their twins, each bit for bit."""
+    runner = AsyncMPC(task, ILQRConfig(), ASYNC_HOLD_H)
+    qv0 = task.qvel_start.cpu().numpy()
+    U0 = np.zeros((ASYNC_HOLD_H, task.model.nu))
+    t0 = time.perf_counter()
+    k, _ = runner.replan(qpos0, qv0, U0)
+    p, _ = runner.replan(qpos0, qv0, U0, plain=True)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    f64 = dict(dtype=torch.float64, device="cuda")
+    qp = torch.as_tensor(qpos0, **f64)[:, None]
+    qv = torch.as_tensor(qv0, **f64)[:, None]
+    u = k.ctrl[0][:, None].contiguous()
+    out = {"planner_step": outputs_gap(tuple(k), tuple(p)),
+           "actor_step": outputs_gap(runner.step(qp, qv, u),
+                                     runner.step(qp, qv, u, plain=True)),
+           "gravity_hold": outputs_gap(runner.gravity_hold(qp, qv),
+                                       runner.gravity_hold(qp, qv,
+                                                           plain=True))}
+    print(f"  {task.name} async, at the first state (bitwise, max abs err): "
+          f"{json.dumps(out)}; planner step at H={ASYNC_HOLD_H} and its twin "
+          f"{plan_s:.1f} s", flush=True)
+    for name, (same, gap) in out.items():
+        check(same, f"{task.name} async {name} differs from its twin by "
+                    f"{gap:.3e}")
+    return {k_: dict(bitwise=v[0], max_abs_err=v[1]) for k_, v in out.items()}
+
+
+def async_summary(name, st, cost, dist, complete):
+    """Print and check one real-time async episode's measurements: at least
+    ASYNC_MIN_PLANS plans, a finite cost, and a planner that lowered its
+    plan's cost in at least half of its replans."""
+    print(f"  {name} async MPC (real time): {st['steps']} steps, "
+          f"{st['replans']} replans, device ms per replan median "
+          f"{st['median_replan_ms']:.3f} p95 {st['p95_replan_ms']:.3f} "
+          f"({st['replan_rate_hz']:.2f} Hz; host ms mean "
+          f"{st['mean_replan_host_ms']:.3f}), controls per plan "
+          f"{st['controls_per_plan']}, plans improved by the planner's "
+          f"iteration {st['improved_plans']}, gravity holds {st['holds']}, "
+          f"ticker overruns {st['overruns']} (max lateness "
+          f"{st['max_lateness_ms']:.3f} ms), episode cost {cost:.6g}, final "
+          f"dist {dist}, complete {complete}", flush=True)
+    check(st["replans"] >= ASYNC_MIN_PLANS,
+          f"{name} async: the planner published {st['replans']} plans, "
+          f"fewer than {ASYNC_MIN_PLANS}")
+    check(math.isfinite(cost), f"{name} async: episode cost {cost}")
+    check(2 * st["improved_plans"] >= st["replans"],
+          f"{name} async: the planner's iteration lowered the plan's cost in "
+          f"{st['improved_plans']} of {st['replans']} replans")
+
+
+def async_launches(name, launches, steps, replans, holds):
+    """Check the launches of real-time async episodes: the actor's K3 at
+    every step and the planner's once per replan (K3 for its rollout, K5,
+    K6, K7, K4), fk_bias once per gravity hold."""
+    want = {"rollout": steps + replans, "fd_jacobian": replans,
+            "cost_expansion": replans, "backward": replans,
+            "linesearch": replans, "fk_bias": holds}
+    for kname, n in want.items():
+        check(launches[kname] == n,
+              f"{name} async launched {kname} {launches[kname]} times, not "
+              f"{n} ({steps} actor steps, {replans} replans, {holds} holds)")
+
+
+def main_async(push, walk):
+    """Asynchronous MPC on the card, float64, real time: push_ncl SI_1 over
+    ASYNC_PUSH_SCENES scenes of the async campaign's generator, 500 steps
+    each at 125 Hz, through `async_mpc_campaign`, and one walker_run
+    episode of 2000 steps at 200 Hz as MPC_until_completion runs it, with
+    exact launch counts (`async_launches`); first the holds of
+    `async_hold` and the device ms of each phase of a push_ncl planner step
+    at its own shape (H=50, B=1).  -> (record, hold): `hold` holds each
+    kernel phase of that planner step against its twin, bit for bit (~40 s
+    of host-bound twin launches, so main() runs it while the CLI processes
+    run)."""
+    cfg = ILQRConfig()
+    push1 = si1(push)
+    scenes = async_scenes(push1, ASYNC_PUSH_SCENES)
+    out = {"hold_push_ncl": async_hold(push1, scenes[0]),
+           "hold_walker": async_hold(walk, walk.qpos_start.cpu().numpy())}
+    # device ms of each phase of one push_ncl planner step (B = 1) from the
+    # first scene, as the walker's come from main_mpc (the async planner
+    # does not apply: its "apply" is K8's, which the sync replan runs)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Hp = push.mpc_horizon
+    phases, _, _, hold = mpc_kernel_ms(
+        push1, torch.as_tensor(scenes[0], **f64)[:, None],
+        push1.qvel_start[:, None].contiguous(),
+        torch.zeros((Hp, push.model.nu, 1), **f64),
+        push1.residual_targets[:, None].contiguous(), cfg)
+    phases.pop("apply")
+    out["phases_ms_push_ncl"] = phases
+    print(f"  push_ncl async planner step H={Hp} B=1, phases "
+          f"ms {json.dumps({k: round(v, 3) for k, v in phases.items()})}",
+          flush=True)
+
+    def hold_push():
+        t0 = time.perf_counter()
+        held = hold()
+        out["held_push_ncl_b1"] = {k: dict(bitwise=v[0], max_abs_err=v[1])
+                                   for k, v in held.items()}
+        print(f"  push_ncl async planner step H={Hp} B=1, each kernel phase "
+              f"vs its twin (bitwise, max abs err): {json.dumps(held)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        for k, (same, gap) in held.items():
+            check(same, f"push_ncl {k} at H={Hp} B=1 differs from its twin "
+                        f"by {gap:.3e}")
+
+    ops.reset_launch_counts()
+    try:
+        rows = async_mpc_campaign(
+            push1, cfg, scenes, Hp, max_steps=ASYNC_PUSH_STEPS,
+            out_dir=os.path.join(MPC_OUT, "async_push"), realtime=True)
+    except RuntimeError as e:
+        check(False, f"push_ncl async campaign: {e!r} from {e.__cause__!r}")
+        rows = []
+    launches = dict(ops.LAUNCHES)
+    out["push_ncl"] = dict(rows=rows, launches=launches)
+    async_launches("push_ncl", launches, sum(r["steps"] for r in rows),
+                   sum(r["replans"] for r in rows),
+                   sum(r["holds"] for r in rows))
+    for r in rows:
+        async_summary(f"push_ncl trial {r['trial']}", r, r["episode_cost"],
+                      r["final_dist"], r["task_complete"])
+    # the pusher's distance to the object (the last residual) at each
+    # scene's start and end: the object stays put within 500 steps (PERF.md
+    # section 7)
+    zeros = lambda n: torch.zeros((n, 1), **f64)  # noqa: E731
+    reach = [(float(push1.residual_fn(
+        torch.as_tensor(q, **f64)[:, None], zeros(push.model.nv),
+        zeros(push.model.nu), push1.residual_targets[:, None])[-1, 0]),
+        r["final_residuals"][-1]) for q, r in zip(scenes, rows)]
+    out["push_ncl"]["reach_dist_start_end"] = reach
+    print(f"  push_ncl async launches ({len(rows)} trials): "
+          f"{json.dumps(launches)}; pusher-to-object distance at each "
+          f"trial's start and end {json.dumps(reach)}", flush=True)
+
+    H = walk.mpc_horizon
+    ops.reset_launch_counts()
+    runner = AsyncMPC(walk, cfg, H, realtime=True, seed=0)
+    try:
+        _, uh = runner.run(app.mpc_init_controls(walk, H),
+                           max_steps=ASYNC_WALKER_STEPS)
+    except RuntimeError as e:
+        check(False, f"walker async: {e!r} from {e.__cause__!r}")
+        uh = []
+    launches = dict(ops.LAUNCHES)
+    st = runner.stats()
+    cost = runner.episode_cost()
+    out["walker"] = dict(stats=st, launches=launches, episode_cost=cost,
+                         task_complete=len(uh) < ASYNC_WALKER_STEPS)
+    async_launches("walker_run", launches, st["steps"], st["replans"],
+                   st["holds"])
+    async_summary("walker_run", st, cost, 0.0, False)
+    print(f"  walker_run async launches: {json.dumps(launches)}", flush=True)
+    return out, hold_push
 
 
 def report_main(name, Hh, Bb, mp):
@@ -1701,12 +1975,13 @@ def cli_finish(name, proc):
     return line, json.loads(line), out
 
 
-def cli_runs():
+def cli_runs(beside=None):
     """The CLI on every task with its own keypoint method (acrobot and
     reaching velocity_change, push_ncl adaptive_jerk; reaching and push_ncl
-    3 iterations), acrobot IE_1_50, and the walker's sync MPC campaign at
-    one horizon, all started together (each a process of its own on the one
-    card, so their times are taken side by side): {name: (last line,
+    3 iterations), acrobot IE_1_50, the walker's sync MPC campaign at one
+    horizon and the two async modes, all started together (each a process
+    of its own on the one card, so their times are taken side by side), and
+    `beside()`, when given, run here while they run: {name: (last line,
     parsed, output)}."""
     runs = {
         "acrobot": ["--task", "acrobot", "--runMode", "Optimise_once"],
@@ -1719,8 +1994,22 @@ def cli_runs():
         "mpc": ["--task", "walker_run", "--runMode",
                 "Generate_syncronus_mpc_data", "--horizon", str(MH),
                 "--out_dir", os.path.join(MPC_OUT, "cli")],
+        "async_push": ["--task", "pushing_no_clutter", "--runMode",
+                       "Generate_asynchronus_mpc_data", "--num_scenes", "3",
+                       "--keypoint", "SI_1", "--out_dir",
+                       os.path.join(MPC_OUT, "cli_async")],
+        "async_acrobot": ["--task", "acrobot", "--runMode",
+                          "MPC_until_completion"],
     }
     procs = {k: cli_start(v) for k, v in runs.items()}
+    try:
+        if beside is not None:
+            beside()
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.communicate()
+        raise
     out = {k: cli_finish(k, p) for k, p in procs.items()}
     own = {"acrobot": "velocity_change", "acrobot_ie": "iterative_error",
            "reaching": "velocity_change", "push": "adaptive_jerk"}
@@ -1739,6 +2028,21 @@ def cli_runs():
               and math.isfinite(row["median_opt_time_ms"])
               and math.isfinite(row["mean_running_cost"]),
               f"CLI walker_run MPC row {row}")
+    res = out["async_push"][1]
+    if res is not None:
+        csv = os.path.join(res["campaign"], "async_mpc.csv")
+        lines = open(csv).read().strip().splitlines() \
+            if os.path.exists(csv) else []
+        check(res["trials"] == 3 and len(lines) == 4
+              and all(r["replans"] >= 1 and r["timing"].startswith("cuda")
+                      for r in res["rows"]),
+              f"CLI push_ncl async campaign: {res}, csv {lines}")
+    res = out["async_acrobot"][1]
+    if res is not None:
+        check(res["task"] == "acrobot" and res["replans"] >= 1
+              and 0 < res["steps"] <= app.ASYNC_MPC_STEPS
+              and res["timing"].startswith("cuda"),
+              f"CLI acrobot MPC_until_completion: {res}")
     return out
 
 
@@ -1773,7 +2077,19 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                      bound_ms_at_plain_shape=r["bound"][0])
             if full:
                 e["max_abs_err"] = max(r["err"][0], full[name][0])
-        if name != "backward":
+        if name == "cost_expansion":
+            e["bitwise"] = r["bitwise"] and (
+                full is None or full["cost_expansion_bitwise"])
+            e["library_ms_note"] = ("no single PyTorch call computes a "
+                                    "residual Jacobian and its Gauss-Newton "
+                                    "products")
+            if step_counts.get("fk"):
+                e["device_functions"] = [{
+                    "name": "step (FK only: fk_frames)",
+                    "source": ops.DEVICE_FUNCTIONS["step"][0],
+                    "replaces": ops.DEVICE_FUNCTIONS["step"][1],
+                    "ops_per_call": step_counts["fk"]}]
+        elif name != "backward":
             # the step's device functions this model instantiates (held
             # against their twins through this kernel's check)
             e["device_functions"] = [
@@ -1880,9 +2196,33 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    build_s, logs = build.build_all_timed()
+    acro = make_acrobot(device="cuda")
+    penta = make_pentabot(device="cuda")
+    reach = make_reaching(device="cuda")
+    push = pushing.make_pushing(device="cuda")
+    walk = make_walker(run=True, device="cuda")
+    # the kernels build while the plain halves of main_mpc's holds run:
+    # they are ~110 s of host-bound twin launches that need no kernel
+    built = {}
+    build_thread = threading.Thread(
+        target=lambda: built.update(out=build.build_all_timed()))
+    build_thread.start()
+    plain_runs = None
+    if "main_mpc" in phases:
+        t0 = time.perf_counter()
+        plain_runs = plain_mpc_runs(walk, acro)
+        print(f"plain MPC runs beside the build: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    build_thread.join()
+    if "out" not in built:
+        raise RuntimeError("the kernel build failed (its error is above)")
+    build_s, logs = built["out"]
     print(f"kernel build: {build_s:.1f} s ({len(build.libraries())} nvcc in "
           "parallel, one per library and instance)", flush=True)
+    t0 = time.perf_counter()
+    native_executor.build()
+    print(f"native executor build (g++): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, text in logs.items():
         for ln in text.splitlines():
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
@@ -1890,11 +2230,6 @@ def main():
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
     done("build")
 
-    acro = make_acrobot(device="cuda")
-    penta = make_pentabot(device="cuda")
-    reach = make_reaching(device="cuda")
-    push = pushing.make_pushing(device="cuda")
-    walk = make_walker(run=True, device="cuda")
     record = {"card": card, "build_s": build_s, "phase_s": phase_s}
     rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
@@ -1988,7 +2323,7 @@ def main():
         done(phase)
     wmp = None
     if "main_mpc" in phases:
-        wmp = record["main_mpc"] = main_mpc(walk, acro)
+        wmp = record["main_mpc"] = main_mpc(walk, acro, plain_runs)
         done("main_mpc")
 
     amp = None
@@ -1997,12 +2332,19 @@ def main():
             {"acrobot": acro, "reaching": reach})
         done("main_adaptive")
 
+    hold_push = None
+    if "main_async" in phases:
+        record["main_async"], hold_push = main_async(push, walk)
+        done("main_async")
+
     if "cli" in phases:
-        runs = cli_runs()
+        runs = cli_runs(beside=hold_push)
         for k, (line, _, out) in runs.items():
             record[f"cli_{k}"] = out
             print(f"cli {k}: {line}", flush=True)
         done("cli")
+    elif hold_push is not None:
+        hold_push()
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
     if sorted(phases) != sorted(PHASES):
@@ -2021,6 +2363,7 @@ def main():
                "step_bound_ns": step_ops(s) / F64_OPS_PER_S * 1e9}
         for name, s in sizes.items()}
     counts["push_ncl"]["fk_bias"] = fk_bias_ops(sizes["push_ncl"])
+    counts["push_ncl"]["fk"] = fk_ops(sizes["push_ncl"])
     kernels = (kernel_entries("acrobot", rows, mp["launches"],
                               counts["acrobot"])
                + kernel_entries("reaching", rrow, rmp["launches"],

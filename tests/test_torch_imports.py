@@ -44,6 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "trajoptkp_tpu_torch.tasks.pushing",
                 "trajoptkp_tpu_torch.tasks.locomotion",
                 "trajoptkp_tpu_torch.mpc.sync",
+                "trajoptkp_tpu_torch.mpc.async_mpc",
+                "trajoptkp_tpu_torch.mpc.native_executor",
                 "trajoptkp_tpu_torch.bench.campaigns",
                 "trajoptkp_tpu_torch.app"):
         assert mod in res["modules"]
@@ -71,8 +73,8 @@ def test_cli_refuses_what_is_not_ported(capsys):
         app.main(["--device", "cpu", "--keypoint", "XY_1_100"])
     with pytest.raises(ValueError, match="want SI_n, AJ_a_b"):
         app.main(["--device", "cpu", "--keypoint", "VC_1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        app.main(["--device", "cpu", "--runMode", "MPC_until_completion"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        app.main(["--device", "cpu", "--runMode", "Init_controls"])
     app.main(["--device", "cpu", "--keypoint", "SI_2", "--horizon", "12",
               "--maxIter", "2", "--minIter", "1"])
     last = capsys.readouterr().out.strip().splitlines()[-1]

@@ -1,5 +1,5 @@
-"""The four CUDA kernels (with the device functions K1, K2a and K2b inside
-the step) and the servo's fk_bias against their plain PyTorch twins on the
+"""The CUDA kernels (with the device functions K1, K2a and K2b inside the
+step) and the servo's fk_bias against their plain PyTorch twins on the
 card, at small shapes.  They need an NVIDIA GPU with nvcc (sm_90a) and skip
 elsewhere; `python3 chip_smoke.py` runs the same checks at the main path's
 shapes.  On the card (tests/conftest.py imports JAX, hence --noconftest):
@@ -7,7 +7,8 @@ python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 
 Bars: rollout and line search 1e-10 relative over the first 50 steps
 (rounding differences grow along a chaotic horizon), FD columns 1e-6
-absolute (rounding divided by 2 eps), backward pass 1e-9 relative.
+absolute (rounding divided by 2 eps), backward pass 1e-9 relative, the
+cost expansion (K6) bit for bit.
 """
 
 import pytest
@@ -19,6 +20,7 @@ from trajoptkp_tpu_torch.kernels import ops
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
 from trajoptkp_tpu_torch.tasks import pushing
+from trajoptkp_tpu_torch.tasks.locomotion import make_walker
 from trajoptkp_tpu_torch.tasks.pushing import make_pushing
 from trajoptkp_tpu_torch.tasks.reaching import make_reaching
 from trajoptkp_tpu_torch.tasks.toys import make_acrobot, make_pentabot
@@ -110,6 +112,37 @@ def _compare(task, qp0, qv0, tgl, U, g):
     for a, b in zip(kb[:3], pb[:3]):
         assert _rel(a[..., live], b[..., live]) < 1e-9
     assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
+
+
+@pytest.mark.parametrize("name", ["acrobot", "pentabot", "reaching",
+                                  "push_ncl", "walker"])
+def test_cost_expansion_matches_plain(cuda, name):
+    """K6 against its twin at random states (push_ncl: its scenes with the
+    arm moved), bit for bit, one launch per call."""
+    task = {"acrobot": make_acrobot, "pentabot": make_pentabot,
+            "reaching": make_reaching, "push_ncl": make_pushing,
+            "walker": lambda device: make_walker(run=True, device=device),
+            }[name](device=cuda)
+    m = task.model
+    g = torch.Generator(device="cpu").manual_seed(5)
+    f64 = dict(dtype=torch.float64)
+    if name == "push_ncl":
+        qp, _, tg = pushing.push_scenes(task, B, seed=2)
+        qpos = qp.T[None].repeat(H + 1, 1, 1).cpu()
+        qpos[:, :7] += 0.1 * torch.randn((H + 1, 7, B), generator=g, **f64)
+        tg = tg.T.contiguous()
+    else:
+        qpos = torch.randn((H + 1, m.nq, B), generator=g, **f64)
+        tg = task.residual_targets[:, None].repeat(1, B).contiguous()
+    qpos = qpos.to(cuda).contiguous()
+    qvel = torch.randn((H + 1, m.nv, B), generator=g, **f64).to(cuda)
+    U = torch.randn((H, m.nu, B), generator=g, **f64).to(cuda)
+    before = ops.LAUNCHES["cost_expansion"]
+    got = ops.cost_expansion(task, qpos, qvel, U, tg)
+    assert ops.LAUNCHES["cost_expansion"] == before + 1
+    want = ops.cost_expansion(task, qpos, qvel, U, tg, plain=True)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_push_kernels_match_plain(cuda):

@@ -230,8 +230,9 @@ def test_cli_runs_the_sync_mpc_campaign_on_the_cpu(tmp_path, capsys,
                                                     monkeypatch):
     """`Generate_syncronus_mpc_data --device cpu` at a tiny horizon: one row
     with the JAX campaign's keys, `mpc_horizons.csv` with its columns; the
-    async run modes still raise, naming the next slice; without a card and
-    without `--device cpu` the campaign raises."""
+    run modes not ported yet raise, naming their ROADMAP item (the async
+    modes are ported: tests/test_torch_async.py runs them); without a card
+    and without `--device cpu` the campaign raises."""
     import json
 
     from trajoptkp_tpu_torch import app
@@ -250,8 +251,8 @@ def test_cli_runs_the_sync_mpc_campaign_on_the_cpu(tmp_path, capsys,
     with open(f"{out['campaign']}/mpc_horizons.csv") as f:
         lines = f.read().splitlines()
     assert lines[0] == CSV_COLUMNS and lines[1].startswith("3,")
-    for mode in ("MPC_until_completion", "Generate_asynchronus_mpc_data"):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    for mode in ("Init_controls", "Generate_openloop_data"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             app.main(["--device", "cpu", "--task", "walker_run",
                       "--runMode", mode])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

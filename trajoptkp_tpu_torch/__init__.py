@@ -7,8 +7,9 @@ The package never imports JAX or `trajoptkp_tpu`.
 Two numeric paths share every public function:
 
 - the kernel path (`kernels/`), taken for tensors on a CUDA device: the
-  rollout, line search, keypoint-slot FD Jacobians and Riccati backward pass
-  run as CUDA C++ kernels for sm_90a, in float64;
+  rollout, line search, keypoint-slot FD Jacobians, cost expansion, Riccati
+  backward pass, keypoint plans and MPC apply step run as CUDA C++ kernels
+  for sm_90a, in float64;
 - the plain path, a PyTorch twin of each kernel, taken for tensors on the
   CPU.  Tests run it against the JAX package, and `chip_smoke.py` holds each
   kernel against it on the card.

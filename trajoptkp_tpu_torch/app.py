@@ -1,5 +1,6 @@
 """Command-line entry point (counterpart of `trajoptkp_tpu/app.py`):
-Optimise_once and Generate_syncronus_mpc_data.
+Optimise_once, MPC_until_completion, Generate_syncronus_mpc_data and
+Generate_asynchronus_mpc_data.
 
     python -m trajoptkp_tpu_torch.app --task acrobot --runMode Optimise_once \\
         [--keypoint VC_1_200 --horizon H --maxIter N --minIter N --device cuda]
@@ -8,6 +9,10 @@ Optimise_once and Generate_syncronus_mpc_data.
         --runMode Optimise_once --keypoint AJ_5_100
     python -m trajoptkp_tpu_torch.app --task walker_run \\
         --runMode Generate_syncronus_mpc_data [--horizon 40]
+    python -m trajoptkp_tpu_torch.app --task acrobot \\
+        --runMode MPC_until_completion
+    python -m trajoptkp_tpu_torch.app --task pushing_no_clutter \\
+        --runMode Generate_asynchronus_mpc_data --num_scenes 3 --keypoint SI_1
 
 Tasks: acrobot, pentabot, reaching (panda arm with joint limits),
 pushing_no_clutter (panda pushes a free cylinder on a table: contacts),
@@ -33,6 +38,20 @@ replans at each horizon 20, 30, ..., 80, or at `--horizon` alone; it writes
 `mpc_horizons.csv` under `--out_dir` (trajoptkp_tpu_torch_out/) and prints a
 final JSON line with one row per horizon (median and p95 ms per replan).
 
+MPC_until_completion is asynchronous MPC (mpc/async_mpc.py: a planner
+thread replanning one iLQR iteration at a time while the actor applies the
+plan with 5% noise) from the task's start over its MPC horizon, 2000 actor
+steps or until the task completes, not paced to the wall clock, as the JAX
+app runs it; the controls start at zero, or for pushing from the task's
+init servo from its start.  Its JSON line has the steps, the replans and
+their mean, median and p95 device ms, the controls taken per plan, the
+gravity holds, the episode cost and whether the task completed.
+Generate_asynchronus_mpc_data runs it over min(--num_scenes, 25) scenes
+(the task's start with 0.2 N(0, 1) on its first min(nu, nq) coordinates,
+seeded by --seed), 500 steps each from zero controls, writes
+`async_mpc.csv` under `--out_dir` and prints the campaign directory and
+the number of trials.
+
 Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 """
 
@@ -43,20 +62,21 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
-RUN_MODES = ("Optimise_once", "Generate_syncronus_mpc_data")
+RUN_MODES = ("Optimise_once", "MPC_until_completion",
+             "Generate_syncronus_mpc_data", "Generate_asynchronus_mpc_data")
 RUN_MODES_LATER = {
     "Init_controls": "ROADMAP Queue 1 item 12",
-    "MPC_until_completion": "ROADMAP Queue 1 item 8, the async executor of "
-                            "the next slice",
     "Generate_test_scenes": "ROADMAP Queue 1 item 12",
     "Generate_openloop_data": "ROADMAP Queue 1 item 12",
-    "Generate_asynchronus_mpc_data": "ROADMAP Queue 1 item 8, the async "
-                                     "executor of the next slice",
 }
 SYNC_MPC_HORIZONS = (20, 30, 40, 50, 60, 70, 80)
 SYNC_MPC_REPLANS = 200          # replans per horizon, as the JAX campaign
+ASYNC_MPC_STEPS = 2000          # MPC_until_completion's actor steps
+ASYNC_CAMPAIGN_STEPS = 500      # per trial of the async campaign
+ASYNC_CAMPAIGN_MAX_SCENES = 25  # async trials are wall-clock serial
 
 
 def build_parser():
@@ -74,11 +94,15 @@ def build_parser():
     p.add_argument("--minIter", type=int, default=5)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu for the plain path")
+    p.add_argument("--num_scenes", type=int, default=100,
+                   help="Generate_asynchronus_mpc_data: scenes (at most 25)")
+    p.add_argument("--scenes_dir", help="TestTasks-format scene CSV "
+                   "directory (not ported)")
     p.add_argument("--out_dir", default="trajoptkp_tpu_torch_out",
-                   help="where Generate_syncronus_mpc_data writes its "
-                   "campaign directory")
+                   help="where the MPC campaigns write their directories")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the MPC exploration noise")
+                   help="seed of the MPC exploration noise and the async "
+                   "campaign's scenes")
     return p
 
 
@@ -123,6 +147,10 @@ def main(argv=None):
                      min_iterations=args.minIter)
     if args.runMode == "Generate_syncronus_mpc_data":
         return sync_mpc_campaign(task, cfg, args)
+    if args.runMode == "MPC_until_completion":
+        return mpc_until_completion(task, cfg, args)
+    if args.runMode == "Generate_asynchronus_mpc_data":
+        return async_mpc_campaign(task, cfg, args)
     H = args.horizon or task.openloop_horizon
     qpos0, qvel0 = task.qpos_start, task.qvel_start
     U = torch.zeros((H, task.model.nu), dtype=task.model.dtype,
@@ -164,6 +192,57 @@ def sync_mpc_campaign(task, cfg, args):
                                   n_replans=SYNC_MPC_REPLANS, out_dir=out_dir,
                                   seed=args.seed)
     print(json.dumps({"campaign": out_dir, "rows": rows}), flush=True)
+
+
+def mpc_init_controls(task, H: int):
+    """The JAX app's `_init_controls` (H, nu): the pushing tasks' init servo
+    from the task's start (no setup servo), zeros elsewhere."""
+    if task.residual_kind[0] == "push":
+        from .tasks.pushing import jacobian_ee_init_controls
+        return jacobian_ee_init_controls(
+            task, H, task.qpos_start[:, None], task.qvel_start[:, None],
+            task.residual_targets[:, None])[..., 0].cpu().numpy()
+    return np.zeros((H, task.model.nu))
+
+
+def mpc_until_completion(task, cfg, args):
+    """Asynchronous MPC until the task completes (JAX `app.py:168-179`)."""
+    from .mpc.async_mpc import AsyncMPC
+
+    H = task.mpc_horizon
+    runner = AsyncMPC(task, cfg, H, seed=args.seed)
+    _, u_hist = runner.run(mpc_init_controls(task, H),
+                           max_steps=ASYNC_MPC_STEPS)
+    st = runner.stats()
+    print(json.dumps({
+        "task": task.name, "steps": len(u_hist),
+        "replans": st["replans"], "mean_replan_ms": st["mean_replan_ms"],
+        "median_replan_ms": st["median_replan_ms"],
+        "p95_replan_ms": st["p95_replan_ms"],
+        "controls_per_plan": st["controls_per_plan"], "holds": st["holds"],
+        "episode_cost": runner.episode_cost(),
+        "task_complete": len(u_hist) < ASYNC_MPC_STEPS,
+        "keypoint_method": task.keypoint_cfg.name, "horizon": H,
+        "timing": st["timing"],
+    }), flush=True)
+
+
+def async_mpc_campaign(task, cfg, args):
+    """GenDataAsyncMPC (JAX `app.py:_async_mpc_campaign:433-456`)."""
+    from .bench import campaigns
+
+    if args.scenes_dir:
+        raise NotImplementedError(
+            "--scenes_dir reads the reference's TestTasks CSVs: ROADMAP "
+            "Queue 1 item 6 (the YAML/CSV layer)")
+    N = min(args.num_scenes, ASYNC_CAMPAIGN_MAX_SCENES)
+    out_dir = os.path.join(
+        args.out_dir, f"{task.name}_async_mpc_{time.strftime('%Y%m%d_%H%M')}")
+    rows = campaigns.async_mpc_campaign(
+        task, cfg, campaigns.async_scenes(task, N, args.seed),
+        task.mpc_horizon, max_steps=ASYNC_CAMPAIGN_STEPS, out_dir=out_dir)
+    print(json.dumps({"campaign": out_dir, "trials": len(rows),
+                      "rows": rows}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Campaigns (counterpart of `trajoptkp_tpu/bench/campaigns.py`): the
-synchronous MPC horizon sweep.
+synchronous MPC horizon sweep and the asynchronous MPC trials.
 
 `sync_mpc_horizon_sweep` is GenDataMPCHorizons (`GenTestingData.cpp:
 275-326`): per horizon, one MPC episode batch advanced by the lane executor
@@ -11,17 +11,27 @@ dispatch only, `TestingData/walker_run_sync_mpc_20260821_0651/README.md`).
 The first replan is left out of the statistics (it loads the kernels).  The
 rows keep the JAX schema and `mpc_horizons.csv` its columns, written after
 every horizon.
+
+`async_mpc_campaign` is TestingMPC / SingleMPCRun in the asynchronous mode
+(`GenTestingData.cpp`'s GenDataAsyncMPC): per scene one episode of
+`mpc/async_mpc.py:AsyncMPC` from zero controls, its steps, wall time,
+replans, final task distance, episode cost and completion, in the JAX
+rows and `async_mpc.csv` columns, with the replans' device times (CUDA
+events), the controls taken per plan, the gravity holds and the ticker's
+overruns beside them.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..mpc.async_mpc import AsyncMPC
 from ..mpc.sync import make_lane_sync_mpc_host
 from ..solver.ilqr import ILQRConfig
 from ..tasks.base import Task
@@ -91,4 +101,80 @@ def sync_mpc_horizon_sweep(task: Task, cfg: ILQRConfig,
                             f"{r['p95_opt_time_ms']:.4g},"
                             f"{r['replan_rate_hz']:.4g},"
                             f"{r['mean_running_cost']:.6g}\n")
+    return rows
+
+
+ASYNC_CSV_COLUMNS = ("trial,steps,wall_s,replans,mean_replan_ms,final_dist,"
+                     "episode_cost,task_complete")
+
+
+def async_scenes(task: Task, N: int, seed: int = 0) -> np.ndarray:
+    """(N, nq) start poses of the async campaign (JAX `app.py:
+    _async_mpc_campaign:445-449`): qpos_start plus 0.2 N(0, 1) on the
+    first min(nu, nq) coordinates, from `np.random.default_rng(seed)`."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(task.qpos_start.cpu().numpy(), (N, 1))
+    n_rj = min(task.model.nu, task.model.nq)
+    qpos[:, :n_rj] += 0.2 * rng.standard_normal((N, n_rj))
+    return qpos
+
+
+def async_mpc_campaign(task: Task, cfg: ILQRConfig, scenes_qpos,
+                       horizon: int, max_steps: int = 1000,
+                       out_dir: Optional[str] = None, realtime: bool = False):
+    """Async-MPC trials over scenes (JAX `async_mpc_campaign`): one
+    AsyncMPC episode per start pose (noise seed = the trial's index) from
+    zero controls, max_steps actor steps or until the task completes.  One
+    row per trial with the JAX keys (trial, steps, wall_s, replans,
+    mean_replan_ms, final_dist, episode_cost, task_complete), the task's
+    residuals at the last state and the episode's `AsyncMPC.stats()`;
+    `async_mpc.csv` under out_dir."""
+    model = task.model
+    f64 = dict(dtype=model.dtype, device=model.device)
+    rows = []
+    for i, qpos0 in enumerate(scenes_qpos):
+        t = task.replace(qpos_start=torch.as_tensor(qpos0, **f64))
+        runner = AsyncMPC(t, cfg, horizon, realtime=realtime, seed=i)
+        U0 = np.zeros((horizon, model.nu))
+        t0 = time.perf_counter()
+        qpos_hist, u_hist = runner.run(U0, max_steps=max_steps)
+        wall = time.perf_counter() - t0
+        dist = float("nan")
+        if task.task_complete_fn is not None and len(qpos_hist):
+            _, dd = task.task_complete_fn(
+                torch.as_tensor(qpos_hist[-1], **f64)[:, None],
+                t.residual_targets[:, None])
+            dist = float(dd[0])
+        st = runner.stats()
+        res = []
+        if len(qpos_hist):
+            res = task.residual_fn(
+                torch.as_tensor(qpos_hist[-1], **f64)[:, None],
+                torch.as_tensor(runner.visited_qvel[-1], **f64)[:, None],
+                torch.as_tensor(u_hist[-1], **f64)[:, None],
+                t.residual_targets[:, None])[:, 0].tolist()
+        rows.append({
+            "trial": i,
+            "steps": len(u_hist),
+            "wall_s": wall,
+            "replans": st["replans"],
+            "mean_replan_ms": (st["mean_replan_ms"] if st["replans"]
+                               else float("nan")),
+            "final_dist": dist,
+            "episode_cost": runner.episode_cost(),
+            # broke out on TaskComplete
+            "task_complete": int(len(u_hist) < max_steps),
+            "final_residuals": res,
+            **{k: v for k, v in st.items() if k not in ("replans", "steps",
+                                                        "mean_replan_ms")},
+        })
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "async_mpc.csv"), "w") as f:
+            f.write(ASYNC_CSV_COLUMNS + "\n")
+            for r in rows:
+                f.write(f"{r['trial']},{r['steps']},{r['wall_s']:.4g},"
+                        f"{r['replans']},{r['mean_replan_ms']:.4g},"
+                        f"{r['final_dist']:.4g},{r['episode_cost']:.6g},"
+                        f"{r['task_complete']}\n")
     return rows

@@ -4,8 +4,9 @@
     python -m trajoptkp_tpu_torch.bench_kernels --task reaching --H 1500 --B 128
     python -m trajoptkp_tpu_torch.bench_kernels --task walker_run --H 40 --B 128
 
-The rollout, line search, FD slot Jacobians and backward pass, and the MPC
-replan's apply step (K8, one applied control) where the tree has it.
+The rollout, line search, FD slot Jacobians and backward pass, the cost
+expansion (K6) and the MPC replan's apply step (K8, one applied control)
+where the tree has them.
 Each kernel is launched `--reps` times between two CUDA events, after two
 warm-up launches, `--rounds` times over; the inputs are the zero-control
 nominal of `lanes.scenes(seed=0)` with SI_1 slots, as chip_smoke.py's main
@@ -75,6 +76,9 @@ def main(argv=None):
                                                plan.times, cfg.fd_eps),
         "backward": lambda: ops.backward(A, Bm, *l, lam, cfg),
     }
+    if hasattr(ops, "cost_expansion"):
+        calls["cost_expansion"] = lambda: ops.cost_expansion(
+            task, qpos, qvel, U, tgl)
     if hasattr(ops, "mpc_apply"):
         from trajoptkp_tpu_torch.mpc.sync import noise_std
 

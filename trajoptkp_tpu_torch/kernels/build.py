@@ -24,12 +24,14 @@ import os
 import pathlib
 import re
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 # sources built per model instance, and the backward pass per (nx, nu)
-MODEL_SOURCES = ("rollout", "linesearch", "fd_jacobian", "mpc_apply")
+MODEL_SOURCES = ("rollout", "linesearch", "fd_jacobian", "cost_expansion",
+                 "mpc_apply")
 # sources built once for every model
 GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
@@ -39,6 +41,7 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas=-v")
 
 _LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()   # the async MPC loads from two threads
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,12 +116,28 @@ def build(libs=None) -> dict:
         procs[f"{source}-{instance}"] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True), tmp, out)
+    # drain every compiler's output as it comes, so that none blocks on a
+    # full pipe, and note when each one finished
+    texts = {name: [] for name in procs}
+    done_s = {}
+
+    def drain(name, proc):
+        for line in proc.stdout:
+            texts[name].append(line)
+        proc.wait()
+        done_s[name] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
         # the compilers run side by side: seconds until this one was done
-        logs[name] = text + f"nvcc {name}: done after " \
-            f"{time.perf_counter() - t0:.1f} s\n"
+        logs[name] = "".join(texts[name]) + f"nvcc {name}: done after " \
+            f"{done_s[name]:.1f} s\n"
         if proc.returncode != 0:
             failed.append(name)
             continue
@@ -135,11 +154,13 @@ def load(source: str, instance: str) -> ctypes.CDLL:
     key = (source, instance)
     lib = _LIBS.get(key)
     if lib is None:
-        path = library_path(source, instance)
-        if not path.exists():
-            build((key,))
-        lib = ctypes.CDLL(str(path))
-        _LIBS[key] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(key)
+            if lib is None:
+                path = library_path(source, instance)
+                if not path.exists():
+                    build((key,))
+                lib = _LIBS[key] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -397,6 +397,103 @@ struct FkBiasOut {
   int b;
 };
 
+// Forward kinematics of body b, its parent's frame done: the world
+// position xpos[b] and orientation xquat[b], and the cdof rows of its dofs.
+// A free joint's body takes its pose from qpos (position, normalised
+// quaternion); hinges and slides compose in declaration order, each from
+// the frame the joints before it left (none: a welded body).
+template <class T>
+__device__ __forceinline__ void fk_body(const double* __restrict__ P,
+                                        const double* q, const int b,
+                                        double (&xpos)[T::NBODY][3],
+                                        double (&xquat)[T::NBODY][4],
+                                        double (&cdof)[T::NV][6]) {
+  const double* pb = P + (b - 1) * BODY_STRIDE;
+  const int p = T::parent(b);
+  const int j0 = T::body_dof(b);
+  const int qa = T::qadr(b);
+  double xq[4], xp[3], tmp[3];
+  if (T::free(b)) {
+    // the body's world pose is its qpos: position, normalised quaternion
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xp[k] = q[qa + k];
+    quat_normalize(q + qa + 3, xq);
+    double Rf[9];
+    quat_to_mat(xq, Rf);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      double a[3] = {Rf[k], Rf[3 + k], Rf[6 + k]}, ax[3];
+      cross3(xp, a, ax);
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        cdof[j0 + k][m] = 0.0;
+        cdof[j0 + k][3 + m] = m == k ? 1.0 : 0.0;
+        cdof[j0 + 3 + k][m] = a[m];
+        cdof[j0 + 3 + k][3 + m] = ax[m];
+      }
+    }
+  } else {
+    quat_mul(xquat[p], pb + F_BQUAT, xq);
+    quat_rotate(xquat[p], pb + F_BPOS, tmp);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
+    // the body's hinges and slides in declaration order, each from the
+    // frame the joints before it left (none: a welded body)
+#pragma unroll
+    for (int n = 0; n < 6; ++n) {
+      if (n >= T::body_ndof(b)) continue;
+      const int j = j0 + n;
+      const double* pd = P + T::DOFB + j * DOF_STRIDE;
+      const double dq = q[T::dof_q(j)] - pd[D_QPOS0];
+      if (T::slide(j)) {
+        double aw[3];
+        quat_rotate(xq, pd + D_JAXIS, aw);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          xp[k] = xp[k] + aw[k] * dq;
+          cdof[j][k] = 0.0;
+          cdof[j][3 + k] = aw[k];
+        }
+      } else {
+        double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
+        quat_rotate(xq, pd + D_JPOS, anchor);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          anchor[k] += xp[k];
+          rv[k] = pd[D_JAXIS + k] * dq;
+        }
+        quat_exp(rv, ql);
+        quat_mul(xq, ql, xq2);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) xq[k] = xq2[k];
+        quat_rotate(xq, pd + D_JPOS, tmp);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) xp[k] = anchor[k] - tmp[k];
+        quat_rotate(xq, pd + D_JAXIS, a);
+        cross3(anchor, a, ax);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          cdof[j][k] = a[k];
+          cdof[j][3 + k] = ax[k];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) xpos[b][k] = xp[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) xquat[b][k] = xq[k];
+}
+
+// The FK products of one lane (the cost expansion's FK residual Jacobian,
+// cost_expansion.cu, reads them).
+template <class T>
+struct Frames {
+  double xpos[T::NBODY][3];
+  double xquat[T::NBODY][4];
+  double cdof[T::NV][6];
+};
+
 // (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
 // actuator forces, the constraint force of the limit rows (K2a) and contact
 // rows (K2b), (M + h D) qacc = f, semi-implicit Euler.  With WANT_RES the
@@ -430,81 +527,12 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
   // ---- forward kinematics, body inertias and the RNE forward sweep
 #pragma unroll
   for (int b = 1; b < NB; ++b) {
+    fk_body<T>(P, q, b, xpos, xquat, cdof);
     const double* pb = P + (b - 1) * BODY_STRIDE;
     const int p = T::parent(b);
     const int j0 = T::body_dof(b);
-    const int qa = T::qadr(b);
-    double xq[4], xp[3], tmp[3];
-    if (T::free(b)) {
-      // the body's world pose is its qpos: position, normalised quaternion
-#pragma unroll
-      for (int k = 0; k < 3; ++k) xp[k] = q[qa + k];
-      quat_normalize(q + qa + 3, xq);
-      double Rf[9];
-      quat_to_mat(xq, Rf);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        double a[3] = {Rf[k], Rf[3 + k], Rf[6 + k]}, ax[3];
-        cross3(xp, a, ax);
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          cdof[j0 + k][m] = 0.0;
-          cdof[j0 + k][3 + m] = m == k ? 1.0 : 0.0;
-          cdof[j0 + 3 + k][m] = a[m];
-          cdof[j0 + 3 + k][3 + m] = ax[m];
-        }
-      }
-    } else {
-      quat_mul(xquat[p], pb + F_BQUAT, xq);
-      quat_rotate(xquat[p], pb + F_BPOS, tmp);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) xp[k] = xpos[p][k] + tmp[k];
-      // the body's hinges and slides in declaration order, each from the
-      // frame the joints before it left (none: a welded body)
-#pragma unroll
-      for (int n = 0; n < 6; ++n) {
-        if (n >= T::body_ndof(b)) continue;
-        const int j = j0 + n;
-        const double* pd = P + T::DOFB + j * DOF_STRIDE;
-        const double dq = q[T::dof_q(j)] - pd[D_QPOS0];
-        if (T::slide(j)) {
-          double aw[3];
-          quat_rotate(xq, pd + D_JAXIS, aw);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            xp[k] = xp[k] + aw[k] * dq;
-            cdof[j][k] = 0.0;
-            cdof[j][3 + k] = aw[k];
-          }
-        } else {
-          double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
-          quat_rotate(xq, pd + D_JPOS, anchor);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            anchor[k] += xp[k];
-            rv[k] = pd[D_JAXIS + k] * dq;
-          }
-          quat_exp(rv, ql);
-          quat_mul(xq, ql, xq2);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) xq[k] = xq2[k];
-          quat_rotate(xq, pd + D_JPOS, tmp);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) xp[k] = anchor[k] - tmp[k];
-          quat_rotate(xq, pd + D_JAXIS, a);
-          cross3(anchor, a, ax);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            cdof[j][k] = a[k];
-            cdof[j][3 + k] = ax[k];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) xpos[b][k] = xp[k];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) xquat[b][k] = xq[k];
+    const double* xq = xquat[b];
+    const double* xp = xpos[b];
 
     // inertia of body b about the world origin
     double R[9], Ri[9], X[9], c[3];
@@ -705,6 +733,19 @@ __device__ __forceinline__ void fk_bias(const double* __restrict__ P,
                                         const FkBiasOut& out) {
   smooth_step<T, false, true>(P, q, v, nullptr, nullptr, nullptr, nullptr,
                               nullptr, nullptr, &out);
+}
+
+// The FK products of one lane, as smooth_step computes them.
+template <class T>
+__device__ __forceinline__ void fk_frames(const double* __restrict__ P,
+                                          const double* q, Frames<T>& fr) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fr.xpos[0][k] = 0.0;
+  fr.xquat[0][0] = 1.0; fr.xquat[0][1] = 0.0; fr.xquat[0][2] = 0.0;
+  fr.xquat[0][3] = 0.0;
+#pragma unroll
+  for (int b = 1; b < T::NBODY; ++b)
+    fk_body<T>(P, q, b, fr.xpos, fr.xquat, fr.cdof);
 }
 
 // the residual at (q, v, u) and one step, from the step's FK for an FK

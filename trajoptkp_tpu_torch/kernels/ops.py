@@ -17,7 +17,10 @@ hinge, slide and free-translation dofs, and the joint-space, the pushing
 tasks' FK or the walker's selected-coordinate residual.  Their topology
 (sizes, joint masks and codes, qpos addresses, state-vector dofs, residual
 kind, contact pairs) is a template argument; the instances built are listed
-in csrc/instances.cuh.  `mpc_apply` (K8) is the MPC replan's apply step.
+in csrc/instances.cuh.  `cost_expansion` (K6) is the Gauss-Newton cost
+expansion from the closed-form residual Jacobian (the pushing residual's
+from the step's FK, `fk_frames`).  `mpc_apply` (K8) is the MPC replan's
+apply step.
 One more entry point runs a device function of the step alone: `fk_bias`
 (the FK products and bias force, for the pushing tasks' servo).
 
@@ -36,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import re
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -52,7 +56,8 @@ from ..solver import ilqr as twins
 from ..tasks.base import Task, control_limits
 from . import build
 
-KERNELS = ("rollout", "linesearch", "fd_jacobian", "backward")
+KERNELS = ("rollout", "linesearch", "fd_jacobian", "cost_expansion",
+           "backward")
 # the MPC replan's apply step (K8), launched once per replan
 MPC_KERNELS = ("mpc_apply",)
 # the FK products and bias force of the pushing tasks' servo (in the rollout
@@ -68,6 +73,7 @@ REPLACES = {
     "rollout": "trajoptkp_tpu/solver/lanes.py:263",
     "linesearch": "trajoptkp_tpu/solver/lanes.py:750",
     "fd_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
+    "cost_expansion": "trajoptkp_tpu/solver/lanes.py:597",
     "backward": "trajoptkp_tpu/solver/lanes.py:632",
     "mpc_apply": "trajoptkp_tpu/mpc/sync.py:100",
     "keypoint_plan": "trajoptkp_tpu/keypoints/methods.py:266",
@@ -103,9 +109,20 @@ JOINT_FIELDS = (("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
 RES_KINDS = {"joint_space": 0, "push": 1, "select": 2}
 
 
+# the async MPC's planner and actor launch from two threads
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to the kernel's launch count (from any thread)."""
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +424,7 @@ def _launch(kernel: str, instance: str, symbol: str, *args):
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError {err} "
                            f"({build.error_string(lib, err)})")
-    LAUNCHES[kernel] += 1
+    count_launch(kernel)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -420,7 +437,7 @@ def _on_cpu(*tensors) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the four kernels
+# the kernels of an iteration
 # ---------------------------------------------------------------------------
 
 
@@ -539,6 +556,35 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
             ctypes.c_int(cache is not None), ctypes.c_double(eps),
             _p(J), ctypes.c_int(nK), ctypes.c_int(B))
     return J
+
+
+def cost_expansion(task: Task, qpos, qvel, U, targets, plain: bool = False):
+    """K6: the Gauss-Newton cost expansion (csrc/cost_expansion.cu) of the
+    trajectory qpos (>=H, nq, B), qvel (>=H, nv, B), U (H, nu, B), targets
+    (ntgt, B) -> l_x (H, 2n, B), l_xx (H, 2n, 2n, B), l_u (H, nu, B), l_uu
+    (H, nu, nu, B).  Plain twin: solver/lanes.py:cost_expansion."""
+    if _on_cpu(qpos, qvel, U, targets) or plain:
+        from ..solver.lanes import cost_expansion as twin
+        return twin(task, qpos, qvel, U, targets)
+    ka = kernel_args(task, U.device)
+    H, B = U.shape[0], U.shape[-1]
+    nq, nv, nu, nx = ka.nq, ka.nv, ka.nu, ka.sv.nx
+    _check("qpos", qpos, (qpos.shape[0], nq, B))
+    _check("qvel", qvel, (qvel.shape[0], nv, B))
+    _check("U", U, (H, nu, B))
+    _check("targets", targets, (ka.ntgt, B))
+    if qpos.shape[0] < H or qvel.shape[0] < H:
+        raise ValueError("trajectory shorter than the controls")
+    f64 = dict(dtype=torch.float64, device=U.device)
+    l_x = torch.empty((H, nx, B), **f64)
+    l_xx = torch.empty((H, nx, nx, B), **f64)
+    l_u = torch.empty((H, nu, B), **f64)
+    l_uu = torch.empty((H, nu, nu, B), **f64)
+    _launch("cost_expansion", ka.tag, f"trajopt_cost_expansion_{ka.tag}",
+            _p(ka.model_buf), _p(ka.task_buf), _p(qpos), _p(qvel), _p(U),
+            _p(targets), _p(l_x), _p(l_xx), _p(l_u), _p(l_uu),
+            ctypes.c_int(H), ctypes.c_int(B))
+    return l_x, l_xx, l_u, l_uu
 
 
 _BP_ARGS: dict = {}

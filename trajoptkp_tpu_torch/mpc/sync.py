@@ -13,7 +13,7 @@ Two executors, as in the JAX package:
   batch last, through the phases of solver/lanes.py and kernel K8: the
   rollout (K3), the keypoint Jacobians (set_interval: K5 and its lerp;
   adaptive_jerk, adaptive_accel, velocity_change: K9a, K5 at per-lane slots,
-  K9b), the torch cost expansion, the backward pass (K7), the line search
+  K9b), the cost expansion (K6), the backward pass (K7), the line search
   (K4), then `mpc_apply`
   (K8, kernels/csrc/mpc_apply.cu), the part of the JAX replan after the
   forward pass.  `make_lane_sync_mpc` runs the replans back to back,

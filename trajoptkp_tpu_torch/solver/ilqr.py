@@ -265,13 +265,14 @@ def forward_pass_rollouts(task: Task, qpos, qvel, U, k, K, alphas, targets):
 
 
 def optimise(task: Task, qpos0, qvel0, U_init, cfg: ILQRConfig = None,
-             verbose: bool = False) -> Tuple[Trajectory, ILQRStats]:
+             verbose: bool = False,
+             plain=False) -> Tuple[Trajectory, ILQRStats]:
     """Open-loop iLQR of one scene (iLQR::Optimise): the batched phases of
     solver/lanes.py at B = 1, stopping as the generic JAX solver does
     (converged and it >= min_iterations; λ-exit ends the solve).
 
     Runs on the device of the task's tensors; qpos0 (nq,), qvel0 (nv,),
-    U_init (H, nu)."""
+    U_init (H, nu).  `plain` as in `solver/lanes.py:solve_lanes`."""
     from .lanes import solve_lanes
 
     cfg = cfg or ILQRConfig()
@@ -283,7 +284,7 @@ def optimise(task: Task, qpos0, qvel0, U_init, cfg: ILQRConfig = None,
         torch.as_tensor(qvel0, **f64)[:, None],
         torch.as_tensor(U_init, **f64)[:, :, None],
         task.residual_targets[:, None],
-        rule="generic", verbose=verbose,
+        rule="generic", verbose=verbose, plain=plain,
     )
     traj = Trajectory(res.qpos[..., 0], res.qvel[..., 0], res.ctrl[..., 0],
                       res.costs[..., 0])

@@ -16,7 +16,8 @@ by name, as the JAX `make_lane_batch_optimise(...).phases` does
                   iterative_error: host-driven bisection rounds of
                   ops.fd_jacobian into a full-horizon cache (K5) and
                   ops.ie_mse (K9c), then K9a + K9b on the cache
-  cost_expansion  torch.func.jacfwd of the residual + einsum (K6 stays torch)
+  cost_expansion  kernels.ops.cost_expansion (K6: the closed-form residual
+                  Jacobian and its Gauss-Newton products)
   bp              kernels.ops.backward       (K7, λ retry per lane)
   fp              kernels.ops.linesearch     (K4) + argmin/accept in torch
 
@@ -53,10 +54,11 @@ from ..keypoints.interpolate import column_dofs
 from ..keypoints.methods import (METHODS, auto_adjust_mask,
                                  percentage_derivs, set_interval,
                                  si_keypoint_times)
-from ..state.statevector import scatter_tangent
 from ..dynamics.integrate import integrate_pos
+from ..dynamics.model import FREE
+from ..state.statevector import scatter_tangent
 from ..tasks.base import Task
-from .ilqr import ILQRConfig, default_alphas
+from .ilqr import ILQRConfig, _contract, default_alphas
 
 
 class SIPlan(NamedTuple):
@@ -102,33 +104,97 @@ def jacobians_si(task: Task, plan: SIPlan, qpos, qvel, U, eps: float,
     return Jf[:, :, :n2].contiguous(), Jf[:, :, n2:].contiguous()
 
 
-def cost_expansion(task: Task, qpos, qvel, U, targets):
-    """Gauss-Newton l_x, l_xx, l_u, l_uu (H, ., ., B) from forward-mode
-    residual Jacobians on the tangent space."""
+def _dof_qpos(model, j: int) -> int:
+    """The qpos index of a hinge, slide or free-translation dof j."""
+    for jn in range(model.njnt):
+        da = model.jnt_dofadr[jn]
+        if da <= j < da + (6 if model.jnt_type[jn] == FREE else 1):
+            return model.jnt_qposadr[jn] + j - da
+    raise ValueError(f"dof {j} has no joint")
+
+
+def selection_jacobian(task: Task) -> torch.Tensor:
+    """J (nres, 2n + nu) of a residual that selects coordinates minus their
+    targets ("joint_space", "select"): 1 at (row, the tangent column of its
+    coordinate), 0 elsewhere (a row whose coordinate is not in the state
+    vector is 0)."""
     model, sv = task.model, task.sv
-    H = U.shape[0]
+    kind = task.residual_kind
+    if kind[0] == "joint_space":
+        nj, nr = kind[1], kind[2]
+        rows = ([(0, i) for i in range(nj)] + [(1, i) for i in range(nj)]
+                + [(2, a) for a in range(nr)])
+    else:
+        rows = list(kind[1])
+    n = sv.ndof
+    J = torch.zeros((len(rows), 2 * n + model.nu), dtype=model.dtype,
+                    device=model.device)
+    for k, (src, i) in enumerate(rows):
+        if src == 2:
+            J[k, 2 * n + i] = 1.0
+        for s, j in enumerate(sv.order):
+            if (src == 0 and _dof_qpos(model, j) == i) or (src == 1
+                                                          and j == i):
+                J[k, s + n * src] = 1.0
+    return J
+
+
+def residual_jacobian(task: Task, qp, qv, u, tg):
+    """The residual r (nres, *L) and its Jacobian J on the tangent space
+    (positions, velocities and controls of the state vector) in closed
+    form: (nres, 2n + nu, 1, ...) for a residual that selects coordinates
+    (a constant), (nres, 2n + nu, *L) for the pushing FK residual
+    (tasks/pushing.py:push_residual_jacobian).  The twin of
+    kernels/csrc/cost_expansion.cu's `residual_jacobian`; a residual kind
+    the kernels do not take is differentiated by forward mode."""
+    kind = task.residual_kind
+    if kind[0] in ("joint_space", "select"):
+        J = selection_jacobian(task)
+        return (task.residual_fn(qp, qv, u, tg),
+                J.reshape(tuple(J.shape) + (1,) * (qp.dim() - 1)))
+    if kind[0] == "push" and kind[1] == 0:
+        from ..tasks.pushing import push_residual_jacobian
+        return push_residual_jacobian(task.model, kind[2], kind[3], task.sv,
+                                      task.model.nu, qp, qv, tg)
+    # a residual without a closed form (no kernel takes it; a task made in
+    # a test): forward mode over the tangent columns
+    model, sv = task.model, task.sv
     n, nu = sv.ndof, model.nu
-    qp = qpos[:H].transpose(0, 1)                      # (nq, H, B)
-    qv = qvel[:H].transpose(0, 1)
-    u = U.transpose(0, 1)
-    tg = targets[:, None, :]
+    one = (1,) * (qp.dim() - 1)
 
     def g(z):
-        dq = scatter_tangent(model, sv, z[:n].reshape(n, 1, 1))
-        dv = scatter_tangent(model, sv, z[n:2 * n].reshape(n, 1, 1))
+        dq = scatter_tangent(model, sv, z[:n].reshape((n,) + one))
+        dv = scatter_tangent(model, sv, z[n:2 * n].reshape((n,) + one))
         return task.residual_fn(integrate_pos(model, qp, dq, 1.0), qv + dv,
-                                u + z[2 * n:].reshape(nu, 1, 1), tg)
+                                u + z[2 * n:].reshape((nu,) + one), tg)
 
-    z0 = torch.zeros(2 * n + nu, dtype=qpos.dtype, device=qpos.device)
-    r = g(z0)                                          # (nres, H, B)
-    rJ = torch.func.jacfwd(g)(z0)                      # (nres, H, B, z)
+    z0 = torch.zeros(2 * n + nu, dtype=qp.dtype, device=qp.device)
+    return g(z0), torch.func.jacfwd(g)(z0).movedim(-1, 1)
+
+
+def cost_expansion(task: Task, qpos, qvel, U, targets):
+    """Gauss-Newton l_x (H, 2n, B), l_xx (H, 2n, 2n, B), l_u (H, nu, B),
+    l_uu (H, nu, nu, B) from the closed-form residual Jacobian J at each
+    (t, b): l_z = 2 sum_r w_r r_r J_r and l_zz = 2 sum_r (w_r J_r) J_r^T,
+    terminal weights at t = H-1.  The sums run left to right over the
+    residual rows, as kernel K6 (kernels/csrc/cost_expansion.cu) and
+    `ilqr._contract` do, so that on the card the two agree bit for bit.
+    Plain twin of K6 (kernels/ops.py:cost_expansion)."""
+    nx = task.sv.nx
+    H, B = U.shape[0], U.shape[-1]
+    r, J = residual_jacobian(task, qpos[:H].transpose(0, 1),
+                             qvel[:H].transpose(0, 1), U.transpose(0, 1),
+                             targets[:, None, :])      # (nres, H, B), J
     w = task.weights[:, None].expand(-1, H).clone()
-    w[:, H - 1] = task.weights_terminal
-    l_z = 2.0 * torch.einsum("rhb,rhbz->hzb", w[:, :, None] * r, rJ)
-    l_zz = 2.0 * torch.einsum("rh,rhbz,rhby->hzyb", w, rJ, rJ)
-    parts = (l_z[:, :2 * n], l_zz[:, :2 * n, :2 * n], l_z[:, 2 * n:],
-             l_zz[:, 2 * n:, 2 * n:])
-    return tuple(x.contiguous() for x in parts)
+    w[:, H - 1] = task.weights_terminal                # (nres, H)
+    l_z = 2.0 * _contract((w[:, :, None] * r)[:, None], J)    # (nz, H, B)
+    wJ = w[:, None, :, None] * J
+    l_xx = 2.0 * _contract(wJ[:, :nx, None], J[:, None, :nx])
+    l_uu = 2.0 * _contract(wJ[:, nx:, None], J[:, None, nx:])
+    return (l_z[:nx].transpose(0, 1).contiguous(),
+            l_xx.expand(-1, -1, H, B).permute(2, 0, 1, 3).contiguous(),
+            l_z[nx:].transpose(0, 1).contiguous(),
+            l_uu.expand(-1, -1, H, B).permute(2, 0, 1, 3).contiguous())
 
 
 def forward_pass(task: Task, qpos, qvel, U, k, K, alphas, targets, old_cost,
@@ -359,8 +425,8 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
         "rollout": lambda qp, qv, U, tg: ops.rollout(
             task, qp, qv, U, tg, plain=twin("rollout")),
         "jacobians": jacobians,
-        "cost_expansion": lambda qpos, qvel, U, tg: cost_expansion(
-            task, qpos, qvel, U, tg),
+        "cost_expansion": lambda qpos, qvel, U, tg: ops.cost_expansion(
+            task, qpos, qvel, U, tg, plain=twin("cost_expansion")),
         "bp": lambda A, Bm, l_x, l_xx, l_u, l_uu, lamb: ops.backward(
             A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward")),
         "fp": lambda qpos, qvel, U, old, k, K, tg: forward_pass(

@@ -48,6 +48,13 @@ def select_residual(select, qpos, qvel, ctrl, targets):
 walker_residual = functools.partial(select_residual, WALKER_RESIDUAL)
 
 
+def walker_complete(qpos, targets):
+    """Locomotion never completes (`Walker.cpp:27-30`, JAX `_complete_fn`):
+    (False, distance 0) over the lanes."""
+    return (torch.zeros_like(qpos[0], dtype=torch.bool),
+            torch.zeros_like(qpos[0]))
+
+
 def make_walker(run: bool = False, uneven: bool = False,
                 device=None) -> Task:
     """walker_walk (target velocity 0.5) or walker_run (1.1); SI keypoints
@@ -67,6 +74,7 @@ def make_walker(run: bool = False, uneven: bool = False,
                         *(f"body_controls_{i}" for i in range(NU))),
         residual_fn=walker_residual,
         residual_kind=("select", WALKER_RESIDUAL),
+        task_complete_fn=walker_complete,
         model=model,
         sv=full_state_vector(model),
         residual_targets=torch.tensor([0.0, 0.0, target_vel] + [0.0] * NU,

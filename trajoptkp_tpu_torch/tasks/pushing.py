@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..dynamics.fk import body_frames, site_pose
-from ..dynamics.model import load_model
+from ..dynamics.model import FREE, load_model
 from ..keypoints.methods import KeypointConfig
 from ..state.statevector import state_vector_from_names
 from ..utils import math as tm
@@ -59,27 +59,90 @@ def _norm(parts):
     return torch.sqrt(s + 1e-12)
 
 
+def _push_terms(model, goal_body: int, ee_site: int, qpos, qvel, targets):
+    """The residual (4, *L) and the FK products and differences it is made
+    of, for its Jacobian."""
+    xpos, xquat, cdof = body_frames(model, qpos)
+    goal = xpos[goal_body]
+    ee, _ = site_pose(model, xpos, xquat, ee_site)
+    gd = model.jnt_dofadr[model.jnt_bodyid.index(goal_body)]
+    g = [goal[0] - targets[0], goal[1] - targets[1]]
+    gv = [qvel[gd], qvel[gd + 1]]
+    d = [ee[0] - goal[0], ee[1] - goal[1], ee[2] - goal[2]]
+    r = torch.stack([_norm(g), _norm(gv), qvel[JOINT5], _norm(d)])
+    return r, (cdof, goal, ee, gd, g, gv, d)
+
+
 def push_residual(model, goal_body: int, ee_site: int, qpos, qvel, ctrl,
                   targets):
     """r = [|goal_xy - target|, |goal planar velocity|, joint-5 velocity,
     |ee - goal|] (nres 4), targets (2, *L) the goal xy."""
-    xpos, xquat, _ = body_frames(model, qpos)
-    goal = xpos[goal_body]
-    ee, _ = site_pose(model, xpos, xquat, ee_site)
-    gd = model.jnt_dofadr[model.jnt_bodyid.index(goal_body)]
-    return torch.stack([
-        _norm([goal[0] - targets[0], goal[1] - targets[1]]),
-        _norm([qvel[gd], qvel[gd + 1]]),
-        qvel[JOINT5],
-        _norm([ee[0] - goal[0], ee[1] - goal[1], ee[2] - goal[2]]),
-    ])
+    return _push_terms(model, goal_body, ee_site, qpos, qvel, targets)[0]
+
+
+def _path_dofs(model, b: int) -> set:
+    """The dofs on body b's root path (its own included)."""
+    out = set()
+    while b > 0:
+        for j, jb in enumerate(model.jnt_bodyid):
+            if jb == b:
+                nd = 6 if model.jnt_type[j] == FREE else 1
+                da = model.jnt_dofadr[j]
+                out.update(range(da, da + nd))
+        b = model.body_parent[b]
+    return out
+
+
+def push_residual_jacobian(model, goal_body: int, ee_site: int, sv, nu: int,
+                           qpos, qvel, targets):
+    """The pushing residual r (4, *L) and its Jacobian J (4, 2n + nu, *L) on
+    the tangent space of the state vector sv (positions, velocities,
+    controls), in closed form from the FK products, operation for operation
+    as kernels/csrc/cost_expansion.cu:push_jacobian.
+
+    A point p fixed on body b moves with a dof j of b's root path at
+    dp/dq_j = w_j x p + v_j, (w_j, v_j) = cdof_j: a x (p - anchor) for a
+    hinge, the axis for a slide or a free joint's translation, 0 for a free
+    joint's rotation about the body's own origin.  The goal is the free
+    body's origin, so only its translations move it; the end effector moves
+    with the arm's hinges.  d|x|/dx = x / |x| for the three norms (their
+    1e-12 kept in |x|); joint 5's velocity and the goal's planar velocity
+    are velocity columns.  No control column: l_u = l_uu = 0."""
+    r, (cdof, goal, ee, gd, g, gv, d) = _push_terms(
+        model, goal_body, ee_site, qpos, qvel, targets)
+    n = sv.ndof
+    zero = torch.zeros_like(r[0])
+    J = [[zero] * (2 * n + nu) for _ in range(4)]
+    on_goal = _path_dofs(model, goal_body)
+    on_ee = _path_dofs(model, model.site_bodyid[ee_site])
+    for s, j in enumerate(sv.order):
+        if j in on_goal or j in on_ee:
+            w, v = cdof[j][:3], cdof[j][3:]
+            pg = tm.cross(w, goal) + v if j in on_goal else [zero] * 3
+            pe = tm.cross(w, ee) + v if j in on_ee else [zero] * 3
+            J[0][s] = (g[0] * pg[0] + g[1] * pg[1]) / r[0]
+            J[3][s] = (d[0] * (pe[0] - pg[0]) + d[1] * (pe[1] - pg[1])
+                       + d[2] * (pe[2] - pg[2])) / r[3]
+        if j == gd:
+            J[1][n + s] = gv[0] / r[1]
+        elif j == gd + 1:
+            J[1][n + s] = gv[1] / r[1]
+        if j == JOINT5:
+            J[2][n + s] = torch.ones_like(zero)
+    return r, torch.stack([torch.stack(row) for row in J])
 
 
 def _complete_fn(model, goal_body):
+    """Done when the goal's xy is within 0.025 of the target.  The goal
+    hangs from the world on a free joint, so its world position is its
+    joint's qpos (what FK gives for it, without the FK)."""
+    j = model.jnt_bodyid.index(goal_body)
+    if model.jnt_type[j] != FREE or model.body_parent[goal_body] != 0:
+        raise ValueError("the goal must be a free body of the world")
+    qa = model.jnt_qposadr[j]
+
     def done(qpos, targets):
-        xpos, _, _ = body_frames(model, qpos)
-        d = _norm([xpos[goal_body][0] - targets[0],
-                   xpos[goal_body][1] - targets[1]])
+        d = _norm([qpos[qa] - targets[0], qpos[qa + 1] - targets[1]])
         return d < 0.025, d
     return done
 

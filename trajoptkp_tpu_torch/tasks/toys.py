@@ -3,7 +3,9 @@
 
 Residuals are per-joint position error, per-joint velocity error and
 per-actuator control: the joint-space residual, whose CUDA twin is
-`joint_space_residual` in kernels/csrc/residuals.cuh.
+`joint_space_residual` in kernels/csrc/residuals.cuh.  Acrobot is complete
+when its joints are within 0.01 (summed) of the goal; pentabot has no
+completion test, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,8 +33,18 @@ def joint_space_residual(nj: int, nu: int, qpos, qvel, ctrl, targets):
     ])
 
 
+def joint_space_complete(nj: int, qpos, targets):
+    """Done when sum_i |q_i - tq_i| over the first nj joints is below 0.01
+    (JAX `tasks/toys.py:35-38`) -> (done, distance) over the lanes."""
+    d = (qpos[:nj] - targets[:nj]).abs()
+    dist = d[0]
+    for i in range(1, nj):
+        dist = dist + d[i]
+    return dist < 0.01, dist
+
+
 def _joint_space_task(name, model, nj, nu, residual_names, targets, w, w_term,
-                      qpos_start, kp_cfg):
+                      qpos_start, kp_cfg, complete: bool):
     f64 = dict(dtype=model.dtype, device=model.device)
     return Task(
         name=name,
@@ -47,6 +59,8 @@ def _joint_space_task(name, model, nj, nu, residual_names, targets, w, w_term,
         qpos_start=torch.tensor(qpos_start, **f64),
         qvel_start=torch.zeros(nj, **f64),
         keypoint_cfg=kp_cfg,
+        task_complete_fn=(functools.partial(joint_space_complete, nj)
+                          if complete else None),
         openloop_horizon=500,
         mpc_horizon=100,
     )
@@ -72,6 +86,7 @@ def make_acrobot(device=None) -> Task:
             accel_thresholds=torch.full((2,), 150.0, **f64),
             velocity_change_thresholds=torch.full((2,), 6.0, **f64),
         ),
+        complete=True,
     )
 
 
@@ -99,4 +114,5 @@ def make_pentabot(device=None) -> Task:
             accel_thresholds=torch.full((nj,), 0.001, **f64),
             velocity_change_thresholds=torch.full((nj,), 0.2, **f64),
         ),
+        complete=False,       # as JAX make_pentabot: no completion test
     )
