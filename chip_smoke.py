@@ -15,9 +15,12 @@ size, half of reaching's lanes started at their joint limits, push_ncl's
 from its servo with all three contact pairs touching and the walker's
 pressed into the floor or folded with a shin in the torso (the contact rows
 K2b and the constraint solve K2a run inside the step of the rollout,
-line-search, FD and apply kernels); the servo's fk_bias is held against its
-twin too, and the cost expansion (K6) bit for bit at every model, at these
-shapes and at the main paths' full shapes.  The backward pass is also held against its twin summed in
+line-search, Jacobian and apply kernels); the exact slot Jacobians (K5ad:
+the step in dual numbers with the implicit constraint tangents K2c) at
+shared slots, at per-lane slots and into an iterative_error cache; the
+servo's fk_bias is held against its twin too, and the cost expansion (K6)
+bit for bit at every model, at these shapes and at the main paths' full
+shapes.  The backward pass is also held against its twin summed in
 another order (`sum_contract`) on the card and on the CPU.  It replays the
 acrobot SI_5 H=200 golden solve on the kernel path, then drives the main
 paths with launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1
@@ -35,7 +38,7 @@ reaching's and push_ncl's full shapes and held against their twins there
 too (the rollout and the line search step by step, see `stepwise_check`),
 the push_ncl servo's first steps and its fk_bias are held against the plain
 servo at its own 128 lanes (`check_servo`), each phase of a walker replan is
-timed.  The keypoint kernels (K9a, K9b, K9c and K5 at per-lane slots) are
+timed.  The keypoint kernels (K9a, K9b, K9c and K5ad at per-lane slots) are
 held against their twins bit for bit in the `keypoints` phase (acrobot
 VC/AJ/AA/IE, pentabot AA, reaching and push_ncl AJ_5_100, the walker VC, a
 slot budget that overflows, and reaching's and push_ncl's full shapes), and
@@ -50,20 +53,28 @@ each at 125 Hz (`async_mpc_campaign`), and one walker_run episode of 2000
 steps at 200 Hz, with exact launch counts and a planner that lowers its
 plan's cost, and first holds one planner step (at H=5), the actor's step
 and its gravity hold against their twins, bit for bit, and each kernel
-phase of a push_ncl planner step at its own shape (H=50, B=1; run while
-the CLI processes run).  The CLI solves the three open-loop tasks with their own keypoint
-methods and acrobot with IE_1_50, runs the walker's
+phase of a push_ncl planner step at its own shape (H=50, B=1: the generic
+solve, whose Jacobians at the default deriv_mode are K5's central FD; run
+while the CLI processes run).  The CLI solves the three open-loop tasks
+with their own keypoint methods, acrobot with IE_1_50 and with
+`--deriv_mode ad`, runs the walker's
 `Generate_syncronus_mpc_data --horizon 40`, push_ncl's
 `Generate_asynchronus_mpc_data --num_scenes 3 --keypoint SI_1` and
-acrobot's `MPC_until_completion`, the seven processes side by side.
+acrobot's `MPC_until_completion`, the eight processes side by side.
 
 Prints the card's name and power limit, the kernel build time, the seconds
-of each phase, a `record` line with every measurement, one
+of each phase and of the whole script, a `record` line with every
+measurement, one
 `{"kernels": [...]}` line (one entry per kernel and model) and, last,
 `{"ok": true, "device": {...}}`.  Any failed check is printed as it happens
 and makes the script exit non-zero at the end without a result; it also
 fails where no CUDA device is present.  The MPC campaigns write their
 `mpc_horizons.csv` and `async_mpc.csv` under chip_smoke_out/mpc/.
+
+The plain halves of the acrobot and reaching 3-iteration holds and of the
+MPC holds launch no kernel and run while the kernels build; the walker's
+MPC hold runs in a second process of this script (`--plain-mpc-worker
+PATH`, its result saved to PATH), which the script waits for and stops.
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
 walker, keypoints, golden, main_acrobot, main_reaching, main_push, main_mpc,
@@ -126,7 +137,12 @@ MH, MB = 40, 128                    # walker MPC: make_walker's mpc_horizon,
 #                                     and the episodes of the batched run
 N_REPLANS = 200                     # replans per episode (the JAX campaign)
 SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
-MPC_PLAIN_REPLANS = 2               # replans held against the plain path
+# walker replans held against the plain path: a plain walker replan is
+# host-bound twin launches (its rollout and line search step the plain
+# walker 40 times each; K5ad's forward-mode twin is one dual step over all
+# slots), 110-150 s beside the build, where it runs in a process of its own
+# (plain_mpc_worker)
+MPC_PLAIN_REPLANS = 1
 MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke_out", "mpc")
 # async MPC (main_async), real time: push_ncl SI_1 over the campaign's
@@ -156,17 +172,16 @@ F8 = 8
 TOL = {
     "rollout": ("rel", 1e-10),
     "linesearch": ("rel", 1e-10),
-    "fd_jacobian": ("abs", 1e-7),
+    "fd_jacobian": ("abs", 1e-7),       # the generic path's, at B = 1
+    # K5ad: every dual operation rounds as torch's forward-mode formula, so
+    # kernel and twin agree bit for bit (reported); the bar is the issue's
+    "ad_jacobian": ("rel", 1e-13),
     "cost_expansion": ("rel", 0.0),     # and bit for bit
     "backward": ("rel", 1e-9),
 }
-PENTABOT_FD_ABS = 1e-6  # five-link FD noise (the JAX FD itself: 5.5e-8)
-# reaching's FD columns cross the limit gates (`dist < margin`, `y < 0`, the
-# step-length choice): a slot counts as agreeing when every entry of its
-# [A|B] is within REACHING_FD_ABS, and REACHING_FD_SHARE of the slots must;
-# the others are printed as flips
-REACHING_FD_ABS = 1e-6
-REACHING_FD_SHARE = 0.999
+# the kernels of a lane iteration: K5ad in K5's place (K5, central FD, is
+# the generic solve's at deriv_mode "fd", held at B = 1 in main_async)
+LANE_KERNELS = tuple(k for k in ops.KERNELS if k != "fd_jacobian")
 REACHING_AGREE_TOL = 1e-3  # 3-iteration cost reduction, see main_path
 # golden bars of tests/test_torch_golden.py (FD-noise spread, see there)
 CTRL_ATOL, QPOS_ATOL, COST_ATOL = 2e-4, 5e-5, 4e-4
@@ -247,6 +262,41 @@ def contact_ops(s):
     return sum(300 + nc * (46 + 43 * w) for w, nc in s.contact_pairs)
 
 
+def newton_ops(s):
+    """The NEWTON_ITERS iterations of csrc/constraint.cuh (constraint_ops'
+    per-iteration terms)."""
+    nv, rows, E, E2 = s.nv, s.rows, s.entries, s.entries_sq
+    if rows == 0:
+        return 0
+    chol = nv ** 3 / 3 + 2 * nv ** 2
+    per_it = (2 * E + rows + nv + 2 * nv ** 2 + 2 * E + 3 * E2 + nv ** 2
+              + chol + 2 * E - rows + 2 * nv ** 2 + 6 * nv
+              + (len(ALPHA_LADDER) + 1) * (5 * rows + 8) + 2 * nv)
+    return NEWTON_ITERS * per_it
+
+
+def implicit_primal_ops(s):
+    """K2c's work on the values alone, once per (slot, lane): the residual
+    F at the returned x (M e 2 nv^2, the rows' J x 2 E, gate and force
+    4 R, J' f 2 E), the gated Hessian (3 E2 + nv^2) and its Cholesky
+    (nv^3/3 + 2 nv^2)."""
+    nv, rows, E, E2 = s.nv, s.rows, s.entries, s.entries_sq
+    if rows == 0:
+        return 0
+    return (2 * nv ** 2 + 4 * E + 4 * rows + 3 * E2 + nv ** 2
+            + nv ** 3 / 3 + 2 * nv ** 2)
+
+
+def implicit_column_ops(s):
+    """K2c per tangent column (csrc/constraint.cuh:implicit_tangent): the
+    tangent of F (two operations per operation of F) and the two
+    triangular solves for -dF (2 nv^2)."""
+    nv, rows, E = s.nv, s.rows, s.entries
+    if rows == 0:
+        return 0
+    return 2 * (2 * nv ** 2 + 4 * E + 4 * rows) + 2 * nv ** 2
+
+
 def constraint_ops(s):
     """Double operations of csrc/constraint.cuh per step, counted from the
     source over the rows' E sparse entries (E2 the sum of their squares;
@@ -256,14 +306,11 @@ def constraint_ops(s):
     Cholesky nv^3/3 + 2 nv^2, J dx 2 E - R, M dx 2 nv^2, three dot products
     6 nv, the merit at alpha = 0 and six step lengths 7 (5 R + 8), the
     update 2 nv; the force 4 R + 2 E."""
-    nv, rows, E, E2 = s.nv, s.rows, s.entries, s.entries_sq
+    nv, rows, E = s.nv, s.rows, s.entries
     if rows == 0:
         return 0
     chol = nv ** 3 / 3 + 2 * nv ** 2
-    per_it = (2 * E + rows + nv + 2 * nv ** 2 + 2 * E + 3 * E2 + nv ** 2
-              + chol + 2 * E - rows + 2 * nv ** 2 + 6 * nv
-              + (len(ALPHA_LADDER) + 1) * (5 * rows + 8) + 2 * nv)
-    return (30 * s.lim_rows + contact_ops(s) + chol + NEWTON_ITERS * per_it
+    return (30 * s.lim_rows + contact_ops(s) + chol + newton_ops(s)
             + 4 * rows + 2 * E)
 
 
@@ -308,6 +355,33 @@ def linesearch_bound(s, Hh, A, Bb):
                           + nx)
     byt = F8 * (Bb * ((Hh + 1) * ns + Hh * nu * (2 + nx) + s.ntgt) + A
                 + A * Bb * ((Hh + 1) * ns + Hh * nu + Hh))
+    return bound(ops_, byt)
+
+
+def ad_slot_ops(s):
+    """Double operations that K5ad's function needs per (slot, lane): the
+    primal step once (step_ops, its Newton iterations included) and K2c's
+    values once (implicit_primal_ops), then for each of the 2n + nu
+    columns of [A|B] the tangent of every operation of the step outside
+    the Newton iterations, which run on the values alone (two per
+    operation: a dual product adds three, a sum one), and K2c's column
+    (implicit_column_ops).  The kernel repeats the primal part in each of
+    its 2n + nu threads of a (slot, lane); that repetition is not work the
+    function needs, and is not counted."""
+    nc = s.nx + s.nu
+    return (step_ops(s) + implicit_primal_ops(s)
+            + nc * (2 * (step_ops(s) - newton_ops(s))
+                    + implicit_column_ops(s)))
+
+
+def ad_bound(s, K, Bb, live=None):
+    """K5ad: ad_slot_ops per slot and lane (`live` of the K x Bb slots,
+    where a plan leaves some dead), against reading each slot's state and
+    control and writing its [A|B]."""
+    nx, nc = s.nx, s.nx + s.nu
+    n = K * Bb if live is None else live
+    ops_ = n * ad_slot_ops(s)
+    byt = F8 * (K + n * (s.nq + s.nv + s.nu) + K * Bb * nx * nc)
     return bound(ops_, byt)
 
 
@@ -673,23 +747,37 @@ def note(task, name, rows):
           flush=True)
 
 
-def fd_slot_agreement(kj, pj, tol):
-    """Share of (slot, lane) Jacobians whose every entry agrees within tol,
-    the largest difference among those that do, and the flipped ones."""
-    d = (kj - pj).abs().amax(dim=(1, 2))               # (K, B)
-    bad = ~(d <= tol)
-    within = float(d[~bad].max()) if bool((~bad).any()) else float("nan")
-    flips = bad.nonzero()[:8].tolist()
-    return 1.0 - float(bad.double().mean()), within, int(bad.sum()), flips
+def ad_modes_check(task, q0, v0, U0, K=8, seed=5):
+    """K5ad in its other slot modes against its twin: per-lane slot times
+    with live counts (a plan's, drawn from `seed`; dead slots write zeros)
+    and scattered into an iterative_error cache -> {mode: (bit for bit,
+    max abs err)}."""
+    Hh, Bb = U0.shape[0], U0.shape[-1]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    slot_t = torch.sort(torch.randint(0, Hh, (K, Bb), generator=g),
+                        dim=0).values.to("cuda").contiguous()
+    counts = torch.randint(1, K + 1, (Bb,), generator=g,
+                           dtype=torch.int32).to("cuda")
+    kj = ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts)
+    pj = ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, plain=True)
+    out = {"per_lane": outputs_gap(kj, pj)}
+    nx, nc = task.sv.nx, task.sv.nx + task.model.nu
+    kc = torch.zeros((Hh, nx, nc, Bb), dtype=torch.float64, device="cuda")
+    pc = kc.clone()
+    ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, cache=kc)
+    ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, cache=pc,
+                    plain=True)
+    out["ie_cache"] = outputs_gap(kc, pc)
+    return out
 
 
-def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
-                  inputs=None, pair_types=False):
+def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
+                  pair_types=False):
     """Each kernel against its plain twin on the same inputs (`inputs`, or
-    lane_inputs).  With constraint rows (limits at `at_limits`, or contacts)
-    FD is held slot by slot (fd_slot_agreement).  Every contact pair must be
-    active in the plain rollout, or with `pair_types` every type of pair
-    (the walker's capsule pairs touch only far past their joint limits)."""
+    lane_inputs): K5ad at every step (SI_1) and in its per-lane and cache
+    modes (`ad_modes_check`).  Every contact pair must be active in the
+    plain rollout, or with `pair_types` every type of pair (the walker's
+    capsule pairs touch only far past their joint limits)."""
     s = Sizes(task)
     gated = at_limits or bool(task.model.contact_pairs)
     qp0, qv0, tg, U, k, K = inputs or lane_inputs(task, Hh, Bb, seed=3,
@@ -761,28 +849,34 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
             lambda: ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg), 5)
         rows["linesearch"]["plain_ms"] = plain_ms
 
-    # K5 FD slot Jacobians at every step (SI_1) and K7: for the toys on the
-    # nominal their main path starts from (zero controls on these scenes),
-    # with constraint rows along the rollout above
+    # K5ad at every step (SI_1) and K7: for the toys on the nominal their
+    # main path starts from (zero controls on these scenes), with constraint
+    # rows along the rollout above
     U0 = U if gated else torch.zeros_like(U)
     q0, v0, _ = ops.rollout(task, qp0, qv0, U0, tg)
-    kj = ops.fd_jacobian(task, q0, v0, U0, plan.times, cfg.fd_eps)
-    pj, plain_ms = cuda_timed(lambda: ops.fd_jacobian(
-        task, q0, v0, U0, plan.times, cfg.fd_eps, plain=True))
-    rows["fd_jacobian"] = dict(err=err(kj, pj, "abs"),
-                               bound=fd_bound(s, len(plan.times), Bb))
-    note(task, "fd_jacobian", rows)
-    if gated:
-        share, within, n_flips, flips = fd_slot_agreement(kj, pj, fd_abs)
-        rows["fd_jacobian"].update(share=share, within=within, flips=n_flips)
-        print(f"  {task.name} fd_jacobian: {share:.6f} of {kj.shape[0] * Bb} "
-              f"slot Jacobians within {fd_abs:.0e} (largest of those "
-              f"{within:.3e}), {n_flips} flipped (slot, lane) {flips}; "
-              f"bitwise equal: {bool(torch.equal(kj, pj))}", flush=True)
+    kj = ops.ad_jacobian(task, q0, v0, U0, plan.times)
+    pj, plain_ms = cuda_timed(lambda: ops.ad_jacobian(
+        task, q0, v0, U0, plan.times, plain=True))
+    modes = ad_modes_check(task, q0, v0, U0)
+    rows["ad_jacobian"] = dict(
+        err=max([err(kj, pj, "rel")] + [(g, g / max(float(pj.abs().max()),
+                                                   1e-300))
+                                       for _, g in modes.values()],
+                key=lambda x: x[1]),
+        bitwise=bool(torch.equal(kj, pj)) and all(m[0] for m in
+                                                   modes.values()),
+        modes={k: dict(bitwise=v[0], max_abs_err=v[1])
+               for k, v in modes.items()},
+        bound=ad_bound(s, len(plan.times), Bb))
+    note(task, "ad_jacobian", rows)
+    print(f"  {task.name} ad_jacobian: shared slots bitwise "
+          f"{bool(torch.equal(kj, pj))}, per-lane slots and the cache "
+          f"(bitwise, max abs err) {json.dumps(modes)}", flush=True)
+    del pj
     if time_them:
-        rows["fd_jacobian"]["ms"] = cuda_ms(lambda: ops.fd_jacobian(
-            task, q0, v0, U0, plan.times, cfg.fd_eps), 5)
-        rows["fd_jacobian"]["plain_ms"] = plain_ms
+        rows["ad_jacobian"]["ms"] = cuda_ms(lambda: ops.ad_jacobian(
+            task, q0, v0, U0, plan.times), 5)
+        rows["ad_jacobian"]["plain_ms"] = plain_ms
 
     # K6 on the nominal the backward pass below reads
     l = ops.cost_expansion(task, q0, v0, U0, tg)
@@ -800,10 +894,12 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
             task, q0, v0, U0, tg), 5)
         rows["cost_expansion"]["plain_ms"] = plain_ms
 
-    A, Bm = lanes.jacobians_si(task, plan, q0, v0, U0, cfg.fd_eps)
+    A, Bm = lanes.jacobians_si(task, plan, q0, v0, U0,
+                               lanes.slot_jacobians(task, "ad"))
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
-    kb = ops.backward(A, Bm, *l, lam, cfg)
+    info = {}
+    kb = ops.backward(A, Bm, *l, lam, cfg, info=info)
     pb, plain_ms = cuda_timed(
         lambda: ops.backward(A, Bm, *l, lam, cfg, plain=True))
     # λ and λ-exit decide the next iteration: they must agree (λ to 1e-14)
@@ -818,7 +914,7 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
     e = max(err(kb[0][..., live], pb[0][..., live], "rel"),
             err(kb[1][..., live], pb[1][..., live], "rel"),
             err(kb[2][live], pb[2][live], "rel"), key=lambda x: x[1])
-    sweeps = sweeps_from_lambda(kb[3], lam, cfg)
+    sweeps = bp_sweeps(info)
     wit = order_witness(A, Bm, l, lam, cfg, kb)
     check_orders(task.name, wit)
     rows["backward"] = dict(err=e, orders=wit, sweeps=sweeps, retried=float(
@@ -830,22 +926,14 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
                                                               cfg), 5)
         rows["backward"]["plain_ms"] = plain_ms
 
-    for name in ops.KERNELS:
+    for name in LANE_KERNELS:
         row = rows[name]
         kind, tol = TOL[name]
-        if name == "fd_jacobian":
-            tol = fd_abs
         got = row["err"][1]
         if name == "cost_expansion":
             check(row["bitwise"], f"{task.name} cost_expansion: kernel vs "
                                   f"plain not bit for bit (error {got:.3e})")
             row["tol"] = "bit for bit"
-            continue
-        if name == "fd_jacobian" and gated:
-            check(row["share"] >= REACHING_FD_SHARE and row["within"] <= tol,
-                  f"{task.name} fd_jacobian: only {row['share']:.6f} of the "
-                  f"slot Jacobians agree within {tol:.0e}")
-            row["tol"] = f"share {REACHING_FD_SHARE} within abs {tol:.0e}"
             continue
         check(math.isfinite(got) and got <= tol,
               f"{task.name} {name}: kernel vs plain error {got:.3e} > {kind} "
@@ -854,11 +942,17 @@ def check_kernels(task, Hh, Bb, fd_abs, time_them, at_limits=False,
     return rows
 
 
-def sweeps_from_lambda(lam_out, lam_in, cfg):
-    """Mean sweeps per lane, read back from the λ schedule: r retries leave
-    λ0 f^(r-1), so a lane valid at once (λ0 / f) took one sweep."""
-    return float((torch.log(lam_out / lam_in) / math.log(cfg.lambda_factor)
-                  + 2).clamp(min=1).mean())
+def bp_launches(kname, cfg):
+    """Launches per call of a kernel wrapper: K7's first sweep and its
+    bp_rounds retry rounds (each exits at once unless a lane retries), one
+    for the others."""
+    return 1 + ilqr.bp_rounds(cfg) if kname == "backward" else 1
+
+
+def bp_sweeps(info):
+    """Sweeps per lane of one backward pass: the first and one per retry
+    round (every lane sweeps again in each, the coupled λ loop)."""
+    return 1 + int(info["rounds"])
 
 
 def golden_replay():
@@ -886,13 +980,13 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
                    cfg, fd_chunk=250):
     """Every kernel against its twin at the main path's full shape, for a
     model whose twin is too slow to roll out the whole horizon (reaching: a
-    twin step is thousands of launches).  FD Jacobians and the backward pass
-    are compared whole.  The rollout and line-search kernels are compared
-    step by step: the twin's step, control law and cost run once over all
-    (time, lane) pairs of the kernel's own trajectory, and each must give
-    the kernel's next state, control and cost; equal single steps from equal
-    states make equal rollouts.  Returns (max abs err, compared err) per
-    kernel."""
+    twin step is thousands of launches).  The exact Jacobians (K5ad) and
+    the backward pass are compared whole.  The rollout and line-search
+    kernels are compared step by step: the twin's step, control law and
+    cost run once over all (time, lane) pairs of the kernel's own
+    trajectory, and each must give the kernel's next state, control and
+    cost; equal single steps from equal states make equal rollouts.
+    Returns (max abs err, compared err) per kernel."""
     model, sv = task.model, task.sv
     Hh = U.shape[0]
     out = {}
@@ -938,14 +1032,13 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
         (cs, costs_of(q, v, uk, tgl[:, None, None, :]))))
     del qps, qvs, us, cs, q, v, u, uk, qn, vn
 
-    # K5 whole, the twin in chunks of slots (it steps 2 (2n + nu) copies)
-    kj = ops.fd_jacobian(task, qpos, qvel, U, plan.times, cfg.fd_eps)
-    pj = torch.cat([ops.fd_jacobian(task, qpos, qvel, U,
-                                    plan.times[i:i + fd_chunk], cfg.fd_eps,
-                                    plain=True)
+    # K5ad whole, the twin in chunks of slots (it steps 2n + nu dual copies)
+    kj = ops.ad_jacobian(task, qpos, qvel, U, plan.times)
+    pj = torch.cat([ops.ad_jacobian(task, qpos, qvel, U,
+                                    plan.times[i:i + fd_chunk], plain=True)
                     for i in range(0, len(plan.times), fd_chunk)])
-    out["fd_jacobian"] = err(kj, pj, "abs")
-    out["fd_bitwise"] = bool(torch.equal(kj, pj))
+    out["ad_jacobian"] = err(kj, pj, "rel")
+    out["ad_bitwise"] = bool(torch.equal(kj, pj))
     del kj, pj
 
     # K6 whole, bit for bit
@@ -977,10 +1070,29 @@ def si1(task):
         name="set_interval", min_N=1))
 
 
-def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
+def plain_3it(task, Hh, Bb, H3):
+    """(result, seconds) of the plain path's 3-iteration solve of main_path
+    for a task without initial controls (its scenes, zero controls): it
+    launches no kernel, so it runs while the kernels build."""
+    task = si1(task)
+    B3 = Bb if task.name == "acrobot" else PB  # the arm tasks: PB lanes
+    qp, qv, tg = lanes.scenes(task, Bb, seed=0)
+    U3 = torch.zeros((B3, H3, task.model.nu), dtype=torch.float64,
+                     device="cuda")
+    cfg3 = ILQRConfig(max_iterations=3, min_iterations=3)
+    t0 = time.perf_counter()
+    r = lanes.make_lane_phase_optimise(task, cfg3, H3, plain=True)(
+        qp[:B3], qv[:B3], U3, tg[:B3])
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
+              plain3=None):
     """One batched solve through the entry point with launch counts, the
     per-phase device times at the initial nominal, and 3 iterations of the
-    kernel path against the plain path on the card at horizon H3.  Scenes:
+    kernel path against the plain path on the card at horizon H3 (`plain3`,
+    that plain solve from plain_3it, when it ran beside the build).  Scenes:
     lanes.scenes and zero controls, or for a task with initial controls
     (pushing) its scene generator and servo (push_start, timed).  A warm-up
     solve of `warmup_iters` iterations runs first."""
@@ -1021,13 +1133,16 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     mean_red = float(red.mean())
     check(0.0 < mean_red < 1.0,
           f"{name} main path: mean cost reduction {mean_red}")
-    for kname in ops.KERNELS:
+    for kname in LANE_KERNELS:
         check(launches[kname] > 0, f"{name} main path never launched {kname}")
-    # K6 runs once per derivative evaluation, as K5 does (ten at acrobot)
-    check(launches["cost_expansion"] == launches["fd_jacobian"],
+    check(launches["fd_jacobian"] == 0,
+          f"{name} main path launched the FD kernel: the lane path's "
+          "Jacobians are K5ad's")
+    # K6 runs once per derivative evaluation, as K5ad does (ten at acrobot)
+    check(launches["cost_expansion"] == launches["ad_jacobian"],
           f"{name} main path launched cost_expansion "
-          f"{launches['cost_expansion']} times, fd_jacobian "
-          f"{launches['fd_jacobian']}")
+          f"{launches['cost_expansion']} times, ad_jacobian "
+          f"{launches['ad_jacobian']}")
     servo_check = check_servo(task, st) if servo else None
 
     # per-phase device times at the initial nominal
@@ -1041,16 +1156,18 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
     active = limits_active(task.model, qpos[:Hh].transpose(0, 1))
     contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
                 else None)
-    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps)
+    jac = lanes.slot_jacobians(task, "ad")
+    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, jac)
     l = ops.cost_expansion(task, qpos, qvel, U, tgl)
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
-    k, K, _, lam_out, _ = ops.backward(A, Bm, *l, lam, cfg)
+    info = {}
+    k, K, _, lam_out, _ = ops.backward(A, Bm, *l, lam, cfg, info=info)
     old = costs.sum(0)
     phases = {
         "rollout": cuda_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl), 3),
         "jacobians": cuda_ms(lambda: lanes.jacobians_si(
-            task, plan, qpos, qvel, U, cfg.fd_eps), 3),
+            task, plan, qpos, qvel, U, jac), 3),
         "cost_expansion": cuda_ms(lambda: ops.cost_expansion(
             task, qpos, qvel, U, tgl), 3),
         "bp": cuda_ms(lambda: ops.backward(A, Bm, *l, lam, cfg), 3),
@@ -1064,7 +1181,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
                peak_memory_bytes=peak,
                limit_active_lane_steps=int(active.sum()),
                contacts=contacts, servo=servo, servo_check=servo_check,
-               bp_sweeps_first=sweeps_from_lambda(lam_out, lam, cfg))
+               bp_sweeps_first=bp_sweeps(info))
     if time_kernels:
         # the four kernels alone at this path's shapes, from its nominal
         # (the rollout and bp phases above are these kernels' launches)
@@ -1072,20 +1189,18 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
             "rollout": phases["rollout"],
             "linesearch": cuda_ms(lambda: ops.linesearch(
                 task, qpos, qvel, U, k, K, alphas, tgl), 3),
-            "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
-                task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
+            "ad_jacobian": cuda_ms(lambda: ops.ad_jacobian(
+                task, qpos, qvel, U, plan.times), 3),
             "cost_expansion": phases["cost_expansion"],
             "backward": phases["bp"],
         }
         full = out["full_shape_err"] = stepwise_check(
             task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam, cfg,
-            fd_chunk=100 if task.model.contact_pairs else 250)
+            fd_chunk=200 if task.model.contact_pairs else 500)
         print(f"  {name} kernels vs twins at H={Hh} B={Bb} (rollout and line "
               f"search step by step): {json.dumps(full)}", flush=True)
-        for kname in ops.KERNELS:
+        for kname in LANE_KERNELS:
             kind, tol = TOL[kname]
-            if kname == "fd_jacobian":
-                tol = REACHING_FD_ABS
             got = full[kname][1]
             check(math.isfinite(got) and got <= tol,
                   f"{name} {kname} at the full shape: kernel vs plain error "
@@ -1095,7 +1210,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
         out["bounds"] = {
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
-            "fd_jacobian": fd_bound(s, len(plan.times), Bb),
+            "ad_jacobian": ad_bound(s, len(plan.times), Bb),
             "cost_expansion": cost_expansion_bound(s, Hh, Bb),
             "backward": backward_bound(s.nx, s.nu, Hh, Bb,
                                        out["bp_sweeps_first"]),
@@ -1105,15 +1220,18 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
 
     # 3 iterations: kernel path against the plain path on the card
     cfg3 = ILQRConfig(max_iterations=3, min_iterations=3)
-    B3 = Bb if H3 == Hh else PB
+    B3 = Bb if task.name == "acrobot" else PB  # the arm tasks: PB lanes
     U3 = U0[:B3, :H3].contiguous()
     r_k = lanes.make_lane_phase_optimise(task, cfg3, H3)(
         qp[:B3], qv[:B3], U3, tg[:B3])
-    t0 = time.perf_counter()
-    r_p = lanes.make_lane_phase_optimise(task, cfg3, H3, plain=True)(
-        qp[:B3], qv[:B3], U3, tg[:B3])
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    if plain3 is None:
+        t0 = time.perf_counter()
+        r_p = lanes.make_lane_phase_optimise(task, cfg3, H3, plain=True)(
+            qp[:B3], qv[:B3], U3, tg[:B3])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    else:
+        r_p, plain_s = plain3
     diff = (r_k.cost_reduction - r_p.cost_reduction).abs()
     agree = float((diff < 1e-4).double().mean())
     worst = torch.argsort(diff, descending=True)[:8]
@@ -1131,14 +1249,13 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
                              "the plain path within 1e-4")
         return out
     # With constraint rows the bar is REACHING_AGREE_TOL: rollout, line search
-    # and FD agree with their twins bit for bit, so the whole difference
+    # and K5ad agree with their twins bit for bit, so the whole difference
     # enters through the backward pass (~1e-15 per call), and the solve
     # amplifies it: reaching's l_uu = 0 leaves Q_uu = B'V'B + λI with λ down
-    # to 1e-4 (push_ncl's control weight is 0 too), and FD through an active
-    # limit or contact row turns a 1e-10 state difference into a 1e-4
-    # Jacobian difference.  The run below shows it: the kernel path with
-    # only the backward pass taken from the twin must equal the plain path
-    # exactly.
+    # to 1e-4 (push_ncl's control weight is 0 too), and a state difference
+    # at an active limit or contact row flips gates in later steps.  The
+    # run below shows it: the kernel path with only the backward pass taken
+    # from the twin must equal the plain path exactly.
     agree3 = float((diff < REACHING_AGREE_TOL).double().mean())
     check(agree3 >= 0.99, f"{name}: only {agree3:.3f} of lanes agree with "
                           f"the plain path within {REACHING_AGREE_TOL:.0e}")
@@ -1150,7 +1267,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS):
           f"bitwise equal {same}, max |d cost reduction| "
           f"{float((r_h.cost_reduction - r_p.cost_reduction).abs().max()):.3e}",
           flush=True)
-    check(same, f"{name}: rollout, line search and FD kernels with the "
+    check(same, f"{name}: rollout, line search and K5ad kernels with the "
                 "twin's backward pass do not reproduce the plain path")
     out.update(plain_agree_3it_loose=agree3, hybrid_bitwise=same)
     return out
@@ -1171,11 +1288,11 @@ KP_TIGHT = 12          # the forced slot budget of the overflow case
 # the adaptive main paths: acrobot with the reference campaign's methods,
 # reaching with adaptive_jerk; each with the twins its 3 iterations are held
 # against: acrobot's own method against the plain path, AJ and IE against
-# the path whose keypoint kernels (K9a, K9b, K9c and K5) are the twins,
+# the path whose keypoint kernels (K9a, K9b, K9c and K5ad) are the twins,
 # which holds each of them inside the solve loop in ~1 s where the plain
 # path takes ~40 s (its rollout, line-search and backward twins are held in
 # main_acrobot and in the VC run)
-KP_TWINS = frozenset(ops.KEYPOINT_KERNELS + ("fd_jacobian",))
+KP_TWINS = frozenset(ops.KEYPOINT_KERNELS + ("ad_jacobian",))
 ADAPTIVE_MAIN = (("acrobot", "adaptive_jerk", 1, 50, KP_TWINS),
                  ("acrobot", "velocity_change", 1, 200, True),
                  ("acrobot", "iterative_error", 1, 50, KP_TWINS),
@@ -1215,23 +1332,24 @@ def mse_bound(times, m, n, Bb):
     return bound(8 * m * n * n * Bb, byt)
 
 
-def fd_lane_bound(s, live, K_max, Bb):
-    """K5 at per-lane slots: the live slots' work and bytes (fd_bound per
+def ad_lane_bound(s, live, K_max, Bb):
+    """K5ad at per-lane slots: the live slots' work and bytes (ad_bound per
     live (slot, lane)), with the slot times and counts read."""
     nx, nc = s.nx, s.nx + s.nu
-    ops_ = live * (2 * nc * step_ops(s) + 2 * nc * nx)
-    byt = F8 * (live * (s.nq + s.nv + s.nu + nx * nc) + K_max * Bb) + 4 * Bb
+    ops_ = live * ad_slot_ops(s)
+    byt = F8 * (live * (s.nq + s.nv + s.nu) + K_max * Bb * nx * nc
+                + K_max * Bb) + 4 * Bb
     return bound(ops_, byt)
 
 
-def fd_lane_plain(task, qpos, qvel, U, slot_t, count, eps, chunk):
-    """K5's per-lane twin over chunks of slots (it steps 2 (2n + nu) copies
-    of every slot)."""
+def ad_lane_plain(task, qpos, qvel, U, slot_t, count, chunk):
+    """K5ad's per-lane twin over chunks of slots (it steps 2n + nu dual
+    copies of every slot)."""
     outs = []
     for i in range(0, slot_t.shape[0], chunk):
         c = torch.clamp(count - i, 0, chunk).to(torch.int32)
-        outs.append(ops.fd_jacobian(task, qpos, qvel, U,
-                                    slot_t[i:i + chunk].contiguous(), eps,
+        outs.append(ops.ad_jacobian(task, qpos, qvel, U,
+                                    slot_t[i:i + chunk].contiguous(),
                                     plain=True, counts=c))
     return torch.cat(outs)
 
@@ -1246,7 +1364,7 @@ def hold(name, kern, plain):
 
 def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
                fd_chunk=0):
-    """K9a, K5 at the plan's per-lane slots and K9b on the nominal (qpos,
+    """K9a, K5ad at the plan's per-lane slots and K9b on the nominal (qpos,
     qvel, U), each against its twin bit for bit, with device ms, the
     twin's ms and the bounds (the live slots counted from this run)."""
     Hh, Bb = U.shape[0], U.shape[-1]
@@ -1262,21 +1380,19 @@ def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
     out = {"keypoint_plan": dict(
         hold(f"{label} keypoint_plan", kp, pp), plain_ms=plan_plain_ms,
         bound=plan_bound(Hh, n, Bb, K_max))}
-    kj = ops.fd_jacobian(task, qpos, qvel, U, kp.slot_t, cfg.fd_eps,
-                         counts=kp.count)
+    kj = ops.ad_jacobian(task, qpos, qvel, U, kp.slot_t, counts=kp.count)
     if fd_chunk:
         t0 = time.perf_counter()
-        pj = fd_lane_plain(task, qpos, qvel, U, kp.slot_t, kp.count,
-                           cfg.fd_eps, fd_chunk)
+        pj = ad_lane_plain(task, qpos, qvel, U, kp.slot_t, kp.count,
+                           fd_chunk)
         torch.cuda.synchronize()
-        fd_plain_ms = (time.perf_counter() - t0) * 1e3
+        ad_plain_ms = (time.perf_counter() - t0) * 1e3
     else:
-        pj, fd_plain_ms = cuda_timed(lambda: ops.fd_jacobian(
-            task, qpos, qvel, U, kp.slot_t, cfg.fd_eps, plain=True,
-            counts=kp.count))
-    out["fd_jacobian"] = dict(hold(f"{label} fd_jacobian (per-lane slots)",
-                                   kj, pj), plain_ms=fd_plain_ms,
-                              bound=fd_lane_bound(s, live, K_max, Bb))
+        pj, ad_plain_ms = cuda_timed(lambda: ops.ad_jacobian(
+            task, qpos, qvel, U, kp.slot_t, plain=True, counts=kp.count))
+    out["ad_jacobian"] = dict(hold(f"{label} ad_jacobian (per-lane slots)",
+                                   kj, pj), plain_ms=ad_plain_ms,
+                              bound=ad_lane_bound(s, live, K_max, Bb))
     del pj
     ki = ops.kp_interp(kj, kp.pslot, kp.nslot, kp.w, col, nx)
     pi, interp_plain_ms = cuda_timed(lambda: ops.kp_interp(
@@ -1288,8 +1404,8 @@ def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
     if time_it:
         out["keypoint_plan"]["ms"] = cuda_ms(
             lambda: ops.keypoint_plan(pa, qvel, Hh, K_max), 3)
-        out["fd_jacobian"]["ms"] = cuda_ms(lambda: ops.fd_jacobian(
-            task, qpos, qvel, U, kp.slot_t, cfg.fd_eps, counts=kp.count), 3)
+        out["ad_jacobian"]["ms"] = cuda_ms(lambda: ops.ad_jacobian(
+            task, qpos, qvel, U, kp.slot_t, counts=kp.count), 3)
         out["kp_interp"]["ms"] = cuda_ms(lambda: ops.kp_interp(
             kj, kp.pslot, kp.nslot, kp.w, col, nx), 3)
     out.update(shape=f"H={Hh} B={Bb}", K_max=K_max, live_slots=live,
@@ -1299,7 +1415,7 @@ def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
 
 
 def check_ie(label, task, qpos, qvel, U, cfg):
-    """iterative_error: the whole jacobians phase (K5 into the cache, K9c,
+    """iterative_error: the whole jacobians phase (K5ad into the cache, K9c,
     K9a with time slots, K9b) against its twins' phase bit for bit, and K9c
     alone on a full cache at the bisection tree's levels."""
     Hh, Bb = U.shape[0], U.shape[-1]
@@ -1317,7 +1433,7 @@ def check_ie(label, task, qpos, qvel, U, cfg):
     nx, C = task.sv.nx, task.sv.nx + task.model.nu
     cache = torch.zeros((Hh, nx, C, Bb), dtype=torch.float64, device="cuda")
     every = torch.arange(Hh, device="cuda")[:, None].expand(Hh, Bb)
-    ops.fd_jacobian(task, qpos, qvel, U, every.contiguous(), cfg.fd_eps,
+    ops.ad_jacobian(task, qpos, qvel, U, every.contiguous(),
                     counts=torch.full((Bb,), Hh, dtype=torch.int32,
                                       device="cuda"), cache=cache)
     levels = lanes.ie_levels(Hh, max(task.keypoint_cfg.min_N, 1))
@@ -1344,16 +1460,16 @@ def check_ie(label, task, qpos, qvel, U, cfg):
 
 
 def keypoints_phase(tasks, inputs):
-    """K9a, K5 at per-lane slots, K9b and K9c against their twins on the
+    """K9a, K5ad at per-lane slots, K9b and K9c against their twins on the
     card at the check size (PH, PB; the walker at WH, WB) for each case of
     KP_CASES from each model's check inputs (push_ncl from its servo), one
-    case under a forced small slot budget (overflow), and K9a, K5 and K9b
+    case under a forced small slot budget (overflow), and K9a, K5ad and K9b
     at reaching's and push_ncl's full shapes from their main paths'
     nominals.  Returns the rows by case, each with the launches of each
     kernel in that case."""
     cfg = ILQRConfig()
     out = {}
-    counted = ops.KEYPOINT_KERNELS + ("fd_jacobian",)
+    counted = ops.KEYPOINT_KERNELS + ("ad_jacobian",)
     for model, name, min_N, max_N in KP_CASES:
         ops.reset_launch_counts()
         task = with_method(tasks[model], name, min_N, max_N)
@@ -1441,7 +1557,7 @@ def adaptive_path(task, Hh, Bb, plain3):
     mean_red = float(red.mean())
     check(bool(torch.isfinite(red).all()) and 0.0 < mean_red < 1.0,
           f"{name} {kp.name} main path: mean cost reduction {mean_red}")
-    want = ops.KERNELS + ("kp_interp", "keypoint_plan") + (
+    want = LANE_KERNELS + ("kp_interp", "keypoint_plan") + (
         ("ie_mse",) if kp.name == "iterative_error" else ())
     for kname in want:
         check(launches.get(kname, 0) > 0,
@@ -1480,20 +1596,19 @@ def adaptive_path(task, Hh, Bb, plain3):
         pa = ops.keypoint_plan_args(task)
         plan = ops.keypoint_plan(pa, qvel, Hh, K_max)
         live = int(plan.count.sum())
-        J = ops.fd_jacobian(task, qpos, qvel, U, plan.slot_t, cfg.fd_eps,
+        J = ops.ad_jacobian(task, qpos, qvel, U, plan.slot_t,
                             counts=plan.count)
         col = torch.as_tensor(lanes.column_dofs(task.sv.ndof, s.nu),
                               dtype=torch.int32, device="cuda")
         out["kernel_ms"] = {
             "keypoint_plan": cuda_ms(lambda: ops.keypoint_plan(
                 pa, qvel, Hh, K_max), 3),
-            "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
-                task, qpos, qvel, U, plan.slot_t, cfg.fd_eps,
-                counts=plan.count), 3),
+            "ad_jacobian": cuda_ms(lambda: ops.ad_jacobian(
+                task, qpos, qvel, U, plan.slot_t, counts=plan.count), 3),
             "kp_interp": cuda_ms(lambda: ops.kp_interp(
                 J, plan.pslot, plan.nslot, plan.w, col, s.nx), 3),
         }
-        # their twins at this shape (K5's: the keypoints phase, in chunks)
+        # their twins at this shape (K5ad's: the keypoints phase, in chunks)
         out["plain_ms"] = {
             "keypoint_plan": cuda_timed(lambda: ops.keypoint_plan(
                 pa, qvel, Hh, K_max, plain=True))[1],
@@ -1503,7 +1618,7 @@ def adaptive_path(task, Hh, Bb, plain3):
         }
         out["bounds"] = {
             "keypoint_plan": plan_bound(Hh, task.sv.ndof, Bb, K_max),
-            "fd_jacobian": fd_lane_bound(s, live, K_max, Bb),
+            "ad_jacobian": ad_lane_bound(s, live, K_max, Bb),
             "kp_interp": interp_bound(live, Hh, s.nx, s.nx + s.nu,
                                       task.sv.ndof, Bb),
         }
@@ -1565,17 +1680,21 @@ def outputs_gap(a, b):
     return same, gap
 
 
-def mpc_kernel_ms(task, qp, qv, U, tg, cfg):
+def mpc_kernel_ms(task, qp, qv, U, tg, cfg, generic=False):
     """Per-phase device ms of one lane-last replan from (qp, qv, U) (each
     phase alone, 3 launches after a warm-up), the kernels' ms among them,
     and the first backward pass's sweeps; the cost expansion phase must
     launch K6 once.  The fourth value is the hold of that replan: a
-    function that runs each kernel phase (K3, K5 with its lerp, K6, K7, K4
-    with its argmin, K8 with noise drawn from seed 0) again as its plain
-    twin on the same inputs and returns {kernel: (bit for bit, max abs
-    err)}; the caller checks that they are equal bit for bit."""
+    function that runs each kernel phase (K3, the Jacobians with their
+    lerp, K6, K7, K4 with its argmin, K8 with noise drawn from seed 0)
+    again as its plain twin on the same inputs and returns {kernel: (bit
+    for bit, max abs err)}; the caller checks that they are equal bit for
+    bit.  The Jacobians are K5ad's (the lane replan), or with `generic` the
+    generic solve's (the async planner: K5 at the default deriv_mode)."""
     Hh, Bb = U.shape[0], U.shape[-1]
-    ph = lanes.lane_phases(task, cfg, Hh)
+    jname = ("fd_jacobian" if generic and cfg.deriv_mode == "fd"
+             else "ad_jacobian")
+    ph = lanes.lane_phases(task, cfg, Hh, generic=generic)
     qpos, qvel, costs = ph["rollout"](qp, qv, U, tg)
     old = costs.sum(0)
     jac = ph["jacobians"](qpos, qvel, U)
@@ -1588,6 +1707,7 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg):
     lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     bp = ph["bp"](A, Bm, *l, lam)
+    sweeps = bp_sweeps(ph["bp_info"])
     k, K, _, lam_out, _ = bp
     fp = ph["fp"](qpos, qvel, U, old, k, K, tg)
     traj, _, best, accept = fp
@@ -1601,11 +1721,11 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg):
     applied = apply()
 
     def held():
-        pp = lanes.lane_phases(task, cfg, Hh, plain=True)
+        pp = lanes.lane_phases(task, cfg, Hh, plain=True, generic=generic)
         out = {
             "rollout": outputs_gap((qpos, qvel, costs),
                                    pp["rollout"](qp, qv, U, tg)),
-            "fd_jacobian": outputs_gap(jac, pp["jacobians"](qpos, qvel, U)),
+            jname: outputs_gap(jac, pp["jacobians"](qpos, qvel, U)),
             "cost_expansion": outputs_gap(l, pp["cost_expansion"](
                 qpos, qvel, U, tg)),
             "backward": outputs_gap(bp, pp["bp"](A, Bm, *l, lam)),
@@ -1630,13 +1750,13 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg):
         "rollout": phases["rollout"],
         "linesearch": cuda_ms(lambda: ops.linesearch(
             task, qpos, qvel, U, k, K, ph["alphas"], tg), 3),
-        "fd_jacobian": cuda_ms(lambda: ops.fd_jacobian(
-            task, qpos, qvel, U, plan.times, cfg.fd_eps), 3),
+        jname: cuda_ms(lambda: lanes.slot_jacobians(
+            task, jname[:2], eps=cfg.fd_eps)(qpos, qvel, U, plan.times), 3),
         "cost_expansion": phases["cost_expansion"],
         "backward": phases["bp"],
         "mpc_apply": phases["apply"],
     }
-    return phases, kernel, sweeps_from_lambda(lam_out, lam, cfg), held
+    return phases, kernel, sweeps, held
 
 
 def mpc_plain_cases(walk, acro):
@@ -1662,10 +1782,51 @@ def mpc_run(t, Hh, na, n, Bb, plain):
 
 
 def plain_mpc_runs(walk, acro):
-    """The plain halves of main_mpc's holds, {task name: (result, s)}: they
-    launch no kernel, so they run while the kernels build."""
+    """The plain halves of main_mpc's holds, {task name: (result, s)},
+    but the walker's (plain_mpc_worker): they launch no kernel, so they
+    run while the kernels build."""
     return {t.name: mpc_run(t, Hh, na, n, Bb, True)
-            for t, Hh, na, n, Bb in mpc_plain_cases(walk, acro)}
+            for t, Hh, na, n, Bb in mpc_plain_cases(walk, acro)[1:]}
+
+
+def plain_mpc_worker(path):
+    """`--plain-mpc-worker PATH`: the walker's plain MPC hold (the first
+    case of mpc_plain_cases, every kernel as its twin), saved to PATH.  It
+    runs in a process of its own beside the build, so that its host-bound
+    launches go in parallel with the other plain runs."""
+    walk = make_walker(run=True, device="cuda")
+    t, Hh, na, n, Bb = mpc_plain_cases(walk, make_acrobot(device="cuda"))[0]
+    res, secs = mpc_run(t, Hh, na, n, Bb, True)
+    torch.save({"result": tuple(x.cpu() for x in res), "seconds": secs},
+               path)
+
+
+def start_plain_mpc_worker():
+    """(process, path) of plain_mpc_worker, started now."""
+    os.makedirs(MPC_OUT, exist_ok=True)
+    path = os.path.join(MPC_OUT, "plain_walker_run.pt")
+    if os.path.exists(path):
+        os.remove(path)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--plain-mpc-worker", path], cwd=ROOT)
+    return proc, path
+
+
+def finish_plain_mpc_worker(worker, timeout=900):
+    """(result, s) of the walker's plain MPC hold from its worker process,
+    which is stopped if it has not ended within `timeout` seconds."""
+    proc, path = worker
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise RuntimeError(f"the plain MPC worker exited with code {rc}")
+    got = torch.load(path, weights_only=True)
+    return (mpc_sync.MPCRunResult(*(x.cuda() for x in got["result"])),
+            got["seconds"])
 
 
 def main_mpc(task, acro, plain_runs):
@@ -1689,10 +1850,11 @@ def main_mpc(task, acro, plain_runs):
                                  out_dir=os.path.join(MPC_OUT, "b1_h40"))[0]
     launches = dict(ops.LAUNCHES)
     out["main"] = dict(row=row, launches=launches)
-    for kname in ops.KERNELS + ops.MPC_KERNELS:
-        check(launches[kname] == N_REPLANS,
+    for kname in LANE_KERNELS + ops.MPC_KERNELS:
+        want = N_REPLANS * bp_launches(kname, cfg)
+        check(launches[kname] == want,
               f"walker MPC main path launched {kname} {launches[kname]} "
-              f"times, not once per replan ({N_REPLANS})")
+              f"times, not {want} ({N_REPLANS} replans)")
     out["sweep"] = [row] + sync_mpc_horizon_sweep(
         task, cfg, [h for h in SWEEP if h != MH], n_replans=N_REPLANS,
         out_dir=os.path.join(MPC_OUT, "sweep"))
@@ -1701,11 +1863,12 @@ def main_mpc(task, acro, plain_runs):
                                    B=MB, out_dir=os.path.join(MPC_OUT,
                                                               "b128_h40"))[0]
     out["batched"] = dict(row=row_b, launches=dict(ops.LAUNCHES))
-    for kname in ops.KERNELS + ops.MPC_KERNELS:
+    for kname in LANE_KERNELS + ops.MPC_KERNELS:
         got = out["batched"]["launches"][kname]
-        check(got == N_REPLANS,
-              f"walker MPC at B={MB} launched {kname} {got} times, not once "
-              f"per replan ({N_REPLANS})")
+        want = N_REPLANS * bp_launches(kname, cfg)
+        check(got == want,
+              f"walker MPC at B={MB} launched {kname} {got} times, not "
+              f"{want} ({N_REPLANS} replans)")
     for r in out["sweep"] + [row_b]:
         check(all(math.isfinite(r[k]) for k in ("median_opt_time_ms",
                                                 "p95_opt_time_ms",
@@ -1745,7 +1908,7 @@ def main_mpc(task, acro, plain_runs):
         out[f"bounds_{name}"] = {
             "rollout": rollout_bound(s, MH, Bb),
             "linesearch": linesearch_bound(s, MH, 6, Bb),
-            "fd_jacobian": fd_bound(s, MH, Bb),
+            "ad_jacobian": ad_bound(s, MH, Bb),
             "backward": backward_bound(s.nx, s.nu, MH, Bb, sweeps),
             "mpc_apply": apply_bound(s, MH, 1, Bb),
             "cost_expansion": cost_expansion_bound(s, MH, Bb),
@@ -1836,9 +1999,12 @@ def async_summary(name, st, cost, dist, complete):
 def async_launches(name, launches, steps, replans, holds):
     """Check the launches of real-time async episodes: the actor's K3 at
     every step and the planner's once per replan (K3 for its rollout, K5,
-    K6, K7, K4), fk_bias once per gravity hold."""
+    K6, K7's first sweep and its retry rounds, K4; the planner's Jacobians
+    are K5's at the generic solve's default deriv_mode "fd"), fk_bias once
+    per gravity hold."""
     want = {"rollout": steps + replans, "fd_jacobian": replans,
-            "cost_expansion": replans, "backward": replans,
+            "ad_jacobian": 0, "cost_expansion": replans,
+            "backward": replans * bp_launches("backward", ILQRConfig()),
             "linesearch": replans, "fk_bias": holds}
     for kname, n in want.items():
         check(launches[kname] == n,
@@ -1867,13 +2033,23 @@ def main_async(push, walk):
     # does not apply: its "apply" is K8's, which the sync replan runs)
     f64 = dict(dtype=torch.float64, device="cuda")
     Hp = push.mpc_horizon
-    phases, _, _, hold = mpc_kernel_ms(
-        push1, torch.as_tensor(scenes[0], **f64)[:, None],
-        push1.qvel_start[:, None].contiguous(),
-        torch.zeros((Hp, push.model.nu, 1), **f64),
-        push1.residual_targets[:, None].contiguous(), cfg)
+    qp0 = torch.as_tensor(scenes[0], **f64)[:, None]
+    qv0 = push1.qvel_start[:, None].contiguous()
+    U0 = torch.zeros((Hp, push.model.nu, 1), **f64)
+    tg0 = push1.residual_targets[:, None].contiguous()
+    phases, kms, _, hold = mpc_kernel_ms(push1, qp0, qv0, U0, tg0, cfg,
+                                         generic=True)
     phases.pop("apply")
     out["phases_ms_push_ncl"] = phases
+    # K5, the generic solve's Jacobians at deriv_mode "fd", at this shape:
+    # its time, its twin's and its bound (its hold is in `hold`)
+    q, v, _ = ops.rollout(push1, qp0, qv0, U0, tg0)
+    times = lanes.si_plan(push1, Hp).times
+    _, fd_plain_ms = cuda_timed(lambda: ops.fd_jacobian(
+        push1, q, v, U0, times, cfg.fd_eps, plain=True))
+    out["fd_jacobian_b1"] = dict(ms=kms["fd_jacobian"], plain_ms=fd_plain_ms,
+                                 bound=fd_bound(Sizes(push1), Hp, 1),
+                                 shape=f"H={Hp} B=1")
     print(f"  push_ncl async planner step H={Hp} B=1, phases "
           f"ms {json.dumps({k: round(v, 3) for k, v in phases.items()})}",
           flush=True)
@@ -1978,7 +2154,8 @@ def cli_finish(name, proc):
 def cli_runs(beside=None):
     """The CLI on every task with its own keypoint method (acrobot and
     reaching velocity_change, push_ncl adaptive_jerk; reaching and push_ncl
-    3 iterations), acrobot IE_1_50, the walker's sync MPC campaign at one
+    3 iterations), acrobot IE_1_50 and with `--deriv_mode ad` (K5ad in the
+    generic solve), the walker's sync MPC campaign at one
     horizon and the two async modes, all started together (each a process
     of its own on the one card, so their times are taken side by side), and
     `beside()`, when given, run here while they run: {name: (last line,
@@ -1987,6 +2164,8 @@ def cli_runs(beside=None):
         "acrobot": ["--task", "acrobot", "--runMode", "Optimise_once"],
         "acrobot_ie": ["--task", "acrobot", "--runMode", "Optimise_once",
                        "--keypoint", "IE_1_50"],
+        "acrobot_ad": ["--task", "acrobot", "--runMode", "Optimise_once",
+                       "--deriv_mode", "ad"],
         "reaching": ["--task", "reaching", "--runMode", "Optimise_once",
                      "--maxIter", "3", "--minIter", "3"],
         "push": ["--task", "pushing_no_clutter", "--runMode",
@@ -2012,6 +2191,7 @@ def cli_runs(beside=None):
         raise
     out = {k: cli_finish(k, p) for k, p in procs.items()}
     own = {"acrobot": "velocity_change", "acrobot_ie": "iterative_error",
+           "acrobot_ad": "velocity_change",
            "reaching": "velocity_change", "push": "adaptive_jerk"}
     for k, method in own.items():
         res = out[k][1]
@@ -2022,6 +2202,18 @@ def cli_runs(beside=None):
               and res["keypoint_method"] == method
               and 0.0 < res["mean_pct_derivs"] <= 100.0,
               f"CLI {k}: {res}")
+    # Optimise_once is the generic solve: K5 at deriv_mode auto (fd), K5ad
+    # at ad
+    for k, jac in (("acrobot", "fd_jacobian"), ("acrobot_ad", "ad_jacobian")):
+        res = out[k][1]
+        if res is not None:
+            other = ({"fd_jacobian", "ad_jacobian"} - {jac}).pop()
+            check(res["launches"].get(jac, 0) > 0
+                  and other not in res["launches"]
+                  and res["deriv_mode"] == ("fd" if k == "acrobot"
+                                            else "ad"),
+                  f"CLI {k}: deriv_mode {res['deriv_mode']}, launches "
+                  f"{res['launches']}")
     if out["mpc"][1] is not None:
         (row,) = out["mpc"][1]["rows"]
         check(row["horizon"] == MH and row["timing"].startswith("cuda")
@@ -2054,7 +2246,7 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
     and `full` holds the errors against the twins at `shape` itself
     (`stepwise_check`); the larger of the two errors is reported.
     `step_counts` holds the double operations per step of the device
-    functions inside the rollout, line-search and FD kernels."""
+    functions inside the rollout, line-search and Jacobian kernels."""
     out = []
     for name in [k for k in ops.KERNELS + ops.MPC_KERNELS if k in rows]:
         r = rows[name]
@@ -2091,12 +2283,20 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                     "ops_per_call": step_counts["fk"]}]
         elif name != "backward":
             # the step's device functions this model instantiates (held
-            # against their twins through this kernel's check)
+            # against their twins through this kernel's check); K2c's
+            # implicit tangent runs in K5ad's dual step alone
             e["device_functions"] = [
                 {"name": k, "source": v[0], "replaces": v[1],
-                 "ops_per_step": step_counts[k]}
+                 ("ops_per_slot_lane" if k == "implicit_tangent"
+                  else "ops_per_step"): step_counts[k]}
                 for k, v in ops.DEVICE_FUNCTIONS.items()
-                if step_counts[k] > 0]
+                if step_counts[k] > 0 and (k != "implicit_tangent"
+                                           or name == "ad_jacobian")]
+        if name == "ad_jacobian":
+            e["bitwise"] = r["bitwise"] and (
+                full is None or full["ad_bitwise"])
+            e["modes"] = r["modes"]
+            e["ops_per_slot_lane"] = step_counts["ad_slot"]
         out.append(e)
     return out
 
@@ -2174,13 +2374,19 @@ def keypoint_entries(kps, amp):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--plain-mpc-worker", metavar="PATH",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; known: {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
+    if args.plain_mpc_worker:
+        plain_mpc_worker(args.plain_mpc_worker)
+        return
     t_start = time.perf_counter()
     phase_s = {}
     t_phase = [t_start]
@@ -2201,19 +2407,43 @@ def main():
     reach = make_reaching(device="cuda")
     push = pushing.make_pushing(device="cuda")
     walk = make_walker(run=True, device="cuda")
-    # the kernels build while the plain halves of main_mpc's holds run:
-    # they are ~110 s of host-bound twin launches that need no kernel
+    # the kernels build while the plain halves of the holds run: host-bound
+    # twin launches that need no kernel; the walker's MPC hold, the longest,
+    # in a process of its own
+    worker = start_plain_mpc_worker() if "main_mpc" in phases else None
     built = {}
     build_thread = threading.Thread(
         target=lambda: built.update(out=build.build_all_timed()))
-    build_thread.start()
-    plain_runs = None
-    if "main_mpc" in phases:
-        t0 = time.perf_counter()
-        plain_runs = plain_mpc_runs(walk, acro)
-        print(f"plain MPC runs beside the build: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-    build_thread.join()
+    try:
+        build_thread.start()
+        plain_runs = None
+        plain3 = {}
+        if "main_mpc" in phases:
+            t0 = time.perf_counter()
+            plain_runs = plain_mpc_runs(walk, acro)
+            print(f"plain acrobot MPC run beside the build: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # the plain halves of the open-loop 3-iteration holds that need no
+        # kernel (push_ncl's start from its servo, which does)
+        for phase, task, Hh, Bb, H3 in (("main_acrobot", acro, H, B, H),
+                                        ("main_reaching", reach, RH, RB,
+                                         RH3)):
+            if phase in phases:
+                plain3[phase] = plain_3it(task, Hh, Bb, H3)
+                print(f"plain 3-iteration {task.name} solve beside the "
+                      f"build: {plain3[phase][1]:.1f} s", flush=True)
+        build_thread.join()
+        if worker is not None:
+            t0 = time.perf_counter()
+            plain_runs[walk.name] = finish_plain_mpc_worker(worker)
+            print(f"plain walker MPC run in its own process: "
+                  f"{plain_runs[walk.name][1]:.1f} s (waited "
+                  f"{time.perf_counter() - t0:.1f} s after the build)",
+                  flush=True)
+    finally:
+        if worker is not None and worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
     if "out" not in built:
         raise RuntimeError("the kernel build failed (its error is above)")
     build_s, logs = built["out"]
@@ -2233,24 +2463,23 @@ def main():
     record = {"card": card, "build_s": build_s, "phase_s": phase_s}
     rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
-        rows = check_kernels(acro, H, B, TOL["fd_jacobian"][1],
-                             time_them=True)
+        rows = check_kernels(acro, H, B, time_them=True)
         done("acrobot")
     if "pentabot" in phases:
-        prow = check_kernels(penta, PH, PB, PENTABOT_FD_ABS, time_them=False,
+        prow = check_kernels(penta, PH, PB, time_them=False,
                              inputs=pentabot_inputs(penta, PH, PB, seed=3),
                              pair_types=True)
-        record["pentabot"] = {k: prow[k]["err"] for k in ops.KERNELS}
+        record["pentabot"] = {k: prow[k]["err"] for k in LANE_KERNELS}
         done("pentabot")
     if "reaching" in phases:
-        rrow = check_kernels(reach, PH, PB, REACHING_FD_ABS, time_them=True,
+        rrow = check_kernels(reach, PH, PB, time_them=True,
                              at_limits=True)
         record["reaching_check"] = {
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in rrow.items()}
         done("reaching")
     if "push" in phases:
-        urow = check_kernels(push, PH, PB, REACHING_FD_ABS, time_them=True,
+        urow = check_kernels(push, PH, PB, time_them=True,
                              inputs=push_inputs(si1(push), PH, PB, seed=3))
         record["push_check"] = {
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
@@ -2258,7 +2487,7 @@ def main():
         done("push")
     if "walker" in phases:
         inputs = walker_inputs(walk, WH, WB, seed=3)
-        wrow = check_kernels(walk, WH, WB, REACHING_FD_ABS, time_them=True,
+        wrow = check_kernels(walk, WH, WB, time_them=True,
                              inputs=inputs, pair_types=True)
         wrow["mpc_apply"] = check_apply(walk, *inputs[:4], seed=4)
         record["walker_check"] = {
@@ -2299,7 +2528,8 @@ def main():
 
     mp = rmp = ump = None
     if "main_acrobot" in phases:
-        mp = record["main_path"] = main_path(acro, H, B, H, False)
+        mp = record["main_path"] = main_path(acro, H, B, H, False,
+                                             plain3=plain3.get("main_acrobot"))
         report_main("acrobot", H, B, mp)
         done("main_acrobot")
     for phase, task, Hh, Bb, H3, key in (
@@ -2309,7 +2539,8 @@ def main():
             continue
         # push_ncl's warm-up is one iteration: its kernels ran in the check
         m = record[key] = main_path(task, Hh, Bb, H3, True,
-                                    ITERS if task is reach else 1)
+                                    ITERS if task is reach else 1,
+                                    plain3=plain3.get(phase))
         report_main(task.name, Hh, Bb, m)
         print(f"  {task.name} kernels at H={Hh} B={Bb}: ms "
               f"{json.dumps({k: round(v, 3) for k, v in m['kernel_ms'].items()})}"
@@ -2359,6 +2590,10 @@ def main():
     counts = record["ops_per_step"] = {
         name: {"step": step_ops(s), "constraint": constraint_ops(s),
                "contact": contact_ops(s),
+               # K2c per (slot, lane): its values once, its 2n + nu columns
+               "implicit_tangent": implicit_primal_ops(s)
+               + (s.nx + s.nu) * implicit_column_ops(s),
+               "ad_slot": ad_slot_ops(s),
                # least time of one lane's step at the card's FP64 peak
                "step_bound_ns": step_ops(s) / F64_OPS_PER_S * 1e9}
         for name, s in sizes.items()}
@@ -2419,7 +2654,7 @@ def main():
             e["pentabot_err"] = prow[e["name"]]["err"][0]
     kernels += keypoint_entries(kps, amp)
     for e in kernels:
-        if e["name"] == "fd_jacobian" and e["model"] in ("acrobot",
+        if e["name"] == "ad_jacobian" and e["model"] in ("acrobot",
                                                          "reaching"):
             # K5 at the adaptive main path's per-lane slots
             tag = f"{e['model']} " + ("AJ_1_50" if e["model"] == "acrobot"
@@ -2429,21 +2664,38 @@ def main():
                 "method": tag, "shape": f"H={H if e['model'] == 'acrobot' else RH} "
                 f"B={B if e['model'] == 'acrobot' else RB}, K_max "
                 f"{a['K_max']}, {a['live_slots_first']} live slots",
-                "ms": a["kernel_ms"]["fd_jacobian"],
-                "launches": a["launches"].get("fd_jacobian", 0),
-                "bound_ms": a["bounds"]["fd_jacobian"][0],
-                "bound_by": a["bounds"]["fd_jacobian"][1]}
-        if e["name"] == "fd_jacobian" and e["model"] == "push_ncl":
+                "ms": a["kernel_ms"]["ad_jacobian"],
+                "launches": a["launches"].get("ad_jacobian", 0),
+                "bound_ms": a["bounds"]["ad_jacobian"][0],
+                "bound_by": a["bounds"]["ad_jacobian"][1]}
+        if e["name"] == "ad_jacobian" and e["model"] == "push_ncl":
             full = kps["push_ncl AJ_5_100 full shape"]
             e["adaptive_slots"] = {
                 "method": "AJ_5_100", "shape": f"{full['shape']}, K_max "
                 f"{full['K_max']}, {full['live_slots']} live slots",
-                "ms": full["fd_jacobian"]["ms"],
-                "plain_ms": full["fd_jacobian"]["plain_ms"],
-                "bound_ms": full["fd_jacobian"]["bound"][0],
-                "bound_by": full["fd_jacobian"]["bound"][1],
-                "bitwise": full["fd_jacobian"]["bitwise"]}
+                "ms": full["ad_jacobian"]["ms"],
+                "plain_ms": full["ad_jacobian"]["plain_ms"],
+                "bound_ms": full["ad_jacobian"]["bound"][0],
+                "bound_by": full["ad_jacobian"]["bound"][1],
+                "bitwise": full["ad_jacobian"]["bitwise"]}
+    # K5 (central FD) runs on the generic path alone: the async planner at
+    # the default deriv_mode, held phase by phase at its shape (main_async)
+    ma = record["main_async"]
+    fd, fd_held = ma["fd_jacobian_b1"], ma["held_push_ncl_b1"]["fd_jacobian"]
+    kernels.append({
+        "name": "fd_jacobian", "model": "push_ncl", "route": "cuda",
+        "source": "trajoptkp_tpu_torch/kernels/csrc/fd_jacobian.cu",
+        "replaces": ops.REPLACES["fd_jacobian"],
+        "launches": ma["push_ncl"]["launches"]["fd_jacobian"],
+        "launched_by": "the async planner (generic solve, deriv_mode fd)",
+        "max_abs_err": fd_held["max_abs_err"], "bitwise": fd_held["bitwise"],
+        "ms": fd["ms"], "plain_ms": fd["plain_ms"],
+        "bound_ms": fd["bound"][0], "bound_by": fd["bound"][1],
+        "library_ms": None, "tolerance": "bit for bit",
+        "shape": fd["shape"]})
     record["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: {record['seconds']:.1f} s in all, build phase "
+          f"{phase_s['build']:.1f} s (nvcc {build_s:.1f} s)", flush=True)
     print("record " + json.dumps(record), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)

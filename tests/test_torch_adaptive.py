@@ -1,21 +1,21 @@
 """Adaptive keypoints (adaptive_jerk, adaptive_accel, velocity_change) on the
 port's lane path and in its generic solve, against the JAX package, float64
-on the CPU (the plain twins of K9a, K5 at per-lane slots and K9b).
+on the CPU (the plain twins of K9a, K5ad at per-lane slots and K9b).
 
 - acrobot: the jacobians phase against the JAX lane program's, jitted as
   JAX `make_lane_phase_optimise` runs it: pct and overflow equal, the masks
-  equal to the JAX selector's, A and B within 1e-8 (the JAX program takes
-  exact Jacobians, the port central FD; tests/test_torch_derivs.py holds
-  acrobot's FD to 1e-8), also under a slot budget small enough to
+  equal to the JAX selector's, A and B within 1e-12 (both take exact
+  Jacobians; measured 4.1e-14 on entries up to 13), also under a slot
+  budget small enough to
   overflow;
 - reaching and push_ncl: a JAX lane jacobians program at panda width does
   not compile on this CPU in minutes (tests/test_torch_reaching.py), so
   they are held piece by piece: the masks equal to the jitted JAX selector
   on the same velocities (push_ncl's through its state vector, the free
   cylinder's translations included), each lane's slot Jacobians equal to
-  the set_interval FD path's at the same times (held against JAX in
-  tests/test_torch_reaching.py and tests/test_torch_push.py), and A, B equal
-  to JAX `interpolate_derivatives` of those columns under that mask;
+  the exact ones at the same times (K5ad's twin, held against JAX and
+  against FD in tests/test_torch_ad.py), and A, B equal to JAX
+  `interpolate_derivatives` of those columns under that mask;
 - a whole acrobot velocity_change solve, lane and generic, and a sync MPC
   run: within tests/test_torch_solver.py's 1e-6 on cost reduction and
   tests/test_torch_mpc.py's 1e-6 on states and costs; the generic solve's
@@ -49,7 +49,7 @@ from trajoptkp_tpu_torch.tasks.toys import make_acrobot
 jax.config.update("jax_enable_x64", True)
 
 H, B = 60, 3
-FD_ATOL = 1e-8          # acrobot, tests/test_torch_derivs.py
+JAC_ATOL = 1e-12        # acrobot, exact on both sides
 SOLVE_TOL = 1e-6        # tests/test_torch_solver.py
 
 
@@ -111,9 +111,9 @@ def test_lane_jacobians_match_jax_acrobot(name, min_N, max_N, budget):
         np.testing.assert_array_equal(got[:H - 1].any(1).sum(0),
                                       [budget - 1] * B)
     np.testing.assert_allclose(A.numpy(), np.asarray(jA), rtol=0,
-                               atol=FD_ATOL)
+                               atol=JAC_ATOL)
     np.testing.assert_allclose(Bm.numpy(), np.asarray(jB), rtol=0,
-                               atol=FD_ATOL)
+                               atol=JAC_ATOL)
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,8 +162,8 @@ def test_lane_jacobians_reaching_and_push_ncl(task_name):
     union = mask.any(1)
     for b in range(nl):
         times = torch.nonzero(union[:, b]).flatten()
-        cols = ops.fd_jacobian(pt, qpos[..., b:b + 1], qvel[..., b:b + 1],
-                               U[..., b:b + 1], times, cfg.fd_eps)[..., 0]
+        cols = ops.ad_jacobian(pt, qpos[..., b:b + 1], qvel[..., b:b + 1],
+                               U[..., b:b + 1], times)[..., 0]
         full = np.zeros((Hh, 2 * n, 2 * n + nu))
         full[times.numpy()] = cols.numpy()
         jA, jB = jinterp.interpolate_derivatives(

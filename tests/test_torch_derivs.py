@@ -48,7 +48,7 @@ def test_si_jacobians_match_jax_fd(name, min_N, atol):
     qpos, qvel, _ = pilqr.rollout(pt, *map(torch.from_numpy, (qp, qv, U, tg)))
     plan = planes.si_plan(pt, H)
     A, Bm = planes.jacobians_si(pt, plan, qpos, qvel, torch.from_numpy(U),
-                                1e-6)
+                                planes.slot_jacobians(pt, "fd", eps=1e-6))
 
     mask = jax_si(H, n, min_N)
     jobs = jobs_from_mask(mask, int(mask.sum()))

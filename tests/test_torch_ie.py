@@ -1,13 +1,13 @@
 """iterative_error keypoints on the port (solver/lanes.py:jacobians_ie, the
-plain twins of K5's cache mode, K9c, K9a with time slots and K9b) against
+plain twins of K5ad's cache mode, K9c, K9a with time slots and K9b) against
 the JAX package, float64 on the CPU, in the pattern of
 tests/test_lane_ie.py.
 
 - the lane jacobians phase against the JAX lane program (exact Jacobians)
   on the same trajectories: pct (the share of computed times) equal, A and
-  B within acrobot's FD bar 1e-8 (tests/test_torch_derivs.py), and each
-  lane's keypoint set equal to JAX `iterative_error_keypoints` (the generic
-  bisection, FD mode) on that lane;
+  B within 1e-12 (both exact; measured 8.5e-15 on entries up to 1.1), and
+  each lane's keypoint set equal to JAX `iterative_error_keypoints` (the
+  generic bisection, FD mode) on that lane;
 - lanes are independent: a batch of three gives each lane's own result;
 - the generic solve (`optimise`, the lane bisection at B = 1) against JAX
   `optimise`: cost history within 1e-6 relative (tests/test_torch_solver.py),
@@ -73,8 +73,8 @@ def test_lane_ie_matches_jax_lane_and_generic_keypoints():
         jnp.asarray(U.numpy()))
     np.testing.assert_array_equal(pct.numpy(), np.asarray(jpct))
     np.testing.assert_array_equal(ovf.numpy(), np.asarray(jovf))
-    np.testing.assert_allclose(A.numpy(), np.asarray(jA), rtol=0, atol=1e-8)
-    np.testing.assert_allclose(Bm.numpy(), np.asarray(jB), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(A.numpy(), np.asarray(jA), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(Bm.numpy(), np.asarray(jB), rtol=0, atol=1e-12)
     for b in range(B):
         mask, *_ = iterative_error_keypoints(
             jt, jnp.asarray(qpos[:H, :, b].numpy()),

@@ -76,23 +76,28 @@ def _bp_inputs(n2, nu, seed):
 
 @pytest.mark.parametrize("nx,nu", [(4, 1), (10, 3)])
 def test_backward_pass_lambda_loop_matches_jax(nx, nu):
+    """One scene at a time (B = 1, the generic solve's batch), the port's
+    loop is the JAX generic `backward_pass_lambda_loop`, the retrying scene
+    included."""
     ins = _bp_inputs(nx, nu, seed=nx)
     lamb = np.full(NLANE, 0.1)
     cfg = pilqr.ILQRConfig()
-    k, K, dJ, lam, ex = pilqr.backward_pass_lambda_loop(
-        *map(torch.from_numpy, ins), torch.from_numpy(lamb), cfg)
     jcfg = jilqr.ILQRConfig()
     retried = 0
     for b in range(NLANE):
+        k, K, dJ, lam, ex = pilqr.backward_pass_lambda_loop(
+            *(torch.from_numpy(x[..., b:b + 1]) for x in ins),
+            torch.from_numpy(lamb[b:b + 1]), cfg)
+        k, K, dJ, lam, ex = k[..., 0], K[..., 0], dJ[0], lam[0], ex[0]
         jk, jK, jdJ, jlam, jex = jilqr.backward_pass_lambda_loop(
             *(x[..., b] for x in ins), jnp.asarray(lamb[b]), jcfg)
-        assert bool(ex[b]) == bool(jex)
-        _close(lam[b], jlam, "lambda")
+        assert bool(ex) == bool(jex)
+        _close(lam, jlam, "lambda")
         retried += float(jlam) > 0.1 / 10 + 1e-15
         if not bool(jex):
-            _close(k[..., b], jk, "k")
-            _close(K[..., b], jK, "K")
-            _close(dJ[b], jdJ, "dJ")
+            _close(k, jk, "k")
+            _close(K, jK, "K")
+            _close(dJ, jdJ, "dJ")
     assert retried >= 1  # the indefinite lane went through the λ retry
 
 
@@ -114,12 +119,19 @@ def test_backward_pass_sum_order_matches_jax(nx, nu):
         a, b = a[..., live], b[..., live]
         assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
     jcfg = jilqr.ILQRConfig()
-    for b in np.flatnonzero(live.numpy()):
-        jk, jK, jdJ, _, _ = jilqr.backward_pass_lambda_loop(
+    for b in range(NLANE):
+        # one scene at a time, as the JAX generic loop runs it
+        one = pilqr.backward_pass_lambda_loop(
+            *(torch.from_numpy(x[..., b:b + 1]) for x in ins), lamb[b:b + 1],
+            cfg, contract=pilqr.sum_contract)
+        jk, jK, jdJ, _, jex = jilqr.backward_pass_lambda_loop(
             *(x[..., b] for x in ins), jnp.asarray(0.1), jcfg)
-        _close(ref[0][..., b], jk, "k")
-        _close(ref[1][..., b], jK, "K")
-        _close(ref[2][b], jdJ, "dJ")
+        assert bool(one[4][0]) == bool(jex)
+        if bool(jex):
+            continue
+        _close(one[0][..., 0], jk, "k")
+        _close(one[1][..., 0], jK, "K")
+        _close(one[2][0], jdJ, "dJ")
 
 
 @pytest.mark.parametrize("name", ["acrobot", "pentabot"])
@@ -158,13 +170,15 @@ def test_line_search_matches_jax(name):
 
 def test_lambda_retry_is_per_lane_unlike_the_coupled_jax_batch():
     """The λ retry of the port's backward pass (twin of K7) against the JAX
-    lane solver's `bp_lambda_loop` (`solver/lanes.py:720-746`).
+    lane solver's `bp_lambda_loop` (`solver/lanes.py:720-746`), on crafted
+    inputs where one lane is indefinite at small λ.  (The port retried per
+    lane until it took the JAX batch's coupled rule; the name stayed.)
 
-    Run one lane at a time, the JAX lane program has nothing to couple to
-    and is the reference: λ, exit flag and gains agree for every lane, the
-    retrying one included.  Run as one batch, it sweeps every lane again
-    while any lane is invalid and divides the λ of the lanes that were
-    already valid a second time; the port does not copy that."""
+    As one batch both loops sweep every lane again while any lane is
+    invalid and not exited, so the λ of the lanes valid at once falls a
+    second time: λ, exit flags and gains agree for every lane, and the
+    twin reports the retry rounds.  Run one lane at a time, there is
+    nothing to couple to, and the two agree again."""
     from trajoptkp_tpu.solver import lanes as jlanes
 
     jt, _ = _tasks("acrobot")
@@ -174,23 +188,29 @@ def test_lambda_retry_is_per_lane_unlike_the_coupled_jax_batch():
     bp = jax.jit(jlanes.make_lane_batch_optimise(jt, jcfg, H).phases["bp"])
     ins = _bp_inputs(4, 1, seed=4)
     lamb = np.full(NLANE, 0.1)
+    info = {}
     k, K, dJ, lam, ex = pilqr.backward_pass_lambda_loop(
-        *map(torch.from_numpy, ins), torch.from_numpy(lamb), pilqr.ILQRConfig())
-    retried = []
+        *map(torch.from_numpy, ins), torch.from_numpy(lamb),
+        pilqr.ILQRConfig(), info=info)
+    jk, jK, jdJ, jlam, jex = (np.asarray(x) for x in bp(*ins,
+                                                        jnp.asarray(lamb)))
+    assert not jex.any() and not bool(ex.any())
+    _close(lam, jlam, "lambda")
+    _close(k, jk, "k")
+    _close(K, jK, "K")
+    _close(dJ, jdJ, "dJ")
+    assert int(info["rounds"]) >= 1
+    # the coupling: lanes 1 and 2, valid at once, end below λ0 / 10
+    assert float(lam[0]) > 0.1 / 10 + 1e-15
+    assert (lam[1:].numpy() < 0.1 / 10 * 0.5).all(), lam
     for b in range(NLANE):
+        k1, K1, dJ1, lam1, ex1 = pilqr.backward_pass_lambda_loop(
+            *(torch.from_numpy(x[..., b:b + 1]) for x in ins),
+            torch.from_numpy(lamb[b:b + 1]), pilqr.ILQRConfig())
         jk, jK, jdJ, jlam, jex = bp(*(x[..., b:b + 1] for x in ins),
                                     jnp.asarray(lamb[b:b + 1]))
-        assert bool(ex[b]) == bool(jex[0])
-        _close(lam[b], jlam[0], "lambda")
-        retried.append(float(jlam[0]) > 0.1 / 10 + 1e-15)
-        if not bool(jex[0]):
-            _close(k[..., b], jk[..., 0], "k")
-            _close(K[..., b], jK[..., 0], "K")
-            _close(dJ[b], jdJ[0], "dJ")
-    assert retried[0] and not any(retried[1:])
-    # the coupled batch: lanes 1 and 2, valid at once, end below λ0 / 10
-    _, _, _, clam, cex = bp(*ins, jnp.asarray(lamb))
-    clam = np.asarray(clam)
-    assert not np.asarray(cex).any()
-    np.testing.assert_allclose(clam[0], float(lam[0]), rtol=1e-12)
-    assert (clam[1:] < lam[1:].numpy() * 0.5).all(), (clam, lam)
+        assert bool(ex1[0]) == bool(jex[0])
+        _close(lam1, jlam, "lambda")
+        _close(k1, jk, "k")
+        _close(K1, jK, "K")
+        _close(dJ1, jdJ, "dJ")

@@ -47,6 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "trajoptkp_tpu_torch.mpc.async_mpc",
                 "trajoptkp_tpu_torch.mpc.native_executor",
                 "trajoptkp_tpu_torch.bench.campaigns",
+                "trajoptkp_tpu_torch.derivs.ad",
+                "trajoptkp_tpu_torch.sass_counts",
                 "trajoptkp_tpu_torch.app"):
         assert mod in res["modules"]
 

@@ -8,7 +8,8 @@ python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 Bars: rollout and line search 1e-10 relative over the first 50 steps
 (rounding differences grow along a chaotic horizon), FD columns 1e-6
 absolute (rounding divided by 2 eps), backward pass 1e-9 relative, the
-cost expansion (K6) bit for bit.
+cost expansion (K6) and the exact Jacobians (K5ad, with the implicit
+constraint tangents K2c inside) bit for bit.
 """
 
 import pytest
@@ -103,7 +104,8 @@ def _compare(task, qp0, qv0, tgl, U, g):
                          plain=True)
     assert float((kj - pj).abs().max()) < 1e-6
 
-    A, Bm = lanes.jacobians_si(task, plan, kr[0], kr[1], U, cfg.fd_eps)
+    fd = lanes.slot_jacobians(task, "fd", eps=cfg.fd_eps)
+    A, Bm = lanes.jacobians_si(task, plan, kr[0], kr[1], U, fd)
     l = lanes.cost_expansion(task, kr[0], kr[1], U, tgl)
     lam = torch.full((B,), 0.1, dtype=torch.float64, device=cuda)
     kb = ops.backward(A, Bm, *l, lam, cfg)
@@ -305,3 +307,80 @@ def test_keypoint_kernels_match_plain(cuda, name):
     pmp = ops.keypoint_plan(pm, qvel, H, H, mask=kp.mask, time_slots=True,
                             plain=True)
     assert all(torch.equal(a, b) for a, b in zip(km, pmp))
+
+
+def _ad_states(name, cuda):
+    """(task, qpos (H+1, nq, B), qvel, U (H, nu, B)) of K5ad's check: random
+    states with rows active where the model has them (reaching: half the
+    lanes at a joint limit; pentabot folded; push_ncl with the goal against
+    the rod and the arm on the table; the walker pressed into the floor)."""
+    task = {"acrobot": make_acrobot, "pentabot": make_pentabot,
+            "reaching": make_reaching, "push_ncl": make_pushing,
+            "walker": lambda device: make_walker(run=True, device=device),
+            }[name](device=cuda)
+    m = task.model
+    g = torch.Generator(device="cpu").manual_seed(7)
+    f64 = dict(dtype=torch.float64)
+    if name == "push_ncl":
+        qp, _, _ = pushing.push_scenes(task, B, seed=1)
+        qa = m.jnt_qposadr[m.joint_names.index("goal")]
+        qp[:B // 2, qa] = 0.353 + 0.0595
+        qp[:B // 2, qa + 1] = 0.0
+        qp[B // 2:3 * B // 4, 1] += 0.12
+        qpos = qp.T.cpu()[None].repeat(H + 1, 1, 1)
+        qpos[:, :7] += 0.02 * torch.randn((H + 1, 7, B), generator=g, **f64)
+    elif name == "walker":
+        qpos = task.qpos_start.cpu()[None, :, None].repeat(H + 1, 1, B)
+        qpos[:, 0] = -0.04 * torch.rand((H + 1, B), generator=g, **f64)
+        qpos[:, 3:] = torch.rand((H + 1, 6, B), generator=g, **f64) - 0.5
+    elif name == "pentabot":
+        qpos = 6.0 * torch.rand((H + 1, m.nq, B), generator=g, **f64) - 3.0
+    else:
+        qpos = (task.qpos_start.cpu()[None, :, None]
+                + 0.3 * torch.randn((H + 1, m.nq, B), generator=g, **f64))
+        if name == "reaching":
+            rng = m.jnt_range.cpu()
+            side = torch.randint(0, 2, (H + 1, m.nv, B // 2), generator=g)
+            qpos[:, :, :B // 2] = torch.where(
+                side == 0, rng[None, :, 0, None], rng[None, :, 1, None]) + \
+                0.01 * torch.randn((H + 1, m.nv, B // 2), generator=g, **f64)
+    qvel = 0.5 * torch.randn((H + 1, m.nv, B), generator=g, **f64)
+    U = 2.0 * torch.randn((H, m.nu, B), generator=g, **f64)
+    return (task, qpos.to(cuda).contiguous(), qvel.to(cuda).contiguous(),
+            U.to(cuda).contiguous())
+
+
+@pytest.mark.parametrize("name", ["acrobot", "pentabot", "reaching",
+                                  "push_ncl", "walker"])
+def test_ad_jacobian_matches_plain(cuda, name):
+    """K5ad against its twin (derivs/ad.py, forward mode through the plain
+    step with the implicit constraint tangent) bit for bit: at slot times
+    shared by every lane, at per-lane slots with live counts (a dead slot
+    writes zeros), and scattered into an iterative_error cache; one launch
+    per call."""
+    task, qpos, qvel, U = _ad_states(name, cuda)
+    nx, C = task.sv.nx, task.sv.nx + task.model.nu
+    times = torch.arange(0, H, 3, device=cuda)
+    before = ops.LAUNCHES["ad_jacobian"]
+    kj = ops.ad_jacobian(task, qpos, qvel, U, times)
+    assert ops.LAUNCHES["ad_jacobian"] == before + 1
+    pj = ops.ad_jacobian(task, qpos, qvel, U, times, plain=True)
+    assert bool(torch.isfinite(kj).all()) and torch.equal(kj, pj)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    K = 6
+    slot_t = torch.sort(torch.randint(0, H, (K, B), generator=g),
+                        dim=0).values.to(cuda).contiguous()
+    counts = torch.randint(1, K + 1, (B,), generator=g,
+                           dtype=torch.int32).to(cuda)
+    kj = ops.ad_jacobian(task, qpos, qvel, U, slot_t, counts=counts)
+    pj = ops.ad_jacobian(task, qpos, qvel, U, slot_t, counts=counts,
+                         plain=True)
+    assert torch.equal(kj, pj)
+    dead = torch.arange(K, device=cuda)[:, None] >= counts[None, :]
+    assert not bool(kj.permute(0, 3, 1, 2)[dead].any())
+    cache = torch.zeros((H, nx, C, B), dtype=torch.float64, device=cuda)
+    pcache = cache.clone()
+    ops.ad_jacobian(task, qpos, qvel, U, slot_t, counts=counts, cache=cache)
+    ops.ad_jacobian(task, qpos, qvel, U, slot_t, counts=counts,
+                    cache=pcache, plain=True)
+    assert torch.equal(cache, pcache)

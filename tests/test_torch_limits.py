@@ -7,6 +7,8 @@ test and carried to the port as data; reaching itself is held phase by phase
 in tests/test_torch_reaching.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,8 +81,9 @@ def _limited_scenes(pt, draw):
 
 def _solve_all_ways(jt, pt, draw=0):
     """Cost reductions and controls of the port (lanes B = 4, `optimise` per
-    scene) and of JAX (`optimise` in fd mode per scene, the lane solver per
-    scene at B = 1 and coupled at B = 4), 3 iterations each."""
+    scene in fd mode and in ad mode) and of JAX (`optimise` in fd mode per
+    scene, the lane solver per scene at B = 1 and coupled at B = 4), 3
+    iterations each."""
     from trajoptkp_tpu.solver import lanes as jlanes
     from trajoptkp_tpu_torch.dynamics.contact import limits_active
 
@@ -97,11 +100,15 @@ def _solve_all_ways(jt, pt, draw=0):
     lane = planes.solve_lanes(
         pt, cfg, tq.T.contiguous(), tv.T.contiguous(),
         tU.permute(1, 2, 0).contiguous(), tg0, rule="lane")
-    out = {"lane": lane, "port": [], "jax": [], "jax_lane_1": []}
+    out = {"lane": lane, "port": [], "port_ad": [], "jax": [],
+           "jax_lane_1": []}
+    cfg_ad = dataclasses.replace(cfg, deriv_mode="ad")
     phase_fns = jilqr.make_phase_fns(jt, jcfg, LH)
     jrun = jlanes.make_lane_phase_optimise(jt, jcfg, LH)
     for b in range(LLANES):
         out["port"].append(pilqr.optimise(pt, tq[b], tv[b], tU[b], cfg))
+        out["port_ad"].append(
+            pilqr.optimise(pt, tq[b], tv[b], tU[b], cfg_ad)[1].cost_reduction)
         out["jax"].append(jilqr.optimise(
             jt, jnp.asarray(qp[b]), jnp.asarray(qv[b]), jnp.asarray(U[b]),
             jcfg, phase_fns=phase_fns))
@@ -117,10 +124,10 @@ def _solve_all_ways(jt, pt, draw=0):
 def test_limited_acrobot_solve_matches_jax():
     """Port `optimise` against JAX `optimise(deriv_mode="fd")`: controls to
     1e-5, costs to 1e-6 relative (measured 3e-8 and 5e-9); the port's batch
-    of 4 against the JAX lane solver run one scene at a time (the honest
-    reference: at B = 1 its λ retry has no other lane to couple to), cost
-    reduction to 1e-9 (measured 8e-12; the JAX lane solver differentiates by
-    jacfwd with implicit tangents, the port by central FD)."""
+    of 4 (exact Jacobians, K5ad's twin, as the JAX lane solver's jacfwd with
+    implicit tangents) against the JAX lane solver run one scene at a time,
+    cost reduction to 1e-12 (measured 1.6e-14), and against the port's
+    `optimise` in ad mode to 1e-12 (measured 4.4e-16)."""
     jt, pt = _limited_acrobot()
     out = _solve_all_ways(jt, pt)
     red = (1.0 - out["lane"].final_cost / out["lane"].initial_cost).numpy()
@@ -131,8 +138,8 @@ def test_limited_acrobot_solve_matches_jax():
         np.testing.assert_allclose(pstats.cost_history, jstats.cost_history,
                                    rtol=1e-6)
         assert pstats.num_iterations == jstats.num_iterations == 3
-        assert abs(red[b] - out["jax_lane_1"][b]) < 1e-9
-        assert abs(red[b] - pstats.cost_reduction) < 1e-12
+        assert abs(red[b] - out["jax_lane_1"][b]) < 1e-12
+        assert abs(red[b] - out["port_ad"][b]) < 1e-12
     assert sum(out["lane"].log["retried"]) == 0
 
 
@@ -143,10 +150,16 @@ def test_limited_acrobot_solve_without_control_cost():
     first λ; the retry itself is held against JAX on crafted inputs in
     tests/test_torch_ilqr.py), so the coupled JAX batch equals its own
     B = 1 runs to 1e-9 here.  Without a control cost the solve amplifies the
-    FD noise of the limit rows (tests/test_torch_derivs.py): the port lands
-    within 1e-3 in cost reduction of both JAX solvers, which themselves
-    differ by 4e-4 in the worst scene (measured: port vs JAX generic 7.1e-4,
-    port vs JAX lane 2.9e-4)."""
+    FD noise of the limit rows (tests/test_torch_derivs.py): the JAX generic
+    solve (central FD) and the JAX lane solver (exact) differ by 4e-4 in the
+    worst scene.  The port's lanes take exact Jacobians as the JAX lane
+    solver does and land within 1e-8 of it (measured 2.0e-9), within 1e-3
+    of the JAX generic solve (measured 4.2e-4), and equal the port's
+    `optimise` in ad mode to 1e-9 (measured 4.4e-16).  The port's
+    `optimise` at the default deriv_mode (central FD) lands within 1e-3 of
+    the JAX generic solve in fd mode (measured 7.1e-4).  Saturated controls
+    sit exactly at their bound, where the step's clip halves the tangent in
+    both packages (utils/math.py:clip)."""
     jt, pt = _limited_acrobot(control_weight=0.0)
     out = _solve_all_ways(jt, pt, draw=1)
     red = (1.0 - out["lane"].final_cost / out["lane"].initial_cost).numpy()
@@ -154,8 +167,10 @@ def test_limited_acrobot_solve_without_control_cost():
     for b in range(LLANES):
         jstats = out["jax"][b][1]
         assert abs(red[b] - jstats.cost_reduction) < 1e-3
-        assert abs(red[b] - out["jax_lane_1"][b]) < 1e-3
-        assert abs(out["port"][b][1].cost_reduction - red[b]) < 1e-9
+        assert abs(out["port"][b][1].cost_reduction
+                   - jstats.cost_reduction) < 1e-3
+        assert abs(red[b] - out["jax_lane_1"][b]) < 1e-8
+        assert abs(out["port_ad"][b] - red[b]) < 1e-9
     np.testing.assert_allclose(out["jax_lane_coupled"], out["jax_lane_1"],
                                atol=1e-9)
     assert sum(out["lane"].log["retried"]) == 0

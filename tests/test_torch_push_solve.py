@@ -10,19 +10,17 @@ target, goal planar speed and end-effector site to goal (read from forward
 kinematics, as push_ncl's), plus the three controls.
 
 The port's lane solver over 4 scenes (plain path), one iteration, SI_2, is
-held against the JAX lane solver run one scene at a time (at B = 1 its λ
-retry has no other lane to couple to; ROADMAP Queue 3) and against the JAX
-generic solver with FD derivatives: initial costs (the rollouts) to 1e-7
-relative; cost reduction within 1e-2 of both (measured up to 5.0e-3 and
-5.5e-3, in one scene of four; the others within 3.5e-4).  The generic
-solver differentiates by central FD as the port does, but through
-8-iteration contact solves whose steps differ from the port's by ~1e-9, and
-a 1e-6 perturbation that crosses a contact gate turns that into FD columns
-3.3e-3 apart (B up to 4% of its largest entry); the lane solver
-differentiates by forward mode with implicit tangents at the converged
-point.  After three iterations the solvers part further (the JAX package's own two
-solvers end up to 0.1 apart here; ROADMAP Queue 3), so three iterations are
-only held to keep reducing the cost.
+held against the JAX lane solver run one scene at a time and against the
+JAX generic solver with FD derivatives: initial costs (the rollouts) to
+1e-7 relative; cost reduction within 2e-6 of the JAX lane solver
+(measured 4.1e-7; both take exact Jacobians with the implicit tangents of
+the contact solve, and their steps differ by ~1e-9) and within 1e-3 of the
+generic solver (measured 5.1e-4): it differentiates by central FD through
+8-iteration contact solves, and a 1e-6 perturbation that crosses a contact
+gate turns the step difference into FD columns 3.3e-3 apart (B up to 4% of
+its largest entry).  After three iterations the solvers part further (the
+JAX package's own two solvers end up to 0.1 apart here; ROADMAP Queue 3),
+so three iterations are only held to keep reducing the cost.
 """
 
 import jax
@@ -199,9 +197,9 @@ def test_contact_fixture_lane_solve_matches_jax():
                                    float(r.initial_cost[0]), rtol=1e-7)
         np.testing.assert_allclose(float(lane.initial_cost[b]),
                                    jstats.initial_cost, rtol=1e-7)
-        assert abs(red[b] - jstats.cost_reduction) < 1e-2, (
+        assert abs(red[b] - jstats.cost_reduction) < 1e-3, (
             b, red[b], jstats.cost_reduction)
-        assert abs(red[b] - float(r.cost_reduction[0])) < 1e-2, (
+        assert abs(red[b] - float(r.cost_reduction[0])) < 2e-6, (
             b, red[b], float(r.cost_reduction[0]))
     # three iterations keep reducing the cost in every scene
     _, red3 = port(ITERS)

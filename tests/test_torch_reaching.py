@@ -90,7 +90,8 @@ def test_slot_jacobians_match_jax_fd(setup):
     jt, pt = s["jt"], s["pt"]
     plan = planes.si_plan(pt, H)
     A, Bm = planes.jacobians_si(pt, plan, s["qpos"], s["qvel"],
-                                torch.from_numpy(s["U"]), 1e-6)
+                                torch.from_numpy(s["U"]),
+                                planes.slot_jacobians(pt, "fd", eps=1e-6))
     cols = jax.jit(lambda a, b, c, d: fd_job_columns(jt.model, jt.sv, a, b, c,
                                                      d, 1e-6))
     act = limits_active(pt.model, s["qpos"][:H].transpose(0, 1))
@@ -111,7 +112,8 @@ def _expansions(s):
     pt = s["pt"]
     U = torch.from_numpy(s["U"])
     plan = planes.si_plan(pt, H)
-    A, Bm = planes.jacobians_si(pt, plan, s["qpos"], s["qvel"], U, 1e-6)
+    A, Bm = planes.jacobians_si(pt, plan, s["qpos"], s["qvel"], U,
+                                planes.slot_jacobians(pt, "fd", eps=1e-6))
     l = planes.cost_expansion(pt, s["qpos"], s["qvel"], U,
                               torch.from_numpy(s["tg"]))
     return A, Bm, l

@@ -53,7 +53,8 @@ def test_batched_solver_matches_jax_per_scene():
                                   tg0)
     Ut = torch.from_numpy(U.transpose(1, 2, 0).copy())
     A, Bm = planes.jacobians_si(pt, planes.si_plan(pt, H), qpos, qvel, Ut,
-                                cfg.fd_eps)
+                                planes.slot_jacobians(pt, "fd",
+                                                      eps=cfg.fd_eps))
     l = planes.cost_expansion(pt, qpos, qvel, Ut, tg0)
     assert bool(pilqr.backward_pass(A, Bm, *l, torch.full((NLANE,), 0.1,
                                                           **F64))[3].all())

@@ -52,6 +52,12 @@ seeded by --seed), 500 steps each from zero controls, writes
 `async_mpc.csv` under `--out_dir` and prints the campaign directory and
 the number of trials.
 
+`--deriv_mode` picks the generic solve's dynamics Jacobians (Optimise_once
+and the asynchronous MPC's planner): auto and fd are central differences
+(K5), ad and ad_time the exact forward-mode Jacobians (K5ad, the
+constraint solve differentiated implicitly); the synchronous lane MPC
+replan takes the exact ones always, as the JAX lane program does.
+
 Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 """
 
@@ -64,6 +70,9 @@ import time
 
 import numpy as np
 import torch
+
+from .kernels import ops
+from .solver.ilqr import DERIV_MODES
 
 RUN_MODES = ("Optimise_once", "MPC_until_completion",
              "Generate_syncronus_mpc_data", "Generate_asynchronus_mpc_data")
@@ -103,7 +112,24 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the MPC exploration noise and the async "
                    "campaign's scenes")
+    p.add_argument("--deriv_mode", default="auto",
+                   choices=("auto",) + DERIV_MODES,
+                   help="the generic solve's dynamics Jacobians: fd central "
+                   "differences (K5), ad or ad_time exact forward mode "
+                   "(K5ad); auto is fd, as the JAX app's rule gives in "
+                   "float64 off a TPU.  The lane MPC replan takes ad always")
     return p
+
+
+def resolve_deriv_mode(mode: str, kp_cfg, keypoint_given: bool) -> str:
+    """The JAX app's rule (`app.py:97-122`) in float64 off a TPU: auto is
+    fd; ad with a set_interval `--keypoint` becomes ad_time."""
+    if mode == "auto":
+        return "fd"
+    if (mode == "ad" and keypoint_given and kp_cfg is not None
+            and kp_cfg.name == "set_interval"):
+        return "ad_time"
+    return mode
 
 
 KEYPOINT_KINDS = {"SI": "set_interval", "AJ": "adaptive_jerk",
@@ -144,7 +170,10 @@ def main(argv=None):
         task = task.replace(
             keypoint_cfg=parse_keypoint_name(task.keypoint_cfg, args.keypoint))
     cfg = ILQRConfig(max_iterations=args.maxIter,
-                     min_iterations=args.minIter)
+                     min_iterations=args.minIter,
+                     deriv_mode=resolve_deriv_mode(
+                         args.deriv_mode, task.keypoint_cfg,
+                         bool(args.keypoint)))
     if args.runMode == "Generate_syncronus_mpc_data":
         return sync_mpc_campaign(task, cfg, args)
     if args.runMode == "MPC_until_completion":
@@ -173,10 +202,13 @@ def main(argv=None):
         "cost_reduction": stats.cost_reduction,
         "iterations": stats.num_iterations,
         "keypoint_method": task.keypoint_cfg.name,
+        "deriv_mode": cfg.deriv_mode,
         "mean_pct_derivs": (sum(stats.percent_derivs)
                             / max(len(stats.percent_derivs), 1)),
         "opt_time_ms": stats.opt_time_ms,
         "init_controls_s": init_s,
+        # the kernels the run launched (none on the CPU)
+        "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
     }), flush=True)
 
 

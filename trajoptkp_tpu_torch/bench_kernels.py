@@ -4,16 +4,19 @@
     python -m trajoptkp_tpu_torch.bench_kernels --task reaching --H 1500 --B 128
     python -m trajoptkp_tpu_torch.bench_kernels --task walker_run --H 40 --B 128
 
-The rollout, line search, FD slot Jacobians and backward pass, the cost
-expansion (K6) and the MPC replan's apply step (K8, one applied control)
-where the tree has them.
+The rollout, line search, FD slot Jacobians and backward pass, the exact
+slot Jacobians (K5ad), the cost expansion (K6) and the MPC replan's apply
+step (K8, one applied control) where the tree has them.
 Each kernel is launched `--reps` times between two CUDA events, after two
 warm-up launches, `--rounds` times over; the inputs are the zero-control
 nominal of `lanes.scenes(seed=0)` with SI_1 slots, as chip_smoke.py's main
-paths start.  Prints one JSON line with the card's name and power limit and
-the per-launch milliseconds of every round.  To compare two trees on one
-card, run this file once per tree inside one job, with PYTHONPATH set to the
-tree under test, in the order parent, change, change, parent.
+paths start.  Prints one JSON line with the card's name and power limit,
+the per-launch milliseconds of every round, and the sweeps per lane that
+the backward pass makes on these inputs (`bp_sweeps_per_lane`), with the
+exact Jacobians it is timed on and with central-FD ones.  To compare two
+trees on one card, run this file once per tree inside one job, with
+PYTHONPATH set to the tree under test, in the order parent, change,
+change, parent.
 """
 
 import argparse
@@ -41,6 +44,21 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bp_sweeps_per_lane(task, plan, qpos, qvel, U, l, lam, cfg):
+    """Sweeps each lane of the backward pass (K7) makes under its coupled λ
+    loop, on the inputs built from each Jacobian route ("ad", "fd").  Every
+    lane makes the same number; 1 means no lane retried, and then a
+    per-lane λ retry makes 1 sweep per lane too."""
+    out = {}
+    for route in ("ad", "fd"):
+        A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U,
+                                   lanes.slot_jacobians(task, route))
+        info = {}
+        ops.backward(A, Bm, *l, lam, cfg, info=info)
+        out[route] = 1 + int(info["rounds"])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--task", default="acrobot")
@@ -63,11 +81,13 @@ def main(argv=None):
     plan = lanes.si_plan(task, H)
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tgl)
-    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps)
+    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U,
+                               lanes.slot_jacobians(task, "ad"))
     l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
     lam = torch.full((B,), cfg.lambda_init, dtype=torch.float64,
                      device="cuda")
     k, K = ops.backward(A, Bm, *l, lam, cfg)[:2]
+    sweeps = bp_sweeps_per_lane(task, plan, qpos, qvel, U, l, lam, cfg)
     calls = {
         "rollout": lambda: ops.rollout(task, qp0, qv0, U, tgl),
         "linesearch": lambda: ops.linesearch(task, qpos, qvel, U, k, K,
@@ -76,6 +96,9 @@ def main(argv=None):
                                                plan.times, cfg.fd_eps),
         "backward": lambda: ops.backward(A, Bm, *l, lam, cfg),
     }
+    if hasattr(ops, "ad_jacobian"):
+        calls["ad_jacobian"] = lambda: ops.ad_jacobian(task, qpos, qvel, U,
+                                                       plan.times)
     if hasattr(ops, "cost_expansion"):
         calls["cost_expansion"] = lambda: ops.cost_expansion(
             task, qpos, qvel, U, tgl)
@@ -95,7 +118,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "task": args.task, "H": H, "B": B,
-                      "reps": args.reps, "card": card, "ms": ms}), flush=True)
+                      "reps": args.reps, "card": card, "ms": ms,
+                      "bp_sweeps_per_lane": sweeps}), flush=True)
 
 
 if __name__ == "__main__":

@@ -55,7 +55,7 @@ def frame_from_normal(n: torch.Tensor):
     one = torch.where(n[0].abs() < 0.5, 1.0, 0.0).to(n.dtype)
     ref = torch.stack([one, 1.0 - one, torch.zeros_like(one)])
     t1 = tm.cross(n, ref)
-    t1n = torch.clamp(torch.sqrt(_dot(t1, t1)), min=1e-12)
+    t1n = tm.at_least(torch.sqrt(_dot(t1, t1)), 1e-12)
     t1 = t1 / t1n[None]
     return n, t1, tm.cross(n, t1)
 
@@ -84,10 +84,10 @@ def plane_cylinder(xp1, xm1, s1, xp2, xm2, s2) -> Slots:
     sign = torch.where(sign == 0, torch.ones_like(sign), sign)
     cap = xp2 + axis * (hl * sign)[None]
     rad = n - axis * an[None]
-    rad_norm = torch.sqrt(torch.clamp(_dot(rad, rad), min=1e-24))
+    rad_norm = torch.sqrt(tm.at_least(_dot(rad, rad), 1e-24))
     aligned = (rad_norm < 1e-9)[None]
     rad = torch.where(aligned, xm2[:, 0],
-                      -rad / torch.clamp(rad_norm, min=1e-9)[None])
+                      -rad / tm.at_least(rad_norm, 1e-9)[None])
     t = tm.cross(axis, rad)
     half = -0.5 * r
     arc = 0.866 * r
@@ -124,7 +124,7 @@ def sphere_sphere_core(p1, r1, p2, r2):
     deg = (L < 1e-9)[None]
     up = torch.zeros_like(d)
     up[2] = 1.0
-    n = torch.where(deg, up, d / torch.clamp(L, min=1e-9)[None])
+    n = torch.where(deg, up, d / tm.at_least(L, 1e-9)[None])
     dist = (L - r1) - r2
     pos = p1 + n * (r1 + 0.5 * dist)[None]
     return dist, pos, n
@@ -143,12 +143,12 @@ def closest_seg_seg(p0, p1, q0, q1):
     b = _dot(d1, d2)
     denom = a * e - b * b
     s = torch.where(denom > 1e-12,
-                    torch.clamp((b * f - c * e)
-                                / torch.clamp(denom, min=1e-12), 0.0, 1.0),
+                    tm.clip((b * f - c * e) / tm.at_least(denom, 1e-12),
+                            0.0, 1.0),
                     torch.zeros_like(denom))
-    t = (b * s + f) / torch.clamp(e, min=1e-12)
-    t_cl = torch.clamp(t, 0.0, 1.0)
-    s = torch.clamp((b * t_cl - c) / torch.clamp(a, min=1e-12), 0.0, 1.0)
+    t = (b * s + f) / tm.at_least(e, 1e-12)
+    t_cl = tm.clip(t, 0.0, 1.0)
+    s = tm.clip((b * t_cl - c) / tm.at_least(a, 1e-12), 0.0, 1.0)
     return p0 + d1 * s[None], q0 + d2 * t_cl[None]
 
 

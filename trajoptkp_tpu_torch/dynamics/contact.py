@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import math as tm
 from ..utils.linalg import chol_solve_unrolled, chol_unrolled, sym_solve
 from .collision import geom_pose, pair_contacts, pair_ncon
 from .fk import forward_kinematics
@@ -236,7 +237,7 @@ def _impedance(c: dict, pos: torch.Tensor, lc) -> torch.Tensor:
     Integer powers multiply out (x, x x, ...) as the kernel does; CUDA's pow
     and torch.pow need not round alike.  `lc` holds the rows' powers
     (LimitConstants or ContactConstants)."""
-    x = torch.clamp(pos.abs() / c["width"], 0.0, 1.0)
+    x = tm.clip(pos.abs() / c["width"], 0.0, 1.0)
 
     def power(z):
         if not lc.int_power:
@@ -274,8 +275,8 @@ def _limit_rows(model: Model, data: Data) -> Optional[Rows]:
     d = _impedance(c, imp_pos, lc)
     k = d / c["kden"]
     aref = (-c["b"]) * vel - k * imp_pos
-    R = torch.clamp((1.0 - d) / torch.clamp(d, min=1e-6),
-                    min=1e-9) * c["invweight"]
+    R = tm.at_least((1.0 - d) / tm.at_least(d, 1e-6),
+                    1e-9) * c["invweight"]
     return Rows(
         dofs=tuple((d_,) for d_ in lc.dadr) * 2,
         coefs=((1.0,),) * n + ((-1.0,),) * n,
@@ -341,8 +342,8 @@ def _contact_rows(model: Model, data: Data) -> Optional[Rows]:
             imp = dist - c["margin"]
             d = _impedance(c, imp, cc)
             k = d / c["kden"]
-            R = torch.clamp((1.0 - d) / torch.clamp(d, min=1e-6),
-                            min=1e-9) * c["rconst"]
+            R = tm.at_least((1.0 - d) / tm.at_least(d, 1e-6),
+                            1e-9) * c["rconst"]
             jac = (cl + _cross_rows(cw, pos)) * sgn          # (W, 3, *L)
             Jn, Jt1, Jt2 = ((f[0] * jac[:, 0] + f[1] * jac[:, 1])
                             + f[2] * jac[:, 2] for f in (f0, f1, f2))
@@ -520,12 +521,125 @@ def _newton_iterations(M, a0, rows: Rows, invR, n_iters: int,
     return x
 
 
+class _RowShape(NamedTuple):
+    """The static part of `Rows` (every row's dofs, the limit rows' constant
+    coefficients, each contact block's support): with the tensors aref and
+    the blocks' coefficients it rebuilds the rows inside `_NewtonSolve`,
+    whose tensors must all be arguments of its own."""
+
+    dofs: Tuple[Tuple[int, ...], ...]
+    coefs: Tuple[Tuple[float, ...], ...]
+    supports: Tuple[Tuple[int, ...], ...]
+
+    def rows(self, aref, blocks) -> Rows:
+        return Rows(dofs=self.dofs, coefs=self.coefs, aref=aref, R=None,
+                    active=None,
+                    pairs=tuple(PairRows(s, c)
+                                for s, c in zip(self.supports, blocks)))
+
+
+def implicit_residual_tangent(shape: _RowShape, x, primals, tangents):
+    """dF, the tangent of the optimality residual
+    F(x; θ) = M (x - a0) + J' (min(y, 0) invR), y = J x - aref, at a fixed
+    x over θ = (M, a0, aref, invR, the contact blocks' coefficients) (JAX
+    `_solve_rows_x_jvp`: `Rres`).  Each product's tangent is
+    b' a + a' b and each sum runs in the order kernel K2c
+    (csrc/constraint.cuh: implicit_tangent) evaluates F in dual numbers;
+    a limit row's coefficient is a constant."""
+    M, a0, aref, invR, *blocks = primals
+    dM, da0, daref, dinvR, *dblocks = tangents
+    e, de = x - a0, -da0
+    ds = de[0] * M[:, 0] + dM[:, 0] * e[0]
+    for m in range(1, x.shape[0]):
+        ds = ds + (de[m] * M[:, m] + dM[:, m] * e[m])
+    out = list(ds.unbind(0))
+    rows = shape.rows(aref, blocks)
+    drows = Rows(dofs=shape.dofs, coefs=tuple((0.0,) * len(c)
+                                              for c in shape.coefs),
+                 aref=daref, R=None, active=None,
+                 pairs=tuple(PairRows(s_, c) for s_, c in
+                             zip(shape.supports, dblocks)))
+    y = _rows_times(rows, x) - aref
+    dy = _rows_times(drows, x) - daref
+    neg = y < 0
+    w = torch.where(neg, y, torch.zeros_like(y))
+    dw = torch.where(neg, dy, torch.zeros_like(dy))
+    f = w * invR
+    df = dinvR * w + dw * invR
+    for r, (dofs, coefs) in enumerate(zip(shape.dofs, shape.coefs)):
+        for d, c in zip(dofs, coefs):
+            out[d] = out[d] + df[r] * c
+    out = torch.stack(out)
+    r = len(shape.dofs)
+    for blk, dblk in zip(rows.pairs, drows.pairs):
+        idx = torch.tensor(blk.support, device=x.device)
+        for row in range(blk.coef.shape[0]):
+            out = out.index_put((idx,), out[idx] + (df[r] * blk.coef[row]
+                                                    + dblk.coef[row] * f[r]))
+            r += 1
+    return out
+
+
+class _NewtonSolve(torch.autograd.Function):
+    """x = `_newton_iterations` (the primal projected-Newton solve), with
+    the implicit-function tangent at the iterate it returns (JAX
+    `contact._newton_solver:95-135`, `lanes._solve_rows_x_jvp:1490`,
+    `_solve_rows_x_regs_jvp:1309`): dx = -(H + 1e-10 I)^-1 dF with
+    H = M + J' G J gated at x and dF the tangent of `implicit_residual`
+    over M, a0, aref, invR and the contact rows' coefficients
+    (`implicit_residual_tangent`).  The
+    iterations are not differentiated: at a stiff row 8 cold iterations
+    have not converged, and the rule is taken at the iterate, as JAX's.
+    This is the plain version of K2c."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(shape, M, a0, aref, invR, *blocks):
+        return _newton_iterations(M, a0, shape.rows(aref, blocks), invR,
+                                  NEWTON_ITERS)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        shape, M, a0, aref, invR, *blocks = inputs
+        ctx.shape = shape
+        ctx.save_for_forward(output, M, a0, aref, invR, *blocks)
+
+    @staticmethod
+    def jvp(ctx, _, dM, da0, daref, dinvR, *dblocks):
+        x, M, a0, aref, invR, *blocks = ctx.saved_tensors
+        shape = ctx.shape
+        primals = (M, a0, aref, invR, *blocks)
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, (dM, da0, daref, dinvR,
+                                                   *dblocks)))
+        dF = implicit_residual_tangent(shape, x, primals, tangents)
+        rows = shape.rows(aref, blocks)
+        y = _rows_times(rows, x) - aref
+        gate = torch.where(y < 0, invR, torch.zeros_like(invR))
+        return -chol_solve_unrolled(chol_unrolled(_hessian(rows, M, gate)),
+                                    dF)
+
+
+def newton_solve(M, a0, rows: Rows, invR) -> torch.Tensor:
+    """The Newton solution x of the rows' problem, differentiated
+    implicitly (`_NewtonSolve`)."""
+    shape = _RowShape(rows.dofs, rows.coefs,
+                      tuple(blk.support for blk in rows.pairs))
+    return _NewtonSolve.apply(shape, M, a0, rows.aref, invR,
+                              *(blk.coef for blk in rows.pairs))
+
+
 def solve_constraints(model: Model, data: Data, qfrc_smooth: torch.Tensor,
                       diag: Optional[dict] = None) -> Data:
     """Cold-start solve (JAX `solve_constraints` with `data.warmstart`
-    unset): fills qfrc_constraint (nv, *L) and qacc, the Newton solution.
-    `diag`, when given, receives the rows and each iteration's step length.
-    The warm-start path (`contact.py:380-388`) is not ported (ROADMAP)."""
+    unset): fills qfrc_constraint (nv, *L) and qacc, the Newton solution,
+    whose tangent is the implicit one (`newton_solve`); the force is
+    recomputed from x outside that rule, as JAX `lanes._solve_rows:1523`
+    does, so that its gating differentiates with it.  `diag`, when given,
+    receives the rows and each iteration's step length (the iterations are
+    then run as they are, without the implicit rule).  The warm-start path
+    (`contact.py:380-388`) is not ported (ROADMAP)."""
     rows = assemble_constraints(model, data)
     if rows is None:
         return data.replace(qfrc_constraint=torch.zeros_like(qfrc_smooth))
@@ -534,7 +648,9 @@ def solve_constraints(model: Model, data: Data, qfrc_smooth: torch.Tensor,
     invR = rows.active / rows.R          # inactive rows contribute nothing
     if diag is not None:
         diag["rows"] = rows
-    x = _newton_iterations(M, a0, rows, invR, NEWTON_ITERS, diag)
+        x = _newton_iterations(M, a0, rows, invR, NEWTON_ITERS, diag)
+    else:
+        x = newton_solve(M, a0, rows, invR)
     y = _rows_times(rows, x) - rows.aref
     f = (-torch.where(y < 0, y, torch.zeros_like(y))) * invR
     zero = torch.zeros_like(a0[0])

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.math import cross, cross_force, cross_motion
+from ..utils.math import clip, cross, cross_force, cross_motion
 from .model import FREE, HINGE, SLIDE, Data, Model, dof_width
 
 _JROWS = ((0, 3, 4), (3, 1, 5), (4, 5, 2))  # symmetric 3x3 from SYM6
@@ -156,15 +156,18 @@ def passive_force(model: Model, data: Data) -> torch.Tensor:
 
 def actuator_force(model: Model, data: Data) -> torch.Tensor:
     """Direct-drive motors from ctrl clamped to ctrlrange (mj_fwdActuation);
-    actuators with ctrllimited false are not clamped."""
+    actuators with ctrllimited false are not clamped.  A control exactly at
+    its bound, as the line search leaves a saturated one, takes half its
+    tangent in forward mode, as JAX's jnp.clip gives it (utils/math.py:
+    clip)."""
     lanes = tuple(data.qvel.shape[1:])
     zero = torch.zeros(lanes, dtype=data.qvel.dtype, device=data.qvel.device)
     rows = [zero] * model.nv
     for a in range(model.nu):
         c = data.ctrl[a]
         if model.actuator_ctrllimited[a]:
-            c = torch.clamp(c, model.actuator_ctrlrange[a, 0],
-                            model.actuator_ctrlrange[a, 1])
+            c = clip(c, model.actuator_ctrlrange[a, 0],
+                     model.actuator_ctrlrange[a, 1])
         j = model.actuator_trnid[a]
         dadr = model.jnt_dofadr[j]
         for k in range(dof_width(model.jnt_type[j])):

@@ -30,8 +30,13 @@ import time
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 # sources built per model instance, and the backward pass per (nx, nu)
-MODEL_SOURCES = ("rollout", "linesearch", "fd_jacobian", "cost_expansion",
-                 "mpc_apply")
+MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
+                 "cost_expansion", "mpc_apply")
+# the libraries whose nvcc runs longest start first: the dual steps over the
+# walker's 128 and push_ncl's 42 constraint rows, the largest backward passes
+SLOWEST = (("ad_jacobian", "walker"), ("ad_jacobian", "push_ncl"),
+           ("backward", "nx20_nu7"), ("backward", "nx18_nu6"),
+           ("ad_jacobian", "reaching"))
 # sources built once for every model
 GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
@@ -102,7 +107,9 @@ def build(libs=None) -> dict:
     the last line the seconds until that nvcc was done)."""
     libs = libraries() if libs is None else tuple(libs)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [lib for lib in libs if not library_path(*lib).exists()]
+    todo = sorted((lib for lib in libs if not library_path(*lib).exists()),
+                  key=lambda lib: SLOWEST.index(lib) if lib in SLOWEST
+                  else len(SLOWEST))
     if not todo:
         return {}
     cc = nvcc()

@@ -7,11 +7,15 @@
 // Per lane, for t = H-1 .. 0: the Q blocks from [A|B]^T V and
 // [A|B]^T V_xx [A|B], an unrolled nu x nu Cholesky of Q_uu + λ I, the gains
 // k = -Q_uu^-1 Q_u and K = -Q_uu^-1 Q_ux, the symmetrised V update and ΔJ.
-// The λ retry runs per lane with the generic semantics of
-// trajoptkp_tpu/solver/ilqr.py:380: a lane sweeps again only while its own
-// gains are not finite (the JAX lane solver reruns every lane while any lane
-// is invalid, a difference held by tests/test_torch_ilqr.py and logged in
-// ROADMAP Queue 3).
+// The λ retry is the JAX lane solver's coupled loop (bp_lambda_loop,
+// trajoptkp_tpu/solver/lanes.py:720-746): while any lane is invalid and not
+// exited, every lane sweeps again at its updated λ (a valid lane's λ keeps
+// falling), and a lane's λ-exit is `exited & ~valid` of its last sweep.  At
+// B = 1 this is the generic loop (solver/ilqr.py:380).  The host reads no
+// flag: the wrapper makes 1 + bp_rounds launches (solver/ilqr.py:
+// bp_rounds, log_factor(max λ / min λ) + 2, which also caps a lane's
+// sweeps at 1 + bp_rounds); a launch whose target the lanes have already
+// reached returns at once.
 //
 // Bound: ~H (2n)^2 (2n + nu) x 4 double operations per lane against the
 // (2n)(3n + nu) + (nu)(nu + 1) + ... x 8 bytes of A, B and the cost terms it
@@ -37,7 +41,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
                               int B, int b) {
   constexpr int NC = NX + NU;
   double Vx[NX], Vxx[NX][NX];
-  const size_t T1 = size_t(H - 1);
+  const size_t T1 = size_t(H > 0 ? H - 1 : 0);  // H = 0: no steps
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     Vx[i] = lx[(T1 * NX + i) * B + b];
@@ -176,8 +180,23 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
   return valid;
 }
 
+// The coupled λ loop in launches.  Launch 0: each lane sweeps from lam_in
+// until it is valid or exited (at most `cap` sweeps) and proposes as
+// target the sweeps it made.  Launch k >= 1: each lane sweeps on at its
+// updated λ until it has made target[k - 1] sweeps, the most any lane
+// made; one still invalid and not exited after them proposes one sweep
+// more for the next launch.  A lane's λ, validity and gains after s sweeps
+// depend on its own sequence alone, so once the target stops growing every
+// lane holds the state the batch loop leaves after that many rounds.
+// `exit_out` holds the last sweep's raw exit flag; the wrapper reports
+// exited & ~valid.  A lane with no sweep to make runs one over no steps
+// (H = 0) and keeps its state.  Register allocation: with any path that
+// may skip the sweep (an early return, a loop that may not run, a
+// data-dependent step count) ptxas gave the nx 10 and 14 kernels 32
+// registers and ran them ~2.5x slower unless told that one block per SM
+// will do (the second launch bound).
 template <int NX, int NU>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(64, 1)
 backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
                 const double* __restrict__ lx, const double* __restrict__ lxx,
                 const double* __restrict__ lu, const double* __restrict__ luu,
@@ -185,24 +204,40 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
                 const double* __restrict__ sched, double* __restrict__ kout,
                 double* __restrict__ Kout, double* __restrict__ dJout,
                 double* __restrict__ lam_out,
-                unsigned char* __restrict__ exit_out, int H, int B) {
+                unsigned char* __restrict__ exit_out,
+                unsigned char* __restrict__ valid_out, int* __restrict__ count,
+                int* __restrict__ target, int launch, int cap, int H,
+                int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const double factor = sched[0], lmin = sched[1], lmax = sched[2];
-  double lam = lam_in[b];
+  int n = launch == 0 ? 0 : count[b];
+  const int goal = launch == 0 ? cap : target[launch - 1];
+  double lam = launch == 0 ? lam_in[b] : lam_out[b];
   double dJ = 0.0;
   bool valid = false, exited = false;
   for (;;) {
+    const int Hs = n < goal ? H : 0;
     valid = riccati_sweep<NX, NU>(A, Bm, lx, lxx, lu, luu, lam, kout, Kout,
-                                  dJ, H, B, b);
+                                  dJ, Hs, B, b);
+    if (Hs == 0) {
+      valid = valid_out[b] != 0;
+      exited = exit_out[b] != 0;
+      dJ = dJout[b];
+      break;
+    }
+    ++n;
     const double next = valid ? lam / factor : lam * factor;
     exited = next > lmax;
     lam = clip(next, lmin, lmax);
-    if (valid || exited) break;
+    if (n >= goal || (launch == 0 && (valid || exited))) break;
   }
+  count[b] = n;
   dJout[b] = dJ;
   lam_out[b] = lam;
-  exit_out[b] = (exited && !valid) ? 1 : 0;
+  exit_out[b] = exited ? 1 : 0;
+  valid_out[b] = valid ? 1 : 0;
+  atomicMax(target + launch, (!valid && !exited && n < cap) ? n + 1 : n);
 }
 
 }  // namespace trajopt
@@ -212,12 +247,14 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
       const double* A, const double* Bm, const double* lx, const double* lxx, \
       const double* lu, const double* luu, const double* lam_in,              \
       const double* sched, double* kout, double* Kout, double* dJ,            \
-      double* lam_out, unsigned char* exit_out, int H, int B, void* stream) { \
+      double* lam_out, unsigned char* exit_out, unsigned char* valid_out,     \
+      int* count, int* target, int launch, int cap, int H, int B,             \
+      void* stream) {                                                         \
     if (B <= 0) return 0;                                                     \
     trajopt::backward_kernel<NX, NU><<<(B + 63) / 64, 64, 0,                  \
                                        static_cast<cudaStream_t>(stream)>>>(  \
         A, Bm, lx, lxx, lu, luu, lam_in, sched, kout, Kout, dJ, lam_out,      \
-        exit_out, H, B);                                                      \
+        exit_out, valid_out, count, target, launch, cap, H, B);               \
     return static_cast<int>(cudaGetLastError());                              \
   }
 

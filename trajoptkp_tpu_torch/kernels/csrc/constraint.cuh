@@ -38,6 +38,17 @@
 // impedance power must be a small integer and is multiplied out: CUDA's pow
 // and torch.pow need not round alike.
 //
+// K2c, in the forward-mode step of K5ad (ad_jacobian.cu), where the rows,
+// M and the smooth force are dual numbers (dual.cuh): the Newton
+// iterations run on the values alone, and the solution's tangent is the
+// implicit one at the iterate they return (JAX dynamics/contact.py:
+// _newton_solver:95-135, lanes.py:_solve_rows_x_jvp:1490 and
+// _solve_rows_x_regs_jvp:1309): dx = -(H + 1e-10 I)^-1 dF, H = M + J'GJ
+// gated at x, dF the tangent of F = M (x - a0) + J' (min(y, 0) invR) at
+// the fixed x, evaluated in dual numbers (`implicit_tangent`); the force is
+// then recomputed from the dual x.  Plain twin:
+// dynamics/contact.py:_NewtonSolve, implicit_residual_tangent.
+//
 // Rounding: every sum runs left to right exactly as the twin's (-fmad=false),
 // because `dist < margin`, `y < 0` and the choice of step length are
 // branches, and central FD divides a flipped branch's jump by 2 eps.
@@ -53,6 +64,7 @@
 // and step-length loops stay rolled to bound code size and compile time.
 #pragma once
 
+#include "dual.cuh"
 #include "linalg.cuh"
 
 namespace trajopt {
@@ -67,35 +79,37 @@ constexpr int NEWTON_ITERS = 8;  // cold start, contact._NEWTON_ITERS
 constexpr int N_ALPHA = 6;
 constexpr double HESSIAN_JITTER = 1e-10;
 
-template <int R, int W>
+template <int R, int W, class S = double>
 struct Rows {
-  double coef[R][W];
-  double aref[R];
-  double invR[R];  // active / R: an inactive row contributes nothing
+  S coef[R][W];
+  S aref[R];
+  S invR[R];  // active / R: an inactive row contributes nothing
 };
 
 // x^n for n >= 1 by repeated multiplication
-__device__ __forceinline__ double ipow(double x, int n) {
-  double r = x;
+template <class S>
+__device__ __forceinline__ S ipow(S x, int n) {
+  S r = x;
   for (int k = 1; k < n; ++k) r = r * x;
   return r;
 }
 
 // mj_assignImpedance: power sigmoid from d0 to d0 + dspan over `width`
-__device__ __forceinline__ double impedance(const double* pl, double pos) {
-  const double x = clip(fabs(pos) / pl[L_WIDTH], 0.0, 1.0);
+template <class S>
+__device__ __forceinline__ S impedance(const double* pl, S pos) {
+  const S x = clip(fabs(pos) / pl[L_WIDTH], 0.0, 1.0);
   const int pw = static_cast<int>(pl[L_POWER]);
-  const double y_lo = ipow(x, pw) / pl[L_DEN_LO];
-  const double y_hi = 1.0 - ipow(1.0 - x, pw) / pl[L_DEN_HI];
-  const double y = x <= pl[L_MID] ? y_lo : y_hi;
+  const S y_lo = ipow(x, pw) / pl[L_DEN_LO];
+  const S y_hi = 1.0 - ipow(1.0 - x, pw) / pl[L_DEN_HI];
+  const S y = x <= pl[L_MID] ? y_lo : y_hi;
   return pl[L_D0] + y * pl[L_DSPAN];
 }
 
 // Rows 0..NLIM-1: q - lo of each limited joint; NLIM..2 NLIM-1: hi - q.
-template <class T>
+template <class T, class S>
 __device__ __forceinline__ void limit_rows(
-    const double* __restrict__ P, const double* q, const double* v,
-    Rows<T::R, T::ROW_W>& rows) {
+    const double* __restrict__ P, const S* q, const S* v,
+    Rows<T::R, T::ROW_W, S>& rows) {
   constexpr int NLIM = T::NLIM;
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -104,15 +118,15 @@ __device__ __forceinline__ void limit_rows(
       const int r = side * NLIM + k;
       const int d = T::lim_dof(k);
       const double* pl = P + T::LIM + k * LIM_STRIDE;
-      const double qd = q[T::dof_q(d)];
-      const double dist = side == 0 ? qd - pl[L_LO] : pl[L_HI] - qd;
-      const double vel = side == 0 ? v[d] : -v[d];
+      const S qd = q[T::dof_q(d)];
+      const S dist = side == 0 ? qd - pl[L_LO] : pl[L_HI] - qd;
+      const S vel = side == 0 ? v[d] : -v[d];
       const double inc = dist < pl[L_MARGIN] ? 1.0 : 0.0;
-      const double imp = dist - pl[L_MARGIN];
-      const double dd = impedance(pl, imp);
-      const double kk = dd / pl[L_KDEN];
+      const S imp = dist - pl[L_MARGIN];
+      const S dd = impedance(pl, imp);
+      const S kk = dd / pl[L_KDEN];
       rows.aref[r] = (-pl[L_B]) * vel - kk * imp;
-      const double Rr =
+      const S Rr =
           at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pl[L_INVW];
       rows.invR[r] = inc / Rr;
       rows.coef[r][0] = side == 0 ? 1.0 : -1.0;
@@ -126,51 +140,86 @@ __host__ __device__ constexpr int code_dof(unsigned long long code, int w) {
 }
 
 // out[r] = sum_w coef[r][w] x[row dof w], left to right
-template <class T>
-__device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W>& rows,
-                                           const double* x, double* out) {
+template <class T, class S, class X, class O>
+__device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W, S>& rows,
+                                           const X* x, O* out) {
   static_for<T::R>([&](auto rc) {
     constexpr int r = decltype(rc)::value;
     constexpr unsigned long long D = T::row_code(r);
     constexpr int RW = T::row_w(r);
-    double s = rows.coef[r][0] * x[code_dof(D, 0)];
+    O s = rows.coef[r][0] * x[code_dof(D, 0)];
 #pragma unroll
     for (int w = 1; w < RW; ++w) s += rows.coef[r][w] * x[code_dof(D, w)];
     out[r] = s;
   });
 }
 
+// the same over the rows' values (the primal of dual rows)
+template <class T, class S>
+__device__ __forceinline__ void rows_times_v(
+    const Rows<T::R, T::ROW_W, S>& rows, const double* x, double* out) {
+  static_for<T::R>([&](auto rc) {
+    constexpr int r = decltype(rc)::value;
+    constexpr unsigned long long D = T::row_code(r);
+    constexpr int RW = T::row_w(r);
+    double s = val(rows.coef[r][0]) * x[code_dof(D, 0)];
+#pragma unroll
+    for (int w = 1; w < RW; ++w) s += val(rows.coef[r][w]) * x[code_dof(D, w)];
+    out[r] = s;
+  });
+}
+
 // sum_r invR_r min(y_r + al jdx_r, 0)^2, left to right
-template <int R>
-__device__ __forceinline__ double penalty(const double* invR, const double* y,
+template <int R, class S>
+__device__ __forceinline__ double penalty(const S* invR, const double* y,
                                           const double* jdx, double al) {
   double s = 0.0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const double ya = y[r] + al * jdx[r];
     const double neg = ya < 0.0 ? ya : 0.0;
-    s += invR[r] * (neg * neg);
+    s += val(invR[r]) * (neg * neg);
   }
   return s;
 }
 
-// qc = J' f at the solution of the soft-constraint problem for
-// (M, qfrc, rows).
-template <class T>
-__device__ void constraint_solve(const double (&M)[T::NV][T::NV],
-                                 const double (&qfrc)[T::NV],
-                                 const Rows<T::R, T::ROW_W>& rows,
-                                 double (&qc)[T::NV]) {
+// H = M + J' diag(g) J + jitter I over the rows' values, row by row
+template <class T, class S, class SM>
+__device__ __forceinline__ void gated_hessian(
+    const SM (&M)[T::NV][T::NV], const Rows<T::R, T::ROW_W, S>& rows,
+    const double* g, double (&H)[T::NV][T::NV]) {
+  constexpr int NV = T::NV;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) H[i][k] = val(M[i][k]);
+  static_for<T::R>([&](auto rc) {
+    constexpr int r = decltype(rc)::value;
+    constexpr unsigned long long D = T::row_code(r);
+    constexpr int RW = T::row_w(r);
+#pragma unroll
+    for (int w1 = 0; w1 < RW; ++w1) {
+      const int d1 = code_dof(D, w1);
+#pragma unroll
+      for (int w2 = 0; w2 < RW; ++w2) {
+        const int d2 = code_dof(D, w2);
+        H[d1][d2] = H[d1][d2] +
+                    (val(rows.coef[r][w1]) * g[r]) * val(rows.coef[r][w2]);
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + HESSIAN_JITTER;
+}
+
+// NEWTON_ITERS projected-Newton iterations from x = a0 over the values of
+// (M, rows): the primal solve, in double whatever the rows' scalar.
+template <class T, class S, class SM>
+__device__ __forceinline__ void newton_iterations(
+    const SM (&M)[T::NV][T::NV], const double (&a0)[T::NV],
+    const Rows<T::R, T::ROW_W, S>& rows, double (&x)[T::NV]) {
   constexpr int NV = T::NV, R = T::R;
-  double H[NV][NV], a0[NV], x[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    a0[i] = qfrc[i];
-#pragma unroll
-    for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
-  }
-  chol_factor<NV>(H);
-  chol_solve<NV>(H, a0);
+  double H[NV][NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) x[i] = a0[i];
   const double ladder[N_ALPHA] = {1.0, 0.5, 0.25, 0.1, 0.04, 0.01};
@@ -181,23 +230,23 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
 #pragma unroll 1
   for (int it = 0; it < NEWTON_ITERS; ++it) {
     double y[R], g[R], e[NV], Me[NV], dx[NV], jdx[R], Mdx[NV];
-    rows_times<T>(rows, x, y);
+    rows_times_v<T>(rows, x, y);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      y[r] = y[r] - rows.aref[r];
-      g[r] = y[r] < 0.0 ? rows.invR[r] : 0.0;
+      y[r] = y[r] - val(rows.aref[r]);
+      g[r] = y[r] < 0.0 ? val(rows.invR[r]) : 0.0;
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      double s = M[i][0] * e[0];
+      double s = val(M[i][0]) * e[0];
 #pragma unroll
-      for (int k = 1; k < NV; ++k) s += M[i][k] * e[k];
+      for (int k = 1; k < NV; ++k) s += val(M[i][k]) * e[k];
       Me[i] = s;
       dx[i] = s;  // becomes the gradient, then the Newton direction
 #pragma unroll
-      for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
+      for (int k = 0; k < NV; ++k) H[i][k] = val(M[i][k]);
     }
     static_for<R>([&](auto rc) {
       constexpr int r = decltype(rc)::value;
@@ -207,11 +256,12 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
 #pragma unroll
       for (int w1 = 0; w1 < RW; ++w1) {
         const int d1 = code_dof(D, w1);
-        dx[d1] = dx[d1] + rows.coef[r][w1] * gy;
+        dx[d1] = dx[d1] + val(rows.coef[r][w1]) * gy;
 #pragma unroll
         for (int w2 = 0; w2 < RW; ++w2) {
           const int d2 = code_dof(D, w2);
-          H[d1][d2] = H[d1][d2] + (rows.coef[r][w1] * g[r]) * rows.coef[r][w2];
+          H[d1][d2] = H[d1][d2] + (val(rows.coef[r][w1]) * g[r]) *
+                                      val(rows.coef[r][w2]);
         }
       }
     });
@@ -223,13 +273,13 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
     for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
 
     // merit along x + alpha dx from shared products
-    rows_times<T>(rows, dx, jdx);
+    rows_times_v<T>(rows, dx, jdx);
     double eMe = 0.0, eMdx = 0.0, dMd = 0.0;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      double s = M[i][0] * dx[0];
+      double s = val(M[i][0]) * dx[0];
 #pragma unroll
-      for (int k = 1; k < NV; ++k) s += M[i][k] * dx[k];
+      for (int k = 1; k < NV; ++k) s += val(M[i][k]) * dx[k];
       Mdx[i] = s;
     }
 #pragma unroll
@@ -256,23 +306,127 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
 #pragma unroll
     for (int i = 0; i < NV; ++i) x[i] = x[i] + alpha * dx[i];
   }
+}
 
-  double y[R];
+// qc = J' f, f = -min(J x - aref, 0) invR
+template <class T, class S>
+__device__ __forceinline__ void constraint_force(
+    const Rows<T::R, T::ROW_W, S>& rows, const S (&x)[T::NV],
+    S (&qc)[T::NV]) {
+  S y[T::R];
   rows_times<T>(rows, x, y);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) qc[i] = 0.0;
-  static_for<R>([&](auto rc) {
+  for (int i = 0; i < T::NV; ++i) qc[i] = 0.0;
+  static_for<T::R>([&](auto rc) {
     constexpr int r = decltype(rc)::value;
     constexpr unsigned long long D = T::row_code(r);
     constexpr int RW = T::row_w(r);
-    const double yr = y[r] - rows.aref[r];
-    const double f = (-(yr < 0.0 ? yr : 0.0)) * rows.invR[r];
+    const S yr = y[r] - rows.aref[r];
+    const S f = (-(yr < 0.0 ? yr : S(0.0))) * rows.invR[r];
 #pragma unroll
     for (int w = 0; w < RW; ++w) {
       const int d = code_dof(D, w);
       qc[d] = qc[d] + rows.coef[r][w] * f;
     }
   });
+}
+
+// qc = J' f at the solution of the soft-constraint problem for
+// (M, qfrc, rows).
+template <class T>
+__device__ void constraint_solve(const double (&M)[T::NV][T::NV],
+                                 const double (&qfrc)[T::NV],
+                                 const Rows<T::R, T::ROW_W>& rows,
+                                 double (&qc)[T::NV]) {
+  constexpr int NV = T::NV;
+  double H[NV][NV], a0[NV], x[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    a0[i] = qfrc[i];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
+  }
+  chol_factor<NV>(H);
+  chol_solve<NV>(H, a0);
+  newton_iterations<T>(M, a0, rows, x);
+  constraint_force<T>(rows, x, qc);
+}
+
+// K2c: dx = -(H + 1e-10 I)^-1 dF at the Newton iterate x, dF the tangent
+// of F = M (x - a0) + J' (min(J x - aref, 0) invR) at the fixed x, F
+// evaluated in dual numbers row by row in the order of
+// dynamics/contact.py:implicit_residual_tangent.
+template <class T>
+__device__ void implicit_tangent(const Dual (&M)[T::NV][T::NV],
+                                 const Dual (&a0)[T::NV],
+                                 const Rows<T::R, T::ROW_W, Dual>& rows,
+                                 const double (&x)[T::NV],
+                                 double (&dx)[T::NV]) {
+  constexpr int NV = T::NV, R = T::R;
+  Dual e[NV], F[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    Dual s = M[i][0] * e[0];
+#pragma unroll
+    for (int k = 1; k < NV; ++k) s = s + M[i][k] * e[k];
+    F[i] = s;
+  }
+  double g[R];
+  static_for<R>([&](auto rc) {
+    constexpr int r = decltype(rc)::value;
+    constexpr unsigned long long D = T::row_code(r);
+    constexpr int RW = T::row_w(r);
+    Dual y = rows.coef[r][0] * x[code_dof(D, 0)];
+#pragma unroll
+    for (int w = 1; w < RW; ++w) y = y + rows.coef[r][w] * x[code_dof(D, w)];
+    y = y - rows.aref[r];
+    const Dual f = (y < 0.0 ? y : Dual(0.0)) * rows.invR[r];
+    g[r] = y < 0.0 ? rows.invR[r].v : 0.0;
+#pragma unroll
+    for (int w = 0; w < RW; ++w) {
+      const int d = code_dof(D, w);
+      F[d] = F[d] + rows.coef[r][w] * f;
+    }
+  });
+  double H[NV][NV];
+  gated_hessian<T>(M, rows, g, H);
+  chol_factor<NV>(H);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) dx[i] = F[i].d;
+  chol_solve<NV>(H, dx);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
+}
+
+// The forward-mode constraint force: a0 = M^-1 qfrc in dual numbers, the
+// Newton iterations on the values, K2c's tangent of the iterate, and the
+// force from the dual x.
+template <class T>
+__device__ void constraint_solve(const Dual (&M)[T::NV][T::NV],
+                                 const Dual (&qfrc)[T::NV],
+                                 const Rows<T::R, T::ROW_W, Dual>& rows,
+                                 Dual (&qc)[T::NV]) {
+  constexpr int NV = T::NV;
+  Dual L[NV][NV], a0[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    a0[i] = qfrc[i];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) L[i][k] = M[i][k];
+  }
+  chol_factor<NV>(L);
+  chol_solve<NV>(L, a0);
+  double a0v[NV], x[NV], dx[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) a0v[i] = a0[i].v;
+  newton_iterations<T>(M, a0v, rows, x);
+  implicit_tangent<T>(M, a0, rows, x, dx);
+  Dual xd[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) xd[i] = Dual(x[i], dx[i]);
+  constraint_force<T>(rows, xd, qc);
 }
 
 }  // namespace trajopt

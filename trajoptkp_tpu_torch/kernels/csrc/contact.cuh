@@ -65,13 +65,13 @@ enum ContactField { C_MU = 0, C_RCONST = 3 };
 
 // (n, t1, t2): t1 = n x ref / max(|n x ref|, 1e-12), ref the x axis unless
 // |n_x| >= 0.5, then the y axis; t2 = n x t1
-__device__ __forceinline__ void frame_from_normal(const double* n,
-                                                  double (&fr)[3][3]) {
+template <class S>
+__device__ __forceinline__ void frame_from_normal(const S* n, S (&fr)[3][3]) {
   const double one = fabs(n[0]) < 0.5 ? 1.0 : 0.0;
   const double ref[3] = {one, 1.0 - one, 0.0};
-  double t1[3];
+  S t1[3];
   cross3(n, ref, t1);
-  const double t1n = at_least(sqrt(dot3(t1, t1)), 1e-12);
+  const S t1n = at_least(sqrt(dot3(t1, t1)), 1e-12);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     fr[0][k] = n[k];
@@ -81,12 +81,11 @@ __device__ __forceinline__ void frame_from_normal(const double* n,
 }
 
 // world pose of a geom on a body frame: position, rotation matrix
-__device__ __forceinline__ void geom_pose(const double* bpos,
-                                          const double* bquat,
+template <class S>
+__device__ __forceinline__ void geom_pose(const S* bpos, const S* bquat,
                                           const double* gpos,
-                                          const double* gquat, double* xp,
-                                          double* xm) {
-  double q[4], t[3];
+                                          const double* gquat, S* xp, S* xm) {
+  S q[4], t[3];
   quat_mul(bquat, gquat, q);
   quat_rotate(bquat, gpos, t);
 #pragma unroll
@@ -95,30 +94,32 @@ __device__ __forceinline__ void geom_pose(const double* bpos,
 }
 
 // collision.py:plane_cylinder: three rim points of the cap nearer the plane
+template <class S>
 __device__ __forceinline__ void plane_cylinder(
-    const double* xp1, const double* xm1, const double* xp2,
-    const double* xm2, const double* s2, double* dist, double (*pos)[3],
-    double (&fr)[3][3]) {
-  const double n[3] = {xm1[2], xm1[5], xm1[8]};
+    const S* xp1, const S* xm1, const S* xp2, const S* xm2, const double* s2,
+    S* dist, S (*pos)[3], S (&fr)[3][3]) {
+  const S n[3] = {xm1[2], xm1[5], xm1[8]};
   const double r = s2[0], hl = s2[1];
-  const double axis[3] = {xm2[2], xm2[5], xm2[8]};
-  const double an = dot3(axis, n);
-  double sign = an > 0.0 ? -1.0 : (an < 0.0 ? 1.0 : (isnan(an) ? an : 1.0));
-  double cap[3], rad[3], radu[3], t[3];
+  const S axis[3] = {xm2[2], xm2[5], xm2[8]};
+  const S an = dot3(axis, n);
+  // a sign's tangent is zero; a NaN passes
+  S sign = an > 0.0 ? S(-1.0)
+                    : (an < 0.0 ? S(1.0) : (isnan(an) ? an : S(1.0)));
+  S cap[3], rad[3], radu[3], t[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     cap[k] = xp2[k] + axis[k] * (hl * sign);
     rad[k] = n[k] - axis[k] * an;
   }
-  const double rad_norm = sqrt(at_least(dot3(rad, rad), 1e-24));
+  const S rad_norm = sqrt(at_least(dot3(rad, rad), 1e-24));
   const bool aligned = rad_norm < 1e-9;
-  const double den = at_least(rad_norm, 1e-9);
+  const S den = at_least(rad_norm, 1e-9);
 #pragma unroll
   for (int k = 0; k < 3; ++k) radu[k] = aligned ? xm2[3 * k] : -rad[k] / den;
   cross3(axis, radu, t);
   const double half = -0.5 * r;
   const double arc = 0.866 * r;
-  double p[3][3];
+  S p[3][3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     p[0][k] = cap[k] + radu[k] * r;
@@ -127,11 +128,11 @@ __device__ __forceinline__ void plane_cylinder(
   }
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    double d[3];
+    S d[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) d[k] = p[s][k] - xp1[k];
     dist[s] = dot3(n, d);
-    const double hd = 0.5 * dist[s];
+    const S hd = 0.5 * dist[s];
 #pragma unroll
     for (int k = 0; k < 3; ++k) pos[s][k] = p[s][k] - n[k] * hd;
   }
@@ -140,24 +141,24 @@ __device__ __forceinline__ void plane_cylinder(
 
 // collision.py:plane_capsule: the two end points of the capsule's axis,
 // +half-length first
+template <class S>
 __device__ __forceinline__ void plane_capsule(
-    const double* xp1, const double* xm1, const double* xp2,
-    const double* xm2, const double* s2, double* dist, double (*pos)[3],
-    double (&fr)[3][3]) {
-  const double n[3] = {xm1[2], xm1[5], xm1[8]};
+    const S* xp1, const S* xm1, const S* xp2, const S* xm2, const double* s2,
+    S* dist, S (*pos)[3], S (&fr)[3][3]) {
+  const S n[3] = {xm1[2], xm1[5], xm1[8]};
   const double r = s2[0], hl = s2[1];
-  const double axis[3] = {xm2[2], xm2[5], xm2[8]};
+  const S axis[3] = {xm2[2], xm2[5], xm2[8]};
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const double h = s == 0 ? hl : -hl;
-    double e[3], d[3];
+    S e[3], d[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       e[k] = xp2[k] + axis[k] * h;
       d[k] = e[k] - xp1[k];
     }
     dist[s] = dot3(n, d) - r;
-    const double off = r + 0.5 * dist[s];
+    const S off = r + 0.5 * dist[s];
 #pragma unroll
     for (int k = 0; k < 3; ++k) pos[s][k] = e[k] - n[k] * off;
   }
@@ -166,62 +167,63 @@ __device__ __forceinline__ void plane_capsule(
 
 // collision.py:capsule_capsule over _closest_seg_seg and
 // _sphere_sphere_core: one slot between the axis segments' closest points
+template <class S>
 __device__ __forceinline__ void capsule_capsule(
-    const double* xp1, const double* xm1, const double* s1, const double* xp2,
-    const double* xm2, const double* s2, double* dist, double (*pos)[3],
-    double (&fr)[3][3]) {
-  double p0[3], p1[3], q0[3], q1[3];
+    const S* xp1, const S* xm1, const double* s1, const S* xp2, const S* xm2,
+    const double* s2, S* dist, S (*pos)[3], S (&fr)[3][3]) {
+  S p0[3], p1[3], q0[3], q1[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const double a = xm1[3 * k + 2] * s1[1];
-    const double b = xm2[3 * k + 2] * s2[1];
+    const S a = xm1[3 * k + 2] * s1[1];
+    const S b = xm2[3 * k + 2] * s2[1];
     p0[k] = xp1[k] - a;
     p1[k] = xp1[k] + a;
     q0[k] = xp2[k] - b;
     q1[k] = xp2[k] + b;
   }
-  double d1[3], d2[3], rr[3];
+  S d1[3], d2[3], rr[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     d1[k] = p1[k] - p0[k];
     d2[k] = q1[k] - q0[k];
     rr[k] = p0[k] - q0[k];
   }
-  const double a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, rr);
-  const double c = dot3(d1, rr), b = dot3(d1, d2);
-  const double denom = a * e - b * b;
-  double s = denom > 1e-12
-                 ? clip((b * f - c * e) / at_least(denom, 1e-12), 0.0, 1.0)
-                 : 0.0;
-  const double t = (b * s + f) / at_least(e, 1e-12);
-  const double t_cl = clip(t, 0.0, 1.0);
+  const S a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, rr);
+  const S c = dot3(d1, rr), b = dot3(d1, d2);
+  const S denom = a * e - b * b;
+  S s = denom > 1e-12
+            ? clip((b * f - c * e) / at_least(denom, 1e-12), 0.0, 1.0)
+            : S(0.0);
+  const S t = (b * s + f) / at_least(e, 1e-12);
+  const S t_cl = clip(t, 0.0, 1.0);
   s = clip((b * t_cl - c) / at_least(a, 1e-12), 0.0, 1.0);
-  double pa[3], pb[3], d[3];
+  S pa[3], pb[3], d[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     pa[k] = p0[k] + d1[k] * s;
     pb[k] = q0[k] + d2[k] * t_cl;
     d[k] = pb[k] - pa[k];
   }
-  const double L = sqrt(dot3(d, d));
+  const S L = sqrt(dot3(d, d));
   const bool deg = L < 1e-9;
-  const double Ld = at_least(L, 1e-9);
-  double n[3];
+  const S Ld = at_least(L, 1e-9);
+  S n[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) n[k] = deg ? (k == 2 ? 1.0 : 0.0) : d[k] / Ld;
+  for (int k = 0; k < 3; ++k)
+    n[k] = deg ? S(k == 2 ? 1.0 : 0.0) : d[k] / Ld;
   dist[0] = (L - s1[0]) - s2[0];
-  const double off = s1[0] + 0.5 * dist[0];
+  const S off = s1[0] + 0.5 * dist[0];
 #pragma unroll
   for (int k = 0; k < 3; ++k) pos[0][k] = pa[k] + n[k] * off;
   frame_from_normal(n, fr);
 }
 
 // The rows of contact pair PI, written from row T::R_LIM + 4 first_slot(PI).
-template <class T, int PI>
+template <class T, int PI, class S>
 __device__ __forceinline__ void pair_rows(
-    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
-    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
-    const double* v, Rows<T::R, T::ROW_W>& rows) {
+    const double* __restrict__ P, const S (&xpos)[T::NBODY][3],
+    const S (&xquat)[T::NBODY][4], const S (&cdof)[T::NV][6], const S* v,
+    Rows<T::R, T::ROW_W, S>& rows) {
   constexpr int t1 = T::pair_t1(PI), t2 = T::pair_t2(PI);
   constexpr int b1 = T::pair_b1(PI), b2 = T::pair_b2(PI);
   constexpr int NC = T::pair_ncon(PI), W = T::nsup(PI);
@@ -231,10 +233,10 @@ __device__ __forceinline__ void pair_rows(
   constexpr unsigned SGN = T::sgn_code(PI);
   const double* pp = P + T::PAIRB + PI * PAIR_STRIDE;
   const double* pc = pp + PAIR_CONST;
-  double xp1[3], xm1[9], xp2[3], xm2[9];
+  S xp1[3], xm1[9], xp2[3], xm2[9];
   geom_pose(xpos[b1], xquat[b1], pp + G1_POS, pp + G1_QUAT, xp1, xm1);
   geom_pose(xpos[b2], xquat[b2], pp + G2_POS, pp + G2_QUAT, xp2, xm2);
-  double dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[3][3];
+  S dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[3][3];
   if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CYLINDER) {
     plane_cylinder(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
   } else if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CAPSULE) {
@@ -252,18 +254,18 @@ __device__ __forceinline__ void pair_rows(
 #pragma unroll
   for (int s = 0; s < NC; ++s) {
     const double inc = dist[s] < pc[L_MARGIN] ? 1.0 : 0.0;
-    const double imp = dist[s] - pc[L_MARGIN];
-    const double dd = impedance(pc, imp);
-    const double kk = dd / pc[L_KDEN];
-    const double Rr =
+    const S imp = dist[s] - pc[L_MARGIN];
+    const S dd = impedance(pc, imp);
+    const S kk = dd / pc[L_KDEN];
+    const S Rr =
         at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pc[C_RCONST];
-    const double invR = inc / Rr;
-    double J[3][W];  // Jn, Jt1, Jt2 over the support
+    const S invR = inc / Rr;
+    S J[3][W];  // Jn, Jt1, Jt2 over the support
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       const int i = code_dof(SUP, w);
       const double sg = ((SGN >> w) & 1u) ? 1.0 : -1.0;
-      double wp[3], jac[3];
+      S wp[3], jac[3];
       cross3(cdof[i], pos[s], wp);
 #pragma unroll
       for (int k = 0; k < 3; ++k) jac[k] = (cdof[i][3 + k] + wp[k]) * sg;
@@ -274,14 +276,14 @@ __device__ __forceinline__ void pair_rows(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = ROW0 + 4 * s + e;
-      const double* Jt = J[1 + e / 2];
+      const S* Jt = J[1 + e / 2];
       const double smu = (e % 2 == 0) ? mu : -mu;
-      double vel = 0.0;
+      S vel = 0.0;
 #pragma unroll
       for (int w = 0; w < W; ++w) {
-        const double c = J[0][w] + smu * Jt[w];
+        const S c = J[0][w] + smu * Jt[w];
         rows.coef[r][w] = c;
-        const double cv = c * v[code_dof(SUP, w)];
+        const S cv = c * v[code_dof(SUP, w)];
         vel = w == 0 ? cv : vel + cv;
       }
       rows.aref[r] = (-pc[L_B]) * vel - kk * imp;
@@ -290,21 +292,20 @@ __device__ __forceinline__ void pair_rows(
   }
 }
 
-template <class T, int... PS>
+template <class T, class S, int... PS>
 __device__ __forceinline__ void contact_rows_of(
-    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
-    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
-    const double* v, Rows<T::R, T::ROW_W>& rows,
-    std::integer_sequence<int, PS...>) {
+    const double* __restrict__ P, const S (&xpos)[T::NBODY][3],
+    const S (&xquat)[T::NBODY][4], const S (&cdof)[T::NV][6], const S* v,
+    Rows<T::R, T::ROW_W, S>& rows, std::integer_sequence<int, PS...>) {
   (pair_rows<T, PS>(P, xpos, xquat, cdof, v, rows), ...);
 }
 
 // Rows 2 NLIM .. R-1: every pair's slots in pair order, four rows each.
-template <class T>
+template <class T, class S>
 __device__ __forceinline__ void contact_rows(
-    const double* __restrict__ P, const double (&xpos)[T::NBODY][3],
-    const double (&xquat)[T::NBODY][4], const double (&cdof)[T::NV][6],
-    const double* v, Rows<T::R, T::ROW_W>& rows) {
+    const double* __restrict__ P, const S (&xpos)[T::NBODY][3],
+    const S (&xquat)[T::NBODY][4], const S (&cdof)[T::NV][6], const S* v,
+    Rows<T::R, T::ROW_W, S>& rows) {
   contact_rows_of<T>(P, xpos, xquat, cdof, v, rows,
                      std::make_integer_sequence<int, T::NPAIR>{});
 }

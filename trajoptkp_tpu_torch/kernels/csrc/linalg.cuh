@@ -1,7 +1,9 @@
 // Small per-thread linear algebra shared by the step (step.cuh), the
 // constraint solve (constraint.cuh) and the backward pass (backward.cu).
 // The plain twins are trajoptkp_tpu_torch/utils/linalg.py:chol_unrolled and
-// chol_solve_unrolled, operation for operation.
+// chol_solve_unrolled, operation for operation.  The functions take the
+// scalar type as a template argument: double, or Dual (dual.cuh) in the
+// forward-mode step of K5ad.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,16 +11,20 @@
 
 #include <utility>
 
+#include "dual.cuh"
+
 namespace trajopt {
 
 // clamp that keeps NaN, as torch.clamp and jnp.clip do (fmin/fmax drop it)
-__device__ __forceinline__ double clip(double x, double lo, double hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+template <class S>
+__device__ __forceinline__ S clip(S x, double lo, double hi) {
+  return x < lo ? S(lo) : (x > hi ? S(hi) : x);
 }
 
 // max(x, lo) that keeps NaN, as torch.clamp(min=) and jnp.maximum do
-__device__ __forceinline__ double at_least(double x, double lo) {
-  return x < lo ? lo : x;
+template <class S>
+__device__ __forceinline__ S at_least(S x, double lo) {
+  return x < lo ? S(lo) : x;
 }
 
 // Loops whose index must be a compile-time constant: f(integral_constant<
@@ -35,18 +41,18 @@ __device__ __forceinline__ void static_for(F&& f) {
 }
 
 // In-place lower Cholesky factor of SPD A (NaN where A is not PD).
-template <int N>
-__device__ __forceinline__ void chol_factor(double (&A)[N][N]) {
+template <int N, class S>
+__device__ __forceinline__ void chol_factor(S (&A)[N][N]) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    double s = A[j][j];
+    S s = A[j][j];
 #pragma unroll
     for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
     A[j][j] = sqrt(s);
-    const double inv = 1.0 / A[j][j];
+    const S inv = recip(A[j][j]);
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
-      double t = A[i][j];
+      S t = A[i][j];
 #pragma unroll
       for (int k = 0; k < j; ++k) t -= A[i][k] * A[j][k];
       A[i][j] = t * inv;
@@ -55,19 +61,18 @@ __device__ __forceinline__ void chol_factor(double (&A)[N][N]) {
 }
 
 // Solve L L^T x = b in place, L from chol_factor.
-template <int N>
-__device__ __forceinline__ void chol_solve(const double (&L)[N][N],
-                                           double (&b)[N]) {
+template <int N, class S>
+__device__ __forceinline__ void chol_solve(const S (&L)[N][N], S (&b)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    double s = b[i];
+    S s = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * b[k];
     b[i] = s / L[i][i];
   }
 #pragma unroll
   for (int i = N - 1; i >= 0; --i) {
-    double s = b[i];
+    S s = b[i];
 #pragma unroll
     for (int k = i + 1; k < N; ++k) s -= L[k][i] * b[k];
     b[i] = s / L[i][i];

@@ -49,6 +49,7 @@
 
 #include "constraint.cuh"
 #include "contact.cuh"
+#include "dual.cuh"
 #include "geometry.cuh"
 #include "linalg.cuh"
 #include "residuals.cuh"
@@ -302,18 +303,20 @@ struct Topo {
 };
 
 // Spatial inertia about the world origin in compact form.
+template <class S = double>
 struct Inertia {
   double m;
-  double h[3];   // m * com
-  double J[6];   // xx yy zz xy xz yz of I_com + m (c.c I - c c^T)
+  S h[3];   // m * com
+  S J[6];   // xx yy zz xy xz yz of I_com + m (c.c I - c c^T)
 };
 
 // o = I s, s = [angular; linear]
-__device__ __forceinline__ void inertia_mul(const Inertia& I, const double* s,
-                                            double* o) {
-  const double* w = s;
-  const double* v = s + 3;
-  double hv[3], hw[3];
+template <class S>
+__device__ __forceinline__ void inertia_mul(const Inertia<S>& I, const S* s,
+                                            S* o) {
+  const S* w = s;
+  const S* v = s + 3;
+  S hv[3], hw[3];
   cross3(I.h, v, hv);
   cross3(I.h, w, hw);
   o[0] = I.J[0] * w[0] + I.J[3] * w[1] + I.J[4] * w[2] + hv[0];
@@ -323,7 +326,9 @@ __device__ __forceinline__ void inertia_mul(const Inertia& I, const double* s,
   for (int k = 0; k < 3; ++k) o[3 + k] = I.m * v[k] - hw[k];
 }
 
-__device__ __forceinline__ void inertia_add(Inertia& a, const Inertia& b) {
+template <class S>
+__device__ __forceinline__ void inertia_add(Inertia<S>& a,
+                                            const Inertia<S>& b) {
   a.m += b.m;
 #pragma unroll
   for (int k = 0; k < 3; ++k) a.h[k] += b.h[k];
@@ -332,9 +337,9 @@ __device__ __forceinline__ void inertia_add(Inertia& a, const Inertia& b) {
 }
 
 // v x m (spatial motion cross product)
-__device__ __forceinline__ void cross_motion(const double* v, const double* m,
-                                             double* o) {
-  double a[3], b[3], c[3];
+template <class S>
+__device__ __forceinline__ void cross_motion(const S* v, const S* m, S* o) {
+  S a[3], b[3], c[3];
   cross3(v, m, a);
   cross3(v, m + 3, b);
   cross3(v + 3, m, c);
@@ -343,9 +348,9 @@ __device__ __forceinline__ void cross_motion(const double* v, const double* m,
 }
 
 // v x* f (spatial force cross product)
-__device__ __forceinline__ void cross_force(const double* v, const double* f,
-                                            double* o) {
-  double a[3], b[3], c[3];
+template <class S>
+__device__ __forceinline__ void cross_force(const S* v, const S* f, S* o) {
+  S a[3], b[3], c[3];
   cross3(v, f, a);
   cross3(v + 3, f + 3, b);
   cross3(v, f + 3, c);
@@ -353,16 +358,17 @@ __device__ __forceinline__ void cross_force(const double* v, const double* f,
   for (int k = 0; k < 3; ++k) { o[k] = a[k] + b[k]; o[3 + k] = c[k]; }
 }
 
-__device__ __forceinline__ double dot6(const double* a, const double* b) {
+template <class S>
+__device__ __forceinline__ S dot6(const S* a, const S* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3] +
          a[4] * b[4] + a[5] * b[5];
 }
 
 // qn = q (+) v dt: hinge, slide and free translation q + dt v; a free
 // rotation q * exp(omega dt), normalised (dynamics/integrate.py).
-template <class T>
-__device__ __forceinline__ void integrate_pos(const double* q, const double* v,
-                                              double dt, double* qn) {
+template <class T, class S>
+__device__ __forceinline__ void integrate_pos(const S* q, const S* v,
+                                              double dt, S* qn) {
 #pragma unroll
   for (int b = 1; b < T::NBODY; ++b) {
     const int j = T::body_dof(b);
@@ -371,7 +377,7 @@ __device__ __forceinline__ void integrate_pos(const double* q, const double* v,
     if (T::free(b)) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) qn[a + k] = q[a + k] + dt * v[j + k];
-      double w[3], ql[4], qq[4];
+      S w[3], ql[4], qq[4];
 #pragma unroll
       for (int k = 0; k < 3; ++k) w[k] = v[j + 3 + k] * dt;
       quat_exp(w, ql);
@@ -402,27 +408,27 @@ struct FkBiasOut {
 // A free joint's body takes its pose from qpos (position, normalised
 // quaternion); hinges and slides compose in declaration order, each from
 // the frame the joints before it left (none: a welded body).
-template <class T>
+template <class T, class S>
 __device__ __forceinline__ void fk_body(const double* __restrict__ P,
-                                        const double* q, const int b,
-                                        double (&xpos)[T::NBODY][3],
-                                        double (&xquat)[T::NBODY][4],
-                                        double (&cdof)[T::NV][6]) {
+                                        const S* q, const int b,
+                                        S (&xpos)[T::NBODY][3],
+                                        S (&xquat)[T::NBODY][4],
+                                        S (&cdof)[T::NV][6]) {
   const double* pb = P + (b - 1) * BODY_STRIDE;
   const int p = T::parent(b);
   const int j0 = T::body_dof(b);
   const int qa = T::qadr(b);
-  double xq[4], xp[3], tmp[3];
+  S xq[4], xp[3], tmp[3];
   if (T::free(b)) {
     // the body's world pose is its qpos: position, normalised quaternion
 #pragma unroll
     for (int k = 0; k < 3; ++k) xp[k] = q[qa + k];
     quat_normalize(q + qa + 3, xq);
-    double Rf[9];
+    S Rf[9];
     quat_to_mat(xq, Rf);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      double a[3] = {Rf[k], Rf[3 + k], Rf[6 + k]}, ax[3];
+      S a[3] = {Rf[k], Rf[3 + k], Rf[6 + k]}, ax[3];
       cross3(xp, a, ax);
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
@@ -444,9 +450,9 @@ __device__ __forceinline__ void fk_body(const double* __restrict__ P,
       if (n >= T::body_ndof(b)) continue;
       const int j = j0 + n;
       const double* pd = P + T::DOFB + j * DOF_STRIDE;
-      const double dq = q[T::dof_q(j)] - pd[D_QPOS0];
+      const S dq = q[T::dof_q(j)] - pd[D_QPOS0];
       if (T::slide(j)) {
-        double aw[3];
+        S aw[3];
         quat_rotate(xq, pd + D_JAXIS, aw);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
@@ -455,7 +461,7 @@ __device__ __forceinline__ void fk_body(const double* __restrict__ P,
           cdof[j][3 + k] = aw[k];
         }
       } else {
-        double anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
+        S anchor[3], rv[3], ql[4], xq2[4], a[3], ax[3];
         quat_rotate(xq, pd + D_JPOS, anchor);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
@@ -501,20 +507,21 @@ struct Frames {
 // from the task buffer) is written to `res`, from the same FK products the
 // step uses.  With FK_BIAS the step stops after the
 // RNE and writes its FK products and bias force to `out` (fk_bias below).
-template <class T, bool WANT_RES = false, bool FK_BIAS = false>
-__device__ void smooth_step(const double* __restrict__ P, const double* q,
-                            const double* v, const double* u, double* qn,
-                            double* vn, const double* tg = nullptr,
+template <class T, bool WANT_RES = false, bool FK_BIAS = false,
+          class S = double>
+__device__ void smooth_step(const double* __restrict__ P, const S* q,
+                            const S* v, const S* u, S* qn, S* vn,
+                            const double* tg = nullptr,
                             const double* resc = nullptr,
                             double* res = nullptr,
                             const FkBiasOut* out = nullptr) {
   constexpr int NV = T::NV;
   constexpr int NU = T::NU;
   constexpr int NB = T::NBODY;
-  double xpos[NB][3], xquat[NB][4];
-  double cdof[NV][6];
-  Inertia In[NB];
-  double cvel[NB][6], cacc[NB][6], cfrc[NB][6];
+  S xpos[NB][3], xquat[NB][4];
+  S cdof[NV][6];
+  Inertia<S> In[NB];
+  S cvel[NB][6], cacc[NB][6], cfrc[NB][6];
 #pragma unroll
   for (int k = 0; k < 3; ++k) xpos[0][k] = 0.0;
   xquat[0][0] = 1.0; xquat[0][1] = 0.0; xquat[0][2] = 0.0; xquat[0][3] = 0.0;
@@ -531,11 +538,11 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
     const double* pb = P + (b - 1) * BODY_STRIDE;
     const int p = T::parent(b);
     const int j0 = T::body_dof(b);
-    const double* xq = xquat[b];
-    const double* xp = xpos[b];
+    const S* xq = xquat[b];
+    const S* xp = xpos[b];
 
     // inertia of body b about the world origin
-    double R[9], Ri[9], X[9], c[3];
+    S R[9], Ri[9], X[9], c[3];
     quat_to_mat(xq, R);
     quat_to_mat(pb + F_IQUAT, Ri);
 #pragma unroll
@@ -550,22 +557,22 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
     const double m = pb[F_MASS];
     const double* d = pb + F_INERTIA;
     const int kk[6][2] = {{0, 0}, {1, 1}, {2, 2}, {0, 1}, {0, 2}, {1, 2}};
-    const double cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
-    Inertia& I = In[b];
+    const S cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
+    Inertia<S>& I = In[b];
     I.m = m;
 #pragma unroll
     for (int r = 0; r < 3; ++r) I.h[r] = m * c[r];
 #pragma unroll
     for (int e = 0; e < 6; ++e) {
       const int r = kk[e][0], s = kk[e][1];
-      const double ic = X[3 * r] * d[0] * X[3 * s] +
+      const S ic = X[3 * r] * d[0] * X[3 * s] +
                         X[3 * r + 1] * d[1] * X[3 * s + 1] +
                         X[3 * r + 2] * d[2] * X[3 * s + 2];
       I.J[e] = ic + m * ((r == s ? cc : 0.0) - c[r] * c[s]);
     }
 
     // RNE forward: body velocity, acceleration and force
-    double Iv[6], Ia[6], cf[6];
+    S Iv[6], Ia[6], cf[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       cvel[b][k] = cvel[p][k];
@@ -580,7 +587,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
           cvel[b][k] = cvel[b][k] + cdof[j0 + i][k] * v[j0 + i];
 #pragma unroll
       for (int i = 3; i < 6; ++i) {
-        double cm[6];
+        S cm[6];
         cross_motion(cvel[b], cdof[j0 + i], cm);
 #pragma unroll
         for (int k = 0; k < 6; ++k)
@@ -593,7 +600,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       for (int n = 0; n < 6; ++n) {
         if (n >= T::body_ndof(b)) continue;
         const int j = j0 + n;
-        double cm[6];
+        S cm[6];
         cross_motion(cvel[b], cdof[j], cm);
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
@@ -608,11 +615,11 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 #pragma unroll
     for (int k = 0; k < 6; ++k) cfrc[b][k] = Ia[k] + cf[k];
   }
-  if constexpr (WANT_RES && T::RES == RES_PUSH)
+  if constexpr (WANT_RES && T::RES == RES_PUSH && !is_dual<S>::value)
     push_residual<T>(resc, xpos, xquat, v, tg, res);
 
   // ---- RNE backward (bias) and composite inertias (CRBA)
-  double bias[NV];
+  S bias[NV];
 #pragma unroll
   for (int b = NB - 1; b >= 1; --b) {
     const int p = T::parent(b);
@@ -626,7 +633,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       inertia_add(In[p], In[b]);
     }
   }
-  if constexpr (FK_BIAS) {
+  if constexpr (FK_BIAS && !is_dual<S>::value) {
     const int B = out->B, l = out->b;
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
@@ -643,7 +650,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       out->bias[i * B + l] = bias[i];
     }
   } else {
-    double M[NV][NV];
+    S M[NV][NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i)
 #pragma unroll
@@ -651,7 +658,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int bi = T::dof_body(i);
-      double F[6];
+      S F[6];
       inertia_mul(In[bi], cdof[i], F);
       M[i][i] = dot6(cdof[i], F) + P[T::DOFB + i * DOF_STRIDE + D_ARM];
       // the body's own earlier dofs (a free joint's), then its ancestors';
@@ -660,7 +667,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       for (int k = 0; k < 5; ++k) {
         const int ik = T::body_dof(bi) + k;
         if (ik < i) {
-          const double mik = dot6(cdof[ik], F);
+          const S mik = dot6(cdof[ik], F);
           M[i][ik] = mik;
           M[ik][i] = mik;
         }
@@ -671,7 +678,7 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
         for (int k = 0; k < 6; ++k) {
           if (k < T::body_ndof(a)) {
             const int ja = T::body_dof(a) + k;
-            const double mij = dot6(cdof[ja], F);
+            const S mij = dot6(cdof[ja], F);
             M[i][ja] = mij;
             M[ja][i] = mij;
           }
@@ -681,21 +688,21 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
 
     // ---- forces, constraint force, implicit damping, Euler
     const double h = P[T::DT];
-    double f[NV];
+    S f[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int bi = T::dof_body(i);
       const double* pd = P + T::DOFB + i * DOF_STRIDE;
       const double damp = pd[D_DAMP];
-      double passive = -damp * v[i];
+      S passive = -damp * v[i];
       if (!T::free(bi))
         passive = passive + (-pd[D_STIFF] * (q[T::dof_q(i)] - pd[D_QSPRING]));
-      double act = 0.0;
+      S act = 0.0;
 #pragma unroll
       for (int a = 0; a < NU; ++a) {
         const double* pa = P + T::ACT + a * ACT_STRIDE;
         if (static_cast<int>(pa[A_DOF]) == i) {
-          double c = u[a];
+          S c = u[a];
           if (pa[A_LIMITED] != 0.0) c = clip(c, pa[A_LO], pa[A_HI]);
           act += c * pa[A_GEAR];
         }
@@ -703,8 +710,8 @@ __device__ void smooth_step(const double* __restrict__ P, const double* q,
       f[i] = passive + act - bias[i];
     }
     if constexpr (T::R > 0) {
-      Rows<T::R, T::ROW_W> rows;
-      double qc[NV];
+      Rows<T::R, T::ROW_W, S> rows;
+      S qc[NV];
       if constexpr (T::NLIM > 0) limit_rows<T>(P, q, v, rows);
       if constexpr (T::NPAIR > 0)
         contact_rows<T>(P, xpos, xquat, cdof, v, rows);
@@ -731,8 +738,8 @@ template <class T>
 __device__ __forceinline__ void fk_bias(const double* __restrict__ P,
                                         const double* q, const double* v,
                                         const FkBiasOut& out) {
-  smooth_step<T, false, true>(P, q, v, nullptr, nullptr, nullptr, nullptr,
-                              nullptr, nullptr, &out);
+  smooth_step<T, false, true, double>(P, q, v, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, &out);
 }
 
 // The FK products of one lane, as smooth_step computes them.

@@ -29,9 +29,13 @@ the sizes as runtime arguments: `keypoint_plan` (K9a, csrc/keypoints.cu:
 the adaptive keypoint selectors and the per-lane slot plan),
 `kp_interp` (K9b, csrc/kp_interp.cu: the per-column gather and lerp of the
 slot Jacobians to the full horizon) and `ie_mse` (K9c, csrc/kp_interp.cu:
-the iterative_error bisection test).  `fd_jacobian` (K5) takes slot times
-shared by every lane, or per lane with a live count, or per lane scattered
-into a full-horizon cache at their times (iterative_error).
+the iterative_error bisection test).  The slot Jacobians, `ad_jacobian`
+(K5ad: exact, the step in dual numbers with the constraint solve's
+implicit tangent K2c; every lane path's) and `fd_jacobian` (K5: central
+FD; the generic solve's at deriv_mode "fd"), take slot times shared by
+every lane, or per lane with a live count, or per lane scattered into a
+full-horizon cache at their times (iterative_error).  `backward` (K7)
+runs the JAX lane solver's coupled λ loop in 1 + bp_rounds launches.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..derivs.ad import ad_lane_slots, ad_slot_jacobians
 from ..derivs.fd import fd_lane_slots, fd_slot_jacobians
 from ..dynamics.contact import (LIMIT_FIELDS, contact_constants,
                                 limit_constants)
@@ -56,8 +61,11 @@ from ..solver import ilqr as twins
 from ..tasks.base import Task, control_limits
 from . import build
 
-KERNELS = ("rollout", "linesearch", "fd_jacobian", "cost_expansion",
-           "backward")
+# the dynamics Jacobians are central FD (K5, the generic solve's deriv_mode
+# "fd") or forward mode (K5ad, every lane path, and deriv_mode "ad" and
+# "ad_time"); an iteration launches one of the two
+KERNELS = ("rollout", "linesearch", "fd_jacobian", "ad_jacobian",
+           "cost_expansion", "backward")
 # the MPC replan's apply step (K8), launched once per replan
 MPC_KERNELS = ("mpc_apply",)
 # the FK products and bias force of the pushing tasks' servo (in the rollout
@@ -73,6 +81,7 @@ REPLACES = {
     "rollout": "trajoptkp_tpu/solver/lanes.py:263",
     "linesearch": "trajoptkp_tpu/solver/lanes.py:750",
     "fd_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
+    "ad_jacobian": "trajoptkp_tpu/solver/lanes.py:282",
     "cost_expansion": "trajoptkp_tpu/solver/lanes.py:597",
     "backward": "trajoptkp_tpu/solver/lanes.py:632",
     "mpc_apply": "trajoptkp_tpu/mpc/sync.py:100",
@@ -83,9 +92,10 @@ REPLACES = {
 # the library each kernel is built into, where it is not its own name
 SOURCES = {"fk_bias": "rollout", "ie_mse": "kp_interp",
            "keypoint_plan": "keypoints"}
-# device functions inside rollout, linesearch, fd_jacobian and mpc_apply: the
-# step (K1), for a model with joint limits or contacts the constraint solve
-# (K2a), and for a model with contacts the narrow phase and contact rows (K2b)
+# device functions inside rollout, linesearch, fd_jacobian, ad_jacobian and
+# mpc_apply: the step (K1), for a model with joint limits or contacts the
+# constraint solve (K2a; in ad_jacobian with the implicit tangent K2c), and
+# for a model with contacts the narrow phase and contact rows (K2b)
 DEVICE_FUNCTIONS = {
     "step": ("trajoptkp_tpu_torch/kernels/csrc/step.cuh",
              "trajoptkp_tpu/dynamics/lanes.py:1595"),
@@ -93,6 +103,8 @@ DEVICE_FUNCTIONS = {
                    "trajoptkp_tpu/dynamics/lanes.py:1523"),
     "contact": ("trajoptkp_tpu_torch/kernels/csrc/contact.cuh",
                 "trajoptkp_tpu/dynamics/lanes.py:989"),
+    "implicit_tangent": ("trajoptkp_tpu_torch/kernels/csrc/constraint.cuh",
+                         "trajoptkp_tpu/dynamics/lanes.py:1490"),
 }
 
 # numeric model buffer layout, mirrored by csrc/step.cuh
@@ -496,6 +508,41 @@ def linesearch(task: Task, qpos, qvel, U, k, K, alphas, targets,
     return qps, qvs, us, cs
 
 
+def _slot_args(ka, qpos, qvel, U, times, counts, cache):
+    """Check K5's and K5ad's inputs on the card -> (J, time strides)."""
+    H, B = U.shape[0], U.shape[-1]
+    nq, nv, nu, nx, nK = ka.nq, ka.nv, ka.nu, ka.sv.nx, times.shape[0]
+    _check("qpos", qpos, (qpos.shape[0], nq, B))
+    _check("qvel", qvel, (qvel.shape[0], nv, B))
+    _check("U", U, (H, nu, B))
+    if qpos.shape[0] < H or qvel.shape[0] < H:
+        raise ValueError("trajectory shorter than the controls")
+    if times.dim() == 2:
+        _check("times", times, (nK, B), torch.int64)
+        _check("counts", counts, (B,), torch.int32)
+        stride = (B, 1)
+    else:
+        _check("times", times, (nK,), torch.int64)
+        if nK and not (0 <= int(times.min()) and int(times.max()) < H):
+            raise ValueError(f"slot times must lie in [0, {H})")
+        stride = (1, 0)
+    if cache is not None:
+        _check("cache", cache, (H, nx, nx + nu, B))
+        return cache, stride
+    return torch.empty((nK, nx, nx + nu, B), dtype=torch.float64,
+                       device=U.device), stride
+
+
+def _slot_modes(times, counts, cache) -> bool:
+    """Whether the slot times are per lane; refuse inconsistent modes."""
+    lanes = times.dim() == 2
+    if (cache is not None or counts is not None) and not lanes:
+        raise ValueError("counts and cache go with per-lane times (K, B)")
+    if lanes and counts is None:
+        raise ValueError("per-lane times need their live counts")
+    return lanes
+
+
 def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
                 plain: bool = False, counts=None, cache=None):
     """K5.  Central-FD [A|B] over the state vector at slot times of the
@@ -511,11 +558,7 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
 
     Per-lane times are not checked against H on the card: that would read
     them back to the host."""
-    lanes = times.dim() == 2
-    if (cache is not None or counts is not None) and not lanes:
-        raise ValueError("counts and cache go with per-lane times (K, B)")
-    if lanes and counts is None:
-        raise ValueError("per-lane times need their live counts")
+    lanes = _slot_modes(times, counts, cache)
     if _on_cpu(qpos, qvel, U, times) or plain:
         if not lanes:
             J = fd_slot_jacobians(task.model, task.sv,
@@ -526,35 +569,43 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
         return fd_lane_slots(task.model, task.sv, qpos, qvel, U, times,
                              counts, eps, cache)
     ka = kernel_args(task, U.device)
-    H, B = U.shape[0], U.shape[-1]
-    nq, nv, nu, nx, nK = ka.nq, ka.nv, ka.nu, ka.sv.nx, times.shape[0]
-    _check("qpos", qpos, (qpos.shape[0], nq, B))
-    _check("qvel", qvel, (qvel.shape[0], nv, B))
-    _check("U", U, (H, nu, B))
-    if qpos.shape[0] < H or qvel.shape[0] < H:
-        raise ValueError("trajectory shorter than the controls")
-    if lanes:
-        _check("times", times, (nK, B), torch.int64)
-        _check("counts", counts, (B,), torch.int32)
-        stride = (B, 1)
-    else:
-        _check("times", times, (nK,), torch.int64)
-        if nK and not (0 <= int(times.min()) and int(times.max()) < H):
-            raise ValueError(f"slot times must lie in [0, {H})")
-        stride = (1, 0)
-    if cache is not None:
-        _check("cache", cache, (H, nx, nx + nu, B))
-        J = cache
-    else:
-        J = torch.empty((nK, nx, nx + nu, B), dtype=torch.float64,
-                        device=U.device)
+    J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
     _launch("fd_jacobian", ka.tag,
             f"trajopt_fd_jacobian_{ka.tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times),
             ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
             ctypes.c_void_p(counts.data_ptr() if lanes else None),
             ctypes.c_int(cache is not None), ctypes.c_double(eps),
-            _p(J), ctypes.c_int(nK), ctypes.c_int(B))
+            _p(J), ctypes.c_int(times.shape[0]), ctypes.c_int(U.shape[-1]))
+    return J
+
+
+def ad_jacobian(task: Task, qpos, qvel, U, times, plain: bool = False,
+                counts=None, cache=None):
+    """K5ad (csrc/ad_jacobian.cu).  The exact [A|B] over the state vector
+    by forward mode, the constraint solve differentiated implicitly at its
+    Newton iterate (K2c), at the slot times of the trajectory, in the slot
+    modes of `fd_jacobian` (shared times, per-lane times with live counts,
+    the full-horizon cache).  Plain twin: derivs/ad.py."""
+    lanes = _slot_modes(times, counts, cache)
+    if _on_cpu(qpos, qvel, U, times) or plain:
+        if not lanes:
+            J = ad_slot_jacobians(task.model, task.sv,
+                                  qpos[times].transpose(0, 1),
+                                  qvel[times].transpose(0, 1),
+                                  U[times].transpose(0, 1))
+            return J.movedim(2, 0)                     # (K, 2n, C, B)
+        return ad_lane_slots(task.model, task.sv, qpos, qvel, U, times,
+                             counts, cache)
+    ka = kernel_args(task, U.device)
+    J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
+    _launch("ad_jacobian", ka.tag,
+            f"trajopt_ad_jacobian_{ka.tag}", _p(ka.model_buf),
+            _p(qpos), _p(qvel), _p(U), _p(times),
+            ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
+            ctypes.c_void_p(counts.data_ptr() if lanes else None),
+            ctypes.c_int(cache is not None), _p(J),
+            ctypes.c_int(times.shape[0]), ctypes.c_int(U.shape[-1]))
     return J
 
 
@@ -611,12 +662,19 @@ def backward_args(nx: int, nu: int, cfg, device) -> Tuple[str, torch.Tensor]:
     return out
 
 
-def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False):
-    """K7.  Riccati sweep with the per-lane λ retry of
-    `backward_pass_lambda_loop` -> (k, K, dJ, new λ, λ-exit)."""
+def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False,
+             info: dict = None):
+    """K7.  Riccati sweep with the coupled λ retry of
+    `backward_pass_lambda_loop` -> (k, K, dJ, new λ, λ-exit);
+    `info["rounds"]` receives the retry rounds taken (a device tensor on
+    the card).  On the card 1 + `bp_rounds(cfg)` launches run back to back
+    without reading anything back (csrc/backward.cu: each lane's own sweeps
+    first, then every lane up to the most any lane needed); a launch whose
+    target the lanes have reached sweeps over no steps.  Each launch
+    counts."""
     if _on_cpu(A, Bm, l_x, l_xx, l_u, l_uu, lamb) or plain:
         return twins.backward_pass_lambda_loop(A, Bm, l_x, l_xx, l_u, l_uu,
-                                               lamb, cfg)
+                                               lamb, cfg, info=info)
     H, nx, B = l_x.shape
     nu = l_u.shape[1]
     symbol, sched = backward_args(nx, nu, cfg, A.device)
@@ -633,10 +691,19 @@ def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False):
     dJ = torch.empty((B,), **f64)
     lam = torch.empty((B,), **f64)
     exited = torch.empty((B,), dtype=torch.uint8, device=A.device)
-    _launch("backward", f"nx{nx}_nu{nu}", symbol, _p(A), _p(Bm), _p(l_x),
-            _p(l_xx), _p(l_u), _p(l_uu), _p(lamb), _p(sched), _p(k), _p(K),
-            _p(dJ), _p(lam), _p(exited), ctypes.c_int(H), ctypes.c_int(B))
-    return k, K, dJ, lam, exited.bool()
+    valid = torch.empty((B,), dtype=torch.uint8, device=A.device)
+    count = torch.empty((B,), dtype=torch.int32, device=A.device)
+    rounds = twins.bp_rounds(cfg)
+    target = torch.zeros((rounds + 1,), dtype=torch.int32, device=A.device)
+    for launch in range(rounds + 1):
+        _launch("backward", f"nx{nx}_nu{nu}", symbol, _p(A), _p(Bm),
+                _p(l_x), _p(l_xx), _p(l_u), _p(l_uu), _p(lamb), _p(sched),
+                _p(k), _p(K), _p(dJ), _p(lam), _p(exited), _p(valid),
+                _p(count), _p(target), ctypes.c_int(launch),
+                ctypes.c_int(rounds + 1), ctypes.c_int(H), ctypes.c_int(B))
+    if info is not None:
+        info["rounds"] = target[rounds] - 1      # sweeps per lane, less one
+    return k, K, dJ, lam, exited.bool() & (valid == 0)
 
 
 def mpc_apply(task: Task, qp, qv, U, U_n, accept, best, old, z, std,

@@ -11,8 +11,9 @@ all batch-last over B lanes:
   K4 (kernels/csrc/linesearch.cu); the argmin and accept stay torch in
   solver/lanes.py.
 
-The λ retry is per lane with the generic semantics of
-`backward_pass_lambda_loop`: a lane reruns only while it is itself invalid.
+The λ retry is the JAX lane solver's coupled loop: while any lane is
+invalid and not exited, every lane sweeps again (`backward_pass_lambda_loop`;
+at B = 1 the generic loop).
 `optimise` drives solver/lanes.py's host loop at B = 1 with the generic
 convergence rule and the generic solve's keypoint semantics (every keypoint
 method, iterative_error through the lane bisection at B = 1, `filtering`,
@@ -22,6 +23,7 @@ method, iterative_error through the lane bisection at B = 1, `filtering`,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -31,6 +33,9 @@ from ..dynamics.step import advance, forward
 from ..state.statevector import to_tangent
 from ..tasks.base import Task, control_limits
 from ..utils.linalg import chol_solve_unrolled, chol_unrolled
+
+
+DERIV_MODES = ("fd", "ad", "ad_time")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +49,15 @@ class ILQRConfig:
     min_lambda: float = 1e-4
     max_lambda: float = 10.0
     eps_converge: float = 0.02
+    # the dynamics Jacobians of the generic solve (`optimise`, and the
+    # asynchronous and generic MPC executors on it): "fd" central
+    # differences at fd_eps (K5), "ad" and "ad_time" exact forward-mode
+    # columns (K5ad; the two are one route here: the port evaluates whole
+    # Jacobians at the keypoint times, which JAX's "ad_time" does, and a
+    # column of an exact Jacobian does not depend on the others).  The lane
+    # solver and the lane MPC replan take K5ad whatever this says, as the
+    # JAX lane program has no FD.
+    deriv_mode: str = "fd"
     # the generic solve (`optimise`) filters A's velocity rows along time:
     # "none", "low_pass" or "FIR" (keypoints/filtering.py)
     filtering: str = "none"
@@ -196,25 +210,40 @@ def update_lambda(cfg: ILQRConfig, lamb, valid):
     return torch.clamp(lam, cfg.min_lambda, cfg.max_lambda), lam > cfg.max_lambda
 
 
+def bp_rounds(cfg: ILQRConfig) -> int:
+    """The retry rounds the λ loop may take after its first sweep:
+    log_factor(max_lambda / min_lambda) + 2.  A lane invalid at every sweep
+    exits within log_factor(max / min) + 1 of them; the JAX loop runs on
+    past this only while some lane keeps turning invalid again at a lower
+    λ, where it need not end at all."""
+    return int(math.ceil(math.log(cfg.max_lambda / cfg.min_lambda)
+                         / math.log(cfg.lambda_factor))) + 2
+
+
 def backward_pass_lambda_loop(A, Bm, l_x, l_xx, l_u, l_uu, lamb,
-                              cfg: ILQRConfig, contract=_contract):
-    """while (!valid): BP; update λ — per lane.  Returns (k, K, dJ,
-    new λ (B,), λ-exit (B,) bool)."""
+                              cfg: ILQRConfig, contract=_contract,
+                              info: Optional[dict] = None):
+    """The JAX lane solver's coupled λ loop (`solver/lanes.py:
+    bp_lambda_loop:720-746`): one sweep of every lane, λ / factor where
+    valid and λ * factor where not; then, while any lane is invalid and
+    not exited, every lane sweeps again at its updated λ (at most
+    `bp_rounds` times).  At B = 1 this is the generic loop (JAX
+    `ilqr.py:380`).  Returns (k, K, dJ, new λ (B,), λ-exit (B,) bool:
+    exited and not valid at the last sweep); `info["rounds"]` receives the
+    rounds taken."""
     k, K, dJ, valid = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lamb,
                                     contract)
     lam, exited = update_lambda(cfg, lamb, valid)
-    retry = ~valid & ~exited
-    while bool(retry.any()):
-        k2, K2, dJ2, valid2 = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lam,
-                                            contract)
-        lam2, exited2 = update_lambda(cfg, lam, valid2)
-        k = torch.where(retry, k2, k)
-        K = torch.where(retry, K2, K)
-        dJ = torch.where(retry, dJ2, dJ)
-        valid = torch.where(retry, valid2, valid)
-        exited = torch.where(retry, exited2, exited)
-        lam = torch.where(retry, lam2, lam)
-        retry = ~valid & ~exited
+    rounds = 0
+    for _ in range(bp_rounds(cfg)):
+        if not bool((~valid & ~exited).any()):
+            break
+        k, K, dJ, valid = backward_pass(A, Bm, l_x, l_xx, l_u, l_uu, lam,
+                                        contract)
+        lam, exited = update_lambda(cfg, lam, valid)
+        rounds += 1
+    if info is not None:
+        info["rounds"] = torch.tensor(rounds, device=lamb.device)
     return k, K, dJ, lam, exited & ~valid
 
 

@@ -9,16 +9,20 @@ by name, as the JAX `make_lane_batch_optimise(...).phases` does
 (mpc/sync.py):
 
   rollout         kernels.ops.rollout        (K3)
-  jacobians       set_interval: kernels.ops.fd_jacobian (K5) + lerp in torch;
-                  adaptive_jerk, adaptive_accel, velocity_change:
-                  ops.keypoint_plan (K9a) + ops.fd_jacobian at per-lane
-                  slots (K5) + ops.kp_interp (K9b);
+  jacobians       set_interval: kernels.ops.ad_jacobian (K5ad) + lerp in
+                  torch; adaptive_jerk, adaptive_accel, velocity_change:
+                  ops.keypoint_plan (K9a) + ops.ad_jacobian at per-lane
+                  slots (K5ad) + ops.kp_interp (K9b);
                   iterative_error: host-driven bisection rounds of
-                  ops.fd_jacobian into a full-horizon cache (K5) and
-                  ops.ie_mse (K9c), then K9a + K9b on the cache
+                  ops.ad_jacobian into a full-horizon cache (K5ad) and
+                  ops.ie_mse (K9c), then K9a + K9b on the cache.
+                  The lane path's Jacobians are exact, as the JAX lane
+                  program's (jacfwd); the generic rule follows
+                  cfg.deriv_mode: "fd" runs ops.fd_jacobian (K5, central
+                  differences) in K5ad's place
   cost_expansion  kernels.ops.cost_expansion (K6: the closed-form residual
                   Jacobian and its Gauss-Newton products)
-  bp              kernels.ops.backward       (K7, λ retry per lane)
+  bp              kernels.ops.backward       (K7, the coupled λ retry)
   fp              kernels.ops.linesearch     (K4) + argmin/accept in torch
 
 The jacobians phase returns (A, Bm, pct (B,), overflow (B,)) as the JAX
@@ -58,7 +62,7 @@ from ..dynamics.integrate import integrate_pos
 from ..dynamics.model import FREE
 from ..state.statevector import scatter_tangent
 from ..tasks.base import Task
-from .ilqr import ILQRConfig, _contract, default_alphas
+from .ilqr import DERIV_MODES, ILQRConfig, _contract, default_alphas
 
 
 class SIPlan(NamedTuple):
@@ -90,14 +94,28 @@ def si_plan(task: Task, H: int) -> SIPlan:
     )
 
 
-def jacobians_si(task: Task, plan: SIPlan, qpos, qvel, U, eps: float,
-                 plain: bool = False):
-    """A (H, 2n, 2n, B), B (H, 2n, nu, B): FD at the SI keypoint slots,
-    lerped in between (every dof shares the SI schedule, so the per-column
-    lerp of InterpolateDerivatives is a whole-matrix lerp)."""
+def slot_jacobians(task: Task, deriv: str, plain: bool = False,
+                   eps: float = 1e-6):
+    """jac(qpos, qvel, U, times, counts=None, cache=None) -> J of one
+    derivative route, in the slot modes of `ops.fd_jacobian`: "ad" the
+    exact forward-mode Jacobians (K5ad, `ops.ad_jacobian`), "fd" central
+    differences at eps (K5); `plain` runs the route's twin."""
+    if deriv == "ad":
+        return lambda qpos, qvel, U, times, **kw: ops.ad_jacobian(
+            task, qpos, qvel, U, times, plain=plain, **kw)
+    if deriv == "fd":
+        return lambda qpos, qvel, U, times, **kw: ops.fd_jacobian(
+            task, qpos, qvel, U, times, eps, plain=plain, **kw)
+    raise ValueError(f"derivative route {deriv!r}: 'ad' or 'fd'")
+
+
+def jacobians_si(task: Task, plan: SIPlan, qpos, qvel, U, jac):
+    """A (H, 2n, 2n, B), B (H, 2n, nu, B): `jac` (a route of
+    `slot_jacobians`) at the SI keypoint slots, lerped in between (every dof
+    shares the SI schedule, so the per-column lerp of
+    InterpolateDerivatives is a whole-matrix lerp)."""
     n2 = task.sv.nx
-    J = ops.fd_jacobian(task, qpos, qvel, U, plan.times, eps,
-                        plain=plain)                   # (K, 2n, C, B)
+    J = jac(qpos, qvel, U, plan.times)                 # (K, 2n, C, B)
     wL = plan.w[:, None, None, None]
     Jp, Jn = J[plan.pidx], J[plan.nidx]
     Jf = Jp + wL * (Jn - Jp)
@@ -253,29 +271,28 @@ def ie_levels(H: int, min_split: int):
 
 
 def jacobians_adaptive(task: Task, pa, K_max: int, col_dof, qpos, qvel, U,
-                       eps: float, twin, mask=None):
+                       jac, twin, mask=None):
     """AJ, AA, VC on lanes (JAX `jacobians_adaptive:363`): K9a's keypoint
-    mask (or `mask`, (H, n, B)) and per-lane slot plan, K5 at each lane's
-    live slots, K9b's per-column lerp -> (A, Bm, plan)."""
+    mask (or `mask`, (H, n, B)) and per-lane slot plan, `jac` (K5ad or K5)
+    at each lane's live slots, K9b's per-column lerp -> (A, Bm, plan)."""
     H = U.shape[0]
     plan = ops.keypoint_plan(pa, qvel, H, K_max, mask=mask,
                              plain=twin("keypoint_plan"))
-    J = ops.fd_jacobian(task, qpos, qvel, U, plan.slot_t, eps,
-                        plain=twin("fd_jacobian"), counts=plan.count)
+    J = jac(qpos, qvel, U, plan.slot_t, counts=plan.count)
     A, Bm = ops.kp_interp(J, plan.pslot, plan.nslot, plan.w, col_dof,
                           task.sv.nx, plain=twin("kp_interp"))
     return A, Bm, plan
 
 
 def jacobians_ie(task: Task, levels, threshold: float, pa_mask, col_dof,
-                 qpos, qvel, U, eps: float, twin):
+                 qpos, qvel, U, jac, twin):
     """iterative_error on lanes (JAX `jacobians_ie:507`): host-driven
-    bisection rounds.  Each round evaluates the FD Jacobians at the times
-    some lane still needs (K5 into the full-horizon cache (H, 2n, 2n+nu,
-    B)), then tests every open node per (dof, lane) on the cache (K9c);
-    finally each dof's keypoints are the pairs it computed, and K9a (time
-    slots) and K9b lerp the cache between them -> (A, Bm, pct of computed
-    times (B,), the pair mask (H, n, B) bool)."""
+    bisection rounds.  Each round evaluates the Jacobians (`jac`, K5ad or
+    K5) at the times some lane still needs into the full-horizon cache (H,
+    2n, 2n+nu, B), then tests every open node per (dof, lane) on the cache
+    (K9c); finally each dof's keypoints are the pairs it computed, and K9a
+    (time slots) and K9b lerp the cache between them -> (A, Bm, pct of
+    computed times (B,), the pair mask (H, n, B) bool)."""
     n, nx = task.sv.ndof, task.sv.nx
     H, B = U.shape[0], U.shape[-1]
     dev = U.device
@@ -293,11 +310,10 @@ def jacobians_ie(task: Task, levels, threshold: float, pa_mask, col_dof,
             return
         order = np.argsort(np.where(need, tcol, H + 1 + tcol), axis=0,
                            kind="stable")[:K]
-        ops.fd_jacobian(task, qpos, qvel, U,
-                        torch.as_tensor(order, dtype=torch.int64, device=dev),
-                        eps, plain=twin("fd_jacobian"),
-                        counts=torch.as_tensor(counts, dtype=torch.int32,
-                                               device=dev), cache=cache)
+        jac(qpos, qvel, U,
+            torch.as_tensor(order, dtype=torch.int64, device=dev),
+            counts=torch.as_tensor(counts, dtype=torch.int32, device=dev),
+            cache=cache)
         computed_t[:] = computed_t | need
 
     # seed: both ends and the root midpoint, every dof and lane
@@ -346,6 +362,9 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
     generic solve's keypoint semantics (module docstring); the jacobians
     phase then takes a mask (H, n, B) that replaces an adaptive method's
     (auto-adjust)."""
+    if cfg.deriv_mode not in DERIV_MODES:
+        raise ValueError(f"deriv_mode {cfg.deriv_mode!r}; known: "
+                         f"{DERIV_MODES}")
     if not isinstance(plain, bool):
         unknown = set(plain) - set(ops.KERNELS + ops.MPC_KERNELS
                                    + ops.KEYPOINT_KERNELS)
@@ -374,7 +393,12 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
     col_dof = torch.as_tensor(column_dofs(n, model.nu), dtype=torch.int32,
                               device=dev)
     state = {"mask": None}
+    bp_info = {"rounds": 0}
     pa_mask = ops.keypoint_plan_args(task, "mask")
+    # the lane path's Jacobians are exact (K5ad), as the JAX lane program's;
+    # the generic solve's follow cfg.deriv_mode
+    deriv = "fd" if generic and cfg.deriv_mode == "fd" else "ad"
+    jac = slot_jacobians(task, deriv, twin(f"{deriv}_jacobian"), cfg.fd_eps)
 
     def filtered(A):
         return filter_dynamics(A, cfg.filtering) if generic else A
@@ -383,7 +407,7 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
         def given(qpos, qvel, U, mask):
             """auto-adjust: the generic solve's mask replaces the method's"""
             A, Bm, lp = jacobians_adaptive(task, pa_mask, H, col_dof, qpos,
-                                           qvel, U, cfg.fd_eps, twin, mask)
+                                           qvel, U, jac, twin, mask)
             state["mask"] = lp.mask
             return filtered(A), Bm, lp.pct, lp.overflow
 
@@ -395,8 +419,7 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
             if mask is not None:
                 return given(qpos, qvel, U, mask)
             B = U.shape[-1]
-            A, Bm = jacobians_si(task, plan, qpos, qvel, U, cfg.fd_eps,
-                                 twin("fd_jacobian"))
+            A, Bm = jacobians_si(task, plan, qpos, qvel, U, jac)
             state["mask"] = si_mask[:, :, None].expand(H, n, B)
             return (filtered(A), Bm, torch.full((B,), plan.pct, **f64),
                     torch.zeros(B, dtype=torch.int32, device=dev))
@@ -406,7 +429,7 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
         def jacobians(qpos, qvel, U, mask=None):
             A, Bm, pct, state["mask"] = jacobians_ie(
                 task, levels, float(kp.iterative_error_threshold), pa_mask,
-                col_dof, qpos, qvel, U, cfg.fd_eps, twin)
+                col_dof, qpos, qvel, U, jac, twin)
             return (filtered(A), Bm, pct,
                     torch.zeros(U.shape[-1], dtype=torch.int32, device=dev))
     else:
@@ -417,7 +440,7 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
             if mask is not None:
                 return given(qpos, qvel, U, mask)
             A, Bm, lp = jacobians_adaptive(task, pa, K_max, col_dof, qpos,
-                                           qvel, U, cfg.fd_eps, twin)
+                                           qvel, U, jac, twin)
             state["mask"] = lp.mask
             return filtered(A), Bm, lp.pct, lp.overflow
 
@@ -428,11 +451,13 @@ def lane_phases(task: Task, cfg: ILQRConfig, H: int, plain=False,
         "cost_expansion": lambda qpos, qvel, U, tg: ops.cost_expansion(
             task, qpos, qvel, U, tg, plain=twin("cost_expansion")),
         "bp": lambda A, Bm, l_x, l_xx, l_u, l_uu, lamb: ops.backward(
-            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward")),
+            A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain=twin("backward"),
+            info=bp_info),
         "fp": lambda qpos, qvel, U, old, k, K, tg: forward_pass(
             task, qpos, qvel, U, k, K, alphas, tg, old, twin("linesearch")),
         "alphas": alphas,
         "keypoints": state,
+        "bp_info": bp_info,
     }
 
 
@@ -449,7 +474,8 @@ class LaneSolve(NamedTuple):
     #                               slot budget dropped in one iteration
     #                               (adaptive methods; 0 elsewhere)
     log: dict                     # per-iteration values of lane 0; "retried"
-    #                               counts the lanes that took the λ retry
+    #                               counts the λ loop's retry rounds (every
+    #                               lane sweeps again in each)
     opt_time_ms: float
 
 
@@ -513,12 +539,8 @@ def solve_lanes(task: Task, cfg: ILQRConfig, qpos0, qvel0, U, targets,
         t1 = time.perf_counter()
         k, K, dJ, lam_n, lam_exit = ph["bp"](A, Bm, l_x, l_xx, l_u, l_uu,
                                              lamb)
-        # live lanes whose backward pass went through the λ retry, read from
-        # λ: a lane valid at once leaves clamp(λ / factor).  (One retry from
-        # min_lambda leaves the same value and is not seen.)
-        at_once = torch.clamp(lamb / cfg.lambda_factor, cfg.min_lambda,
-                              cfg.max_lambda)
-        log["retried"].append(int((~done & (lam_n > 1.5 * at_once)).sum()))
+        # the λ loop's retry rounds, in each of which every lane swept again
+        log["retried"].append(int(ph["bp_info"]["rounds"]))
         lamb = torch.where(done, lamb, lam_n)
         _sync(dev)
         t2 = time.perf_counter()

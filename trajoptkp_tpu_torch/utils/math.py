@@ -12,6 +12,24 @@ from __future__ import annotations
 import torch
 
 
+def _bound(v, like: torch.Tensor) -> torch.Tensor:
+    return v if torch.is_tensor(v) else torch.tensor(v, dtype=like.dtype,
+                                                       device=like.device)
+
+
+def at_least(x: torch.Tensor, lo) -> torch.Tensor:
+    """max(x, lo), keeping NaN.  In forward mode a tangent exactly at the
+    bound is halved, as JAX's lax.max does (jnp.maximum); torch.clamp would
+    pass it whole (kernels/csrc/dual.cuh:at_least does the same)."""
+    return torch.maximum(x, _bound(lo, x))
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """min(max(x, lo), hi), keeping NaN, with JAX's tie rule in forward mode
+    (jnp.clip halves a tangent exactly at a bound)."""
+    return torch.minimum(torch.maximum(x, _bound(lo, x)), _bound(hi, x))
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([
         a[1] * b[2] - a[2] * b[1],
@@ -24,7 +42,7 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """q / max(|q|, eps), the squares summed left to right as the kernels do
     (kernels/csrc/step.cuh:quat_normalize)."""
     sumsq = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]
-    return q / torch.clamp(torch.sqrt(sumsq), min=eps)[None]
+    return q / at_least(torch.sqrt(sumsq), eps)[None]
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -107,7 +125,7 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     """Quaternion -> rotation vector, short geodesic (JAX `quat_log`)."""
     q = quat_normalize(q)
     q = torch.where(q[:1] < 0, -q, q)
-    w = torch.clamp(q[:1], -1.0, 1.0)
+    w = clip(q[:1], -1.0, 1.0)
     xyz = q[1:]
     sumsq = torch.sum(xyz * xyz, dim=0, keepdim=True)
     small = sumsq < 1e-18
