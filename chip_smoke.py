@@ -19,33 +19,38 @@ line-search, Jacobian and apply kernels); the exact slot Jacobians (K5ad:
 the step in dual numbers with the implicit constraint tangents K2c) at
 shared slots, at per-lane slots and into an iterative_error cache; the
 servo's fk_bias is held against its twin too, and the cost expansion (K6)
-bit for bit at every model, at these shapes and at the main paths' full
-shapes.  The backward pass is also held against its twin summed in
-another order (`sum_contract`) on the card and on the CPU.  It replays the
+bit for bit at every model.  The backward pass is also held against its
+twin summed in another order (`sum_contract`) on the card and on the CPU.
+The `box` phase holds the box tasks' kernels (box_sweep and threeD_push: a
+free box in the state with its rotations, plane-box and cylinder-box rows
+inside the step) against their twins bit for bit at H=100 B=64 (K3, K4,
+K5ad and K5 at shared and per-lane slots, K6, fk_bias; K7 within its bar),
+with the box flat, tilted, pressed in, around the pusher's end point and
+beside a pusher pressed into the table.  It replays the
 acrobot SI_5 H=200 golden solve on the kernel path, then drives the main
 paths with launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1
 (H=1500, 128 scenes) and push_ncl SI_1 (H=1000, 128 scenes from the task's
-scene generator, started by its setup and init servo) through
+scene generator, started by its setup and init servo) and box_sweep SI_1
+(H=1500, 128 scenes of the JAX CLI's generic generator, started by its
+init servo) through
 `make_lane_phase_optimise`, 10 iterations each, and walker_run sync MPC
 through the campaign entry point (`sync_mpc_horizon_sweep`: H=40, 200
 replans of one iteration and one applied control, one episode and 128
-episodes, and H=20 and 80), float64.  Three iterations of each open-loop
-path are compared with the plain path on the card (reaching and push_ncl at
-a reduced horizon), the first walker MPC replans (one episode), each
-kernel phase of the first replan of the 128 episodes, and six acrobot MPC
-replans too, bit for bit; the five open-loop kernels are timed at
-reaching's and push_ncl's full shapes and held against their twins there
-too (the rollout and the line search step by step, see `stepwise_check`),
-the push_ncl servo's first steps and its fk_bias are held against the plain
-servo at its own 128 lanes (`check_servo`), each phase of a walker replan is
-timed.  The keypoint kernels (K9a, K9b, K9c and K5ad at per-lane slots) are
+episodes, and H=20 and 80), float64.  Three iterations of box_sweep's
+path are compared with the plain path on the card (H=20, 64 lanes); the
+open-loop kernels are timed at
+reaching's, push_ncl's and box_sweep's full shapes, the push_ncl and
+box_sweep servos' first steps and their fk_bias are held against the plain
+servo at their own 128 lanes (`check_servo`), K9a and K9b are held and
+timed at box_sweep's full shape with its CLI method (AJ_1_1000), each phase
+of a walker replan is timed.  The keypoint kernels (K9a, K9b, K9c and K5ad at per-lane slots) are
 held against their twins bit for bit in the `keypoints` phase (acrobot
 VC/AJ/AA/IE, pentabot AA, reaching and push_ncl AJ_5_100, the walker VC, a
 slot budget that overflows, and reaching's and push_ncl's full shapes), and
 the `main_adaptive` phase drives acrobot AJ_1_50, VC_1_200 and IE_1_50
 (H=500, 512 scenes) and reaching AJ_5_100 (H=1500, 128 scenes) through
 `make_lane_phase_optimise` with launch counts, 3 acrobot iterations each
-against twins.  The `main_async` phase runs asynchronous MPC in real
+against the keypoint kernels' twins.  The `main_async` phase runs asynchronous MPC in real
 time (`mpc/async_mpc.py`: a planner thread replanning one iteration at a
 time on its own CUDA stream, the actor stepping through K3 on another):
 push_ncl SI_1 over 5 scenes of the async campaign's generator, 500 steps
@@ -55,12 +60,24 @@ plan's cost, and first holds one planner step (at H=5), the actor's step
 and its gravity hold against their twins, bit for bit, and each kernel
 phase of a push_ncl planner step at its own shape (H=50, B=1: the generic
 solve, whose Jacobians at the default deriv_mode are K5's central FD; run
-while the CLI processes run).  The CLI solves the three open-loop tasks
-with their own keypoint methods, acrobot with IE_1_50 and with
-`--deriv_mode ad`, runs the walker's
+while the CLI processes run).  The CLI solves the five open-loop tasks
+(box_sweep and threeD_push too) with their own keypoint methods, acrobot
+with IE_1_50 and with `--deriv_mode ad`, runs the walker's
 `Generate_syncronus_mpc_data --horizon 40`, push_ncl's
 `Generate_asynchronus_mpc_data --num_scenes 3 --keypoint SI_1` and
-acrobot's `MPC_until_completion`, the eight processes side by side.
+acrobot's `MPC_until_completion`, the ten processes side by side.
+
+`python3 chip_smoke.py --deep` runs the deep agreement holds of the
+earlier slices alone, as a job of its own (`deep`): the acrobot, reaching
+and push_ncl main paths with 3 iterations of the kernel path against the
+plain path (acrobot H=500 B=512, reaching H=RH3 B=64, push_ncl H=UH3 B=64),
+reaching's, push_ncl's and box_sweep's kernels against their twins at
+their main paths' full shapes (`hold_full_shape`; box_sweep's on the
+nominal of its init servo), acrobot VC_1_200's 3 iterations against the whole
+plain path, the walker's first MPC_PLAIN_REPLANS MPC replans and six
+acrobot MPC replans against the plain path, and each kernel phase of the
+walker's first replan of 128 episodes against its twin.  It prints a
+`record` line and no result line.
 
 Prints the card's name and power limit, the kernel build time, the seconds
 of each phase and of the whole script, a `record` line with every
@@ -71,15 +88,18 @@ and makes the script exit non-zero at the end without a result; it also
 fails where no CUDA device is present.  The MPC campaigns write their
 `mpc_horizons.csv` and `async_mpc.csv` under chip_smoke_out/mpc/.
 
-The plain halves of the acrobot and reaching 3-iteration holds and of the
-MPC holds launch no kernel and run while the kernels build; the walker's
-MPC hold runs in a second process of this script (`--plain-mpc-worker
-PATH`, its result saved to PATH), which the script waits for and stops.
+The plain halves of the holds launch no kernel and run while the kernels
+build: the twins of the pentabot, reaching, walker and box checks and the
+plain half of box_sweep's 3-iteration hold in processes of this script
+(`--plain-check-worker NAMES PATH`, CHECK_WORKERS, each result saved to
+PATH), which the script waits for and stops; in `--deep`, the acrobot and
+reaching 3-iteration holds and acrobot's MPC holds in this process and the
+walker's MPC hold in a second one (`--plain-mpc-worker PATH`).
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
-walker, keypoints, golden, main_acrobot, main_reaching, main_push, main_mpc,
-main_adaptive, main_async, cli) while developing; a subset never prints a
-result.
+walker, box, keypoints, golden, main_acrobot, main_reaching, main_push,
+main_box_sweep, main_mpc, main_adaptive, main_async, cli) while
+developing; a subset never prints a result.
 """
 
 import argparse
@@ -94,12 +114,15 @@ import time
 import numpy as np
 import torch
 
+from trajoptkp_tpu_torch.dynamics.collision import geom_pose
 from trajoptkp_tpu_torch.dynamics.contact import (ALPHA_LADDER, NEWTON_ITERS,
                                                   contact_constants,
+                                                  contact_slots,
                                                   contacts_active,
                                                   limit_constants,
                                                   limits_active)
-from trajoptkp_tpu_torch.dynamics.model import FREE, HINGE, SLIDE
+from trajoptkp_tpu_torch.dynamics.fk import forward_kinematics
+from trajoptkp_tpu_torch.dynamics.model import FREE, HINGE, SLIDE, Data
 from trajoptkp_tpu_torch.dynamics.step import step_state
 from trajoptkp_tpu_torch import app
 from trajoptkp_tpu_torch.bench.campaigns import (async_mpc_campaign,
@@ -112,7 +135,7 @@ from trajoptkp_tpu_torch.mpc.async_mpc import AsyncMPC
 from trajoptkp_tpu_torch.solver import ilqr, lanes
 from trajoptkp_tpu_torch.solver.ilqr import ILQRConfig
 from trajoptkp_tpu_torch.state.statevector import to_tangent
-from trajoptkp_tpu_torch.tasks import pushing
+from trajoptkp_tpu_torch.tasks import manipulation, pushing
 from trajoptkp_tpu_torch.tasks.base import control_limits
 from trajoptkp_tpu_torch.tasks.locomotion import make_walker
 from trajoptkp_tpu_torch.tasks.reaching import make_reaching
@@ -122,27 +145,30 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "acrobot_si5_h200.npz")
 
 H, B, ITERS = 500, 512, 10          # the acrobot main path
+LONG_CALL_MS = 500.0                # phase_ms: a call this long is timed once
 RH, RB = 1500, 128                  # the reaching main path
 UH, UB = 1000, 128                  # the push_ncl main path
 PH, PB = 100, 64                    # pentabot, reaching and push check size
-# kernel-vs-plain 3-iteration solve horizons: reaching's cut from 200 to
-# 100 to make room for push_ncl, then to 50 and push_ncl's from 40 to 20 to
-# make room for the walker MPC (a plain reaching step at 64 lanes takes ~170
-# ms on an H100; every kernel is also held at the full shape, stepwise_check)
-RH3 = 50
-UH3 = 20
+BH, BB = 1500, 128                  # the box_sweep main path
+# kernel-vs-plain 3-iteration solve horizons of the earlier slices' main
+# paths and their full-shape holds (stepwise_check), in the `--deep` job (a
+# plain reaching step at 64 lanes takes ~170 ms on an H100); box_sweep's
+# 3-iteration hold in the default run
+RH3 = 100
+UH3 = 40
+BH3 = 20
 SERVO_CHECK = 10                    # servo steps held against the plain servo
 WH, WB = 20, 16                     # walker check size
 MH, MB = 40, 128                    # walker MPC: make_walker's mpc_horizon,
 #                                     and the episodes of the batched run
 N_REPLANS = 200                     # replans per episode (the JAX campaign)
 SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
-# walker replans held against the plain path: a plain walker replan is
-# host-bound twin launches (its rollout and line search step the plain
-# walker 40 times each; K5ad's forward-mode twin is one dual step over all
-# slots), 110-150 s beside the build, where it runs in a process of its own
-# (plain_mpc_worker)
-MPC_PLAIN_REPLANS = 1
+# walker replans held against the plain path in the `--deep` job: a plain
+# walker replan is host-bound twin launches (its rollout and line search
+# step the plain walker 40 times each; K5ad's forward-mode twin is one dual
+# step over all slots), 110-150 s beside the build, where it runs in a
+# process of its own (plain_mpc_worker)
+MPC_PLAIN_REPLANS = 2
 MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke_out", "mpc")
 # async MPC (main_async), real time: push_ncl SI_1 over the campaign's
@@ -158,8 +184,9 @@ ASYNC_MIN_PLANS = 10                # plans published per episode, at least
 # in main_mpc's kernel path against the plain path
 ASYNC_HOLD_H = 5
 PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "walker",
-          "keypoints", "golden", "main_acrobot", "main_reaching", "main_push",
-          "main_mpc", "main_adaptive", "main_async", "cli")
+          "box", "keypoints", "golden", "main_acrobot", "main_reaching",
+          "main_push", "main_box_sweep", "main_mpc", "main_adaptive",
+          "main_async", "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -188,6 +215,9 @@ CTRL_ATOL, QPOS_ATOL, COST_ATOL = 2e-4, 5e-5, 4e-4
 
 
 FAILED = []  # failed checks; main() raises on them before any result
+# `--deep`: main_path also holds its kernels against their twins at its
+# own shape (hold_full_shape)
+DEEP = False
 
 
 def check(cond, msg):
@@ -210,6 +240,13 @@ def cuda_ms(fn, reps=1, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def phase_ms(fn):
+    """Device ms of a call warm from its path: one call, and where that
+    took under LONG_CALL_MS the mean of 3 more."""
+    ms = cuda_ms(fn, 1, 0)
+    return ms if ms >= LONG_CALL_MS else cuda_ms(fn, 3, 0)
 
 
 def err(a, b, kind):
@@ -251,15 +288,31 @@ class Sizes:
         self.entries_sq = lim + sum(4 * nc * w * w for w, nc in pairs)
         self.lim_rows = lim
         self.contact_pairs = pairs
-        self.fk_residual = task.residual_kind[0] == "push"
+        self.pair_types = [p.types for p in contact_constants(m).pairs]
+        self.fk_residual = task.residual_kind[0] in ops.FK_KINDS
+        # a free rotation in the state: K4, K5 and K5ad take its rows as a
+        # quaternion log, and K5ad steps the nominal once more per (slot,
+        # lane)
+        self.has_rot = any(m.jnt_dofadr[j] + 3 in task.sv.order
+                           for j in range(m.njnt) if m.jnt_type[j] == FREE)
+
+
+# double operations of the two geom poses and the narrow phase of a pair, by
+# geom types (csrc/contact.cuh): ~300; plane-box's eight corners (~15 each),
+# their depths and the 19 compare-exchanges of the sort (4 selects each)
+# ~520; two sphere-box probes (~110 each) with a frame each ~440
+NARROW_OPS = {(0, 6): 520, (3, 6): 440, (5, 6): 440, (6, 3): 440,
+              (6, 5): 440}
 
 
 def contact_ops(s):
-    """Double operations of csrc/contact.cuh (K2b) per step: per pair ~300
-    for the two geom poses and the narrow phase, per slot ~46 (impedance,
-    R, gate) plus 43 per support dof (point Jacobian 12, three frame rows
-    15, four rows' coefficients and velocity 16)."""
-    return sum(300 + nc * (46 + 43 * w) for w, nc in s.contact_pairs)
+    """Double operations of csrc/contact.cuh (K2b) per step: per pair
+    NARROW_OPS (~300 but for the box pairs) for the two geom poses and the
+    narrow phase, per slot ~46 (impedance, R, gate) plus 43 per support dof
+    (point Jacobian 12, three frame rows 15, four rows' coefficients and
+    velocity 16)."""
+    return sum(NARROW_OPS.get(t, 300) + nc * (46 + 43 * w)
+               for (w, nc), t in zip(s.contact_pairs, s.pair_types))
 
 
 def newton_ops(s):
@@ -369,7 +422,9 @@ def ad_slot_ops(s):
     its 2n + nu threads of a (slot, lane); that repetition is not work the
     function needs, and is not counted."""
     nc = s.nx + s.nu
-    return (step_ops(s) + implicit_primal_ops(s)
+    # with a free rotation in the state, the nominal next state (the
+    # quaternion rows' reference) is one more primal step
+    return ((2 if s.has_rot else 1) * step_ops(s) + implicit_primal_ops(s)
             + nc * (2 * (step_ops(s) - newton_ops(s))
                     + implicit_column_ops(s)))
 
@@ -538,6 +593,134 @@ def push_inputs(task, Hh, Bb, seed):
     return qp0, qv0, tgl, U, k, K
 
 
+_BOX_STARTS = {}
+
+
+def box_start(task, Hh, Bb):
+    """A box task's main-path start (computed once per task and shape): Bb
+    scenes of the JAX CLI's generic generator (numpy seed 0: the arm at
+    qpos_start + 0.2 N(0, 1), the box at its default pose, the targets +
+    0.1 N(0, 1)) and the end-effector servo over Hh from them (no setup
+    servo), stepped by K3 at H = 1 with fk_bias -> the dict of push_start,
+    the scenes being the start."""
+    key = (task.name, Hh, Bb)
+    if key not in _BOX_STARTS:
+        qp, qv, tg = manipulation.box_scenes(task, Bb, seed=0)
+        qp, qv, tgl = (x.T.contiguous() for x in (qp, qv, tg))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        qs, vs, U = task.init_controls_fn(task, Hh, qp, qv, tgl)
+        torch.cuda.synchronize()
+        _BOX_STARTS[key] = dict(
+            scene_qpos=qp, scene_qvel=qv, qpos=qs, qvel=vs, targets=tgl,
+            U=U.contiguous(), servo_s=time.perf_counter() - t0,
+            launches={k: v for k, v in ops.LAUNCHES.items() if v})
+    return _BOX_STARTS[key]
+
+
+def start_of(task, Hh, Bb):
+    """The main-path start of a task with initial controls."""
+    if task.residual_kind[0] == "push":
+        return push_start(task)
+    return box_start(task, Hh, Bb)
+
+
+def _pusher_geom(task):
+    m = task.model
+    return next(g for g in range(m.ngeom)
+                if m.geom_bodyid[g] == m.site_bodyid[m.site_names.index("ee")]
+                and m.geom_type[g] == 5)
+
+
+def _fk(task, qp):
+    """The FK products (Data) at qp (nq, L), zero velocity."""
+    m = task.model
+    z = torch.zeros((m.nv, qp.shape[1]), dtype=qp.dtype, device=qp.device)
+    return forward_kinematics(m, Data(qpos=qp, qvel=z, ctrl=z[:m.nu]))
+
+
+def _pusher_low_end(task, qp):
+    """The pusher's lower axis end point (3, L) at qp (nq, L)."""
+    m = task.model
+    d = _fk(task, qp)
+    g = _pusher_geom(task)
+    xp, xm = geom_pose(m, d, g)
+    hl = float(m.geom_size[g][1])
+    e1, e2 = xp + xm[:, 2] * hl, xp - xm[:, 2] * hl
+    return torch.where((e1[2] < e2[2])[None], e1, e2)
+
+
+def pressed_arms(task, n, seed, depth=(-0.004, -0.001)):
+    """n arm poses (7, n) whose pusher dips `depth` (m, the deepest slot of
+    the table-pusher pair) into the table: drawn uniformly inside the arm's
+    joint ranges from a numpy seed, kept where the depth falls in the band
+    (the pusher rides ~0.15-0.3 m above the table on the tasks' own path,
+    so the table-pusher rows need such poses)."""
+    m = task.model
+    rng = np.random.default_rng(seed)
+    lo, hi = m.jnt_range[:7, 0].cpu().numpy(), m.jnt_range[:7, 1].cpu().numpy()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    found = []
+    for _ in range(20):
+        cand = rng.uniform(lo, hi, (8192, 7))
+        qp = task.qpos_start[:, None].repeat(1, 8192).clone()
+        qp[:7] = torch.as_tensor(cand.T, **f64)
+        slots = contact_slots(m, _fk(task, qp))[0]
+        d = torch.stack(slots.dist).min(0).values
+        ok = ((d > depth[0]) & (d < depth[1])).nonzero().flatten()
+        found += [qp[:7, i] for i in ok.tolist()]
+        if len(found) >= n:
+            break
+    check(len(found) >= n, f"{task.name}: only {len(found)} arm poses press "
+                           "the pusher into the table")
+    return torch.stack(found[:n], 1)
+
+
+def box_inputs(task, Hh, Bb, seed):
+    """Check inputs for a box task, in four quarters of the lanes: the
+    scenes' start (box_scenes: the box resting flat on the table, its
+    bottom corners tied in depth); the box tilted
+    20 degrees about x (two corners below the table); the box around the
+    pusher's lower end point, 4 mm inside its -x face (the sphere-box
+    probe's inside branch); and the pusher pressed 1-4 mm into the table
+    (`pressed_arms`) with the box resting 1 mm deep 8 mm from the end
+    point (the probe outside the box, its radius 12 mm into it).  Controls
+    are N(0, 2) in the first quarter, N(0, 0.5) elsewhere (no servo: the
+    inputs need no kernel, so the twins' halves run beside the build);
+    gains as lane_inputs."""
+    m = task.model
+    qa = m.jnt_qposadr[m.joint_names.index("goal")]
+    gsize = m.geom_size[m.geom_bodyid.index(m.body_names.index("goal"))]
+    hx, hz = float(gsize[0]), float(gsize[2])
+    qp0, qv0, tgl = (x.T.contiguous() for x in manipulation.box_scenes(
+        task, Bb, seed=seed))
+    rng = np.random.default_rng(seed + 1)
+    nu, nx = m.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    q1, q2, q3 = Bb // 4, Bb // 2, 3 * Bb // 4
+    scale = np.full(Bb, 0.5)
+    scale[:q1] = 2.0
+    U = torch.as_tensor(scale * rng.standard_normal((Hh, nu, Bb)),
+                        **f64).contiguous()
+    a = math.radians(20.0) / 2
+    qp0[qa + 3:qa + 7, q1:q2] = torch.tensor(
+        [math.cos(a), math.sin(a), 0.0, 0.0], **f64)[:, None]
+    # the pusher's end point 4 mm inside the box's -x face, the box level
+    e = _pusher_low_end(task, qp0[:, q2:q3])
+    qp0[qa:qa + 3, q2:q3] = e + torch.tensor([hx - 0.004, 0.0, 0.0],
+                                             **f64)[:, None]
+    # the pusher pressed into the table, the box beside it, 1 mm deep
+    qp0[:7, q3:] = pressed_arms(task, Bb - q3, seed)
+    e = _pusher_low_end(task, qp0[:, q3:])
+    qp0[qa, q3:] = e[0] + hx + 0.008
+    qp0[qa + 1, q3:] = e[1]
+    qp0[qa + 2, q3:] = hz - 0.001
+    k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
+    K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
+    return (qp0.contiguous(), qv0.contiguous(), tgl.contiguous(), U, k, K)
+
+
 def walker_inputs(task, Hh, Bb, seed):
     """Check inputs for the walker: a quarter of the lanes with a shin
     pressed ~1 cm into the torso (legs folded far past their +-1 degree
@@ -646,22 +829,26 @@ def check_fk_bias(task, qpos, qvel):
     return out
 
 
-def check_servo(task, st):
-    """The push_ncl main path's servo against its plain twin at the shape it
-    runs, UB lanes: fk_bias at the scenes' start and at the start the setup
-    servo reached, then the first SERVO_CHECK steps of the setup servo (from
-    the scenes) and of the init servo (from that start), the kernel servo
-    against the plain servo (`servo_along_path(plain=True)`: the twins of
-    fk_bias and of the K3 step); the kernel init servo must give the main
-    path's own first controls."""
+def check_servo(task, st, horizon):
+    """A main path's servo against its plain twin at the shape it runs (its
+    lanes): fk_bias at the scenes' start and, for push_ncl, at the start
+    the setup servo reached, then the first SERVO_CHECK steps of push_ncl's
+    setup servo (from the scenes) and of the init servo over `horizon`
+    (from the solve's start), the kernel servo against the plain servo
+    (`servo_along_path(plain=True)`: the twins of fk_bias and of the K3
+    step); the kernel init servo must give the main path's own first
+    controls.  The box tasks have no setup servo: their start is the
+    scenes'."""
     tgl, n = st["targets"], SERVO_CHECK
-    fk = [check_fk_bias(task, st[q][None], st[v][None])
-          for q, v in (("scene_qpos", "scene_qvel"), ("qpos", "qvel"))]
+    setup = task.residual_kind[0] == "push"
+    starts = (("scene_qpos", "scene_qvel"),) + (
+        (("qpos", "qvel"),) if setup else ())
+    fk = [check_fk_bias(task, st[q][None], st[v][None]) for q, v in starts]
     out = dict(fk_bias=fk, steps=n)
-    for name, make_path, horizon, q0, v0 in (
-            ("setup", pushing.setup_path, pushing.SETUP_STEPS,
-             st["scene_qpos"], st["scene_qvel"]),
-            ("init", pushing.ee_waypoint_path, UH, st["qpos"], st["qvel"])):
+    cases = ((("setup", pushing.setup_path, pushing.SETUP_STEPS,
+               st["scene_qpos"], st["scene_qvel"]),) if setup else ()) + (
+        ("init", pushing.ee_waypoint_path, horizon, st["qpos"], st["qvel"]),)
+    for name, make_path, horizon, q0, v0 in cases:
         path, angle = make_path(task, horizon, q0, tgl)
         ks = pushing.servo_along_path(task, path[:n], angle, q0, v0, tgl)
         t0 = time.perf_counter()
@@ -747,55 +934,82 @@ def note(task, name, rows):
           flush=True)
 
 
-def ad_modes_check(task, q0, v0, U0, K=8, seed=5):
-    """K5ad in its other slot modes against its twin: per-lane slot times
-    with live counts (a plan's, drawn from `seed`; dead slots write zeros)
-    and scattered into an iterative_error cache -> {mode: (bit for bit,
-    max abs err)}."""
-    Hh, Bb = U0.shape[0], U0.shape[-1]
+def lane_slots(Hh, Bb, seed, K=8):
+    """Per-lane slot times (K, Bb), sorted, and live counts in 1..K of a
+    check's per-lane slot modes, from a torch seed."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     slot_t = torch.sort(torch.randint(0, Hh, (K, Bb), generator=g),
                         dim=0).values.to("cuda").contiguous()
     counts = torch.randint(1, K + 1, (Bb,), generator=g,
                            dtype=torch.int32).to("cuda")
-    kj = ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts)
-    pj = ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, plain=True)
-    out = {"per_lane": outputs_gap(kj, pj)}
+    return slot_t, counts
+
+
+def ad_modes(task, q0, v0, U0, plain=False, seed=5):
+    """K5ad, or its twin, in its other slot modes: at per-lane slot times
+    with live counts (lane_slots; dead slots write zeros) and scattered into
+    an iterative_error cache -> (per-lane output, cache)."""
+    Hh, Bb = U0.shape[0], U0.shape[-1]
+    slot_t, counts = lane_slots(Hh, Bb, seed)
     nx, nc = task.sv.nx, task.sv.nx + task.model.nu
-    kc = torch.zeros((Hh, nx, nc, Bb), dtype=torch.float64, device="cuda")
-    pc = kc.clone()
-    ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, cache=kc)
-    ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, cache=pc,
-                    plain=True)
-    out["ie_cache"] = outputs_gap(kc, pc)
-    return out
+    cache = torch.zeros((Hh, nx, nc, Bb), dtype=torch.float64, device="cuda")
+    ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts, cache=cache,
+                    plain=plain)
+    return (ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts,
+                            plain=plain), cache)
+
+
+def ad_modes_check(task, q0, v0, U0, plain=None):
+    """K5ad in its other slot modes (ad_modes) against its twin's outputs
+    `plain`, or its twin run here -> {mode: (bit for bit, max abs err)}."""
+    kj, kc = ad_modes(task, q0, v0, U0)
+    pj, pc = plain or ad_modes(task, q0, v0, U0, plain=True)
+    return {"per_lane": outputs_gap(kj, pj), "ie_cache": outputs_gap(kc, pc)}
+
+
+def fd_twins(task, q0, v0, U0, times):
+    """K5's twin at shared slot times (timed) and at per-lane slots with
+    live counts (lane_slots) -> (shared, ms, per-lane)."""
+    pj, plain_ms = cuda_timed(lambda: ops.fd_jacobian(
+        task, q0, v0, U0, times, 1e-6, plain=True))
+    slot_t, counts = lane_slots(U0.shape[0], U0.shape[-1], seed=6)
+    return pj, plain_ms, ops.fd_jacobian(task, q0, v0, U0, slot_t, 1e-6,
+                                         counts=counts, plain=True)
 
 
 def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
-                  pair_types=False):
+                  pair_types=False, plain=None, exact=False):
     """Each kernel against its plain twin on the same inputs (`inputs`, or
     lane_inputs): K5ad at every step (SI_1) and in its per-lane and cache
     modes (`ad_modes_check`).  Every contact pair must be active in the
     plain rollout, or with `pair_types` every type of pair (the walker's
-    capsule pairs touch only far past their joint limits)."""
+    capsule pairs touch only far past their joint limits).  `plain`, when
+    given, holds the twins' outputs and ms of K3, K4, K5ad, K6 and K7
+    (twin_outputs, run beside the build); with `exact` every kernel but K7
+    must equal its twin bit for bit, and K7 its λ and λ-exit."""
     s = Sizes(task)
     gated = at_limits or bool(task.model.contact_pairs)
     qp0, qv0, tg, U, k, K = inputs or lane_inputs(task, Hh, Bb, seed=3,
                                                   at_limits=at_limits)
     cfg = ILQRConfig()
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
-    plan = lanes.si_plan(task.replace(keypoint_cfg=task.keypoint_cfg.replace(
-        name="set_interval", min_N=1)), Hh)
+    plan = lanes.si_plan(si1(task), Hh)
     rows = {}
+    check(plain is None or gated, "twin_outputs takes the Jacobians along "
+                                  "the rollout: a task with constraint rows")
+
+    def twin(name, fn):
+        return plain[name] if plain else cuda_timed(fn)
 
     # K3 rollout
     kr = ops.rollout(task, qp0, qv0, U, tg)
-    pr, plain_ms = cuda_timed(
-        lambda: ops.rollout(task, qp0, qv0, U, tg, plain=True))
+    pr, plain_ms = twin("rollout", lambda: ops.rollout(task, qp0, qv0, U, tg,
+                                                       plain=True))
     n = min(100, Hh)
     e = max(err(kr[0][:n], pr[0][:n], "rel"), err(kr[1][:n], pr[1][:n], "rel"),
             err(kr[2][:n], pr[2][:n], "rel"), key=lambda x: x[1])
-    rows["rollout"] = dict(err=e, bound=rollout_bound(s, Hh, Bb))
+    rows["rollout"] = dict(err=e, bitwise=outputs_gap(kr, pr)[0],
+                           bound=rollout_bound(s, Hh, Bb))
     note(task, "rollout", rows)
     if at_limits:
         act = limits_active(task.model, pr[0][:Hh].transpose(0, 1))  # (H, B)
@@ -837,12 +1051,13 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
     # K4 line search, about the kernel rollout's nominal
     qpos, qvel = kr[0], kr[1]
     kl = ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg)
-    pl, plain_ms = cuda_timed(lambda: ops.linesearch(
+    pl, plain_ms = twin("linesearch", lambda: ops.linesearch(
         task, qpos, qvel, U, k, K, alphas, tg, plain=True))
     e = max(err(kl[0][:n], pl[0][:n], "rel"), err(kl[2][:n], pl[2][:n], "rel"),
             err(kl[3][:n], pl[3][:n], "rel"), key=lambda x: x[1])
     rows["linesearch"] = dict(
-        err=e, bound=linesearch_bound(s, Hh, len(alphas), Bb))
+        err=e, bitwise=outputs_gap(kl, pl)[0],
+        bound=linesearch_bound(s, Hh, len(alphas), Bb))
     note(task, "linesearch", rows)
     if time_them:
         rows["linesearch"]["ms"] = cuda_ms(
@@ -855,9 +1070,10 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
     U0 = U if gated else torch.zeros_like(U)
     q0, v0, _ = ops.rollout(task, qp0, qv0, U0, tg)
     kj = ops.ad_jacobian(task, q0, v0, U0, plan.times)
-    pj, plain_ms = cuda_timed(lambda: ops.ad_jacobian(
+    pj, plain_ms = twin("ad_jacobian", lambda: ops.ad_jacobian(
         task, q0, v0, U0, plan.times, plain=True))
-    modes = ad_modes_check(task, q0, v0, U0)
+    modes = ad_modes_check(task, q0, v0, U0,
+                           plain and plain["ad_jacobian_modes"])
     rows["ad_jacobian"] = dict(
         err=max([err(kj, pj, "rel")] + [(g, g / max(float(pj.abs().max()),
                                                    1e-300))
@@ -880,7 +1096,7 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
 
     # K6 on the nominal the backward pass below reads
     l = ops.cost_expansion(task, q0, v0, U0, tg)
-    pc, plain_ms = cuda_timed(lambda: ops.cost_expansion(
+    pc, plain_ms = twin("cost_expansion", lambda: ops.cost_expansion(
         task, q0, v0, U0, tg, plain=True))
     rows["cost_expansion"] = dict(
         err=max((err(a, b, "rel") for a, b in zip(l, pc)),
@@ -900,10 +1116,11 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
                      device="cuda")
     info = {}
     kb = ops.backward(A, Bm, *l, lam, cfg, info=info)
-    pb, plain_ms = cuda_timed(
-        lambda: ops.backward(A, Bm, *l, lam, cfg, plain=True))
-    # λ and λ-exit decide the next iteration: they must agree (λ to 1e-14)
-    lam_off = (kb[3] - pb[3]).abs() > 1e-14 * pb[3]
+    pb, plain_ms = twin("backward", lambda: ops.backward(A, Bm, *l, lam, cfg,
+                                                         plain=True))
+    # λ and λ-exit decide the next iteration: they must agree (λ to 1e-14,
+    # or with `exact` bit for bit)
+    lam_off = (kb[3] - pb[3]).abs() > (0.0 if exact else 1e-14) * pb[3]
     bad = ((kb[4] != pb[4]) | lam_off).nonzero().flatten()[:5]
     check(len(bad) == 0,
           f"{task.name} backward: λ or λ-exit differ in lanes {bad.tolist()}: "
@@ -919,6 +1136,8 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
     check_orders(task.name, wit)
     rows["backward"] = dict(err=e, orders=wit, sweeps=sweeps, retried=float(
         (kb[3] > lam / cfg.lambda_factor * 1.5).double().mean()),
+        bitwise=outputs_gap([x[..., live] for x in kb[:2]] + [kb[2][live]],
+                            [x[..., live] for x in pb[:2]] + [pb[2][live]])[0],
         bound=backward_bound(s.nx, s.nu, Hh, Bb, sweeps))
     note(task, "backward", rows)
     if time_them:
@@ -930,16 +1149,152 @@ def check_kernels(task, Hh, Bb, time_them, at_limits=False, inputs=None,
         row = rows[name]
         kind, tol = TOL[name]
         got = row["err"][1]
-        if name == "cost_expansion":
-            check(row["bitwise"], f"{task.name} cost_expansion: kernel vs "
-                                  f"plain not bit for bit (error {got:.3e})")
+        if name == "cost_expansion" or (exact and name != "backward"):
+            check(row["bitwise"], f"{task.name} {name}: kernel vs plain "
+                                  f"not bit for bit (error {got:.3e})")
             row["tol"] = "bit for bit"
             continue
         check(math.isfinite(got) and got <= tol,
               f"{task.name} {name}: kernel vs plain error {got:.3e} > {kind} "
               f"{tol:.0e}")
         row["tol"] = f"{kind} {tol:.0e}"
+    if exact and "fk_bias" in rows:
+        check(rows["fk_bias"]["bitwise"], f"{task.name} fk_bias: kernel vs "
+                                          "plain not bit for bit")
+        rows["fk_bias"]["tol"] = "bit for bit"
     return rows
+
+
+def check_fd(task, q0, v0, U0, times, time_it=True, plain=None):
+    """K5 (central FD) against its twin at shared slot times and at per-lane
+    slots with live counts, bit for bit (the twin's outputs `plain` from
+    fd_twins, or run here) -> row."""
+    s = Sizes(task)
+    Bb = U0.shape[-1]
+    kj = ops.fd_jacobian(task, q0, v0, U0, times, 1e-6)
+    slot_t, counts = lane_slots(U0.shape[0], Bb, seed=6)
+    kl = ops.fd_jacobian(task, q0, v0, U0, slot_t, 1e-6, counts=counts)
+    pj, plain_ms, pl = plain or fd_twins(task, q0, v0, U0, times)
+    row = dict(err=max(err(kj, pj, "abs"), err(kl, pl, "abs")),
+               bitwise=bool(torch.equal(kj, pj)) and bool(torch.equal(kl, pl)),
+               modes={"per_lane": outputs_gap(kl, pl)}, plain_ms=plain_ms,
+               bound=fd_bound(s, len(times), Bb), tol="bit for bit")
+    if time_it:
+        row["ms"] = cuda_ms(lambda: ops.fd_jacobian(task, q0, v0, U0, times,
+                                                    1e-6), 3)
+    print(f"  {task.name} fd_jacobian: kernel vs plain max abs err "
+          f"{row['err'][0]:.3e}, bitwise {row['bitwise']} (shared slots and "
+          f"per-lane slots)", flush=True)
+    check(row["bitwise"], f"{task.name} fd_jacobian: kernel vs plain not bit "
+                          f"for bit ({row['err'][0]:.3e})")
+    return row
+
+
+def twin_outputs(task, inputs):
+    """The twins of check_kernels's K3, K4, K5ad, K6 and K7 calls on
+    `inputs` for a task with constraint rows (its Jacobians taken along the
+    rollout itself), each on the twins' own chain, with their device ms ->
+    {name: (outputs, ms)}, and K5ad's in its other slot modes (ad_modes).
+    They launch no kernel, so the gated checks run them beside the build
+    (check_worker)."""
+    qp0, qv0, tg, U, k, K = inputs
+    Hh, Bb = U.shape[0], U.shape[-1]
+    cfg = ILQRConfig()
+    alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
+    plan = lanes.si_plan(si1(task), Hh)
+    out = {"rollout": cuda_timed(lambda: ops.rollout(task, qp0, qv0, U, tg,
+                                                     plain=True))}
+    q0, v0 = out["rollout"][0][:2]
+    out["linesearch"] = cuda_timed(lambda: ops.linesearch(
+        task, q0, v0, U, k, K, alphas, tg, plain=True))
+    out["ad_jacobian"] = cuda_timed(lambda: ops.ad_jacobian(
+        task, q0, v0, U, plan.times, plain=True))
+    out["ad_jacobian_modes"] = ad_modes(task, q0, v0, U, plain=True)
+    out["cost_expansion"] = cuda_timed(lambda: ops.cost_expansion(
+        task, q0, v0, U, tg, plain=True))
+    J = out["ad_jacobian"][0]
+    A, Bm = lanes.jacobians_si(task, plan, q0, v0, U, lambda *a, **kw: J)
+    lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
+                     device="cuda")
+    out["backward"] = cuda_timed(lambda: ops.backward(
+        A, Bm, *out["cost_expansion"][0], lam, cfg, plain=True))
+    return out
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(y, dev) for y in x) if not hasattr(x, "_fields") \
+            else type(x)(*(_to(y, dev) for y in x))
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+def check_case(name):
+    """(task, inputs) of a kernel check whose twins run beside the build:
+    pentabot, reaching (half its lanes at their limits) and the walker at
+    their check sizes, the box tasks at SI_1 on box_inputs."""
+    if name == "pentabot":
+        t = make_pentabot(device="cuda")
+        return t, pentabot_inputs(t, PH, PB, seed=3)
+    if name == "reaching":
+        t = make_reaching(device="cuda")
+        return t, lane_inputs(t, PH, PB, seed=3, at_limits=True)
+    if name == "walker":
+        t = make_walker(run=True, device="cuda")
+        return t, walker_inputs(t, WH, WB, seed=3)
+    t = si1({"box_sweep": manipulation.make_box_sweep,
+             "threeD_push": manipulation.make_threed_push}[name](
+                 device="cuda"))
+    return t, box_inputs(t, PH, PB, seed=3)
+
+
+# the twins beside the build, one process each (check_worker)
+CHECK_WORKERS = ("pentabot,reaching,walker", "box_sweep", "threeD_push",
+                 "box_sweep_3it")
+
+
+def check_worker(names, path):
+    """`--plain-check-worker NAMES PATH`: the plain halves (twin_outputs) of
+    the kernel checks NAMES (comma-separated, check_case), or for
+    box_sweep_3it of box_sweep's 3-iteration hold (its servo's first BH3
+    controls at BB lanes from the twins of fk_bias and K3, then the plain
+    3-iteration solve at PB lanes), saved to PATH.  It launches no kernel,
+    so it runs beside the build, in a process of its own (CHECK_WORKERS
+    side by side)."""
+    if names != "box_sweep_3it":
+        out = {}
+        for name in names.split(","):
+            task, inputs = check_case(name)
+            tw = twin_outputs(task, inputs)
+            if name in ("box_sweep", "threeD_push"):
+                # the box check holds K5 too (the CLI's generic solve)
+                q0, v0 = tw["rollout"][0][:2]
+                tw["fd_jacobian"] = fd_twins(task, q0, v0, inputs[3],
+                                             lanes.si_plan(task, PH).times)
+            out[name] = _to(tw, "cpu")
+        torch.save(out, path)
+        return
+    out = {}
+    box = manipulation.make_box_sweep(device="cuda")
+    t1 = si1(box)
+    qp, qv, tg = manipulation.box_scenes(t1, BB, seed=0)
+    t0 = time.perf_counter()
+    path_, angle = pushing.ee_waypoint_path(t1, BH, qp.T.contiguous(),
+                                            tg.T.contiguous())
+    U, _, _ = pushing.servo_along_path(t1, path_[:BH3], angle,
+                                       qp.T.contiguous(), qv.T.contiguous(),
+                                       tg.T.contiguous(), plain=True)
+    cfg3 = ILQRConfig(max_iterations=3, min_iterations=3)
+    U3 = U.permute(2, 0, 1)[:PB].contiguous()
+    r = lanes.make_lane_phase_optimise(t1, cfg3, BH3, plain=True)(
+        qp[:PB], qv[:PB], U3, tg[:PB])
+    torch.cuda.synchronize()
+    out["box_sweep_3it"] = (_to(tuple(r), "cpu"), time.perf_counter() - t0,
+                            U3.cpu())
+    torch.save(out, path)
 
 
 def bp_launches(kname, cfg):
@@ -1024,9 +1379,15 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
                       lim[:, 1, None, None, None])
     del dx, fb
     # the twin's step from the kernel's own controls, so that a control
-    # difference is reported once, as one
+    # difference is reported once, as one; one alpha at a time (the twin's
+    # constraint solve over all of them would not fit the card at nx 26)
     uk = us.transpose(0, 1)
-    qn, vn = step_state(model, q, v, uk)
+    steps = [step_state(model, q[:, :, a].contiguous(),
+                        v[:, :, a].contiguous(), uk[:, :, a].contiguous())
+             for a in range(len(alphas))]
+    qn = torch.stack([x[0] for x in steps], 2)
+    vn = torch.stack([x[1] for x in steps], 2)
+    del steps
     out["linesearch"] = worst((
         (uk, u), (qps[1:], qn.transpose(0, 1)), (qvs[1:], vn.transpose(0, 1)),
         (cs, costs_of(q, v, uk, tgl[:, None, None, :]))))
@@ -1087,15 +1448,93 @@ def plain_3it(task, Hh, Bb, H3):
     return r, time.perf_counter() - t0
 
 
+def initial_nominal(task, qp0, qv0, tgl, U):
+    """A main path's first iteration at its initial nominal (qp0 (nq, B),
+    U (H, nu, B), lanes last): the rollout, the exact Jacobians at SI_1
+    slots, the cost expansion and the backward pass -> dict."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    cfg = ILQRConfig()
+    n = dict(cfg=cfg, plan=lanes.si_plan(task, Hh), info={},
+             alphas=ilqr.default_alphas(cfg.num_parallel_rollouts,
+                                        device="cuda"),
+             jac=lanes.slot_jacobians(task, "ad"),
+             lam=torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
+                            device="cuda"))
+    n["qpos"], n["qvel"], n["costs"] = ops.rollout(task, qp0, qv0, U, tgl)
+    n["A"], n["Bm"] = lanes.jacobians_si(task, n["plan"], n["qpos"],
+                                         n["qvel"], U, n["jac"])
+    n["l"] = ops.cost_expansion(task, n["qpos"], n["qvel"], U, tgl)
+    n["k"], n["K"] = ops.backward(n["A"], n["Bm"], *n["l"], n["lam"], cfg,
+                                  info=n["info"])[:2]
+    return n
+
+
+def hold_full_shape(task, qp0, qv0, tgl, U, n):
+    """`--deep`: a main path's kernels against their twins at its own shape
+    on its initial nominal `n` (stepwise_check), printed and checked."""
+    Hh, Bb = U.shape[0], U.shape[-1]
+    t0 = time.perf_counter()
+    full = stepwise_check(task, qp0, qv0, tgl, U, n["k"], n["K"], n["alphas"],
+                          n["plan"], n["A"], n["Bm"], n["l"], n["lam"],
+                          n["cfg"],
+                          fd_chunk=(500 if not task.model.contact_pairs else
+                                    100 if task.sv.nx > 20 else 200))
+    full["seconds"] = time.perf_counter() - t0
+    print(f"  {task.name} kernels vs twins at H={Hh} B={Bb} (rollout and "
+          f"line search step by step): {json.dumps(full)}", flush=True)
+    for kname in LANE_KERNELS:
+        kind, tol = TOL[kname]
+        got = full[kname][1]
+        check(math.isfinite(got) and got <= tol,
+              f"{task.name} {kname} at the full shape: kernel vs plain "
+              f"error {got:.3e} > {kind} {tol:.0e}")
+    check(full["cost_expansion_bitwise"], f"{task.name} cost_expansion "
+          "at the full shape: not bit for bit")
+    return full
+
+
+def box_full_shape(task):
+    """`--deep`: box_sweep's kernels against their twins at its main path's
+    shape (BH, BB) on the nominal of its init servo (hold_full_shape)."""
+    st = start_of(task, BH, BB)
+    qp0, qv0, tgl, U = st["qpos"], st["qvel"], st["targets"], st["U"]
+    return hold_full_shape(task, qp0, qv0, tgl, U,
+                           initial_nominal(task, qp0, qv0, tgl, U))
+
+
+def box_keypoints(task):
+    """K9a and K9b at box_sweep's main-path shape (BH, BB) with the CLI's
+    own method (AJ_1_1000), on the nominal of its init servo, against their
+    twins bit for bit with ms and bounds (check_plan; K5ad at per-lane
+    slots is held against its twin at the box check)."""
+    st = start_of(task, BH, BB)
+    U = st["U"]
+    qpos, qvel, _ = ops.rollout(task, st["qpos"], st["qvel"], U,
+                                st["targets"])
+    cfg = ILQRConfig()
+    kc = task.keypoint_cfg
+    label = f"box_sweep {method_tag(kc.name, kc.min_N, kc.max_N)}"
+    ops.reset_launch_counts()
+    row = check_plan(label, task, qpos, qvel, U,
+                     lanes.kp_budget(cfg, task, BH), cfg, hold_ad=False)
+    row["launches"] = {k: ops.LAUNCHES[k] for k in ops.KEYPOINT_KERNELS}
+    print(f"  keypoints {label} at H={BH} B={BB}: {json.dumps(row)}",
+          flush=True)
+    return row
+
+
 def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
               plain3=None):
     """One batched solve through the entry point with launch counts, the
-    per-phase device times at the initial nominal, and 3 iterations of the
-    kernel path against the plain path on the card at horizon H3 (`plain3`,
-    that plain solve from plain_3it, when it ran beside the build).  Scenes:
-    lanes.scenes and zero controls, or for a task with initial controls
-    (pushing) its scene generator and servo (push_start, timed).  A warm-up
-    solve of `warmup_iters` iterations runs first."""
+    per-phase device times at the initial nominal, and, when H3 is given,
+    3 iterations of the kernel path against the plain path on the card at
+    horizon H3 (`hold_3it`; `plain3`, that plain solve from plain_3it,
+    when it ran beside the build).  Scenes: lanes.scenes and zero controls,
+    or for a task with initial controls (pushing, the box tasks) its scene
+    generator and servo (start_of, timed).  A warm-up solve of
+    `warmup_iters` iterations runs first.  With `time_kernels` the kernels
+    are timed at this shape and, in `--deep`, held against their twins
+    there (hold_full_shape)."""
     task = si1(task)
     name = task.name
     servo = None
@@ -1104,17 +1543,21 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
         U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
                          device="cuda")
     else:
-        st = push_start(task)
+        st = start_of(task, Hh, Bb)
         qp, qv = st["qpos"].T.contiguous(), st["qvel"].T.contiguous()
         tg = st["targets"].T.contiguous()
         U0 = st["U"].permute(2, 0, 1).contiguous()
         servo = dict(s=st["servo_s"], launches=st["launches"])
-        print(f"  {name}: setup and init servo for {Bb} scenes, "
-              f"{pushing.SETUP_STEPS} + {Hh} steps: {st['servo_s']:.3f} s, "
-              f"launches {json.dumps(st['launches'])}", flush=True)
-    lanes.make_lane_phase_optimise(                    # warm-up
-        task, ILQRConfig(max_iterations=warmup_iters,
-                         min_iterations=warmup_iters), Hh)(qp, qv, U0, tg)
+        steps = (f"{pushing.SETUP_STEPS} + {Hh}"
+                 if task.residual_kind[0] == "push" else f"{Hh}")
+        print(f"  {name}: servo for {Bb} scenes, {steps} steps: "
+              f"{st['servo_s']:.3f} s, launches "
+              f"{json.dumps(st['launches'])}", flush=True)
+    if warmup_iters:
+        lanes.make_lane_phase_optimise(                # warm-up
+            task, ILQRConfig(max_iterations=warmup_iters,
+                             min_iterations=warmup_iters), Hh)(qp, qv, U0,
+                                                               tg)
     run = lanes.make_lane_phase_optimise(
         task, ILQRConfig(max_iterations=ITERS, min_iterations=ITERS), Hh)
     torch.cuda.synchronize()
@@ -1143,36 +1586,30 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
           f"{name} main path launched cost_expansion "
           f"{launches['cost_expansion']} times, ad_jacobian "
           f"{launches['ad_jacobian']}")
-    servo_check = check_servo(task, st) if servo else None
+    servo_check = check_servo(task, st, Hh) if servo else None
 
-    # per-phase device times at the initial nominal
+    # per-phase device times at the initial nominal, warm from the solve
     s = Sizes(task)
-    cfg = ILQRConfig()
     qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
     U = U0.permute(1, 2, 0).contiguous()
-    plan = lanes.si_plan(task, Hh)
-    alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
-    qpos, qvel, costs = ops.rollout(task, qp0, qv0, U, tgl)
+    nom = initial_nominal(task, qp0, qv0, tgl, U)
+    cfg, plan, alphas, jac, lam, info = (nom[x] for x in (
+        "cfg", "plan", "alphas", "jac", "lam", "info"))
+    qpos, qvel, A, Bm, l, k, K = (nom[x] for x in (
+        "qpos", "qvel", "A", "Bm", "l", "k", "K"))
     active = limits_active(task.model, qpos[:Hh].transpose(0, 1))
     contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
                 else None)
-    jac = lanes.slot_jacobians(task, "ad")
-    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U, jac)
-    l = ops.cost_expansion(task, qpos, qvel, U, tgl)
-    lam = torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
-                     device="cuda")
-    info = {}
-    k, K, _, lam_out, _ = ops.backward(A, Bm, *l, lam, cfg, info=info)
-    old = costs.sum(0)
+    old = nom["costs"].sum(0)
     phases = {
-        "rollout": cuda_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl), 3),
-        "jacobians": cuda_ms(lambda: lanes.jacobians_si(
-            task, plan, qpos, qvel, U, jac), 3),
-        "cost_expansion": cuda_ms(lambda: ops.cost_expansion(
-            task, qpos, qvel, U, tgl), 3),
-        "bp": cuda_ms(lambda: ops.backward(A, Bm, *l, lam, cfg), 3),
-        "fp": cuda_ms(lambda: lanes.forward_pass(
-            task, qpos, qvel, U, k, K, alphas, tgl, old), 3),
+        "rollout": phase_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl)),
+        "jacobians": phase_ms(lambda: lanes.jacobians_si(
+            task, plan, qpos, qvel, U, jac)),
+        "cost_expansion": phase_ms(lambda: ops.cost_expansion(
+            task, qpos, qvel, U, tgl)),
+        "bp": phase_ms(lambda: ops.backward(A, Bm, *l, lam, cfg)),
+        "fp": phase_ms(lambda: lanes.forward_pass(
+            task, qpos, qvel, U, k, K, alphas, tgl, old)),
     }
     out = dict(mean_cost_reduction=mean_red, wall_s=wall,
                solves_per_s=Bb / wall, launches=launches, phases_ms=phases,
@@ -1187,26 +1624,16 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
         # (the rollout and bp phases above are these kernels' launches)
         out["kernel_ms"] = {
             "rollout": phases["rollout"],
-            "linesearch": cuda_ms(lambda: ops.linesearch(
-                task, qpos, qvel, U, k, K, alphas, tgl), 3),
-            "ad_jacobian": cuda_ms(lambda: ops.ad_jacobian(
-                task, qpos, qvel, U, plan.times), 3),
+            "linesearch": phase_ms(lambda: ops.linesearch(
+                task, qpos, qvel, U, k, K, alphas, tgl)),
+            "ad_jacobian": phase_ms(lambda: ops.ad_jacobian(
+                task, qpos, qvel, U, plan.times)),
             "cost_expansion": phases["cost_expansion"],
             "backward": phases["bp"],
         }
-        full = out["full_shape_err"] = stepwise_check(
-            task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam, cfg,
-            fd_chunk=200 if task.model.contact_pairs else 500)
-        print(f"  {name} kernels vs twins at H={Hh} B={Bb} (rollout and line "
-              f"search step by step): {json.dumps(full)}", flush=True)
-        for kname in LANE_KERNELS:
-            kind, tol = TOL[kname]
-            got = full[kname][1]
-            check(math.isfinite(got) and got <= tol,
-                  f"{name} {kname} at the full shape: kernel vs plain error "
-                  f"{got:.3e} > {kind} {tol:.0e}")
-        check(full["cost_expansion_bitwise"], f"{name} cost_expansion at "
-                                              "the full shape: not bit for bit")
+        if DEEP:
+            out["full_shape_err"] = hold_full_shape(task, qp0, qv0, tgl, U,
+                                                    nom)
         out["bounds"] = {
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
@@ -1215,9 +1642,21 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
             "backward": backward_bound(s.nx, s.nu, Hh, Bb,
                                        out["bp_sweeps_first"]),
         }
-    del A, Bm, l, k, K
+    del A, Bm, l, k, K, nom
     torch.cuda.empty_cache()
+    if H3 is not None:
+        out.update(hold_3it(task, qp, qv, U0, tg, H3, Bb, plain3))
+    return out
 
+
+def hold_3it(task, qp, qv, U0, tg, H3, Bb, plain3=None):
+    """3 iterations of the kernel path against the plain path on the card
+    at horizon H3 from a main path's scenes (qp (B, nq), qv, U0 (B, H, nu),
+    tg), acrobot at its Bb lanes, the arm tasks at PB; with constraint rows
+    also the kernel path with the twin's backward pass, which must equal
+    the plain path bit for bit."""
+    name = task.name
+    out = {}
     # 3 iterations: kernel path against the plain path on the card
     cfg3 = ILQRConfig(max_iterations=3, min_iterations=3)
     B3 = Bb if task.name == "acrobot" else PB  # the arm tasks: PB lanes
@@ -1231,7 +1670,13 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     else:
-        r_p, plain_s = plain3
+        r_p, plain_s = plain3[:2]
+        if len(plain3) > 2:
+            # run beside the build from the plain servo's controls: they
+            # must be the kernel servo's
+            check(bool(torch.equal(plain3[2].to(U3.device), U3)),
+                  f"{name}: the plain servo's controls differ from the "
+                  "kernel servo's")
     diff = (r_k.cost_reduction - r_p.cost_reduction).abs()
     agree = float((diff < 1e-4).double().mean())
     worst = torch.argsort(diff, descending=True)[:8]
@@ -1293,8 +1738,9 @@ KP_TIGHT = 12          # the forced slot budget of the overflow case
 # path takes ~40 s (its rollout, line-search and backward twins are held in
 # main_acrobot and in the VC run)
 KP_TWINS = frozenset(ops.KEYPOINT_KERNELS + ("ad_jacobian",))
+# (the velocity_change path against the whole plain path runs in `--deep`)
 ADAPTIVE_MAIN = (("acrobot", "adaptive_jerk", 1, 50, KP_TWINS),
-                 ("acrobot", "velocity_change", 1, 200, True),
+                 ("acrobot", "velocity_change", 1, 200, KP_TWINS),
                  ("acrobot", "iterative_error", 1, 50, KP_TWINS),
                  ("reaching", "adaptive_jerk", 5, 100, None))
 KP_SHORT = {"adaptive_jerk": "AJ", "adaptive_accel": "AA",
@@ -1363,10 +1809,12 @@ def hold(name, kern, plain):
 
 
 def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
-               fd_chunk=0):
+               fd_chunk=0, hold_ad=True):
     """K9a, K5ad at the plan's per-lane slots and K9b on the nominal (qpos,
     qvel, U), each against its twin bit for bit, with device ms, the
-    twin's ms and the bounds (the live slots counted from this run)."""
+    twin's ms and the bounds (the live slots counted from this run);
+    without `hold_ad` K5ad is timed alone (held where this is called
+    from)."""
     Hh, Bb = U.shape[0], U.shape[-1]
     s = Sizes(task)
     n, nx, nc = task.sv.ndof, s.nx, s.nx + s.nu
@@ -1381,7 +1829,9 @@ def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
         hold(f"{label} keypoint_plan", kp, pp), plain_ms=plan_plain_ms,
         bound=plan_bound(Hh, n, Bb, K_max))}
     kj = ops.ad_jacobian(task, qpos, qvel, U, kp.slot_t, counts=kp.count)
-    if fd_chunk:
+    if not hold_ad:
+        out["ad_jacobian"] = dict(bound=ad_lane_bound(s, live, K_max, Bb))
+    elif fd_chunk:
         t0 = time.perf_counter()
         pj = ad_lane_plain(task, qpos, qvel, U, kp.slot_t, kp.count,
                            fd_chunk)
@@ -1390,10 +1840,11 @@ def check_plan(label, task, qpos, qvel, U, K_max, cfg, time_it=True,
     else:
         pj, ad_plain_ms = cuda_timed(lambda: ops.ad_jacobian(
             task, qpos, qvel, U, kp.slot_t, plain=True, counts=kp.count))
-    out["ad_jacobian"] = dict(hold(f"{label} ad_jacobian (per-lane slots)",
-                                   kj, pj), plain_ms=ad_plain_ms,
-                              bound=ad_lane_bound(s, live, K_max, Bb))
-    del pj
+    if hold_ad:
+        out["ad_jacobian"] = dict(
+            hold(f"{label} ad_jacobian (per-lane slots)", kj, pj),
+            plain_ms=ad_plain_ms, bound=ad_lane_bound(s, live, K_max, Bb))
+        del pj
     ki = ops.kp_interp(kj, kp.pslot, kp.nslot, kp.w, col, nx)
     pi, interp_plain_ms = cuda_timed(lambda: ops.kp_interp(
         kj, kp.pslot, kp.nslot, kp.w, col, nx, plain=True))
@@ -1760,9 +2211,9 @@ def mpc_kernel_ms(task, qp, qv, U, tg, cfg, generic=False):
 
 
 def mpc_plain_cases(walk, acro):
-    """(task, H, num_apply, replans, B) of main_mpc's kernel-vs-plain MPC
-    holds: the walker's first replans of one episode and 6 acrobot
-    replans."""
+    """(task, H, num_apply, replans, B) of the kernel-vs-plain MPC holds
+    (`mpc_holds`, in `--deep`): the walker's first replans of one episode
+    and 6 acrobot replans."""
     return ((walk, MH, 1, MPC_PLAIN_REPLANS, 1), (si1(acro), 40, 2, 6, 4))
 
 
@@ -1782,9 +2233,9 @@ def mpc_run(t, Hh, na, n, Bb, plain):
 
 
 def plain_mpc_runs(walk, acro):
-    """The plain halves of main_mpc's holds, {task name: (result, s)},
-    but the walker's (plain_mpc_worker): they launch no kernel, so they
-    run while the kernels build."""
+    """The plain halves of the MPC holds (`mpc_holds`), {task name:
+    (result, s)}, but the walker's (plain_mpc_worker): they launch no
+    kernel, so they run while the kernels build."""
     return {t.name: mpc_run(t, Hh, na, n, Bb, True)
             for t, Hh, na, n, Bb in mpc_plain_cases(walk, acro)[1:]}
 
@@ -1801,20 +2252,21 @@ def plain_mpc_worker(path):
                path)
 
 
-def start_plain_mpc_worker():
-    """(process, path) of plain_mpc_worker, started now."""
+def start_worker(flag, name, *args):
+    """(process, path) of this script started now with `flag *args PATH` (a
+    plain worker: plain_mpc_worker, check_worker)."""
     os.makedirs(MPC_OUT, exist_ok=True)
-    path = os.path.join(MPC_OUT, "plain_walker_run.pt")
+    path = os.path.join(MPC_OUT, name)
     if os.path.exists(path):
         os.remove(path)
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--plain-mpc-worker", path], cwd=ROOT)
+                             flag, *args, path], cwd=ROOT)
     return proc, path
 
 
-def finish_plain_mpc_worker(worker, timeout=900):
-    """(result, s) of the walker's plain MPC hold from its worker process,
-    which is stopped if it has not ended within `timeout` seconds."""
+def finish_worker(worker, timeout=900):
+    """What a worker process saved, once it has ended; it is stopped if it
+    has not ended within `timeout` seconds."""
     proc, path = worker
     try:
         rc = proc.wait(timeout=timeout)
@@ -1823,13 +2275,39 @@ def finish_plain_mpc_worker(worker, timeout=900):
             proc.kill()
             proc.wait()
     if rc != 0:
-        raise RuntimeError(f"the plain MPC worker exited with code {rc}")
-    got = torch.load(path, weights_only=True)
+        raise RuntimeError(f"the plain worker {path} exited with code {rc}")
+    return torch.load(path, weights_only=False)
+
+
+def start_plain_mpc_worker():
+    return start_worker("--plain-mpc-worker", "plain_walker_run.pt")
+
+
+def finish_plain_mpc_worker(worker, timeout=900):
+    """(result, s) of the walker's plain MPC hold from its worker process."""
+    got = finish_worker(worker, timeout)
     return (mpc_sync.MPCRunResult(*(x.cuda() for x in got["result"])),
             got["seconds"])
 
 
-def main_mpc(task, acro, plain_runs):
+def walker_hold_b128(task, cfg):
+    """Each kernel phase of the walker's first replan of MB episodes against
+    its twin, bit for bit (`--deep`) -> {phase: (bitwise, max abs err)}."""
+    qp, qv, tg = (x.T.contiguous() for x in episode_starts(task, MB))
+    U = torch.zeros((MH, task.model.nu, MB), dtype=torch.float64,
+                    device="cuda")
+    t0 = time.perf_counter()
+    held = mpc_kernel_ms(task, qp, qv, U, tg, cfg)[3]()
+    print(f"  walker_run first replan H={MH} B={MB}, each kernel phase vs "
+          f"its twin (bitwise, max abs err): {json.dumps(held)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for k, (same, gap) in held.items():
+        check(same, f"walker {k} at H={MH} B={MB} differs from its twin by "
+                    f"{gap:.3e}")
+    return {k: dict(bitwise=v[0], max_abs_err=v[1]) for k, v in held.items()}
+
+
+def main_mpc(task):
     """The walker MPC main path: walker_run SI_1 (the task's own keypoints)
     at its MPC horizon, one iteration and one applied control per replan,
     N_REPLANS replans, through the campaign entry point
@@ -1837,11 +2315,10 @@ def main_mpc(task, acro, plain_runs):
     lane executor), with launch counts: one episode at H = MH (the main
     path), the sweep's other horizons, and MB episodes at MH.  Then the
     device ms of each phase inside one replan, each kernel phase of the
-    first replan of the MB episodes against its twin, and the kernel path
-    against the plain path over the first MPC_PLAIN_REPLANS replans
-    (walker, one episode) and over 6 replans of acrobot, bit for bit (the
-    plain runs `plain_runs`, from plain_mpc_runs); the launches of both
-    walker runs at MH are counted."""
+    replan of the MB episodes (the kernel path against the plain path,
+    `mpc_holds`, and each kernel phase of the first replan of MB episodes
+    against its twin, `walker_hold_b128`, run in `--deep`); the launches of
+    both walker runs at MH are counted."""
     cfg = ILQRConfig()
     out = {}
     os.makedirs(MPC_OUT, exist_ok=True)
@@ -1882,27 +2359,15 @@ def main_mpc(task, acro, plain_runs):
               f"{r['mean_running_cost']:.6f}, launches per replan "
               f"{json.dumps(r['launches_per_replan'])}", flush=True)
 
-    # device ms per phase inside one replan, from the episodes' start; at
-    # MB episodes (two blocks of lanes) each kernel phase of that first
-    # replan is also held against its twin, bit for bit
+    # device ms per phase inside one replan, from the episodes' start (at
+    # MB episodes each kernel phase of that first replan is held against
+    # its twin in `--deep`, walker_hold_b128)
     s = Sizes(task)
     for name, Bb in (("b1", 1), ("b128", MB)):
         qp, qv, tg = (x.T.contiguous() for x in episode_starts(task, Bb))
         U = torch.zeros((MH, task.model.nu, Bb), dtype=torch.float64,
                         device="cuda")
-        t0 = time.perf_counter()
-        phases, kms, sweeps, hold = mpc_kernel_ms(task, qp, qv, U, tg, cfg)
-        if Bb == MB:
-            held = hold()
-            out[f"held_{name}"] = {k: dict(bitwise=v[0], max_abs_err=v[1])
-                                   for k, v in held.items()}
-            print(f"  walker_run first replan H={MH} B={Bb}, each kernel "
-                  f"phase vs its twin (bitwise, max abs err): "
-                  f"{json.dumps(held)} ({time.perf_counter() - t0:.1f} s)",
-                  flush=True)
-            for k, (same, gap) in held.items():
-                check(same, f"walker {k} at H={MH} B={Bb} differs from its "
-                            f"twin by {gap:.3e}")
+        phases, kms, sweeps, _ = mpc_kernel_ms(task, qp, qv, U, tg, cfg)
         out[f"phases_ms_{name}"] = phases
         out[f"kernel_ms_{name}"] = kms
         out[f"bounds_{name}"] = {
@@ -1917,9 +2382,18 @@ def main_mpc(task, acro, plain_runs):
               f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}, "
               f"bounds {json.dumps(out[f'bounds_{name}'])}", flush=True)
 
-    # kernel path against the plain path (run during the build), bit for
-    # bit
-    for t, Hh, na, n, Bb in mpc_plain_cases(task, acro):
+    return out
+
+
+def mpc_holds(walk, acro, plain_runs):
+    """The MPC kernel path against the plain path (`plain_runs`, run during
+    the build), bit for bit, for each case of mpc_plain_cases whose plain
+    run is given: the walker's first MPC_PLAIN_REPLANS replans of one
+    episode, 6 acrobot replans."""
+    out = {}
+    for t, Hh, na, n, Bb in mpc_plain_cases(walk, acro):
+        if t.name not in plain_runs:
+            continue
         runs, secs = [], []
         for plain in (False, True):
             if plain:
@@ -2124,9 +2598,10 @@ def report_main(name, Hh, Bb, mp):
           f", cost expansion bound {json.dumps(mp['cost_expansion_bound'])}"
           f", launches {json.dumps(mp['launches'])}, limit rows active in "
           f"{mp['limit_active_lane_steps']} lane-steps of the first rollout, "
-          f"contacts {json.dumps(mp['contacts'])}, "
-          f"3-it lanes agreeing with plain {mp['plain_agree_3it']:.4f} "
-          f"({mp['plain_agree_shape']})", flush=True)
+          f"contacts {json.dumps(mp['contacts'])}"
+          + (f", 3-it lanes agreeing with plain {mp['plain_agree_3it']:.4f} "
+             f"({mp['plain_agree_shape']})" if "plain_agree_3it" in mp
+             else ""), flush=True)
 
 
 def cli_start(args):
@@ -2170,6 +2645,13 @@ def cli_runs(beside=None):
                      "--maxIter", "3", "--minIter", "3"],
         "push": ["--task", "pushing_no_clutter", "--runMode",
                  "Optimise_once", "--maxIter", "3", "--minIter", "3"],
+        # the box tasks at their own horizons and methods: box_sweep
+        # AJ_1_1000 (K9a, K5 at per-lane slots, K9b) over 1500 steps,
+        # threeD_push set_interval 1 over 1000
+        "box_sweep": ["--task", "box_sweep", "--runMode", "Optimise_once",
+                      "--maxIter", "3", "--minIter", "3"],
+        "threeD_push": ["--task", "threeD_push", "--runMode",
+                        "Optimise_once", "--maxIter", "3", "--minIter", "3"],
         "mpc": ["--task", "walker_run", "--runMode",
                 "Generate_syncronus_mpc_data", "--horizon", str(MH),
                 "--out_dir", os.path.join(MPC_OUT, "cli")],
@@ -2192,10 +2674,21 @@ def cli_runs(beside=None):
     out = {k: cli_finish(k, p) for k, p in procs.items()}
     own = {"acrobot": "velocity_change", "acrobot_ie": "iterative_error",
            "acrobot_ad": "velocity_change",
-           "reaching": "velocity_change", "push": "adaptive_jerk"}
+           "reaching": "velocity_change", "push": "adaptive_jerk",
+           "box_sweep": "adaptive_jerk", "threeD_push": "set_interval"}
     for k, method in own.items():
         res = out[k][1]
         if res is None:
+            continue
+        if k == "box_sweep":
+            # from the task's own start the first backward pass sends every
+            # λ to its cap, which ends the generic solve with the initial
+            # controls (λ-exit): the JAX CLI's solve does the same
+            # (tests/test_torch_box.py, H = 15; PERF.md §6)
+            check(math.isfinite(res["final_cost"])
+                  and 0.0 <= res["cost_reduction"] < 1.0
+                  and res["keypoint_method"] == method
+                  and res["iterations"] >= 1, f"CLI {k}: {res}")
             continue
         check(math.isfinite(res["cost_reduction"])
               and 0.0 < res["cost_reduction"] < 1.0
@@ -2204,16 +2697,26 @@ def cli_runs(beside=None):
               f"CLI {k}: {res}")
     # Optimise_once is the generic solve: K5 at deriv_mode auto (fd), K5ad
     # at ad
-    for k, jac in (("acrobot", "fd_jacobian"), ("acrobot_ad", "ad_jacobian")):
+    for k, jac in (("acrobot", "fd_jacobian"), ("acrobot_ad", "ad_jacobian"),
+                   ("box_sweep", "fd_jacobian"),
+                   ("threeD_push", "fd_jacobian")):
         res = out[k][1]
         if res is not None:
             other = ({"fd_jacobian", "ad_jacobian"} - {jac}).pop()
             check(res["launches"].get(jac, 0) > 0
                   and other not in res["launches"]
-                  and res["deriv_mode"] == ("fd" if k == "acrobot"
-                                            else "ad"),
+                  and res["deriv_mode"] == ("ad" if k == "acrobot_ad"
+                                            else "fd"),
                   f"CLI {k}: deriv_mode {res['deriv_mode']}, launches "
                   f"{res['launches']}")
+    res = out["box_sweep"][1]
+    if res is not None:
+        # AJ_1_1000 on the generic path: K9a's plan, K5 at per-lane slots,
+        # K9b's lerp; the servo's fk_bias
+        check(all(res["launches"].get(k, 0) > 0 for k in (
+            "keypoint_plan", "kp_interp", "fd_jacobian", "fk_bias", "rollout",
+            "cost_expansion", "backward")),
+              f"CLI box_sweep: launches {res['launches']}")
     if out["mpc"][1] is not None:
         (row,) = out["mpc"][1]["rows"]
         check(row["horizon"] == MH and row["timing"].startswith("cuda")
@@ -2238,6 +2741,76 @@ def cli_runs(beside=None):
     return out
 
 
+def box_entries(brows, bmp, counts, runs):
+    """The box tasks' entries of the `kernels` line: box_sweep's at its main
+    path's shape (ms, bounds and launches of that solve; errors from the box
+    check, bit for bit), its K5 and fk_bias from the CLI run and the main
+    path's servo, K9a and K9b at the main path's shape (box_keypoints),
+    launched by the CLI run; threeD_push's at the check size, launched by
+    its CLI run (its launches from that run's JSON line)."""
+    out = kernel_entries("box_sweep", brows["box_sweep"], bmp["launches"],
+                         counts["box_sweep"], bmp["kernel_ms"],
+                         bmp["bounds"], f"H={BH} B={BB}", f"H={PH} B={PB}")
+    cli = {k: (runs[k][1] or {}).get("launches", {})
+           for k in ("box_sweep", "threeD_push")}
+    for e in out:
+        e["bitwise"] = brows["box_sweep"][e["name"]].get("bitwise")
+        if e["name"] == "fd_jacobian":
+            e.update(launches=cli["box_sweep"].get("fd_jacobian", 0),
+                     launched_by="the CLI's Optimise_once (generic solve, "
+                     "B = 1, deriv_mode fd; AJ_1_1000 at per-lane slots)",
+                     ms=brows["box_sweep"]["fd_jacobian"]["ms"],
+                     bound_ms=brows["box_sweep"]["fd_jacobian"]["bound"][0],
+                     bound_by=brows["box_sweep"]["fd_jacobian"]["bound"][1],
+                     shape=f"H={PH} B={PB}, SI_1 slots (check)")
+    tdp = kernel_entries("threeD_push", brows["threeD_push"],
+                         cli["threeD_push"], counts["threeD_push"])
+    for e in tdp:
+        e.update(bitwise=brows["threeD_push"][e["name"]].get("bitwise"),
+                 shape=f"H={PH} B={PB} (check)",
+                 launched_by="the CLI's Optimise_once (generic solve, B = 1,"
+                 " H = 1000, set_interval 1, deriv_mode fd)"
+                 if e["launches"] else "the box check alone (the CLI's "
+                 "generic solve takes K5 at deriv_mode fd)")
+    kp = bmp["keypoints"]
+    for name in ("keypoint_plan", "kp_interp"):
+        r = kp[name]
+        out.append({
+            "name": name, "model": "box_sweep", "route": "cuda",
+            "source": "trajoptkp_tpu_torch/kernels/csrc/"
+                      f"{ops.SOURCES.get(name, name)}.cu",
+            "replaces": ops.REPLACES[name],
+            "launches": cli["box_sweep"].get(name, 0),
+            "launched_by": "the CLI's Optimise_once (generic solve, B = 1, "
+                           "AJ_1_1000)",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
+            "tolerance": "bit for bit", "bitwise": r["bitwise"],
+            "shape": f"{kp['shape']}, AJ_1_1000 on the main path's initial "
+                     f"nominal, K_max {kp['K_max']}, {kp['live_slots']} live "
+                     "slots"})
+    sc = bmp["servo_check"]
+    fk, wide = sc["fk_bias"][0], brows["box_sweep"]["fk_bias"]
+    out.append({
+        "name": "fk_bias", "model": "box_sweep", "route": "cuda",
+        "source": "trajoptkp_tpu_torch/kernels/csrc/rollout.cu",
+        "device_function": "trajoptkp_tpu_torch/kernels/csrc/step.cuh",
+        "replaces": "trajoptkp_tpu/tasks/pushing.py:421",
+        "launches": bmp["servo"]["launches"].get("fk_bias", 0),
+        "launched_by": f"the init servo of the main path ({BH} steps)",
+        "max_abs_err": max(f["err"][0] for f in sc["fk_bias"] + [wide]),
+        "ms": fk["ms"], "plain_ms": fk["plain_ms"],
+        "bound_ms": fk["bound"][0], "bound_by": fk["bound"][1],
+        "library_ms": None, "tolerance": fk["tol"],
+        "shape": f"{fk['lanes']} lanes",
+        "bitwise": all(f["bitwise"] for f in sc["fk_bias"] + [wide]),
+        "servo_vs_plain_servo": dict(steps=sc["steps"],
+                                     max_abs_err=sc["init"]["err"][0],
+                                     bitwise=sc["init"]["bitwise"])})
+    return out + tdp
+
+
 def kernel_entries(model_name, rows, launches, step_counts, ms=None,
                    bounds=None, shape=None, check_shape=None, full=None):
     """Entries of the `kernels` line for one model.  `ms` and `bounds`, when
@@ -2250,14 +2823,15 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
     out = []
     for name in [k for k in ops.KERNELS + ops.MPC_KERNELS if k in rows]:
         r = rows[name]
-        b = bounds[name] if bounds else r["bound"]
+        b = bounds.get(name, r["bound"]) if bounds else r["bound"]
         e = {
             "name": name, "model": model_name, "route": "cuda",
             "source": f"trajoptkp_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": ops.REPLACES[name],
-            "launches": launches[name],
+            "launches": launches.get(name, 0),
             "max_abs_err": r["err"][0],
-            "ms": ms[name] if ms else r["ms"], "plain_ms": r["plain_ms"],
+            "ms": ms.get(name, r["ms"]) if ms else r["ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None,
             "tolerance": r["tol"],
@@ -2371,11 +2945,117 @@ def keypoint_entries(kps, amp):
     return out
 
 
+def build_beside(beside=None, worker=None):
+    """Build every kernel library in a thread while `beside()` runs the
+    plain halves that launch no kernel, and wait for the plain MPC worker
+    process `worker` (stopped if it has not ended) -> (build seconds,
+    nvcc logs, beside()'s result, the worker's result)."""
+    built = {}
+    build_thread = threading.Thread(
+        target=lambda: built.update(out=build.build_all_timed()))
+    plain = worked = None
+    try:
+        build_thread.start()
+        if beside is not None:
+            plain = beside()
+        build_thread.join()
+        if worker is not None:
+            t0 = time.perf_counter()
+            worked = finish_plain_mpc_worker(worker)
+            print(f"plain walker MPC run in its own process: "
+                  f"{worked[1]:.1f} s (waited "
+                  f"{time.perf_counter() - t0:.1f} s after the build)",
+                  flush=True)
+    finally:
+        if worker is not None and worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
+    if "out" not in built:
+        raise RuntimeError("the kernel build failed (its error is above)")
+    build_s, logs = built["out"]
+    print(f"kernel build: {build_s:.1f} s ({len(build.libraries())} nvcc in "
+          "parallel, one per library and instance)", flush=True)
+    for name, text in logs.items():
+        for ln in text.splitlines():
+            if ("registers" in ln or "spill" in ln or "Compiling" in ln
+                    or "warning" in ln or "done after" in ln):
+                print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    return build_s, logs, plain, worked
+
+
+def deep(card):
+    """`--deep`: the deep agreement holds of the earlier slices, a job of
+    their own (the default run keeps every kernel against its twin at every
+    model and every main path): the acrobot, reaching and push_ncl main
+    paths again with 3 iterations of the kernel path against the plain path
+    (acrobot H=500 B=512, reaching H=RH3 B=PB, push_ncl from its servo
+    H=UH3 B=PB), reaching's, push_ncl's and box_sweep's kernels against
+    their twins at their main paths' shapes (hold_full_shape; box_sweep's
+    3 iterations run in the default job), acrobot VC_1_200's 3 iterations
+    against the whole plain path, the walker's first MPC_PLAIN_REPLANS MPC
+    replans and 6 acrobot replans, kernel against plain, and each kernel
+    phase of the walker's first replan of MB episodes against its twin.
+    The plain halves of acrobot's and reaching's solves and of the MPC
+    holds run beside the build, the walker's in a process of its own.
+    Prints a `record` line and no result line; exits 1 if a check
+    failed."""
+    t_start = time.perf_counter()
+    acro = make_acrobot(device="cuda")
+    reach = make_reaching(device="cuda")
+    push = pushing.make_pushing(device="cuda")
+    walk = make_walker(run=True, device="cuda")
+
+    def beside():
+        runs = plain_mpc_runs(walk, acro)
+        plain3 = {}
+        for task, Hh, Bb, H3 in ((acro, H, B, H), (reach, RH, RB, RH3)):
+            plain3[task.name] = plain_3it(task, Hh, Bb, H3)
+            print(f"plain 3-iteration {task.name} solve beside the build: "
+                  f"{plain3[task.name][1]:.1f} s", flush=True)
+        return runs, plain3
+
+    build_s, _, (runs, plain3), worked = build_beside(
+        beside, start_plain_mpc_worker())
+    runs[walk.name] = worked
+    record = {"card": card, "build_s": build_s, "deep": {}}
+    for task, Hh, Bb, H3 in ((acro, H, B, H), (reach, RH, RB, RH3),
+                             (push, UH, UB, UH3)):
+        t0 = time.perf_counter()
+        m = record["deep"][task.name] = main_path(
+            task, Hh, Bb, H3, task is not acro, 1,
+            plain3=plain3.get(task.name))
+        report_main(task.name, Hh, Bb, m)
+        m["seconds"] = time.perf_counter() - t0
+    # box_sweep's 3 iterations run in the default job; its full shape here
+    t0 = time.perf_counter()
+    box = si1(manipulation.make_box_sweep(device="cuda"))
+    record["deep"]["box_sweep"] = {"full_shape_err": box_full_shape(box)}
+    record["deep"]["box_sweep"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vc = with_method(acro, "velocity_change", 1, 200)
+    record["deep"]["acrobot VC_1_200"] = adaptive_path(vc, H, B, True)
+    record["deep"]["acrobot VC_1_200"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["deep"]["mpc"] = mpc_holds(walk, acro, runs)
+    record["deep"]["mpc"]["held_b128"] = walker_hold_b128(walk, ILQRConfig())
+    record["deep"]["mpc"]["seconds"] = time.perf_counter() - t0
+    record["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke --deep: {record['seconds']:.1f} s in all (nvcc "
+          f"{build_s:.1f} s)", flush=True)
+    print("record " + json.dumps(record), flush=True)
+    if FAILED:
+        raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--deep", action="store_true",
+                    help="the deep agreement holds alone (see `deep`)")
     ap.add_argument("--plain-mpc-worker", metavar="PATH",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--plain-check-worker", nargs=2,
+                    metavar=("NAMES", "PATH"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = [p for p in phases if p not in PHASES]
@@ -2386,6 +3066,16 @@ def main():
         sys.exit(2)
     if args.plain_mpc_worker:
         plain_mpc_worker(args.plain_mpc_worker)
+        return
+    if args.plain_check_worker:
+        check_worker(*args.plain_check_worker)
+        return
+    if args.deep:
+        global DEEP
+        DEEP = True
+        card = card_line()
+        print(f"card: {card}", flush=True)
+        deep(card)
         return
     t_start = time.perf_counter()
     phase_s = {}
@@ -2407,73 +3097,56 @@ def main():
     reach = make_reaching(device="cuda")
     push = pushing.make_pushing(device="cuda")
     walk = make_walker(run=True, device="cuda")
-    # the kernels build while the plain halves of the holds run: host-bound
-    # twin launches that need no kernel; the walker's MPC hold, the longest,
-    # in a process of its own
-    worker = start_plain_mpc_worker() if "main_mpc" in phases else None
-    built = {}
-    build_thread = threading.Thread(
-        target=lambda: built.update(out=build.build_all_timed()))
+    box = manipulation.make_box_sweep(device="cuda")
+    tdp = manipulation.make_threed_push(device="cuda")
+
+    # the kernels build while the plain halves of the gated checks run in
+    # processes of their own: host-bound twin launches that need no kernel
+    workers = [start_worker("--plain-check-worker", f"plain_{i}.pt", names)
+               for i, names in enumerate(CHECK_WORKERS)]
     try:
-        build_thread.start()
-        plain_runs = None
-        plain3 = {}
-        if "main_mpc" in phases:
-            t0 = time.perf_counter()
-            plain_runs = plain_mpc_runs(walk, acro)
-            print(f"plain acrobot MPC run beside the build: "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-        # the plain halves of the open-loop 3-iteration holds that need no
-        # kernel (push_ncl's start from its servo, which does)
-        for phase, task, Hh, Bb, H3 in (("main_acrobot", acro, H, B, H),
-                                        ("main_reaching", reach, RH, RB,
-                                         RH3)):
-            if phase in phases:
-                plain3[phase] = plain_3it(task, Hh, Bb, H3)
-                print(f"plain 3-iteration {task.name} solve beside the "
-                      f"build: {plain3[phase][1]:.1f} s", flush=True)
-        build_thread.join()
-        if worker is not None:
-            t0 = time.perf_counter()
-            plain_runs[walk.name] = finish_plain_mpc_worker(worker)
-            print(f"plain walker MPC run in its own process: "
-                  f"{plain_runs[walk.name][1]:.1f} s (waited "
-                  f"{time.perf_counter() - t0:.1f} s after the build)",
-                  flush=True)
+        build_s, logs, _, _ = build_beside()
+        plain = {}
+        t0 = time.perf_counter()
+        for w in workers:
+            plain.update(_to(finish_worker(w), "cuda"))
+        print(f"plain halves of the checks in {len(workers)} processes of "
+              f"their own: waited {time.perf_counter() - t0:.1f} s after the "
+              "build", flush=True)
     finally:
-        if worker is not None and worker[0].poll() is None:
-            worker[0].kill()
-            worker[0].wait()
-    if "out" not in built:
-        raise RuntimeError("the kernel build failed (its error is above)")
-    build_s, logs = built["out"]
-    print(f"kernel build: {build_s:.1f} s ({len(build.libraries())} nvcc in "
-          "parallel, one per library and instance)", flush=True)
+        for w in workers:
+            if w[0].poll() is None:
+                w[0].kill()
+                w[0].wait()
     t0 = time.perf_counter()
     native_executor.build()
     print(f"native executor build (g++): {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, text in logs.items():
-        for ln in text.splitlines():
-            if ("registers" in ln or "spill" in ln or "Compiling" in ln
-                    or "warning" in ln or "done after" in ln):
-                print(f"  ptxas {name}: {ln.strip()}", flush=True)
     done("build")
 
     record = {"card": card, "build_s": build_s, "phase_s": phase_s}
     rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
         rows = check_kernels(acro, H, B, time_them=True)
+        # K5 (central FD) at the main path's shape and SI_1 slots, on the
+        # zero-control nominal; the generic solve (the CLI) launches it
+        qp0, qv0, tg = lane_inputs(acro, H, B, seed=3)[:3]
+        U0 = torch.zeros((H, acro.model.nu, B), dtype=torch.float64,
+                         device="cuda")
+        q0, v0, _ = ops.rollout(acro, qp0, qv0, U0, tg)
+        rows["fd_jacobian"] = check_fd(acro, q0, v0, U0,
+                                       lanes.si_plan(si1(acro), H).times)
         done("acrobot")
     if "pentabot" in phases:
         prow = check_kernels(penta, PH, PB, time_them=False,
-                             inputs=pentabot_inputs(penta, PH, PB, seed=3),
-                             pair_types=True)
+                             inputs=check_case("pentabot")[1],
+                             pair_types=True, plain=plain["pentabot"])
         record["pentabot"] = {k: prow[k]["err"] for k in LANE_KERNELS}
         done("pentabot")
     if "reaching" in phases:
         rrow = check_kernels(reach, PH, PB, time_them=True,
-                             at_limits=True)
+                             at_limits=True, inputs=check_case("reaching")[1],
+                             plain=plain["reaching"])
         record["reaching_check"] = {
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in rrow.items()}
@@ -2486,18 +3159,39 @@ def main():
             for k, v in urow.items()}
         done("push")
     if "walker" in phases:
-        inputs = walker_inputs(walk, WH, WB, seed=3)
-        wrow = check_kernels(walk, WH, WB, time_them=True,
-                             inputs=inputs, pair_types=True)
+        inputs = check_case("walker")[1]
+        wrow = check_kernels(walk, WH, WB, time_them=True, inputs=inputs,
+                             pair_types=True, plain=plain["walker"])
         wrow["mpc_apply"] = check_apply(walk, *inputs[:4], seed=4)
         record["walker_check"] = {
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in wrow.items()}
         done("walker")
+    brows = {}
+    if "box" in phases:
+        # box_inputs: the box flat, tilted and pressed in, the pusher
+        # touching it, inside it and pressed into the table, every pair
+        # active; K5 (central FD) too, the CLI's generic solve's
+        for task in (box, tdp):
+            t1, inputs = check_case(task.name)
+            pw = plain[task.name]
+            r = brows[task.name] = check_kernels(
+                t1, PH, PB, time_them=True, inputs=inputs, plain=pw,
+                exact=True)
+            q0, v0, _ = ops.rollout(t1, *inputs[:2], inputs[3], inputs[2])
+            r["fd_jacobian"] = check_fd(t1, q0, v0, inputs[3],
+                                        lanes.si_plan(t1, PH).times,
+                                        plain=pw["fd_jacobian"])
+        record["box_check"] = {
+            t: {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                for k, v in r.items()} for t, r in brows.items()}
+        done("box")
     for name in ops.KERNELS + ops.MPC_KERNELS:
         for model, r in (("acrobot", rows), ("pentabot", prow),
                          ("reaching", rrow), ("push_ncl", urow),
-                         ("walker", wrow)):
+                         ("walker", wrow),
+                         ("box_sweep", brows.get("box_sweep")),
+                         ("threeD_push", brows.get("threeD_push"))):
             if r and name not in r:
                 continue
             if r:
@@ -2528,19 +3222,27 @@ def main():
 
     mp = rmp = ump = None
     if "main_acrobot" in phases:
-        mp = record["main_path"] = main_path(acro, H, B, H, False,
-                                             plain3=plain3.get("main_acrobot"))
+        mp = record["main_path"] = main_path(acro, H, B, None, False)
         report_main("acrobot", H, B, mp)
         done("main_acrobot")
+    bmp = None
     for phase, task, Hh, Bb, H3, key in (
-            ("main_reaching", reach, RH, RB, RH3, "main_path_reaching"),
-            ("main_push", push, UH, UB, UH3, "main_path_push")):
+            ("main_reaching", reach, RH, RB, None, "main_path_reaching"),
+            ("main_push", push, UH, UB, None, "main_path_push"),
+            ("main_box_sweep", box, BH, BB, BH3, "main_path_box_sweep")):
         if phase not in phases:
             continue
-        # push_ncl's warm-up is one iteration: its kernels ran in the check
+        # push_ncl's warm-up is one iteration and box_sweep's none (its
+        # libraries ran in the box phase): their kernels ran in the checks
+        plain3 = None
+        if task is box:
+            r, secs, U3 = plain["box_sweep_3it"]
+            plain3 = (lanes.LaneBatchResult(*r), secs, U3)
+        # the full-shape holds (hold_full_shape) run in `--deep`
         m = record[key] = main_path(task, Hh, Bb, H3, True,
-                                    ITERS if task is reach else 1,
-                                    plain3=plain3.get(phase))
+                                    ITERS if task is reach else
+                                    (1 if task is push else 0),
+                                    plain3=plain3)
         report_main(task.name, Hh, Bb, m)
         print(f"  {task.name} kernels at H={Hh} B={Bb}: ms "
               f"{json.dumps({k: round(v, 3) for k, v in m['kernel_ms'].items()})}"
@@ -2549,12 +3251,15 @@ def main():
               f"{m['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
         if phase == "main_reaching":
             rmp = m
-        else:
+        elif phase == "main_push":
             ump = m
+        else:
+            bmp = m
+            m["keypoints"] = box_keypoints(task)
         done(phase)
     wmp = None
     if "main_mpc" in phases:
-        wmp = record["main_mpc"] = main_mpc(walk, acro, plain_runs)
+        wmp = record["main_mpc"] = main_mpc(walk)
         done("main_mpc")
 
     amp = None
@@ -2584,7 +3289,8 @@ def main():
         sys.exit(4)
 
     sizes = {"acrobot": Sizes(acro), "reaching": Sizes(si1(reach)),
-             "push_ncl": Sizes(si1(push)), "walker": Sizes(walk)}
+             "push_ncl": Sizes(si1(push)), "walker": Sizes(walk),
+             "box_sweep": Sizes(si1(box)), "threeD_push": Sizes(si1(tdp))}
     # per step: the whole step, and the parts of the constraint solve and
     # the contact rows in it
     counts = record["ops_per_step"] = {
@@ -2597,33 +3303,34 @@ def main():
                # least time of one lane's step at the card's FP64 peak
                "step_bound_ns": step_ops(s) / F64_OPS_PER_S * 1e9}
         for name, s in sizes.items()}
-    counts["push_ncl"]["fk_bias"] = fk_bias_ops(sizes["push_ncl"])
-    counts["push_ncl"]["fk"] = fk_ops(sizes["push_ncl"])
+    for name in ("push_ncl", "box_sweep", "threeD_push"):
+        counts[name]["fk_bias"] = fk_bias_ops(sizes[name])
+        counts[name]["fk"] = fk_ops(sizes[name])
     kernels = (kernel_entries("acrobot", rows, mp["launches"],
                               counts["acrobot"])
                + kernel_entries("reaching", rrow, rmp["launches"],
                                 counts["reaching"],
                                 rmp["kernel_ms"], rmp["bounds"],
-                                f"H={RH} B={RB}", f"H={PH} B={PB}",
-                                rmp["full_shape_err"])
+                                f"H={RH} B={RB}", f"H={PH} B={PB}")
                + kernel_entries("push_ncl", urow, ump["launches"],
                                 counts["push_ncl"],
                                 ump["kernel_ms"], ump["bounds"],
-                                f"H={UH} B={UB}", f"H={PH} B={PB}",
-                                ump["full_shape_err"])
+                                f"H={UH} B={UB}", f"H={PH} B={PB}")
                + kernel_entries("walker", wrow, wmp["main"]["launches"],
                                 counts["walker"], wmp["kernel_ms_b1"],
                                 wmp["bounds_b1"],
                                 f"H={MH} B=1, {N_REPLANS} replans",
-                                f"H={WH} B={WB}"))
+                                f"H={WH} B={WB}")
+               + box_entries(brows, bmp, counts, runs))
     for e in kernels:
         if e["model"] == "walker":
             # the same kernels at MB episodes, and the whole kernel path
             # against the plain path over the first replans
             e["at_B128"] = {"ms": wmp["kernel_ms_b128"][e["name"]],
                             "bound_ms": wmp["bounds_b128"][e["name"]][0],
-                            **wmp["held_b128"][e["name"]]}
-            e["mpc_vs_plain"] = wmp["plain_walker_run"]
+                            "held_against_twin": "chip_smoke.py --deep"}
+            e["mpc_vs_plain"] = wmp.get(
+                "plain_walker_run", "held by chip_smoke.py --deep")
     # fk_bias at the main path's own shape (UB lanes: the init servo's
     # start), its other checks beside it
     sc = ump["servo_check"]
@@ -2650,8 +3357,14 @@ def main():
                             "max_abs_err": wide["err"][0],
                             "bound_ms": wide["bound"][0]}})
     for e in kernels:
-        if e["model"] == "acrobot":
+        if e["model"] == "acrobot" and e["name"] in prow:
             e["pentabot_err"] = prow[e["name"]]["err"][0]
+        if e["model"] == "acrobot" and e["name"] == "fd_jacobian":
+            e.update(launches=(runs["acrobot"][1] or {}).get(
+                "launches", {}).get("fd_jacobian", 0),
+                launched_by="the CLI's Optimise_once (generic solve, B = 1,"
+                " velocity_change, deriv_mode fd)",
+                shape=f"H={H} B={B}, SI_1 slots (check)")
     kernels += keypoint_entries(kps, amp)
     for e in kernels:
         if e["name"] == "ad_jacobian" and e["model"] in ("acrobot",

@@ -123,13 +123,13 @@ def test_unlimited_model_has_no_rows_and_contacts_are_refused():
     out = forward(acro, d)
     assert out.qfrc_constraint is None
     assert not bool(pcontact.limits_active(acro, d.qpos).any())
-    # pentabot's six capsule-capsule pairs are ported; a box in a pair is
-    # not (plane-box and the other box pairs, ROADMAP Queue 1 item 7b)
+    # pentabot's six capsule-capsule pairs are ported; a sphere in a pair
+    # is not (the sphere pairs, ROADMAP Queue 1 item 7b)
     penta = load_model("pentabot", device="cpu")
     assert pcontact.contact_constants(penta).nslot == 6
     g = penta.contact_pairs[0][0]
     boxed = penta.replace(geom_type=tuple(
-        6 if i == g else t for i, t in enumerate(penta.geom_type)))
+        2 if i == g else t for i, t in enumerate(penta.geom_type)))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
         pcontact.assemble_constraints(boxed, Data(
             qpos=torch.zeros(5, 1), qvel=torch.zeros(5, 1),

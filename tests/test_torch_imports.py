@@ -12,6 +12,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The port's CPU tests step small tensors in several pytest workers side by
+# side, where torch's default of one intra-op thread per core oversubscribes
+# the cores: a box CLI solve at --horizon 10 took 37 s with the default and
+# 11 s with one thread while other processes ran.  Every worker imports this
+# module when it collects the tests, so this holds for every test it runs.
+torch.set_num_threads(1)
+
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import trajoptkp_tpu_torch
@@ -43,6 +50,7 @@ def test_port_and_chip_smoke_import_no_jax():
                 "trajoptkp_tpu_torch.dynamics.collision",
                 "trajoptkp_tpu_torch.tasks.pushing",
                 "trajoptkp_tpu_torch.tasks.locomotion",
+                "trajoptkp_tpu_torch.tasks.manipulation",
                 "trajoptkp_tpu_torch.mpc.sync",
                 "trajoptkp_tpu_torch.mpc.async_mpc",
                 "trajoptkp_tpu_torch.mpc.native_executor",
@@ -56,6 +64,8 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     from trajoptkp_tpu_torch import app
     from trajoptkp_tpu_torch.dynamics.model import load_model
+    from trajoptkp_tpu_torch.tasks.manipulation import (make_box_sweep,
+                                                        make_threed_push)
     from trajoptkp_tpu_torch.tasks.toys import make_acrobot
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -65,6 +75,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         load_model("acrobot")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         app.main(["--task", "acrobot", "--keypoint", "SI_5"])
+    for make in (make_box_sweep, make_threed_push):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app.main(["--task", "box_sweep", "--runMode", "Optimise_once"])
     assert make_acrobot(device="cpu").model.device.type == "cpu"
 
 
@@ -89,9 +104,9 @@ def test_cli_solves_reaching_and_names_the_ported_tasks(capsys):
     from trajoptkp_tpu_torch import app
     from trajoptkp_tpu_torch.config.loader import make_task, task_names
 
-    assert task_names() == ("acrobot", "pentabot", "pushing_no_clutter",
-                            "reaching", "walker_run", "walker_uneven",
-                            "walker_walk")
+    assert task_names() == ("acrobot", "box_sweep", "pentabot",
+                            "pushing_no_clutter", "reaching", "threeD_push",
+                            "walker_run", "walker_uneven", "walker_walk")
     with pytest.raises(KeyError, match="reaching"):
         make_task("push_ncl", device="cpu")
     # reaching's own method, velocity_change

@@ -384,3 +384,83 @@ def test_ad_jacobian_matches_plain(cuda, name):
     ops.ad_jacobian(task, qpos, qvel, U, slot_t, counts=counts,
                     cache=pcache, plain=True)
     assert torch.equal(cache, pcache)
+
+
+@pytest.mark.parametrize("name", ["box_sweep", "threeD_push"])
+def test_box_kernels_match_plain(cuda, name):
+    """The box tasks (a free box in the state with its rotations: the
+    quaternion rows of K4, K5 and K5ad; plane-box and cylinder-box rows in
+    the step): a quarter of the lanes with the box resting flat (its bottom
+    corners tie in depth), a quarter tilted 20 degrees, a quarter with the
+    box around the pusher's lower end point, 4 mm inside a face, a quarter
+    pressed 2 mm into the table, under controls of N(0, 2).  K3, K4, K5,
+    K5ad and K6 bit for bit with their twins, K7 at 1e-9; K5ad's and K5's
+    libraries are shared by the two tasks (one step instance)."""
+    import math
+
+    from trajoptkp_tpu_torch.dynamics.collision import geom_pose
+    from trajoptkp_tpu_torch.dynamics.fk import forward_kinematics
+    from trajoptkp_tpu_torch.dynamics.model import Data
+    from trajoptkp_tpu_torch.kernels import build
+    from trajoptkp_tpu_torch.tasks import manipulation
+
+    make = {"box_sweep": manipulation.make_box_sweep,
+            "threeD_push": manipulation.make_threed_push}[name]
+    task = make(device=cuda)
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name="set_interval", min_N=3))
+    assert ops.kernel_args(task, task.model.device).tag == name
+    assert build.step_shared()[name] == "box_sweep"
+    m = task.model
+    g = torch.Generator(device="cpu").manual_seed(0)
+    f64 = dict(dtype=torch.float64)
+    qp, qv, tg = manipulation.box_scenes(task, B, seed=1)
+    qp, qv, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
+    qa = m.jnt_qposadr[m.joint_names.index("goal")]
+    hx, hz = float(m.geom_size[-1][0]), float(m.geom_size[-1][2])
+    a = math.radians(20.0) / 2
+    qp[qa + 3:qa + 7, B // 4:B // 2] = torch.tensor(
+        [math.cos(a), math.sin(a), 0.0, 0.0], device=cuda, **f64)[:, None]
+    q = qp[:, B // 2:3 * B // 4]
+    d = forward_kinematics(m, Data(qpos=q, qvel=qv[:, :q.shape[1]],
+                                   ctrl=qv[:m.nu, :q.shape[1]]))
+    xp, xm = geom_pose(m, d, m.ngeom - 2)          # the pusher
+    hl = float(m.geom_size[m.ngeom - 2][1])
+    e1, e2 = xp + xm[:, 2] * hl, xp - xm[:, 2] * hl
+    e = torch.where((e1[2] < e2[2])[None], e1, e2)
+    qp[qa, B // 2:3 * B // 4] = e[0] + hx - 0.004
+    qp[qa + 1:qa + 3, B // 2:3 * B // 4] = e[1:]
+    qp[qa + 2, 3 * B // 4:] = hz - 0.002
+    U = (2.0 * torch.randn((H, m.nu, B), generator=g, **f64)).to(cuda)
+    nu, nx = m.nu, task.sv.nx
+    k = (0.1 * torch.randn((H, nu, B), generator=g, **f64)).to(cuda)
+    K = (0.05 * torch.randn((H, nu, nx, B), generator=g, **f64)).to(cuda)
+
+    kr = ops.rollout(task, qp, qv, U, tgl)
+    pr = ops.rollout(task, qp, qv, U, tgl, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(kr, pr))
+    act = contacts_active(m, pr[0].transpose(0, 1)).any(2).any(1)
+    assert bool(act[1]) and bool(act[2]), act.tolist()
+    alphas = ilqr.default_alphas(6, device=cuda)
+    kl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tgl)
+    pl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tgl, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(kl, pl))
+    plan = lanes.si_plan(task, H)
+    for jac in ("fd", "ad"):
+        kj = lanes.slot_jacobians(task, jac)(kr[0], kr[1], U, plan.times)
+        pj = lanes.slot_jacobians(task, jac, plain=True)(kr[0], kr[1], U,
+                                                          plan.times)
+        assert bool(torch.isfinite(kj).all()) and torch.equal(kj, pj), jac
+    l = ops.cost_expansion(task, kr[0], kr[1], U, tgl)
+    pc = ops.cost_expansion(task, kr[0], kr[1], U, tgl, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(l, pc))
+    A, Bm = lanes.jacobians_si(task, plan, kr[0], kr[1], U,
+                               lanes.slot_jacobians(task, "ad"))
+    lam = torch.full((B,), 0.1, dtype=torch.float64, device=cuda)
+    cfg = ILQRConfig()
+    kb = ops.backward(A, Bm, *l, lam, cfg)
+    pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
+    live = ~pb[4]
+    for a_, b_ in zip(kb[:3], pb[:3]):
+        assert _rel(a_[..., live], b_[..., live]) < 1e-9
+    assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])

@@ -3,7 +3,9 @@
 `write_model_npz` is the one writer of `trajoptkp_tpu_torch/models/*.npz`:
 it dumps a JAX `Model` (from `load_mjcf` on the repo's XMLs, and for
 `push_ncl` from the pushing scene `tasks/pushing.py:build_push_scene_xml(0)`
-assembles around panda.xml) field by field.
+assembles around panda.xml, for `box_sweep` and `threeD_push` from the
+scenes of `tasks/manipulation.py:make_box_sweep` and `make_threed_push`)
+field by field.
 Regenerate with
 
     JAX_PLATFORMS=cpu python -c "from tests.test_torch_model import \\
@@ -28,13 +30,19 @@ jax.config.update("jax_enable_x64", True)
 
 XML_DIR = os.path.join(os.path.dirname(__file__), "..", "trajoptkp_tpu",
                        "models")
-PORTED = ("acrobot", "pentabot", "panda", "push_ncl", "walker")
+PORTED = ("acrobot", "pentabot", "panda", "push_ncl", "walker", "box_sweep",
+          "threeD_push")
 
 
 def jax_model(name: str):
     """The JAX Model each checked-in npz is written from."""
     if name == "push_ncl":
         return load_mjcf_string(build_push_scene_xml(0))
+    if name in ("box_sweep", "threeD_push"):
+        from trajoptkp_tpu.tasks.manipulation import (make_box_sweep,
+                                                      make_threed_push)
+        make = make_box_sweep if name == "box_sweep" else make_threed_push
+        return make().model
     return load_mjcf(os.path.join(XML_DIR, f"{name}.xml"))
 
 
@@ -105,7 +113,9 @@ def test_model_from_numpy_matches_load_mjcf(name, tmp_path):
                          [("acrobot", "acrobot", 0), ("pentabot", "pentabot", 0),
                           ("reaching", "reaching", 7),
                           ("pushing_no_clutter", "push_ncl", 7),
-                          ("walker_run", "walker", 6)])
+                          ("walker_run", "walker", 6),
+                          ("box_sweep", "box_sweep", 7),
+                          ("threeD_push", "threeD_push", 7)])
 def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     """Each ported task finds its instance in kernels/csrc/instances.cuh,
     and the packed model buffer has the layout step.cuh reads: 18 per body,
@@ -137,9 +147,9 @@ def test_task_maps_to_its_kernel_instance(task_name, tag, nlim):
     dofb = 18 * nb
     assert ka.model_buf.numel() == (dofb + 11 * m.nv + 5 * m.nu + lim
                                     + pair * len(cc.pairs) + 4)
-    # the pushing residual's constants (the ee site on its body) close the
-    # task buffer
-    res = 3 if task.residual_kind[0] == "push" else 0
+    # an FK residual's constants (the ee site on its body) close the task
+    # buffer
+    res = 3 if task.residual_kind[0] in ops.FK_KINDS else 0
     assert ka.task_buf.numel() == 2 * task.nres + 2 * m.nu + res
     if res:
         np.testing.assert_array_equal(

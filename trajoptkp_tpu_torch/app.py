@@ -7,6 +7,9 @@ Generate_asynchronus_mpc_data.
     python -m trajoptkp_tpu_torch.app --task reaching --runMode Optimise_once
     python -m trajoptkp_tpu_torch.app --task pushing_no_clutter \\
         --runMode Optimise_once --keypoint AJ_5_100
+    python -m trajoptkp_tpu_torch.app --task box_sweep --runMode Optimise_once
+    python -m trajoptkp_tpu_torch.app --task threeD_push \\
+        --runMode Optimise_once
     python -m trajoptkp_tpu_torch.app --task walker_run \\
         --runMode Generate_syncronus_mpc_data [--horizon 40]
     python -m trajoptkp_tpu_torch.app --task acrobot \\
@@ -16,20 +19,24 @@ Generate_asynchronus_mpc_data.
 
 Tasks: acrobot, pentabot, reaching (panda arm with joint limits),
 pushing_no_clutter (panda pushes a free cylinder on a table: contacts),
-walker_walk and walker_run (planar walker: three joints on its torso,
-capsule contacts).  For Optimise_once the horizon defaults to the task's
-(500, 500, 1500, 1000, 500).  The controls start at zero, or for pushing
+walker_walk and walker_run (planar walker: three joints on its torso, capsule
+contacts), box_sweep and threeD_push (the panda sweeps a heavy box or pushes a
+small one that can topple: plane-box and cylinder-box contacts, the box's six
+dofs in the state).  For Optimise_once the horizon defaults to the task's (500,
+500, 1500, 1000, 500, 1500, 1000).  The controls start at zero, or for pushing
 from the task's servo: a 1000-step setup servo behind the object, whose end
-state is the solve's start, then the init servo over the horizon (the JAX
-app's `_batch_init_controls`).  Prints per-iteration banner lines and a
-final JSON line with the initial and final cost, the cost reduction and the
-mean %derivs.
+state is the solve's start, then the init servo over the horizon (the JAX app's
+`_batch_init_controls`); the box tasks take the init servo from their start
+alone (they have no setup servo, JAX `app.py:_prepare_start`).  Prints
+per-iteration banner lines and a final JSON line with the initial and final
+cost, the cost reduction and the mean %derivs.
 
 Keypoint methods (`--keypoint`; each task's own when omitted: acrobot and
-reaching velocity_change, pushing adaptive_jerk, pentabot and the walkers
-set_interval): SI_n (set_interval every n steps), AJ_a_b (adaptive_jerk),
-AA_a_b (adaptive_accel), VC_a_b (velocity_change) and IE_a_b
-(iterative_error), with min_N = a and max_N = b and the task's thresholds.
+reaching velocity_change, pushing and box_sweep adaptive_jerk, pentabot, the
+walkers and threeD_push set_interval): SI_n (set_interval every n steps),
+AJ_a_b (adaptive_jerk), AA_a_b (adaptive_accel), VC_a_b (velocity_change) and
+IE_a_b (iterative_error), with min_N = a and max_N = b and the task's
+thresholds.
 
 Generate_syncronus_mpc_data is the JAX app's `_sync_mpc_campaign`
 (GenDataMPCHorizons): synchronous MPC of one episode from the task's start,
@@ -93,7 +100,7 @@ def build_parser():
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--task", default="acrobot",
                    help="acrobot, pentabot, reaching, pushing_no_clutter, "
-                   "walker_walk or walker_run")
+                   "walker_walk, walker_run, box_sweep or threeD_push")
     p.add_argument("--runMode", default="Optimise_once")
     p.add_argument("--keypoint", help="keypoint method: SI_n, AJ_a_b, "
                    "AA_a_b, VC_a_b or IE_a_b (min_N a, max_N b); the task's "
@@ -192,8 +199,9 @@ def main(argv=None):
             task.residual_targets[:, None])
         qpos0, qvel0, U = qp[:, 0], qv[:, 0], UB[..., 0]
         init_s = time.perf_counter() - t0
-        print(f"init controls (setup and init servo): {init_s:.1f} s",
-              flush=True)
+        servo = ("setup and init servo" if task.residual_kind[0] == "push"
+                 else "init servo")
+        print(f"init controls ({servo}): {init_s:.1f} s", flush=True)
     traj, stats = optimise(task, qpos0, qvel0, U, cfg, verbose=True)
     print(json.dumps({
         "task": task.name, "horizon": H,
@@ -227,9 +235,9 @@ def sync_mpc_campaign(task, cfg, args):
 
 
 def mpc_init_controls(task, H: int):
-    """The JAX app's `_init_controls` (H, nu): the pushing tasks' init servo
-    from the task's start (no setup servo), zeros elsewhere."""
-    if task.residual_kind[0] == "push":
+    """The JAX app's `_init_controls` (H, nu): the pushing and box tasks'
+    init servo from the task's start (no setup servo), zeros elsewhere."""
+    if task.init_controls_fn is not None:
         from .tasks.pushing import jacobian_ee_init_controls
         return jacobian_ee_init_controls(
             task, H, task.qpos_start[:, None], task.qvel_start[:, None],

@@ -3,21 +3,22 @@
     python -m trajoptkp_tpu_torch.bench_kernels --task acrobot --H 500 --B 512
     python -m trajoptkp_tpu_torch.bench_kernels --task reaching --H 1500 --B 128
     python -m trajoptkp_tpu_torch.bench_kernels --task walker_run --H 40 --B 128
+    python -m trajoptkp_tpu_torch.bench_kernels --task box_sweep --H 1500 --B 128
 
-The rollout, line search, FD slot Jacobians and backward pass, the exact
-slot Jacobians (K5ad), the cost expansion (K6) and the MPC replan's apply
-step (K8, one applied control) where the tree has them.
-Each kernel is launched `--reps` times between two CUDA events, after two
-warm-up launches, `--rounds` times over; the inputs are the zero-control
-nominal of `lanes.scenes(seed=0)` with SI_1 slots, as chip_smoke.py's main
-paths start.  Prints one JSON line with the card's name and power limit,
-the per-launch milliseconds of every round, and the sweeps per lane that
-the backward pass makes on these inputs (`bp_sweeps_per_lane`), with the
-exact Jacobians it is timed on and with central-FD ones.  To compare two
-trees on one card, run this file once per tree inside one job, with
-PYTHONPATH set to the tree under test, in the order parent, change,
-change, parent.
-"""
+The rollout, line search, FD slot Jacobians and backward pass, the exact slot
+Jacobians (K5ad), the cost expansion (K6) and the MPC replan's apply step (K8,
+one applied control) where the tree has them. Each kernel is launched `--reps`
+times between two CUDA events, after two warm-up launches, `--rounds` times
+over; the inputs are the zero-control nominal of `lanes.scenes(seed=0)` with
+SI_1 slots, or for a task with initial controls (pushing_no_clutter, box_sweep,
+threeD_push) the nominal of its scene generator's scenes (seed 0) under its
+servo's controls, as chip_smoke.py's main paths start.  Prints one JSON line
+with the card's name and power limit, the per-launch milliseconds of every
+round, and the sweeps per lane that the backward pass makes on these inputs
+(`bp_sweeps_per_lane`), with the exact Jacobians it is timed on and with
+central-FD ones.  To compare two trees on one card, run this file once per tree
+inside one job, with PYTHONPATH set to the tree under test, in the order
+parent, change, change, parent. """
 
 import argparse
 import json
@@ -59,6 +60,24 @@ def bp_sweeps_per_lane(task, plan, qpos, qvel, U, l, lam, cfg):
     return out
 
 
+def bench_inputs(task, H, B):
+    """(qpos0 (nq, B), qvel0, targets, U (H, nu, B)) a main path starts
+    from: the zero-control scenes, or the task's scenes and servo."""
+    f64 = dict(dtype=torch.float64, device="cuda")
+    if task.init_controls_fn is None:
+        qp, qv, tg = lanes.scenes(task, B, seed=0)
+        return (qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous(),
+                torch.zeros((H, task.model.nu, B), **f64))
+    if task.residual_kind[0] == "push":
+        from trajoptkp_tpu_torch.tasks.pushing import push_scenes as scenes
+    else:
+        from trajoptkp_tpu_torch.tasks.manipulation import (
+            box_scenes as scenes)
+    qp, qv, tg = (x.T.contiguous() for x in scenes(task, B, seed=0))
+    qp, qv, U = task.init_controls_fn(task, H, qp, qv, tg)
+    return qp.contiguous(), qv.contiguous(), tg, U.contiguous()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--task", default="acrobot")
@@ -75,9 +94,7 @@ def main(argv=None):
         name="set_interval", min_N=1))
     cfg = ilqr.ILQRConfig()
     H, B = args.H, args.B
-    qp, qv, tg = lanes.scenes(task, B, seed=0)
-    qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
-    U = torch.zeros((H, task.model.nu, B), dtype=torch.float64, device="cuda")
+    qp0, qv0, tgl, U = bench_inputs(task, H, B)
     plan = lanes.si_plan(task, H)
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tgl)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import functools
 
 from ..tasks.locomotion import make_walker
+from ..tasks.manipulation import make_box_sweep, make_threed_push
 from ..tasks.pushing import make_pushing
 from ..tasks.reaching import make_reaching
 from ..tasks.toys import make_acrobot, make_pentabot
@@ -21,6 +22,8 @@ _REGISTRY = {
     "walker_walk": functools.partial(make_walker, run=False),
     "walker_run": functools.partial(make_walker, run=True),
     "walker_uneven": functools.partial(make_walker, uneven=True),
+    "box_sweep": make_box_sweep,
+    "threeD_push": make_threed_push,
 }
 
 
@@ -32,7 +35,7 @@ def make_task(name: str, device=None):
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown task {name!r}; the port has {task_names()} (the other "
-            "tasks are ROADMAP Queue 1 items 7b and 11: clutter, boxes, "
-            "manipulation, humanoid, soft bodies)"
+            "tasks are ROADMAP Queue 1 items 7b and 11: clutter, place, "
+            "sweep_multiple, humanoid, soft bodies)"
         )
     return _REGISTRY[name](device=device)

@@ -335,9 +335,9 @@ def _contact_rows(model: Model, data: Data) -> Optional[Rows]:
         sgn = torch.tensor(pr.signs, dtype=v.dtype, device=v.device).reshape(
             (-1, 1) + (1,) * nl)
         cw, cl = data.cdof[S, :3], data.cdof[S, 3:]      # (W, 3, *L)
-        f0, f1, f2 = slots.frame
         coefs = []
-        for dist, pos in zip(slots.dist, slots.pos):
+        for dist, pos, (f0, f1, f2) in zip(slots.dist, slots.pos,
+                                           slots.frames):
             include = dist < c["margin"]
             imp = dist - c["margin"]
             d = _impedance(c, imp, cc)

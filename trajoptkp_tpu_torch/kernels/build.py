@@ -32,9 +32,14 @@ BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 # sources built per model instance, and the backward pass per (nx, nu)
 MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
                  "cost_expansion", "mpc_apply")
+# sources that run the step alone and read no residual: built once for
+# instances whose keys differ in the residual only (`step_shared`)
+STEP_SOURCES = ("ad_jacobian", "fd_jacobian")
 # the libraries whose nvcc runs longest start first: the dual steps over the
-# walker's 128 and push_ncl's 42 constraint rows, the largest backward passes
-SLOWEST = (("ad_jacobian", "walker"), ("ad_jacobian", "push_ncl"),
+# walker's 128, box_sweep's 50 and push_ncl's 42 constraint rows, the
+# largest backward passes
+SLOWEST = (("ad_jacobian", "walker"), ("ad_jacobian", "box_sweep"),
+           ("ad_jacobian", "push_ncl"), ("backward", "nx26_nu7"),
            ("backward", "nx20_nu7"), ("backward", "nx18_nu6"),
            ("ad_jacobian", "reaching"))
 # sources built once for every model
@@ -59,10 +64,28 @@ def instance_names() -> tuple:
     return models, bps
 
 
+@functools.lru_cache(maxsize=None)
+def step_shared() -> dict:
+    """model tag -> the tag whose step-only libraries (STEP_SOURCES) it
+    uses: the first instance whose key equals its own but for the residual
+    (RES, RESA, RESB, the key's entries 12-14); box_sweep's for
+    threeD_push."""
+    text = (CSRC / "instances.cuh").read_text().replace("\\\n", " ")
+    out, first = {}, {}
+    for tag, args in re.findall(r"\bX\((\w+),([\s0-9a-fA-FxuUlL,]*)\)",
+                                text):
+        words = [w.strip() for w in args.split(",")]
+        key = tuple(words[:12] + words[15:])
+        out[tag] = first.setdefault(key, tag)
+    return out
+
+
 def libraries() -> tuple:
     """Every (source, instance) library the kernels are built into."""
     models, bps = instance_names()
-    return (tuple((s, m) for s in MODEL_SOURCES for m in models)
+    shared = step_shared()
+    return (tuple((s, m) for s in MODEL_SOURCES for m in models
+                  if s not in STEP_SOURCES or shared.get(m, m) == m)
             + tuple(("backward", b) for b in bps)
             + tuple((s, "generic") for s in GENERIC_SOURCES))
 

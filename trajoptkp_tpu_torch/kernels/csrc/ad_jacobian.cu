@@ -16,8 +16,11 @@
 // as qvel + dz or ctrl + dz.  It writes column c of [A|B]: the tangents of
 // the next state's positions and velocities at the state vector's dofs
 // (hinge, slide and free-translation dofs, whose tangent-space difference
-// is the plain one).  Branches and gates read the values; the Newton
-// iterations of the constraint solve run on the values alone.
+// is the plain one; a free rotation's, the tangent of the log of the
+// nominal next quaternion's conjugate times the dual one, the nominal from
+// one more double step of the unperturbed inputs).  Branches and gates
+// read the values; the Newton iterations of the constraint solve run on
+// the values alone.
 //
 // Slot times, live counts and the iterative_error cache scatter as K5
 // (fd_jacobian.cu): times[s * ts_s + b * ts_b]; a slot past its lane's
@@ -86,9 +89,36 @@ ad_jacobian_kernel(const double* __restrict__ P,
   for (int a = 0; a < NU; ++a)
     u[a] = Dual(U[(t * NU + a) * B + b]) + Dual(0.0, a == du ? 1.0 : 0.0);
   smooth_step<T, false, false, Dual>(P, q, v, u, qn, vn);
+  // a free rotation's rows: the tangent of log(conj(q_nom) q'), q_nom the
+  // next state of the unperturbed inputs in double (the twin's nominal
+  // step, whose quaternion may differ from the dual step's value in its
+  // last bits: its input is not renormalised)
+  double qnom[T::HAS_ROT ? NQ : 1];
+  if constexpr (T::HAS_ROT) {
+    double q0d[NQ], v0d[NV], u0d[NU], vnom[NV];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) q0d[i] = q0[i].v;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v0d[i] = qvel[(t * NV + i) * B + b];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) u0d[a] = U[(t * NU + a) * B + b];
+    smooth_step<T>(P, q0d, v0d, u0d, qnom, vnom);
+  }
 #pragma unroll
   for (int r = 0; r < NDOF; ++r) {
-    J[((o * NX + r) * NC + c) * B + b] = qn[T::sv_q(r)].d;
+    double dq;
+    if constexpr (T::HAS_ROT) {
+      if (T::sv_rot(r) >= 0) {
+        Dual lg[3];
+        quat_sub(qn + T::sv_quat(r), qnom + T::sv_quat(r), lg);
+        dq = lg[T::sv_rot(r)].d;
+      } else {
+        dq = qn[T::sv_q(r)].d;
+      }
+    } else {
+      dq = qn[T::sv_q(r)].d;
+    }
+    J[((o * NX + r) * NC + c) * B + b] = dq;
     J[((o * NX + NDOF + r) * NC + c) * B + b] = vn[T::sv(r)].d;
   }
 }

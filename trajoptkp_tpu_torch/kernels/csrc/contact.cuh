@@ -52,9 +52,34 @@
 namespace trajopt {
 
 constexpr int GEOM_PLANE = 0;
+constexpr int GEOM_SPHERE = 2;
 constexpr int GEOM_CAPSULE = 3;
 constexpr int GEOM_CYLINDER = 5;
-constexpr int MAX_SLOTS = 3;  // slots of the largest ported pair
+constexpr int GEOM_BOX = 6;
+constexpr int MAX_SLOTS = 4;  // slots of the largest ported pair
+
+// the pairs with a collider in this order (dynamics/collision.py
+// _COLLIDERS); a pair given the other way round runs its collider with the
+// geoms swapped and the normals flipped
+__host__ __device__ constexpr bool pair_direct(int t1, int t2) {
+  return (t1 == GEOM_PLANE &&
+          (t2 == GEOM_CYLINDER || t2 == GEOM_CAPSULE || t2 == GEOM_BOX)) ||
+         (t1 == GEOM_CAPSULE && (t2 == GEOM_CAPSULE || t2 == GEOM_BOX)) ||
+         (t1 == GEOM_CYLINDER && (t2 == GEOM_CYLINDER || t2 == GEOM_BOX));
+}
+__host__ __device__ constexpr bool pair_flipped(int t1, int t2) {
+  return !pair_direct(t1, t2) && pair_direct(t2, t1);
+}
+// slots of a pair in its collider's order: plane-cylinder 3 rim points,
+// plane-box 4 corners, plane-capsule and the box probes 2, else 1
+__host__ __device__ constexpr int pair_slots(int t1, int t2) {
+  return pair_flipped(t1, t2)   ? pair_slots(t2, t1)
+         : t1 == GEOM_PLANE     ? (t2 == GEOM_CYLINDER ? 3
+                                   : t2 == GEOM_BOX    ? 4
+                                                       : 2)
+         : t2 == GEOM_BOX       ? 2
+                                : 1;
+}
 constexpr int PAIR_STRIDE = 33;
 enum PairField {
   G1_POS = 0, G1_QUAT = 3, G1_SIZE = 7, G2_POS = 10, G2_QUAT = 13,
@@ -218,6 +243,169 @@ __device__ __forceinline__ void capsule_capsule(
   frame_from_normal(n, fr);
 }
 
+// collision.py:plane_box: the four deepest of the box's eight corners
+// xp2 + (bx hx + (by hy + bz hz)) (x slowest, z fastest), sorted by
+// Knuth's 19-comparator network, a compare-exchange keeping the first when
+// di <= dj (JAX dynamics/lanes.py:914-941)
+template <class S>
+__device__ __forceinline__ void plane_box(const S* xp1, const S* xm1,
+                                          const S* xp2, const S* xm2,
+                                          const double* s2, S* dist,
+                                          S (*pos)[3], S (&fr)[3][3]) {
+  const S n[3] = {xm1[2], xm1[5], xm1[8]};
+  S cd[8], cp[8][3];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const double hx = ((i >> 2) & 1 ? 1.0 : -1.0) * s2[0];
+    const double hy = ((i >> 1) & 1 ? 1.0 : -1.0) * s2[1];
+    const double hz = (i & 1 ? 1.0 : -1.0) * s2[2];
+    S d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      cp[i][k] = xp2[k] + (xm2[3 * k] * hx +
+                           (xm2[3 * k + 1] * hy + xm2[3 * k + 2] * hz));
+      d[k] = cp[i][k] - xp1[k];
+    }
+    cd[i] = dot3(n, d);
+  }
+  constexpr int NET[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2},
+                              {1, 3}, {4, 6}, {5, 7}, {1, 2}, {5, 6},
+                              {0, 4}, {3, 7}, {1, 5}, {2, 6}, {1, 4},
+                              {3, 6}, {2, 4}, {3, 5}, {3, 4}};
+#pragma unroll
+  for (int e = 0; e < 19; ++e) {
+    const int i = NET[e][0], j = NET[e][1];
+    if (!(cd[i] <= cd[j])) {
+      const S t = cd[i];
+      cd[i] = cd[j];
+      cd[j] = t;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const S c = cp[i][k];
+        cp[i][k] = cp[j][k];
+        cp[j][k] = c;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    dist[s] = cd[s];
+    const S hd = 0.5 * cd[s];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pos[s][k] = cp[s][k] - n[k] * hd;
+  }
+  frame_from_normal(n, fr);
+}
+
+// collision.py:sphere_box_core (JAX dynamics/lanes.py:764-812): a sphere
+// (centre p, radius r) against a box (xp2, xm2, half-sizes s2) -> dist,
+// pos and the normal from the sphere into the box.  Outside: the clamped
+// point on the surface and the direction to it; a centre inside pushes out
+// through the face of least margin (ties to the lower axis).  Each branch
+// selects its value and tangent as torch.where does; the branch not taken
+// is not used.
+template <class S>
+__device__ __forceinline__ void sphere_box_core(const S* p, double r,
+                                                const S* xp2, const S* xm2,
+                                                const double* s2, S& dist,
+                                                S* pos, S* n) {
+  S d[3], pl[3], cl[3], de[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d[k] = p[k] - xp2[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    pl[k] = xm2[k] * d[0] + xm2[3 + k] * d[1] + xm2[6 + k] * d[2];
+    cl[k] = clip(pl[k], -s2[k], s2[k]);
+    de[k] = pl[k] - cl[k];
+  }
+  const S L = sqrt(at_least(de[0] * de[0] + de[1] * de[1] + de[2] * de[2],
+                            0.0));
+  const bool outside = L > 1e-9;
+  S nl[3], pol[3];
+  if (outside) {
+    const S inv = recip(at_least(L, 1e-9));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      nl[k] = de[k] * inv;
+      pol[k] = cl[k];
+    }
+    dist = L - r;
+  } else {
+    S m[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) m[k] = s2[k] - fabs(pl[k]);
+    const bool is0 = (m[0] <= m[1]) && (m[0] <= m[2]);
+    const bool is1 = !is0 && (m[1] <= m[2]);
+    const S m_min = is0 ? m[0] : (is1 ? m[1] : m[2]);
+    const int face = is0 ? 0 : (is1 ? 1 : 2);
+    dist = -(m_min + r);
+    const S off = dist * 0.5 + r;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const double ni = k == face ? (pl[k] < 0.0 ? -1.0 : 1.0) : 0.0;
+      nl[k] = S(ni);
+      pol[k] = pl[k] - ni * off;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    n[k] = -((xm2[3 * k] * nl[0] + xm2[3 * k + 1] * nl[1]) +
+             xm2[3 * k + 2] * nl[2]);
+    pos[k] = xp2[k] + ((xm2[3 * k] * pol[0] + xm2[3 * k + 1] * pol[1]) +
+                       xm2[3 * k + 2] * pol[2]);
+  }
+}
+
+// collision.py:capsule_box: two sphere-box probes at the capsule's (or
+// cylinder's) axis end points, +half-length first, a frame each
+template <class S>
+__device__ __forceinline__ void capsule_box(const S* xp1, const S* xm1,
+                                            const double* s1, const S* xp2,
+                                            const S* xm2, const double* s2,
+                                            S* dist, S (*pos)[3],
+                                            S (*fr)[3][3]) {
+  const S axis[3] = {xm1[2], xm1[5], xm1[8]};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const double h = s == 0 ? s1[1] : -s1[1];
+    S e[3], n[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) e[k] = xp1[k] + axis[k] * h;
+    sphere_box_core(e, s1[0], xp2, xm2, s2, dist[s], pos[s], n);
+    frame_from_normal(n, fr[s]);
+  }
+}
+
+// the slots of a pair in its collider's order (types A, B): geom A's pose
+// (xpa, xma) and sizes sa, geom B's likewise; NFR frames (one per slot for
+// the box probes, else one shared)
+template <int A, int B, int NFR, class S>
+__device__ __forceinline__ void collide(const S* xpa, const S* xma,
+                                        const double* sa, const S* xpb,
+                                        const S* xmb, const double* sb,
+                                        S* dist, S (*pos)[3],
+                                        S (&fr)[NFR][3][3]) {
+  if constexpr (A == GEOM_PLANE && B == GEOM_CYLINDER) {
+    plane_cylinder(xpa, xma, xpb, xmb, sb, dist, pos, fr[0]);
+  } else if constexpr (A == GEOM_PLANE && B == GEOM_CAPSULE) {
+    plane_capsule(xpa, xma, xpb, xmb, sb, dist, pos, fr[0]);
+  } else if constexpr (A == GEOM_PLANE && B == GEOM_BOX) {
+    plane_box(xpa, xma, xpb, xmb, sb, dist, pos, fr[0]);
+  } else if constexpr (B == GEOM_BOX) {
+    static_assert(A == GEOM_CAPSULE || A == GEOM_CYLINDER,
+                  "the port's box pairs are plane-box, capsule-box and "
+                  "cylinder-box");
+    capsule_box(xpa, xma, sa, xpb, xmb, sb, dist, pos, fr);
+  } else {
+    static_assert((A == GEOM_CYLINDER && B == GEOM_CYLINDER) ||
+                      (A == GEOM_CAPSULE && B == GEOM_CAPSULE),
+                  "the port's narrow phase has plane-cylinder, "
+                  "plane-capsule, capsule-capsule, cylinder-cylinder, "
+                  "plane-box, capsule-box and cylinder-box pairs only");
+    capsule_capsule(xpa, xma, sa, xpb, xmb, sb, dist, pos, fr[0]);
+  }
+}
+
 // The rows of contact pair PI, written from row T::R_LIM + 4 first_slot(PI).
 template <class T, int PI, class S>
 __device__ __forceinline__ void pair_rows(
@@ -236,19 +424,22 @@ __device__ __forceinline__ void pair_rows(
   S xp1[3], xm1[9], xp2[3], xm2[9];
   geom_pose(xpos[b1], xquat[b1], pp + G1_POS, pp + G1_QUAT, xp1, xm1);
   geom_pose(xpos[b2], xquat[b2], pp + G2_POS, pp + G2_QUAT, xp2, xm2);
-  S dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[3][3];
-  if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CYLINDER) {
-    plane_cylinder(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
-  } else if constexpr (t1 == GEOM_PLANE && t2 == GEOM_CAPSULE) {
-    plane_capsule(xp1, xm1, xp2, xm2, pp + G2_SIZE, dist, pos, fr);
+  // a pair given the other way round: its collider with the geoms swapped,
+  // each normal negated and its tangents kept (JAX _pair_slots_regs)
+  constexpr bool FLIP = pair_flipped(t1, t2);
+  constexpr int A = FLIP ? t2 : t1, Bt = FLIP ? t1 : t2;
+  constexpr int NFR = Bt == GEOM_BOX && A != GEOM_PLANE ? NC : 1;
+  S dist[MAX_SLOTS], pos[MAX_SLOTS][3], fr[NFR][3][3];
+  if constexpr (FLIP) {
+    collide<A, Bt, NFR>(xp2, xm2, pp + G2_SIZE, xp1, xm1, pp + G1_SIZE, dist,
+                        pos, fr);
+#pragma unroll
+    for (int f = 0; f < NFR; ++f)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) fr[f][0][k] = -fr[f][0][k];
   } else {
-    static_assert((t1 == GEOM_CYLINDER && t2 == GEOM_CYLINDER) ||
-                      (t1 == GEOM_CAPSULE && t2 == GEOM_CAPSULE),
-                  "the port's narrow phase has plane-cylinder, "
-                  "plane-capsule, capsule-capsule and cylinder-cylinder "
-                  "pairs only");
-    capsule_capsule(xp1, xm1, pp + G1_SIZE, xp2, xm2, pp + G2_SIZE, dist, pos,
-                    fr);
+    collide<A, Bt, NFR>(xp1, xm1, pp + G1_SIZE, xp2, xm2, pp + G2_SIZE, dist,
+                        pos, fr);
   }
   const double mu = pc[C_MU];
 #pragma unroll
@@ -271,7 +462,9 @@ __device__ __forceinline__ void pair_rows(
       for (int k = 0; k < 3; ++k) jac[k] = (cdof[i][3 + k] + wp[k]) * sg;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        J[a][w] = (fr[a][0] * jac[0] + fr[a][1] * jac[1]) + fr[a][2] * jac[2];
+        J[a][w] = (fr[NFR == 1 ? 0 : s][a][0] * jac[0] +
+                   fr[NFR == 1 ? 0 : s][a][1] * jac[1]) +
+                  fr[NFR == 1 ? 0 : s][a][2] * jac[2];
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {

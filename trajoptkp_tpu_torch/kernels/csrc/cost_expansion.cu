@@ -8,10 +8,12 @@
 // NZ = 2 NDOF + NU) on the tangent space in closed form: a constant
 // selection for the joint-space and the selected-coordinate residuals
 // (their nonzeros are 1 at (row, the tangent column of its coordinate)),
-// and for the pushing FK residual the derivatives of its norms through the
-// point Jacobians of the goal and the end effector, from the step's own FK
-// products (fk_frames, step.cuh).  Then l_z = 2 sum_r w_r r_r J_r and, for
-// the (x, x) and (u, u) blocks, l_zz = 2 sum_r (w_r J_r) J_r^T, terminal
+// and for the FK residuals (pushing, box_sweep, threeD_push) the
+// derivatives of their norms through the point Jacobians of the goal and
+// the end effector, and threeD_push's tilt through the box rotation's
+// tangent, from the step's own FK products (fk_frames, step.cuh).  Then
+// l_z = 2 sum_r w_r r_r J_r and, for the (x, x) and (u, u) blocks,
+// l_zz = 2 sum_r (w_r J_r) J_r^T, terminal
 // weights at t = H-1; every sum runs left to right over r, as the twin's
 // `ilqr._contract`, and the build's -fmad=false keeps the products
 // unfused, so kernel and twin agree bit for bit.
@@ -51,38 +53,45 @@ template <class T>
 __host__ __device__ constexpr int tangent_col(int i) {
   if (i >= T::NQ + T::NV) return 2 * T::NDOF + (i - T::NQ - T::NV);
   for (int s = 0; s < T::NDOF; ++s) {
-    if (i < T::NQ && T::sv_q(s) == i) return s;
+    if (i < T::NQ && T::sv_rot(s) < 0 && T::sv_q(s) == i) return s;
     if (i >= T::NQ && T::sv(s) == i - T::NQ) return T::NDOF + s;
   }
   return -1;
 }
 
-// tasks/pushing.py:push_residual_jacobian.  A point p fixed on body b moves
-// with a dof j of b's root path at w_j x p + v_j ((w_j, v_j) = cdof_j):
-// the goal (the free body's origin) with its translations, the end
-// effector with the arm's hinges; d|x|/dx = x / |x|.
+// tasks/pushing.py:push_residual_jacobian and tasks/manipulation.py:
+// sweep_residual_jacobian, tilt_push_residual_jacobian.  A point p fixed on
+// body b moves with a dof j of b's root path at w_j x p + v_j ((w_j, v_j)
+// = cdof_j): the goal (the free body's origin) with its translations (its
+// rotations give w x p + p x w, exactly 0), the end effector with the
+// arm's hinges; d|x|/dx = x / |x|.  threeD_push's tilt moves with the free
+// rotation's tangent, dq/dz_k = 0.5 q (0, e_k).
 template <class T, int NZ>
-__device__ __forceinline__ void push_jacobian(const double* __restrict__ P,
-                                              const double* __restrict__ site,
-                                              const double* q, const double* v,
-                                              const double* tg, double* r,
-                                              double (*J)[NZ]) {
+__device__ __forceinline__ void fk_jacobian(const double* __restrict__ P,
+                                            const double* __restrict__ site,
+                                            const double* q, const double* v,
+                                            const double* tg, double* r,
+                                            double (*J)[NZ]) {
   constexpr int N = T::NDOF;
+  // the rows of |goal_xy - tg|, of the planar velocity and of the reach
+  constexpr int RV = T::RES == RES_TILT ? 2 : 1;
+  constexpr int RR = T::RES == RES_PUSH ? 3 : (T::RES == RES_SWEEP ? 2 : 6);
   Frames<T> fr;
   fk_frames<T>(P, q, fr);
-  push_residual<T>(site, fr.xpos, fr.xquat, v, tg, r);
+  fk_residual_of<T>(site, fr.xpos, fr.xquat, v, tg, r);
   const double* goal = fr.xpos[T::GOAL];
+  const double* gq = fr.xquat[T::GOAL];
   const int gd = T::body_dof(T::GOAL);
-  double R[9], ee[3], d[3];
-  quat_to_mat(fr.xquat[T::SITE_BODY], R);
+  double ee[3], d[3];
+  ee_point<T>(site, fr.xpos, fr.xquat, ee);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    ee[k] = fr.xpos[T::SITE_BODY][k] +
-            (R[3 * k] * site[0] + R[3 * k + 1] * site[1] +
-             R[3 * k + 2] * site[2]);
-    d[k] = ee[k] - goal[k];
-  }
+  for (int k = 0; k < 3; ++k) d[k] = ee[k] - goal[k];
   const double g[2] = {goal[0] - tg[0], goal[1] - tg[1]};
+  double gv[2] = {v[gd], v[gd + 1]};
+  if constexpr (T::RES == RES_SWEEP) {
+    gv[0] = v[gd] - tg[2];
+    gv[1] = v[gd + 1] - tg[3];
+  }
   for (int i = 0; i < T::NRES; ++i)
     for (int z = 0; z < NZ; ++z) J[i][z] = 0.0;
 #pragma unroll
@@ -102,16 +111,42 @@ __device__ __forceinline__ void push_jacobian(const double* __restrict__ P,
 #pragma unroll
         for (int k = 0; k < 3; ++k) pe[k] = c[k] + fr.cdof[j][3 + k];
       }
-      J[0][s] = (g[0] * pg[0] + g[1] * pg[1]) / r[0];
-      J[3][s] = (d[0] * (pe[0] - pg[0]) + d[1] * (pe[1] - pg[1]) +
-                 d[2] * (pe[2] - pg[2])) /
-                r[3];
+      if constexpr (T::RES == RES_TILT) {
+        J[0][s] = pg[0];
+        J[1][s] = pg[1];
+      } else {
+        J[0][s] = (g[0] * pg[0] + g[1] * pg[1]) / r[0];
+      }
+      J[RR][s] = (d[0] * (pe[0] - pg[0]) + d[1] * (pe[1] - pg[1]) +
+                  d[2] * (pe[2] - pg[2])) /
+                 r[RR];
     }
-    if (j == gd)
-      J[1][N + s] = v[gd] / r[1];
-    else if (j == gd + 1)
-      J[1][N + s] = v[gd + 1] / r[1];
-    if (j == PUSH_JOINT5) J[2][N + s] = 1.0;
+    if constexpr (T::RES == RES_TILT) {
+      if (j >= gd + 3 && j < gd + 6) {
+        // 0.5 q (0, e_k): k = 0 (-x, w, z, -y), 1 (-y, -z, w, x),
+        // 2 (-z, y, -x, w)
+        const int k = j - gd - 3;
+        const double w = gq[0], x = gq[1], y = gq[2], z = gq[3];
+        const double dw = 0.5 * (k == 0 ? -x : (k == 1 ? -y : -z));
+        const double dx = 0.5 * (k == 0 ? w : (k == 1 ? -z : y));
+        const double dy = 0.5 * (k == 0 ? z : (k == 1 ? w : -x));
+        const double dz = 0.5 * (k == 0 ? -y : (k == 1 ? x : w));
+        J[4][s] = 2.0 * ((dx * z + x * dz) + (dw * y + w * dy));
+        J[5][s] = 2.0 * ((dy * z + y * dz) - (dw * x + w * dx));
+      }
+      if (j == gd)
+        J[2][N + s] = 1.0;
+      else if (j == gd + 1)
+        J[3][N + s] = 1.0;
+    } else {
+      if (j == gd)
+        J[RV][N + s] = gv[0] / r[RV];
+      else if (j == gd + 1)
+        J[RV][N + s] = gv[1] / r[RV];
+    }
+    if constexpr (T::RES == RES_PUSH) {
+      if (j == PUSH_JOINT5) J[2][N + s] = 1.0;
+    }
   }
 }
 
@@ -122,8 +157,8 @@ __device__ __forceinline__ void residual_jacobian(
     const double* __restrict__ P, const double* __restrict__ resc,
     const double* q, const double* v, const double* u, const double* tg,
     double* r, double (*J)[NZ]) {
-  if constexpr (T::RES == RES_PUSH) {
-    push_jacobian<T, NZ>(P, resc, q, v, tg, r, J);
+  if constexpr (fk_residual(T::RES)) {
+    fk_jacobian<T, NZ>(P, resc, q, v, tg, r, J);
   } else {
     if constexpr (T::RES == RES_JOINT)
       joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);

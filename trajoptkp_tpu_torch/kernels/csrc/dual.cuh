@@ -11,6 +11,7 @@
 //   recip(b) (PyTorch's `1.0 / b`, reciprocal times 1.0): (-b') (r r)
 //   sqrt(a): a' / (2 sqrt(a))   sin(a): a' cos(a)   cos(a): a' (-sin(a))
 //   fabs(a): a' sgn(a)
+//   atan2(y, x): (-y x' + x y') / (y y + x x)
 //   at_least, clip (torch.maximum, torch.minimum): a' w, w = 1 inside,
 //     0 outside, 0.5 exactly at a bound (JAX's rule for jnp.clip too)
 // A constant operand (a double) contributes no tangent term.  Comparisons
@@ -114,6 +115,9 @@ __device__ __forceinline__ double sin(double x) { return ::sin(x); }
 __device__ __forceinline__ double cos(double x) { return ::cos(x); }
 __device__ __forceinline__ double fabs(double x) { return ::fabs(x); }
 __device__ __forceinline__ bool isnan(double x) { return ::isnan(x); }
+__device__ __forceinline__ double atan2(double y, double x) {
+  return ::atan2(y, x);
+}
 
 __device__ __forceinline__ Dual sqrt(const Dual& a) {
   const double r = ::sqrt(a.v);
@@ -131,6 +135,13 @@ __device__ __forceinline__ Dual fabs(const Dual& a) {
   return Dual(::fabs(a.v), a.d * sg);
 }
 __device__ __forceinline__ bool isnan(const Dual& a) { return ::isnan(a.v); }
+__device__ __forceinline__ Dual atan2(const Dual& y, const Dual& x) {
+  return Dual(::atan2(y.v, x.v),
+              ((-y.v) * x.d + x.v * y.d) / (y.v * y.v + x.v * x.v));
+}
+__device__ __forceinline__ Dual atan2(double y, const Dual& x) {
+  return atan2(Dual(y), x);
+}
 
 // max(x, lo) and min(max(x, lo), hi) keeping NaN, with the tie rule of
 // torch.maximum / torch.minimum and of JAX's lax.max / lax.min (jnp.clip):

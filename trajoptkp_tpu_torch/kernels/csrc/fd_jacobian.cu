@@ -11,9 +11,10 @@
 // nu controls, the state or control is perturbed by +-eps (a position as
 // q (+) e with integrate_pos at dt 1, which also renormalises a free
 // joint's quaternion, as the twin's integrate_pos; a velocity or control by
-// adding eps times a 0/1 selector, bit-identical to the JAX engine), two K1
-// steps run, and (out+ - out-) / (2 eps) fills J[:, c] over the state
-// vector's dofs.  The set_interval lerp between slots stays torch
+// adding eps times a 0/1 selector, q left as it is, bit-identical to the
+// JAX engine), two K1 steps run, and (out+ - out-) / (2 eps) fills J[:, c]
+// over the state vector's dofs (a free rotation's rows: the log of
+// conj(q-) q+).  The set_interval lerp between slots stays torch
 // (solver/lanes.py:jacobians_si); the adaptive methods' per-column lerp is
 // kernel K9b (kp_interp.cu).
 //
@@ -91,7 +92,7 @@ fd_jacobian_kernel(const double* __restrict__ P,
         qp[i] = q0[i] + (i == dq ? eps : 0.0);
         qm[i] = q0[i] + (i == dq ? -eps : 0.0);
       }
-    } else {
+    } else if (dq >= 0) {
       double ep[NV], em[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
@@ -100,6 +101,15 @@ fd_jacobian_kernel(const double* __restrict__ P,
       }
       integrate_pos<T>(q0, ep, 1.0, qp);
       integrate_pos<T>(q0, em, 1.0, qm);
+    } else {
+      // a velocity or control column keeps q as it is, as the twin does: q
+      // (+) 0 would renormalise a free joint's quaternion, whose last bits
+      // then reach its rows
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        qp[i] = q0[i];
+        qm[i] = q0[i];
+      }
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -115,8 +125,17 @@ fd_jacobian_kernel(const double* __restrict__ P,
     smooth_step<T>(P, qm, vm, um, qM, vM);
 #pragma unroll
     for (int r = 0; r < NDOF; ++r) {
-      const int iq = T::sv_q(r), iv = T::sv(r);
-      J[((o * NX + r) * NC + c) * B + b] = (qP[iq] - qM[iq]) / scale;
+      const int iv = T::sv(r);
+      double dq;
+      if (T::sv_rot(r) >= 0) {
+        // a free rotation's row: the log of conj(q-) q+ (differentiate_pos)
+        double lg[3];
+        quat_sub(qP + T::sv_quat(r), qM + T::sv_quat(r), lg);
+        dq = lg[T::sv_rot(r)];
+      } else {
+        dq = qP[T::sv_q(r)] - qM[T::sv_q(r)];
+      }
+      J[((o * NX + r) * NC + c) * B + b] = dq / scale;
       J[((o * NX + NDOF + r) * NC + c) * B + b] =
           (vP[iv] - vM[iv]) / scale;
     }

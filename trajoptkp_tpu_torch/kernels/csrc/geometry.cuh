@@ -91,4 +91,39 @@ __device__ __forceinline__ void quat_normalize(const A* q, O* o) {
   for (int k = 0; k < 4; ++k) o[k] = q[k] / n;
 }
 
+// log(q): the rotation vector of a quaternion, short geodesic
+// (utils/math.py:quat_log): normalised, w >= 0, the angle 2 atan2(|v|, w)
+// over |v|, and 2 + |v|^2 / 3 for |v|^2 < 1e-18 (the branch not taken is
+// not computed: torch.where drops its value and its tangent)
+template <class A, class O>
+__device__ __forceinline__ void quat_log(const A* qin, O* o) {
+  A q[4];
+  quat_normalize(qin, q);
+  if (q[0] < 0.0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = -q[k];
+  }
+  const A sumsq = q[1] * q[1] + q[2] * q[2] + q[3] * q[3];
+  A scale;
+  if (sumsq < 1e-18) {
+    scale = 2.0 + sumsq / 3.0;
+  } else {
+    const A w = clip(q[0], -1.0, 1.0);
+    const A sin_half = sqrt(sumsq);
+    scale = (2.0 * atan2(sin_half, w)) / sin_half;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[k] = q[1 + k] * scale;
+}
+
+// v with qa = qb * exp(v): log(conj(qb) qa) (utils/math.py:quat_sub,
+// mju_subQuat); qb may be a constant (double) against a Dual qa
+template <class A, class B, class O>
+__device__ __forceinline__ void quat_sub(const A* qa, const B* qb, O* o) {
+  const B cb[4] = {qb[0], -qb[1], -qb[2], -qb[3]};
+  prod_t<B, A> r[4];
+  quat_mul(cb, qa, r);
+  quat_log(r, o);
+}
+
 }  // namespace trajopt

@@ -21,7 +21,12 @@
 // RES 0 is the joint-space residual over the first RESA joints and RESB
 // controls; RES 1 the pushing FK residual of goal body RESA and
 // end-effector site body RESB; RES 2 the residual of RESA selected
-// coordinates, entry k of RESB (5 bits each) indexing [qpos, qvel, ctrl].
+// coordinates, entry k of RESB (5 bits each) indexing [qpos, qvel, ctrl];
+// RES 3 and 4 box_sweep's and threeD_push's FK residuals of box body RESA
+// and end-effector site body RESB.  The residual is not read by the step
+// alone: instances that differ in RES, RESA and RESB only share their
+// ad_jacobian and fd_jacobian libraries, built once for the first of them
+// (kernels/build.py:step_shared).
 #pragma once
 
 #define TRAJOPT_MODEL_acrobot(X)                                               \
@@ -44,11 +49,20 @@
     0x1030u, 0x2030u, 0x3030u, 0x4030u, 0x5030u, 0x6030u, 0x7030u, 0x3133u,   \
     0x4133u, 0x6133u, 0x7133u, 0x4233u, 0x5233u, 0x6233u, 0x7233u, 0x5333u,   \
     0x6333u, 0x7333u, 0x5433u, 0x6433u, 0x7433u, 0x7533u)
+#define TRAJOPT_MODEL_box_sweep(X)                                             \
+  X(box_sweep, 13, 7, 11, 0x0u, 0x400u, 0x8765432100ull, 0x80765432100ull,   \
+    0x60111111100ull, 0x70654321000ull, 0x7fu, 13, 0xcba9876543210ull, 3,    \
+    10, 0x9ull, 0x9050u, 0xa060u, 0xa965u)
+#define TRAJOPT_MODEL_threeD_push(X)                                           \
+  X(threeD_push, 13, 7, 11, 0x0u, 0x400u, 0x8765432100ull,                   \
+    0x80765432100ull, 0x60111111100ull, 0x70654321000ull, 0x7fu, 13,         \
+    0xcba9876543210ull, 4, 10, 0x9ull, 0x9050u, 0xa060u, 0xa965u)
 
 #define TRAJOPT_MODEL_INSTANCES(X)                                            \
   TRAJOPT_MODEL_acrobot(X) TRAJOPT_MODEL_pentabot(X)                          \
       TRAJOPT_MODEL_reaching(X) TRAJOPT_MODEL_push_ncl(X)                     \
-          TRAJOPT_MODEL_walker(X)
+          TRAJOPT_MODEL_walker(X) TRAJOPT_MODEL_box_sweep(X)                  \
+              TRAJOPT_MODEL_threeD_push(X)
 
 // Backward-pass instances, B(NX, NU) with NX = 2 NDOF of a model above.
 #define TRAJOPT_BP_nx4_nu1(B) B(4, 1)
@@ -56,9 +70,10 @@
 #define TRAJOPT_BP_nx14_nu7(B) B(14, 7)
 #define TRAJOPT_BP_nx20_nu7(B) B(20, 7)
 #define TRAJOPT_BP_nx18_nu6(B) B(18, 6)
+#define TRAJOPT_BP_nx26_nu7(B) B(26, 7)
 #define TRAJOPT_BP_INSTANCES(B)                                               \
   TRAJOPT_BP_nx4_nu1(B) TRAJOPT_BP_nx10_nu3(B) TRAJOPT_BP_nx14_nu7(B)         \
-      TRAJOPT_BP_nx20_nu7(B) TRAJOPT_BP_nx18_nu6(B)
+      TRAJOPT_BP_nx20_nu7(B) TRAJOPT_BP_nx18_nu6(B) TRAJOPT_BP_nx26_nu7(B)
 
 // The instances a translation unit defines: with -DTRAJOPT_ONLY=
 // TRAJOPT_MODEL_<tag> (or TRAJOPT_BP_nx<NX>_nu<NU>) the one named, else all.

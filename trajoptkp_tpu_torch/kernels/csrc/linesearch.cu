@@ -6,7 +6,9 @@
 //
 // Per lane: u_t = clip(u_nom,t + alpha k_t + K_t dx_t) with dx_t the tangent
 // difference of the rolled state from the nominal over the state vector's
-// dofs (hinge, slide, free translation: plain differences), then the K3
+// dofs (hinge, slide, free translation: plain differences; a free
+// rotation: the log of the nominal's conjugate times the quaternion,
+// geometry.cuh:quat_sub, as the twin's differentiate_pos), then the K3
 // body: residual, weighted cost, K1 step.  All
 // alphas' trajectories are written; the argmin over alphas and the accept
 // test stay torch (solver/lanes.py:forward_pass).
@@ -58,8 +60,19 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
       qvel[((size_t(t) * NV + i) * A + a) * B + b] = v[i];
 #pragma unroll
     for (int k = 0; k < NDOF; ++k) {
-      const int iq = T::sv_q(k), iv = T::sv(k);
-      dx[k] = q[iq] - qnom[(size_t(t) * NQ + iq) * B + b];
+      const int iv = T::sv(k);
+      if (T::sv_rot(k) >= 0) {
+        const int qa = T::sv_quat(k);
+        double qr[4], lg[3];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          qr[m] = qnom[(size_t(t) * NQ + qa + m) * B + b];
+        quat_sub(q + qa, qr, lg);
+        dx[k] = lg[T::sv_rot(k)];
+      } else {
+        const int iq = T::sv_q(k);
+        dx[k] = q[iq] - qnom[(size_t(t) * NQ + iq) * B + b];
+      }
       dx[NDOF + k] = v[iv] - vnom[(size_t(t) * NV + iv) * B + b];
     }
 #pragma unroll

@@ -111,8 +111,12 @@ struct Topo {
   static constexpr unsigned long long SELECT = RESB_;  // select residual
   static constexpr int NRES = RES_ == RES_JOINT    ? 2 * RESA_ + NUR
                               : RES_ == RES_SELECT ? RESA_
+                              : RES_ == RES_SWEEP  ? 3
+                              : RES_ == RES_TILT   ? 7
                                                    : 4;
-  static constexpr int NTGT = RES_ == RES_PUSH ? 2 : NRES;
+  static constexpr int NTGT =
+      (RES_ == RES_PUSH || RES_ == RES_TILT) ? 2
+                                             : (RES_ == RES_SWEEP ? 4 : NRES);
   __host__ __device__ static constexpr int parent(int b) {
     return static_cast<int>((PARENTS_ >> (4 * b)) & 0xFull);
   }
@@ -167,6 +171,23 @@ struct Topo {
     return static_cast<int>((SVDOF_ >> (4 * k)) & 0xFull);
   }
   __host__ __device__ static constexpr int sv_q(int k) { return dof_q(sv(k)); }
+  // state dof k is component sv_rot(k) (0-2) of a free joint's rotation,
+  // or -1: its position difference is the quaternion's log, taken per
+  // body (sv_quat(k), the qpos of the body's quaternion)
+  __host__ __device__ static constexpr int sv_rot(int k) {
+    return (free(dof_body(sv(k))) && sv(k) - body_dof(dof_body(sv(k))) >= 3)
+               ? sv(k) - body_dof(dof_body(sv(k))) - 3
+               : -1;
+  }
+  __host__ __device__ static constexpr int sv_quat(int k) {
+    return qadr(dof_body(sv(k))) + 3;
+  }
+  __host__ __device__ static constexpr bool make_has_rot() {
+    for (int k = 0; k < NDOF_; ++k)
+      if (sv_rot(k) >= 0) return true;
+    return false;
+  }
+  static constexpr bool HAS_ROT = make_has_rot();
   __host__ __device__ static constexpr int count_limited() {
     int n = 0;
     for (int j = 0; j < NV_; ++j) n += (LIMITED_ >> j) & 1u;
@@ -214,9 +235,7 @@ struct Topo {
   }
   // slots per pair (dynamics/collision.py _COLLIDERS)
   __host__ __device__ static constexpr int pair_ncon(int p) {
-    return pair_t1(p) == GEOM_PLANE
-               ? (pair_t2(p) == GEOM_CYLINDER ? 3 : 2)
-               : 1;
+    return pair_slots(pair_t1(p), pair_t2(p));
   }
   // dof j on body b's root path
   __host__ __device__ static constexpr bool on_path(int b, int j) {
@@ -503,7 +522,7 @@ struct Frames {
 // (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
 // actuator forces, the constraint force of the limit rows (K2a) and contact
 // rows (K2b), (M + h D) qacc = f, semi-implicit Euler.  With WANT_RES the
-// FK residual of the state (q, v) (RES_PUSH, with its constants `resc`
+// FK residual of the state (q, v) (fk_residual, with its constants `resc`
 // from the task buffer) is written to `res`, from the same FK products the
 // step uses.  With FK_BIAS the step stops after the
 // RNE and writes its FK products and bias force to `out` (fk_bias below).
@@ -615,8 +634,8 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
 #pragma unroll
     for (int k = 0; k < 6; ++k) cfrc[b][k] = Ia[k] + cf[k];
   }
-  if constexpr (WANT_RES && T::RES == RES_PUSH && !is_dual<S>::value)
-    push_residual<T>(resc, xpos, xquat, v, tg, res);
+  if constexpr (WANT_RES && fk_residual(T::RES) && !is_dual<S>::value)
+    fk_residual_of<T>(resc, xpos, xquat, v, tg, res);
 
   // ---- RNE backward (bias) and composite inertias (CRBA)
   S bias[NV];

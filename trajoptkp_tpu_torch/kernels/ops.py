@@ -8,21 +8,21 @@ version on the card.  Each wrapper adds one to `LAUNCHES[name]` where it
 launches its kernel, so a run can show that its main path went through the
 kernels.
 
-The kernels cover trees whose bodies carry hinge and slide joints (several
-per body), one free joint alone, or none, joint limits and plane-cylinder,
-plane-capsule, capsule-capsule and cylinder-cylinder contacts (the contact
-rows K2b, csrc/contact.cuh, and the constraint solve K2a,
-csrc/constraint.cuh, device functions inside the step), a state vector of
-hinge, slide and free-translation dofs, and the joint-space, the pushing
-tasks' FK or the walker's selected-coordinate residual.  Their topology
-(sizes, joint masks and codes, qpos addresses, state-vector dofs, residual
-kind, contact pairs) is a template argument; the instances built are listed
-in csrc/instances.cuh.  `cost_expansion` (K6) is the Gauss-Newton cost
-expansion from the closed-form residual Jacobian (the pushing residual's
-from the step's FK, `fk_frames`).  `mpc_apply` (K8) is the MPC replan's
-apply step.
-One more entry point runs a device function of the step alone: `fk_bias`
-(the FK products and bias force, for the pushing tasks' servo).
+The kernels cover trees whose bodies carry hinge and slide joints (several per
+body), one free joint alone, or none, joint limits and plane-cylinder,
+plane-capsule, capsule-capsule, cylinder-cylinder, plane-box, capsule-box and
+cylinder-box contacts (the contact rows K2b, csrc/contact.cuh, and the
+constraint solve K2a, csrc/constraint.cuh, device functions inside the step), a
+state vector of hinge, slide and free-joint dofs (a free rotation's three
+together), and the joint-space, the FK residuals of the pushing and box tasks
+or the walker's selected-coordinate residual.  Their topology (sizes, joint
+masks and codes, qpos addresses, state-vector dofs, residual kind, contact
+pairs) is a template argument; the instances built are listed in
+csrc/instances.cuh.  `cost_expansion` (K6) is the Gauss-Newton cost expansion
+from the closed-form residual Jacobian (the FK residuals' from the step's FK,
+`fk_frames`).  `mpc_apply` (K8) is the MPC replan's apply step. One more entry
+point runs a device function of the step alone: `fk_bias` (the FK products and
+bias force, for the pushing tasks' servo).
 
 The keypoint kernels K9 take no model topology and are built once, with
 the sizes as runtime arguments: `keypoint_plan` (K9a, csrc/keypoints.cu:
@@ -118,7 +118,11 @@ JOINT_FIELDS = (("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
 # ctrllimited, lo, hi; per limited joint: dynamics/contact.py LIMIT_FIELDS;
 # per contact pair: geom1 pos, quat, size, geom2 pos, quat, size,
 # CONTACT_FIELDS; gravity (3); timestep
-RES_KINDS = {"joint_space": 0, "push": 1, "select": 2}
+RES_KINDS = {"joint_space": 0, "push": 1, "select": 2, "sweep": 3,
+             "tilt_push": 4}
+# the FK residuals of a goal body and an end-effector site: ("push", 0,
+# goal, site), ("sweep", goal, site), ("tilt_push", goal, site)
+FK_KINDS = ("push", "sweep", "tilt_push")
 
 
 # the async MPC's planner and actor launch from two threads
@@ -216,28 +220,47 @@ def model_topology(model: Model) -> Tuple[int, ...]:
 
 def state_key(model: Model, sv) -> Tuple[int, int]:
     """(NDOF, state-dof code) of a state vector the kernels take, or raise:
-    hinge, slide or free-translation dofs, all active, at most 15."""
-    scalar = set()
+    hinge, slide and free-joint dofs, all active, at most 15.  A free
+    joint's rotation dofs enter as a whole (its tangent is the quaternion's
+    q * exp(dz), whose rows the kernels take per body)."""
+    allowed = set()
     for j in range(model.njnt):
         d = model.jnt_dofadr[j]
         if model.jnt_type[j] in (HINGE, SLIDE):
-            scalar.add(d)
+            allowed.add(d)
         elif model.jnt_type[j] == FREE:
-            scalar.update((d, d + 1, d + 2))
-    if (sv.ndof > 15 or any(i not in scalar for i in sv.order)
+            allowed.update((d, d + 1, d + 2))
+            rot = (d + 3, d + 4, d + 5)
+            if all(i in sv.order for i in rot):
+                allowed.update(rot)
+    if (sv.ndof > 15 or any(i not in allowed for i in sv.order)
             or not bool((sv.active > 0.5).all())):
         raise NotImplementedError(
             "the kernels take a state vector of at most 15 active hinge, "
-            "slide or free-translation dofs (a free rotation's tangent is "
-            f"ROADMAP Queue 1 item 11); it has {sv.names}")
+            "slide or free-joint dofs, a free rotation's three together "
+            f"(ball joints are ROADMAP Queue 1 item 11); it has {sv.names}")
     return sv.ndof, sum(i << (4 * k) for k, i in enumerate(sv.order))
 
 
-def _push_kind(task: Task) -> bool:
-    """("push", 0, goal body, end-effector site) of a kernel-ready task."""
+def _fk_kind(task: Task):
+    """(kind, goal body, end-effector site) of a kernel-ready FK residual:
+    ("push", 0, goal, site) with nres 4, ("sweep", goal, site) with nres 3
+    and 4 targets, ("tilt_push", goal, site) with nres 7 and 2 targets;
+    else None."""
     model, kind = task.model, task.residual_kind
-    return (len(kind) == 4 and kind[:2] == ("push", 0) and task.nres == 4
-            and 0 < kind[2] < model.nbody and 0 <= kind[3] < model.nsite)
+    nres, ntgt = task.nres, task.residual_targets.shape[0]
+    if len(kind) == 4 and kind[:2] == ("push", 0) and nres == 4:
+        name, goal, site = "push", kind[2], kind[3]
+    elif (len(kind) == 3 and (kind[0], nres, ntgt) in (("sweep", 3, 4),
+                                                      ("tilt_push", 7, 2))):
+        name, goal, site = kind
+    else:
+        return None
+    j = model.jnt_bodyid.index(goal) if goal in model.jnt_bodyid else -1
+    if (0 < goal < model.nbody and 0 <= site < model.nsite
+            and (name == "push" or model.jnt_type[j] == FREE)):
+        return name, goal, site
+    return None
 
 
 def residual_key(task: Task) -> Tuple[int, int, int]:
@@ -247,8 +270,9 @@ def residual_key(task: Task) -> Tuple[int, int, int]:
             and 0 < kind[1] <= model.nv and 0 <= kind[2] <= model.nu
             and task.nres == 2 * kind[1] + kind[2]):
         return RES_KINDS["joint_space"], kind[1], kind[2]
-    if _push_kind(task):
-        return RES_KINDS["push"], kind[2], model.site_bodyid[kind[3]]
+    fk = _fk_kind(task)
+    if fk is not None:
+        return RES_KINDS[fk[0]], fk[1], model.site_bodyid[fk[2]]
     if len(kind) == 2 and kind[0] == "select" and len(kind[1]) == task.nres:
         sizes = (model.nq, model.nv, model.nu)
         base = (0, model.nq, model.nq + model.nv)
@@ -258,19 +282,21 @@ def residual_key(task: Task) -> Tuple[int, int, int]:
                     sum(i << (5 * k) for k, i in enumerate(idx)))
     raise NotImplementedError(
         "the kernels compute the joint-space residual (\"joint_space\", "
-        "nj <= nv, nr <= nu), the pushing FK residual (\"push\", 0, "
-        "goal body, ee site) and a residual of selected coordinates "
+        "nj <= nv, nr <= nu), the FK residuals (\"push\", 0, goal body, "
+        "ee site), (\"sweep\", box, ee site) and (\"tilt_push\", box, ee "
+        "site) of a free box, and a residual of selected coordinates "
         "(\"select\", ((source, index), ...)) of at most 12 rows; task "
         f"residual is {kind}; clutter (\"push\", n > 0) is ROADMAP Queue 1 "
         "item 7b")
 
 
 def residual_constants(task: Task) -> torch.Tensor:
-    """The residual's constants at the end of the task buffer: for the
-    pushing residual the end-effector site's position on its body."""
+    """The residual's constants at the end of the task buffer: for an FK
+    residual the end-effector site's position on its body."""
     model = task.model
-    if _push_kind(task):
-        return model.site_pos[task.residual_kind[3]].reshape(3)
+    fk = _fk_kind(task)
+    if fk is not None:
+        return model.site_pos[fk[2]].reshape(3)
     return torch.zeros(0, dtype=model.dtype, device=model.device)
 
 
@@ -570,8 +596,9 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
                              counts, eps, cache)
     ka = kernel_args(task, U.device)
     J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
-    _launch("fd_jacobian", ka.tag,
-            f"trajopt_fd_jacobian_{ka.tag}", _p(ka.model_buf),
+    tag = build.step_shared().get(ka.tag, ka.tag)   # reads no residual
+    _launch("fd_jacobian", tag,
+            f"trajopt_fd_jacobian_{tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times),
             ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
             ctypes.c_void_p(counts.data_ptr() if lanes else None),
@@ -599,8 +626,9 @@ def ad_jacobian(task: Task, qpos, qvel, U, times, plain: bool = False,
                              counts, cache)
     ka = kernel_args(task, U.device)
     J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
-    _launch("ad_jacobian", ka.tag,
-            f"trajopt_ad_jacobian_{ka.tag}", _p(ka.model_buf),
+    tag = build.step_shared().get(ka.tag, ka.tag)   # reads no residual
+    _launch("ad_jacobian", tag,
+            f"trajopt_ad_jacobian_{tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times),
             ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
             ctypes.c_void_p(counts.data_ptr() if lanes else None),

@@ -123,10 +123,13 @@ def jacobians_si(task: Task, plan: SIPlan, qpos, qvel, U, jac):
 
 
 def _dof_qpos(model, j: int) -> int:
-    """The qpos index of a hinge, slide or free-translation dof j."""
+    """The qpos index of a hinge, slide or free-translation dof j; -1 for a
+    free rotation's (no one coordinate)."""
     for jn in range(model.njnt):
         da = model.jnt_dofadr[jn]
         if da <= j < da + (6 if model.jnt_type[jn] == FREE else 1):
+            if j - da >= 3:
+                return -1
             return model.jnt_qposadr[jn] + j - da
     raise ValueError(f"dof {j} has no joint")
 
@@ -162,7 +165,8 @@ def residual_jacobian(task: Task, qp, qv, u, tg):
     (positions, velocities and controls of the state vector) in closed
     form: (nres, 2n + nu, 1, ...) for a residual that selects coordinates
     (a constant), (nres, 2n + nu, *L) for the pushing FK residual
-    (tasks/pushing.py:push_residual_jacobian).  The twin of
+    (tasks/pushing.py:push_residual_jacobian) and the box tasks'
+    (tasks/manipulation.py).  The twin of
     kernels/csrc/cost_expansion.cu's `residual_jacobian`; a residual kind
     the kernels do not take is differentiated by forward mode."""
     kind = task.residual_kind
@@ -174,6 +178,12 @@ def residual_jacobian(task: Task, qp, qv, u, tg):
         from ..tasks.pushing import push_residual_jacobian
         return push_residual_jacobian(task.model, kind[2], kind[3], task.sv,
                                       task.model.nu, qp, qv, tg)
+    if kind[0] in ("sweep", "tilt_push"):
+        from ..tasks import manipulation as mt
+        fn = (mt.sweep_residual_jacobian if kind[0] == "sweep"
+              else mt.tilt_push_residual_jacobian)
+        return fn(task.model, kind[1], kind[2], task.sv, task.model.nu, qp,
+                  qv, tg)
     # a residual without a closed form (no kernel takes it; a task made in
     # a test): forward mode over the tangent columns
     model, sv = task.model, task.sv

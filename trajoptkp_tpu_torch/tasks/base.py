@@ -9,7 +9,10 @@ static sizes: ("joint_space", nj, nr) is position and velocity errors of the
 first nj joints and nr control terms, nres = 2 nj + nr (reaching has nr = 0
 although its arm has seven actuators); ("push", n_obstacles, goal body, ee
 site) is the pushing tasks' FK residual (tasks/pushing.py), read from
-forward kinematics of the state, with the goal xy as its targets.
+forward kinematics of the state, with the goal xy as its targets;
+("sweep", box body, ee site) and ("tilt_push", box body, ee site) are the
+box tasks' (tasks/manipulation.py: box_sweep, with the goal xy and
+velocity as its targets, and threeD_push, with the goal xy).
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ it here and the kernels read the same selection, packed into the task's
 instance key (kernels/ops.py), through the device function
 `select_residual` (kernels/csrc/residuals.cuh).
 
-walker_uneven needs plane-box pairs (ROADMAP Queue 1 item 7b) and raises.
+walker_uneven raises: its 190 contact pairs, 168 of them capsule-box,
+would unroll at compile time into every step kernel (ROADMAP Queue 1 item
+7b).
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ def make_walker(run: bool = False, uneven: bool = False,
     min_N 1, MPC horizon 40."""
     if uneven:
         raise NotImplementedError(
-            "walker_uneven walks on a strip of boxes: plane-box pairs are "
-            "ROADMAP Queue 1 item 7b (dynamics/box_collision.py)")
+            "walker_uneven walks on a strip of boxes: its 190 pairs (168 "
+            "capsule-box, the rest plane-box, plane-capsule and "
+            "capsule-capsule) would unroll into every step kernel; ROADMAP "
+            "Queue 1 item 7b")
     device = resolve_device(device)
     model = load_model("walker", device=device)
     f64 = dict(dtype=model.dtype, device=device)

@@ -242,8 +242,11 @@ def _ee_and_goal(task: Task, qpos):
 def ee_waypoint_path(task: Task, horizon: int, qpos, targets):
     """EEWayPointsPush (`PushBaseClass.cpp:46-140`): straight line from the
     end-effector to a point behind the goal's push line at z 0.28, capped at
-    0.1 m/s over 5/6 of the horizon -> path (horizon + 1, 3, B), angle (B,)."""
+    0.1 m/s over 5/6 of the horizon -> path (horizon + 1, 3, B), angle (B,).
+    The push target is targets[0:2] (box_sweep's targets carry the goal
+    velocity after it)."""
     ee_start, goal = _ee_and_goal(task, qpos)
+    targets = targets[:2]
     diff = targets - goal[:2]
     angle = torch.atan2(diff[1], diff[0])
     cyl_r = 0.01

@@ -127,11 +127,15 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     q = torch.where(q[:1] < 0, -q, q)
     w = clip(q[:1], -1.0, 1.0)
     xyz = q[1:]
-    sumsq = torch.sum(xyz * xyz, dim=0, keepdim=True)
+    # summed left to right, as kernels/csrc/geometry.cuh:quat_log
+    sumsq = (xyz[0] * xyz[0] + xyz[1] * xyz[1] + xyz[2] * xyz[2])[None]
     small = sumsq < 1e-18
     sin_half = torch.sqrt(torch.where(small, torch.ones_like(sumsq), sumsq))
     angle = 2.0 * torch.atan2(sin_half, w)
-    scale = torch.where(small, 2.0 + sumsq / 3.0, angle / sin_half)
+    # a tensor divisor: PyTorch multiplies by the reciprocal of a Python
+    # scalar on the card, the kernels divide
+    scale = torch.where(small, 2.0 + sumsq / torch.full_like(sumsq, 3.0),
+                        angle / sin_half)
     return xyz * scale
 
 
