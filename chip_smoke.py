@@ -26,16 +26,25 @@ free box in the state with its rotations, plane-box and cylinder-box rows
 inside the step) against their twins bit for bit at H=100 B=64 (K3, K4,
 K5ad and K5 at shared and per-lane slots, K6, fk_bias; K7 within its bar),
 with the box flat, tilted, pressed in, around the pusher's end point and
-beside a pusher pressed into the table.  It replays the
+beside a pusher pressed into the table.  The `clutter` phase holds
+push_lcl's and push_ccl's kernels (one instance: nv 31, 114 rows, nx 38,
+its loops rolled) against their twins bit for bit at H=6 B=16 (K7 within
+its bar): K3, K4, K5ad in its three slot modes, K5, K6, fk_bias, and K9a,
+K5ad at per-lane slots and K9b at the tasks' AJ_1_100, with the objects
+pressed into the table, into each other and into the pusher, every one
+of the 15 pairs touching.  It replays the
 acrobot SI_5 H=200 golden solve on the kernel path, then drives the main
 paths with launch counts: acrobot SI_1 (H=500, 512 scenes), reaching SI_1
 (H=1500, 128 scenes) and push_ncl SI_1 (H=1000, 128 scenes from the task's
 scene generator, started by its setup and init servo) and box_sweep SI_1
 (H=1500, 128 scenes of the JAX CLI's generic generator, started by its
 init servo) through
-`make_lane_phase_optimise`, 10 iterations each, and walker_run sync MPC
-through the campaign entry point (`sync_mpc_horizon_sweep`: H=40, 200
-replans of one iteration and one applied control, one episode and 128
+`make_lane_phase_optimise`, and push_lcl SI_1 (`main_clutter`: H=1000,
+128 scenes of its generator, started by its setup and init servos),
+10 iterations each but reaching 3, push_ncl, box_sweep and push_lcl 2
+(MAIN_ITERS; 10 in `--deep`), and walker_run sync MPC through the
+campaign entry point (`sync_mpc_horizon_sweep`: H=40, 50 replans of one
+iteration and one applied control (200 in `--deep`), one episode and 128
 episodes, and H=20 and 80), float64.  Three iterations of box_sweep's
 path are compared with the plain path on the card (H=20, 64 lanes); the
 open-loop kernels are timed at
@@ -53,7 +62,8 @@ the `main_adaptive` phase drives acrobot AJ_1_50, VC_1_200 and IE_1_50
 against the keypoint kernels' twins.  The `main_async` phase runs asynchronous MPC in real
 time (`mpc/async_mpc.py`: a planner thread replanning one iteration at a
 time on its own CUDA stream, the actor stepping through K3 on another):
-push_ncl SI_1 over 5 scenes of the async campaign's generator, 500 steps
+push_ncl SI_1 over 3 scenes of the async campaign's generator (5 in
+`--deep`), 500 steps
 each at 125 Hz (`async_mpc_campaign`), and one walker_run episode of 2000
 steps at 200 Hz, with exact launch counts and a planner that lowers its
 plan's cost, and first holds one planner step (at H=5), the actor's step
@@ -61,23 +71,32 @@ and its gravity hold against their twins, bit for bit, and each kernel
 phase of a push_ncl planner step at its own shape (H=50, B=1: the generic
 solve, whose Jacobians at the default deriv_mode are K5's central FD; run
 while the CLI processes run).  The CLI solves the five open-loop tasks
-(box_sweep and threeD_push too) with their own keypoint methods, acrobot
+(box_sweep and threeD_push too) with their own keypoint methods, the
+clutter tasks at H=100 (CLI_CLUTTER_H), acrobot
 with IE_1_50 and with `--deriv_mode ad`, runs the walker's
 `Generate_syncronus_mpc_data --horizon 40`, push_ncl's
 `Generate_asynchronus_mpc_data --num_scenes 3 --keypoint SI_1` and
-acrobot's `MPC_until_completion`, the ten processes side by side.
+acrobot's `MPC_until_completion`, the twelve processes side by side.
 
-`python3 chip_smoke.py --deep` runs the deep agreement holds of the
-earlier slices alone, as a job of its own (`deep`): the acrobot, reaching
-and push_ncl main paths with 3 iterations of the kernel path against the
-plain path (acrobot H=500 B=512, reaching H=RH3 B=64, push_ncl H=UH3 B=64),
-reaching's, push_ncl's and box_sweep's kernels against their twins at
-their main paths' full shapes (`hold_full_shape`; box_sweep's on the
-nominal of its init servo), acrobot VC_1_200's 3 iterations against the whole
-plain path, the walker's first MPC_PLAIN_REPLANS MPC replans and six
-acrobot MPC replans against the plain path, and each kernel phase of the
-walker's first replan of 128 episodes against its twin.  It prints a
-`record` line and no result line.
+`python3 chip_smoke.py --deep` runs the deep agreement holds and the full
+depths alone, as a job of its own (`deep`; `--deep --phases a,b` a subset
+of main_paths, full_shapes, clutter_full_shape, keypoints, mpc, async):
+the acrobot, reaching,
+push_ncl, box_sweep and push_lcl main paths at 10 iterations, with 3
+iterations of the kernel path against the plain path (acrobot H=500
+B=512, reaching H=RH3, push_ncl H=UH3 and push_lcl H=CH3 at B=64);
+reaching's, push_ncl's, box_sweep's and push_lcl's kernels against their
+twins at their main paths' full shapes on their initial nominals
+(`full_shape`; push_lcl's K3, K4 and K5ad over the first CLUTTER_STEPS
+steps and slots of all 128 lanes, its K6, K7 and fk_bias whole); the
+keypoint kernels at reaching's and push_ncl's full shapes, push_lcl's
+campaign method AJ_5_100 and acrobot VC_1_200's 3 iterations against the
+whole plain path; the walker's sync MPC sweep at 200 replans, its first
+MPC_PLAIN_REPLANS MPC replans and six acrobot MPC replans against the
+plain path, and each kernel phase of the walker's first replan of 128
+episodes against its twin; async MPC over 5 push_ncl scenes.  Its build
+compiles the libraries the default run leaves to their first launch
+(build.LAZY) too.  It prints a `record` line and no result line.
 
 Prints the card's name and power limit, the kernel build time, the seconds
 of each phase and of the whole script, a `record` line with every
@@ -89,16 +108,18 @@ fails where no CUDA device is present.  The MPC campaigns write their
 `mpc_horizons.csv` and `async_mpc.csv` under chip_smoke_out/mpc/.
 
 The plain halves of the holds launch no kernel and run while the kernels
-build: the twins of the pentabot, reaching, walker and box checks and the
-plain half of box_sweep's 3-iteration hold in processes of this script
+build: the twins of the clutter, pentabot, reaching, walker and box
+checks and the plain half of box_sweep's 3-iteration hold in processes of
+this script
 (`--plain-check-worker NAMES PATH`, CHECK_WORKERS, each result saved to
 PATH), which the script waits for and stops; in `--deep`, the acrobot and
 reaching 3-iteration holds and acrobot's MPC holds in this process and the
 walker's MPC hold in a second one (`--plain-mpc-worker PATH`).
 
 `--phases a,b` runs a subset (build, acrobot, pentabot, reaching, push,
-walker, box, keypoints, golden, main_acrobot, main_reaching, main_push,
-main_box_sweep, main_mpc, main_adaptive, main_async, cli) while
+walker, box, clutter, keypoints, golden, main_acrobot, main_reaching,
+main_push, main_box_sweep, main_clutter, main_mpc, main_adaptive,
+main_async, cli) while
 developing; a subset never prints a result.
 """
 
@@ -106,6 +127,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -145,11 +167,31 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "acrobot_si5_h200.npz")
 
 H, B, ITERS = 500, 512, 10          # the acrobot main path
+# the iterations of the slow main paths in the default run, cut from ITERS
+# to pay for the clutter phases (their per-iteration times are the same);
+# `--deep` runs each at ITERS
+MAIN_ITERS = {"reaching": 3, "push_ncl": 2, "box_sweep": 2, "push_lcl": 2}
 LONG_CALL_MS = 500.0                # phase_ms: a call this long is timed once
 RH, RB = 1500, 128                  # the reaching main path
 UH, UB = 1000, 128                  # the push_ncl main path
 PH, PB = 100, 64                    # pentabot, reaching and push check size
 BH, BB = 1500, 128                  # the box_sweep main path
+# the clutter tasks (level of pushing.make_pushing by instance name): their
+# kernel check (its twins beside the build: the plain push_lcl rollout of
+# 8 steps at 16 lanes took 105 s there, PERF.md) and push_lcl's
+# 3-iteration hold in `--deep`
+CLUTTER = {"push_lcl": 3, "push_ccl": "constrained"}
+CH, CB = 6, 16
+CH3 = 10
+# push_lcl's full-shape hold in `--deep` (clutter_full_shape): K3 and K4
+# step by step over the first CLUTTER_STEPS steps of all UB lanes, K5ad at
+# as many slots (the twin in chunks of CLUTTER_CHUNK slots: it steps 45
+# dual copies of each (slot, lane)); K6, K7 and fk_bias whole
+CLUTTER_STEPS = 50
+CLUTTER_CHUNK = 10
+# the clutter CLI runs' horizon: a push_lcl step takes ~14 ms of one
+# thread, and the setup servo's 1000 steps come first
+CLI_CLUTTER_H = 100
 # kernel-vs-plain 3-iteration solve horizons of the earlier slices' main
 # paths and their full-shape holds (stepwise_check), in the `--deep` job (a
 # plain reaching step at 64 lanes takes ~170 ms on an H100); box_sweep's
@@ -158,10 +200,19 @@ RH3 = 100
 UH3 = 40
 BH3 = 20
 SERVO_CHECK = 10                    # servo steps held against the plain servo
+# push_lcl's: a plain servo step at nv 31 takes seconds
+SERVO_CHECKS = {"push_lcl": 3}
+# the main paths whose kernel_ms are their phases' one call at the initial
+# nominal (K4: the fp phase, K4 and the argmin; K5ad: the jacobians phase,
+# K5ad and the lerp): push_lcl's kernels take 10-15 s a call
+FROM_PHASES = ("push_lcl",)
 WH, WB = 20, 16                     # walker check size
 MH, MB = 40, 128                    # walker MPC: make_walker's mpc_horizon,
 #                                     and the episodes of the batched run
-N_REPLANS = 200                     # replans per episode (the JAX campaign)
+# replans per episode: the JAX campaign's 200 (DEEP_REPLANS) in `--deep`,
+# cut to 50 in the default run to pay for the clutter phases (the CLI's
+# walker run keeps 200)
+N_REPLANS, DEEP_REPLANS = 50, 200
 SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
 # walker replans held against the plain path in the `--deep` job: a plain
 # walker replan is host-bound twin launches (its rollout and line search
@@ -171,9 +222,13 @@ SWEEP = (20, 40, 80)                # horizons of the sweep, B = 1
 MPC_PLAIN_REPLANS = 2
 MPC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke_out", "mpc")
+# push_ncl's check inputs (from its kernel servo), handed to the process
+# that runs their twins
+PUSH_INPUTS = os.path.join(MPC_OUT, "push_inputs.pt")
 # async MPC (main_async), real time: push_ncl SI_1 over the campaign's
 # scenes, the walker one MPC_until_completion-style episode
-ASYNC_PUSH_SCENES, ASYNC_PUSH_STEPS = 5, 500
+# (the campaign's 5 scenes in `--deep`, 3 in the default run)
+ASYNC_PUSH_SCENES, DEEP_PUSH_SCENES, ASYNC_PUSH_STEPS = 3, 5, 500
 ASYNC_WALKER_STEPS = 2000
 ASYNC_MIN_PLANS = 10                # plans published per episode, at least
 # the whole async planner step (`AsyncMPC.replan`) held against its
@@ -184,9 +239,9 @@ ASYNC_MIN_PLANS = 10                # plans published per episode, at least
 # in main_mpc's kernel path against the plain path
 ASYNC_HOLD_H = 5
 PHASES = ("build", "acrobot", "pentabot", "reaching", "push", "walker",
-          "box", "keypoints", "golden", "main_acrobot", "main_reaching",
-          "main_push", "main_box_sweep", "main_mpc", "main_adaptive",
-          "main_async", "cli")
+          "box", "clutter", "keypoints", "golden", "main_acrobot",
+          "main_reaching", "main_push", "main_box_sweep", "main_clutter",
+          "main_mpc", "main_adaptive", "main_async", "cli")
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 (non-tensor) 34 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
@@ -215,9 +270,6 @@ CTRL_ATOL, QPOS_ATOL, COST_ATOL = 2e-4, 5e-5, 4e-4
 
 
 FAILED = []  # failed checks; main() raises on them before any result
-# `--deep`: main_path also holds its kernels against their twins at its
-# own shape (hold_full_shape)
-DEEP = False
 
 
 def check(cond, msg):
@@ -542,30 +594,31 @@ def lane_inputs(task, Hh, Bb, seed, at_limits=False):
 _PUSH_STARTS = {}
 
 
-def push_start(task):
-    """The push_ncl main path's start (computed once): UB scenes from the
-    task's generator (numpy seed 0) and the JAX app's initial controls, the
-    setup servo behind the object (1000 steps), whose end is the start, then
-    the init servo over UH, both stepped by K3 at H = 1 with the FK products
-    and bias force from fk_bias -> dict of the scenes' scene_qpos (nq, B)
-    and scene_qvel (nv, B), the start qpos (nq, B), qvel (nv, B), targets
-    (2, B), U (UH, nu, B), the servo's wall seconds and its kernel
-    launches."""
-    if "main" not in _PUSH_STARTS:
-        qp, qv, tg = pushing.push_scenes(task, UB, seed=0)
+def push_start(task, Hh=UH, Bb=UB):
+    """A pushing task's main-path start (computed once per task and shape):
+    Bb scenes from the task's generator (numpy seed 0) and the JAX app's
+    initial controls, the setup servo behind the object (1000 steps), whose
+    end is the start, then the init servo over Hh, both stepped by K3 at H
+    = 1 with the FK products and bias force from fk_bias -> dict of the
+    scenes' scene_qpos (nq, B) and scene_qvel (nv, B), the start qpos (nq,
+    B), qvel (nv, B), targets (2, B), U (Hh, nu, B), the servo's wall
+    seconds and its kernel launches."""
+    key = (task.name, Hh, Bb)
+    if key not in _PUSH_STARTS:
+        qp, qv, tg = pushing.push_scenes(task, Bb, seed=0)
         tgl = tg.T.contiguous()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        qs, vs, U = pushing.init_controls(task, UH, qp.T.contiguous(),
+        qs, vs, U = pushing.init_controls(task, Hh, qp.T.contiguous(),
                                           qv.T.contiguous(), tgl)
         torch.cuda.synchronize()
-        _PUSH_STARTS["main"] = dict(
+        _PUSH_STARTS[key] = dict(
             scene_qpos=qp.T.contiguous(), scene_qvel=qv.T.contiguous(),
             qpos=qs, qvel=vs, targets=tgl, U=U.contiguous(),
             servo_s=time.perf_counter() - t0,
             launches={k: v for k, v in ops.LAUNCHES.items() if v})
-    return _PUSH_STARTS["main"]
+    return _PUSH_STARTS[key]
 
 
 def push_inputs(task, Hh, Bb, seed):
@@ -622,7 +675,7 @@ def box_start(task, Hh, Bb):
 def start_of(task, Hh, Bb):
     """The main-path start of a task with initial controls."""
     if task.residual_kind[0] == "push":
-        return push_start(task)
+        return push_start(task, Hh, Bb)
     return box_start(task, Hh, Bb)
 
 
@@ -719,6 +772,54 @@ def box_inputs(task, Hh, Bb, seed):
     k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
     K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
     return (qp0.contiguous(), qv0.contiguous(), tgl.contiguous(), U, k, K)
+
+
+def clutter_inputs(task, Hh, Bb, seed):
+    """Check inputs for a clutter task (push_lcl, push_ccl), in four
+    quarters of the lanes, every object 0.5 mm into the table but the
+    first quarter's: the scenes of the task's generator (the objects 2 mm
+    above the table, settling onto it), under N(0, 2) controls; the goal
+    and obstacles 1 and 2 in a triangle pressed 0.5 mm into each other,
+    obstacle 3 pressed into the goal; obstacles 1-3 in such a triangle
+    beside the goal; and the pusher pressed 1-4 mm into the table
+    (`pressed_arms`) with one object in turn pressed 2 mm into its lower end
+    point.  Every one of the 15 pairs touches.  Controls N(0, 0.5) beyond
+    the first quarter (no servo: the inputs need no kernel, so the twins'
+    halves run beside the build); gains as lane_inputs."""
+    m = task.model
+    bodies = ("goal", "obstacle_1", "obstacle_2", "obstacle_3")
+    qa = [m.jnt_qposadr[m.joint_names.index(b)] for b in bodies]
+    qp0, qv0, tgl = (x.T.contiguous() for x in pushing.push_scenes(
+        task, Bb, seed=seed))
+    rng = np.random.default_rng(seed + 1)
+    nu, nx = m.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    q1, q2, q3 = Bb // 4, Bb // 2, 3 * Bb // 4
+    scale = np.full(Bb, 0.5)
+    scale[:q1] = 2.0
+    U = torch.as_tensor(scale * rng.standard_normal((Hh, nu, Bb)),
+                        **f64).contiguous()
+    z = pushing.OBJECT_Z - 0.0025
+    d = 2 * pushing.OBJECT_R - 0.0005
+    tri = [(0.5, 0.0), (0.5 + d, 0.0), (0.5 + d / 2, d * math.sqrt(0.75))]
+    for a, (x, y) in zip(qa[:3], tri):
+        qp0[a, q1:q2], qp0[a + 1, q1:q2] = x, y
+    qp0[qa[3], q1:q2], qp0[qa[3] + 1, q1:q2] = 0.5 - d, 0.0
+    qp0[qa[0], q2:q3], qp0[qa[0] + 1, q2:q3] = 0.35, -0.25
+    for a, (x, y) in zip(qa[1:], tri):
+        qp0[a, q2:q3], qp0[a + 1, q2:q3] = x + 0.1, y - 0.3
+    qp0[:7, q3:] = pressed_arms(task, Bb - q3, seed)
+    e = _pusher_low_end(task, qp0[:, q3:])
+    r = float(m.geom_size[_pusher_geom(task)][0]) + pushing.OBJECT_R - 0.002
+    for i, lane in enumerate(range(q3, Bb)):
+        a = qa[i % 4]
+        qp0[a, lane] = e[0, i] + r
+        qp0[a + 1, lane] = e[1, i]
+    for a in qa:
+        qp0[a + 2, q1:] = z
+    k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
+    K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
+    return qp0, qv0, tgl, U, k, K
 
 
 def walker_inputs(task, Hh, Bb, seed):
@@ -829,17 +930,18 @@ def check_fk_bias(task, qpos, qvel):
     return out
 
 
-def check_servo(task, st, horizon):
+def check_servo(task, st, horizon, steps=SERVO_CHECK):
     """A main path's servo against its plain twin at the shape it runs (its
     lanes): fk_bias at the scenes' start and, for push_ncl, at the start
     the setup servo reached, then the first SERVO_CHECK steps of push_ncl's
     setup servo (from the scenes) and of the init servo over `horizon`
-    (from the solve's start), the kernel servo against the plain servo
+    (from the solve's start; `steps` of each, SERVO_CHECK unless given),
+    the kernel servo against the plain servo
     (`servo_along_path(plain=True)`: the twins of fk_bias and of the K3
     step); the kernel init servo must give the main path's own first
     controls.  The box tasks have no setup servo: their start is the
     scenes'."""
-    tgl, n = st["targets"], SERVO_CHECK
+    tgl, n = st["targets"], steps
     setup = task.residual_kind[0] == "push"
     starts = (("scene_qpos", "scene_qvel"),) + (
         (("qpos", "qvel"),) if setup else ())
@@ -1235,7 +1337,8 @@ def _to(x, dev):
 def check_case(name):
     """(task, inputs) of a kernel check whose twins run beside the build:
     pentabot, reaching (half its lanes at their limits) and the walker at
-    their check sizes, the box tasks at SI_1 on box_inputs."""
+    their check sizes, the box tasks at SI_1 on box_inputs, the clutter
+    tasks at SI_1 on clutter_inputs (CH, CB)."""
     if name == "pentabot":
         t = make_pentabot(device="cuda")
         return t, pentabot_inputs(t, PH, PB, seed=3)
@@ -1245,15 +1348,23 @@ def check_case(name):
     if name == "walker":
         t = make_walker(run=True, device="cuda")
         return t, walker_inputs(t, WH, WB, seed=3)
+    if name in CLUTTER:
+        t = si1(pushing.make_pushing(CLUTTER[name], device="cuda"))
+        return t, clutter_inputs(t, CH, CB, seed=3)
+    if name == "push_ncl":
+        # push_inputs, saved by the main process from its kernel servo
+        t = si1(pushing.make_pushing(device="cuda"))
+        return t, _to(torch.load(PUSH_INPUTS), "cuda")
     t = si1({"box_sweep": manipulation.make_box_sweep,
              "threeD_push": manipulation.make_threed_push}[name](
                  device="cuda"))
     return t, box_inputs(t, PH, PB, seed=3)
 
 
-# the twins beside the build, one process each (check_worker)
-CHECK_WORKERS = ("pentabot,reaching,walker", "box_sweep", "threeD_push",
-                 "box_sweep_3it")
+# the twins beside the build, one process each (check_worker), the longest
+# first
+CHECK_WORKERS = ("push_lcl", "push_ccl", "pentabot,reaching,walker",
+                 "box_sweep", "threeD_push", "box_sweep_3it")
 
 
 def check_worker(names, path):
@@ -1269,11 +1380,13 @@ def check_worker(names, path):
         for name in names.split(","):
             task, inputs = check_case(name)
             tw = twin_outputs(task, inputs)
-            if name in ("box_sweep", "threeD_push"):
-                # the box check holds K5 too (the CLI's generic solve)
+            if name in ("box_sweep", "threeD_push") or name in CLUTTER:
+                # the box and clutter checks hold K5 too (the CLI's generic
+                # solve)
                 q0, v0 = tw["rollout"][0][:2]
-                tw["fd_jacobian"] = fd_twins(task, q0, v0, inputs[3],
-                                             lanes.si_plan(task, PH).times)
+                tw["fd_jacobian"] = fd_twins(
+                    task, q0, v0, inputs[3],
+                    lanes.si_plan(task, inputs[3].shape[0]).times)
             out[name] = _to(tw, "cpu")
         torch.save(out, path)
         return
@@ -1332,24 +1445,30 @@ def golden_replay():
 
 
 def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
-                   cfg, fd_chunk=250):
+                   cfg, fd_chunk=250, steps=None):
     """Every kernel against its twin at the main path's full shape, for a
     model whose twin is too slow to roll out the whole horizon (reaching: a
-    twin step is thousands of launches).  The exact Jacobians (K5ad) and
-    the backward pass are compared whole.  The rollout and line-search
+    twin step is thousands of launches).  The cost expansion and the
+    backward pass are compared whole.  The rollout and line-search
     kernels are compared step by step: the twin's step, control law and
     cost run once over all (time, lane) pairs of the kernel's own
     trajectory, and each must give the kernel's next state, control and
-    cost; equal single steps from equal states make equal rollouts.
-    Returns (max abs err, compared err) per kernel."""
+    cost; equal single steps from equal states make equal rollouts.  With
+    `steps`, only the first `steps` steps of every lane are compared, and
+    the exact Jacobians (K5ad, launched at all slots) at the slots among
+    them; else every step and slot.  Returns (max abs err, compared err)
+    per kernel."""
     model, sv = task.model, task.sv
     Hh = U.shape[0]
+    S = steps or Hh
     out = {}
 
     def costs_of(q, v, u, tg):
-        """(nres-row residual over (n, H, ...)) -> costs (H, ...)."""
+        """(nres-row residual over (n, S, ...)) -> costs (S, ...)."""
         r = task.residual_fn(q, v, u, tg)
         run = ilqr.step_cost(task, r[:, :Hh - 1], 0, 2)
+        if r.shape[1] < Hh:
+            return run
         return torch.cat([run, ilqr.step_cost(task, r[:, Hh - 1:], 0, 1)])
 
     def worst(pairs):
@@ -1357,24 +1476,26 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
 
     # K3: time as a lane axis, (n, H, B)
     qpos, qvel, costs = ops.rollout(task, qp0, qv0, U, tgl)
-    q, v, u = (x[:Hh].transpose(0, 1) for x in (qpos, qvel, U))
+    q, v, u = (x[:S].transpose(0, 1) for x in (qpos, qvel, U))
     qn, vn = step_state(model, q, v, u)
     out["rollout"] = worst((
-        (qpos[1:], qn.transpose(0, 1)), (qvel[1:], vn.transpose(0, 1)),
-        (costs, costs_of(q, v, u, tgl[:, None, :]))))
+        (qpos[1:S + 1], qn.transpose(0, 1)),
+        (qvel[1:S + 1], vn.transpose(0, 1)),
+        (costs[:S], costs_of(q, v, u, tgl[:, None, :]))))
 
     # K4: (n, H, A, B); the control law of forward_pass_rollouts
     qps, qvs, us, cs = ops.linesearch(task, qpos, qvel, U, k, K, alphas, tgl)
-    q, v = qps[:Hh].transpose(0, 1), qvs[:Hh].transpose(0, 1)
-    dx = to_tangent(model, sv, q, v, qpos[:Hh].transpose(0, 1)[:, :, None, :],
-                    qvel[:Hh].transpose(0, 1)[:, :, None, :])
-    Kt = K.transpose(0, 1)                              # (nu, H, 2n, B)
+    qps, qvs, us, cs = qps[:S + 1], qvs[:S + 1], us[:S], cs[:S]
+    q, v = qps[:S].transpose(0, 1), qvs[:S].transpose(0, 1)
+    dx = to_tangent(model, sv, q, v, qpos[:S].transpose(0, 1)[:, :, None, :],
+                    qvel[:S].transpose(0, 1)[:, :, None, :])
+    Kt = K[:S].transpose(0, 1)                          # (nu, S, 2n, B)
     fb = Kt[:, :, 0, None, :] * dx[0]
     for j in range(1, dx.shape[0]):
         fb = fb + Kt[:, :, j, None, :] * dx[j]
     lim = control_limits(task)
-    u = (U.transpose(0, 1)[:, :, None, :] + alphas[None, None, :, None]
-         * k.transpose(0, 1)[:, :, None, :] + fb)
+    u = (U[:S].transpose(0, 1)[:, :, None, :] + alphas[None, None, :, None]
+         * k[:S].transpose(0, 1)[:, :, None, :] + fb)
     u = torch.minimum(torch.maximum(u, lim[:, 0, None, None, None]),
                       lim[:, 1, None, None, None])
     del dx, fb
@@ -1393,11 +1514,15 @@ def stepwise_check(task, qp0, qv0, tgl, U, k, K, alphas, plan, A, Bm, l, lam,
         (cs, costs_of(q, v, uk, tgl[:, None, None, :]))))
     del qps, qvs, us, cs, q, v, u, uk, qn, vn
 
-    # K5ad whole, the twin in chunks of slots (it steps 2n + nu dual copies)
+    # K5ad at every slot, the twin at the slots of the first S steps in
+    # chunks of slots (it steps 2n + nu dual copies)
     kj = ops.ad_jacobian(task, qpos, qvel, U, plan.times)
+    n_slots = int((plan.times < S).sum())
+    kj = kj[:n_slots]
     pj = torch.cat([ops.ad_jacobian(task, qpos, qvel, U,
-                                    plan.times[i:i + fd_chunk], plain=True)
-                    for i in range(0, len(plan.times), fd_chunk)])
+                                    plan.times[i:min(i + fd_chunk, n_slots)],
+                                    plain=True)
+                    for i in range(0, n_slots, fd_chunk)])
     out["ad_jacobian"] = err(kj, pj, "rel")
     out["ad_bitwise"] = bool(torch.equal(kj, pj))
     del kj, pj
@@ -1451,7 +1576,8 @@ def plain_3it(task, Hh, Bb, H3):
 def initial_nominal(task, qp0, qv0, tgl, U):
     """A main path's first iteration at its initial nominal (qp0 (nq, B),
     U (H, nu, B), lanes last): the rollout, the exact Jacobians at SI_1
-    slots, the cost expansion and the backward pass -> dict."""
+    slots, the cost expansion and the backward pass, each call's device ms
+    in "ms" -> dict."""
     Hh, Bb = U.shape[0], U.shape[-1]
     cfg = ILQRConfig()
     n = dict(cfg=cfg, plan=lanes.si_plan(task, Hh), info={},
@@ -1460,28 +1586,58 @@ def initial_nominal(task, qp0, qv0, tgl, U):
              jac=lanes.slot_jacobians(task, "ad"),
              lam=torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                             device="cuda"))
-    n["qpos"], n["qvel"], n["costs"] = ops.rollout(task, qp0, qv0, U, tgl)
-    n["A"], n["Bm"] = lanes.jacobians_si(task, n["plan"], n["qpos"],
-                                         n["qvel"], U, n["jac"])
-    n["l"] = ops.cost_expansion(task, n["qpos"], n["qvel"], U, tgl)
-    n["k"], n["K"] = ops.backward(n["A"], n["Bm"], *n["l"], n["lam"], cfg,
-                                  info=n["info"])[:2]
+    ms = n["ms"] = {}
+
+    def timed(name, fn):
+        out, ms[name] = cuda_timed(fn)
+        return out
+
+    n["qpos"], n["qvel"], n["costs"] = timed(
+        "rollout", lambda: ops.rollout(task, qp0, qv0, U, tgl))
+    n["A"], n["Bm"] = timed("jacobians", lambda: lanes.jacobians_si(
+        task, n["plan"], n["qpos"], n["qvel"], U, n["jac"]))
+    n["l"] = timed("cost_expansion", lambda: ops.cost_expansion(
+        task, n["qpos"], n["qvel"], U, tgl))
+    n["k"], n["K"] = timed("bp", lambda: ops.backward(
+        n["A"], n["Bm"], *n["l"], n["lam"], cfg, info=n["info"]))[:2]
     return n
 
 
-def hold_full_shape(task, qp0, qv0, tgl, U, n):
+def full_shape(task, Hh, Bb):
     """`--deep`: a main path's kernels against their twins at its own shape
-    on its initial nominal `n` (stepwise_check), printed and checked."""
-    Hh, Bb = U.shape[0], U.shape[-1]
+    on its initial nominal (its scenes and zero controls, or its servo's
+    start), printed and checked: stepwise_check, over the first
+    CLUTTER_STEPS steps and slots at the clutter tasks (their twins' steps
+    take seconds), and for a task with a servo fk_bias at every (time,
+    lane) state of the nominal."""
+    task = si1(task)
+    if task.init_controls_fn is None:
+        qp0, qv0, tgl = (x.T.contiguous()
+                         for x in lanes.scenes(task, Bb, seed=0))
+        U = torch.zeros((Hh, task.model.nu, Bb), dtype=torch.float64,
+                        device="cuda")
+    else:
+        st = start_of(task, Hh, Bb)
+        qp0, qv0, tgl, U = st["qpos"], st["qvel"], st["targets"], st["U"]
+    n = initial_nominal(task, qp0, qv0, tgl, U)
+    clutter = task.name in CLUTTER
     t0 = time.perf_counter()
     full = stepwise_check(task, qp0, qv0, tgl, U, n["k"], n["K"], n["alphas"],
                           n["plan"], n["A"], n["Bm"], n["l"], n["lam"],
                           n["cfg"],
                           fd_chunk=(500 if not task.model.contact_pairs else
-                                    100 if task.sv.nx > 20 else 200))
+                                    CLUTTER_CHUNK if clutter else
+                                    100 if task.sv.nx > 20 else 200),
+                          steps=CLUTTER_STEPS if clutter else None)
+    if task.init_controls_fn is not None:
+        fk = check_fk_bias(task, n["qpos"][:Hh], n["qvel"][:Hh])
+        full["fk_bias"] = fk["err"]
+        full["fk_bias_bitwise"] = fk["bitwise"]
     full["seconds"] = time.perf_counter() - t0
+    full["steps_held"] = CLUTTER_STEPS if clutter else Hh
     print(f"  {task.name} kernels vs twins at H={Hh} B={Bb} (rollout and "
-          f"line search step by step): {json.dumps(full)}", flush=True)
+          f"line search step by step, over {full['steps_held']} steps): "
+          f"{json.dumps(full)}", flush=True)
     for kname in LANE_KERNELS:
         kind, tol = TOL[kname]
         got = full[kname][1]
@@ -1491,15 +1647,6 @@ def hold_full_shape(task, qp0, qv0, tgl, U, n):
     check(full["cost_expansion_bitwise"], f"{task.name} cost_expansion "
           "at the full shape: not bit for bit")
     return full
-
-
-def box_full_shape(task):
-    """`--deep`: box_sweep's kernels against their twins at its main path's
-    shape (BH, BB) on the nominal of its init servo (hold_full_shape)."""
-    st = start_of(task, BH, BB)
-    qp0, qv0, tgl, U = st["qpos"], st["qvel"], st["targets"], st["U"]
-    return hold_full_shape(task, qp0, qv0, tgl, U,
-                           initial_nominal(task, qp0, qv0, tgl, U))
 
 
 def box_keypoints(task):
@@ -1524,17 +1671,18 @@ def box_keypoints(task):
 
 
 def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
-              plain3=None):
-    """One batched solve through the entry point with launch counts, the
-    per-phase device times at the initial nominal, and, when H3 is given,
-    3 iterations of the kernel path against the plain path on the card at
-    horizon H3 (`hold_3it`; `plain3`, that plain solve from plain_3it,
-    when it ran beside the build).  Scenes: lanes.scenes and zero controls,
-    or for a task with initial controls (pushing, the box tasks) its scene
-    generator and servo (start_of, timed).  A warm-up solve of
+              plain3=None, iters=ITERS):
+    """One batched solve of `iters` iterations through the entry point with
+    launch counts, the per-phase device times at the initial nominal, and,
+    when H3 is given, 3 iterations of the kernel path against the plain
+    path on the card at horizon H3 (`hold_3it`; `plain3`, that plain solve
+    from plain_3it, when it ran beside the build).  Scenes: lanes.scenes
+    and zero controls, or for a task with initial controls (pushing, the
+    box tasks) its scene generator and servo (start_of, timed; its first
+    SERVO_CHECKS steps held against the plain servo).  A warm-up solve of
     `warmup_iters` iterations runs first.  With `time_kernels` the kernels
-    are timed at this shape and, in `--deep`, held against their twins
-    there (hold_full_shape)."""
+    are timed at this shape (nominal_phases; `--deep` holds them against
+    their twins there, full_shape)."""
     task = si1(task)
     name = task.name
     servo = None
@@ -1559,7 +1707,7 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
                              min_iterations=warmup_iters), Hh)(qp, qv, U0,
                                                                tg)
     run = lanes.make_lane_phase_optimise(
-        task, ILQRConfig(max_iterations=ITERS, min_iterations=ITERS), Hh)
+        task, ILQRConfig(max_iterations=iters, min_iterations=iters), Hh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1586,9 +1734,26 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
           f"{name} main path launched cost_expansion "
           f"{launches['cost_expansion']} times, ad_jacobian "
           f"{launches['ad_jacobian']}")
-    servo_check = check_servo(task, st, Hh) if servo else None
+    servo_check = (check_servo(task, st, Hh,
+                               SERVO_CHECKS.get(name, SERVO_CHECK))
+                   if servo else None)
+    out = dict(mean_cost_reduction=mean_red, wall_s=wall,
+               solves_per_s=Bb / wall, launches=launches, iterations=iters,
+               iterations_mean=float(res.num_iterations.double().mean()),
+               peak_memory_bytes=peak, servo=servo, servo_check=servo_check)
+    out.update(nominal_phases(task, qp, qv, U0, tg, time_kernels))
+    torch.cuda.empty_cache()
+    if H3 is not None:
+        out.update(hold_3it(task, qp, qv, U0, tg, H3, Bb, plain3))
+    return out
 
-    # per-phase device times at the initial nominal, warm from the solve
+
+def nominal_phases(task, qp, qv, U0, tg, time_kernels):
+    """A main path's per-phase device times at its initial nominal (qp (B,
+    nq), U0 (B, H, nu)), and with `time_kernels` each kernel's alone with
+    its bound; at FROM_PHASES the phases are the nominal's own calls (one
+    each) and K4's and K5ad's times their phases' -> dict."""
+    Hh, Bb = U0.shape[1], U0.shape[0]
     s = Sizes(task)
     qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
     U = U0.permute(1, 2, 0).contiguous()
@@ -1601,39 +1766,42 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
     contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
                 else None)
     old = nom["costs"].sum(0)
-    phases = {
-        "rollout": phase_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl)),
-        "jacobians": phase_ms(lambda: lanes.jacobians_si(
-            task, plan, qpos, qvel, U, jac)),
-        "cost_expansion": phase_ms(lambda: ops.cost_expansion(
-            task, qpos, qvel, U, tgl)),
-        "bp": phase_ms(lambda: ops.backward(A, Bm, *l, lam, cfg)),
-        "fp": phase_ms(lambda: lanes.forward_pass(
-            task, qpos, qvel, U, k, K, alphas, tgl, old)),
-    }
-    out = dict(mean_cost_reduction=mean_red, wall_s=wall,
-               solves_per_s=Bb / wall, launches=launches, phases_ms=phases,
+    from_phases = task.name in FROM_PHASES
+    if from_phases:
+        # each phase's one call at the nominal is its time
+        phases = dict(nom["ms"])
+        phases["fp"] = cuda_timed(lambda: lanes.forward_pass(
+            task, qpos, qvel, U, k, K, alphas, tgl, old))[1]
+    else:
+        phases = {
+            "rollout": phase_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl)),
+            "jacobians": phase_ms(lambda: lanes.jacobians_si(
+                task, plan, qpos, qvel, U, jac)),
+            "cost_expansion": phase_ms(lambda: ops.cost_expansion(
+                task, qpos, qvel, U, tgl)),
+            "bp": phase_ms(lambda: ops.backward(A, Bm, *l, lam, cfg)),
+            "fp": phase_ms(lambda: lanes.forward_pass(
+                task, qpos, qvel, U, k, K, alphas, tgl, old)),
+        }
+    out = dict(phases_ms=phases,
                cost_expansion_bound=cost_expansion_bound(s, Hh, Bb),
-               iterations_mean=float(res.num_iterations.double().mean()),
-               peak_memory_bytes=peak,
                limit_active_lane_steps=int(active.sum()),
-               contacts=contacts, servo=servo, servo_check=servo_check,
-               bp_sweeps_first=bp_sweeps(info))
+               contacts=contacts, bp_sweeps_first=bp_sweeps(info))
     if time_kernels:
         # the four kernels alone at this path's shapes, from its nominal
         # (the rollout and bp phases above are these kernels' launches)
         out["kernel_ms"] = {
             "rollout": phases["rollout"],
-            "linesearch": phase_ms(lambda: ops.linesearch(
-                task, qpos, qvel, U, k, K, alphas, tgl)),
-            "ad_jacobian": phase_ms(lambda: ops.ad_jacobian(
-                task, qpos, qvel, U, plan.times)),
+            "linesearch": phases["fp"] if from_phases else phase_ms(
+                lambda: ops.linesearch(task, qpos, qvel, U, k, K, alphas,
+                                       tgl)),
+            "ad_jacobian": phases["jacobians"] if from_phases else phase_ms(
+                lambda: ops.ad_jacobian(task, qpos, qvel, U, plan.times)),
             "cost_expansion": phases["cost_expansion"],
             "backward": phases["bp"],
         }
-        if DEEP:
-            out["full_shape_err"] = hold_full_shape(task, qp0, qv0, tgl, U,
-                                                    nom)
+        if from_phases:
+            out["kernel_ms_note"] = PHASE_OF
         out["bounds"] = {
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
@@ -1642,10 +1810,6 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
             "backward": backward_bound(s.nx, s.nu, Hh, Bb,
                                        out["bp_sweeps_first"]),
         }
-    del A, Bm, l, k, K, nom
-    torch.cuda.empty_cache()
-    if H3 is not None:
-        out.update(hold_3it(task, qp, qv, U0, tg, H3, Bb, plain3))
     return out
 
 
@@ -1913,11 +2077,11 @@ def check_ie(label, task, qpos, qvel, U, cfg):
 def keypoints_phase(tasks, inputs):
     """K9a, K5ad at per-lane slots, K9b and K9c against their twins on the
     card at the check size (PH, PB; the walker at WH, WB) for each case of
-    KP_CASES from each model's check inputs (push_ncl from its servo), one
-    case under a forced small slot budget (overflow), and K9a, K5ad and K9b
-    at reaching's and push_ncl's full shapes from their main paths'
-    nominals.  Returns the rows by case, each with the launches of each
-    kernel in that case."""
+    KP_CASES from each model's check inputs (push_ncl from its servo), and
+    one case under a forced small slot budget (overflow); reaching's and
+    push_ncl's full shapes are held in `--deep` (keypoints_full_shapes).
+    Returns the rows by case, each with the launches of each kernel in that
+    case."""
     cfg = ILQRConfig()
     out = {}
     counted = ops.KEYPOINT_KERNELS + ("ad_jacobian",)
@@ -1948,7 +2112,16 @@ def keypoints_phase(tasks, inputs):
     out["acrobot AJ_1_50 budget 12"] = row
     print(f"  keypoints acrobot AJ_1_50 under a budget of {KP_TIGHT} slots: "
           f"{json.dumps(row)}", flush=True)
-    # full shapes: reaching's and push_ncl's main path nominals
+    return out
+
+
+def keypoints_full_shapes(tasks):
+    """`--deep`: K9a, K5ad at per-lane slots and K9b at reaching's and
+    push_ncl's full shapes, AJ_5_100 on their main paths' nominals, against
+    their twins bit for bit (check_plan; K5ad's twin in chunks of slots)."""
+    cfg = ILQRConfig()
+    counted = ops.KEYPOINT_KERNELS + ("ad_jacobian",)
+    out = {}
     for model, name, Hh, Bb, chunk in (("reaching", "adaptive_jerk", RH, RB,
                                         150),
                                        ("push_ncl", "adaptive_jerk", UH, UB,
@@ -1978,10 +2151,11 @@ def keypoints_phase(tasks, inputs):
     return out
 
 
-def adaptive_path(task, Hh, Bb, plain3):
-    """An adaptive keypoint main path: one batched solve of ITERS iterations
-    through make_lane_phase_optimise (after a one-iteration warm-up) from
-    lanes.scenes and zero controls, with launch counts, solves/s, mean cost
+def adaptive_path(task, Hh, Bb, plain3, start=None, iters=ITERS):
+    """An adaptive keypoint main path: one batched solve of `iters`
+    iterations through make_lane_phase_optimise (after a one-iteration
+    warm-up) from lanes.scenes and zero controls, or from `start` (a main
+    path's start, start_of), with launch counts, solves/s, mean cost
     reduction, mean %derivs and the largest overflow; the device ms of each
     phase at the initial nominal and of each kernel of the jacobians phase;
     with `plain3` 3 iterations of the kernel path against the path with
@@ -1989,14 +2163,19 @@ def adaptive_path(task, Hh, Bb, plain3):
     others as kernels), bit for bit."""
     name = task.name
     kp = task.keypoint_cfg
-    qp, qv, tg = lanes.scenes(task, Bb, seed=0)
-    U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
-                     device="cuda")
+    if start is None:
+        qp, qv, tg = lanes.scenes(task, Bb, seed=0)
+        U0 = torch.zeros((Bb, Hh, task.model.nu), dtype=torch.float64,
+                         device="cuda")
+    else:
+        qp, qv, tg = (start[k].T.contiguous()
+                      for k in ("qpos", "qvel", "targets"))
+        U0 = start["U"].permute(2, 0, 1).contiguous()
     lanes.make_lane_phase_optimise(
         task, ILQRConfig(max_iterations=1, min_iterations=1), Hh)(
             qp, qv, U0, tg)
     run = lanes.make_lane_phase_optimise(
-        task, ILQRConfig(max_iterations=ITERS, min_iterations=ITERS), Hh)
+        task, ILQRConfig(max_iterations=iters, min_iterations=iters), Hh)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2111,6 +2290,130 @@ def main_adaptive(tasks):
               f"{r['solves_per_s']:.2f} solves/s, mean %derivs "
               f"{r['pct_derivs_mean']:.3f}, max overflow "
               f"{r['kp_overflow_max']}: {json.dumps(r)}", flush=True)
+    return out
+
+
+def clutter_check(plain):
+    """The `clutter` phase: every push_lcl and push_ccl kernel against its
+    twin at the check size (CH, CB) on clutter_inputs, bit for bit but K7
+    (within TOL["backward"], its λ and λ-exit exactly): K3, K4, K5ad in its
+    three slot modes, K6, K7 and fk_bias (check_kernels), K5 (check_fd), the
+    twins from beside the build (`plain`), and K9a, K5ad at the plan's
+    per-lane slots and K9b at the task's own method, AJ_1_100
+    (check_plan, the twins here) -> rows by instance name."""
+    rows = {}
+    cfg = ILQRConfig()
+    for name, level in CLUTTER.items():
+        t1, inputs = check_case(name)
+        pw = plain[name]
+        r = rows[name] = check_kernels(t1, CH, CB, time_them=True,
+                                       inputs=inputs, plain=pw, exact=True)
+        q0, v0, _ = ops.rollout(t1, *inputs[:2], inputs[3], inputs[2])
+        r["fd_jacobian"] = check_fd(t1, q0, v0, inputs[3],
+                                    lanes.si_plan(t1, CH).times,
+                                    plain=pw["fd_jacobian"])
+        own = pushing.make_pushing(level, device="cuda")
+        kc = own.keypoint_cfg
+        label = f"{name} {method_tag(kc.name, kc.min_N, kc.max_N)}"
+        ops.reset_launch_counts()
+        kp = r["keypoints"] = check_plan(label, own, q0, v0, inputs[3],
+                                         lanes.kp_budget(cfg, own, CH), cfg)
+        kp["launches"] = {k: ops.LAUNCHES[k] for k in KP_TWINS}
+        print(f"  keypoints {label} (H={CH}, B={CB}): {json.dumps(kp)}",
+              flush=True)
+    return rows
+
+
+def clutter_adaptive(task):
+    """`--deep`: push_lcl with its campaign method AJ_5_100 at UH, UB from
+    its servos' start (3 iterations, adaptive_path)."""
+    t0 = time.perf_counter()
+    aj = with_method(si1(task), "adaptive_jerk", 5, 100)
+    a = adaptive_path(aj, UH, UB, None, start=start_of(aj, UH, UB), iters=3)
+    a["seconds"] = time.perf_counter() - t0
+    print(f"main path push_lcl AJ_5_100 H={UH} B={UB} x3 it: "
+          f"{json.dumps(a)}", flush=True)
+    return a
+
+
+# at FROM_PHASES, what the `ms` of K4 and K5ad is (nominal_phases)
+PHASE_OF = {"linesearch": "the fp phase's one call at the initial nominal "
+                          "(K4, then the argmin and accept)",
+            "ad_jacobian": "the jacobians phase's one call at the initial "
+                           "nominal (K5ad at SI_1 slots, then the lerp)"}
+
+
+def clutter_entries(crows, cmp, counts, runs):
+    """The clutter tasks' entries of the `kernels` line: push_lcl's at its
+    main path's shape (ms, bounds and launches of main_clutter's solve;
+    errors and twins' ms from the clutter check), its K5, K9a and K9b
+    launched by the CLI run (ms at the check), fk_bias from the main path's
+    servo; push_ccl's at the check size, launched by its CLI run."""
+    cli = {k: (runs[k][1] or {}).get("launches", {})
+           for k in ("push_lcl", "push_ccl")}
+    out = []
+    for model, launches, ms, bounds, shape in (
+            ("push_lcl", cmp["launches"], cmp["kernel_ms"], cmp["bounds"],
+             f"H={UH} B={UB}"),
+            ("push_ccl", cli["push_ccl"], None, None, None)):
+        rows = crows[model]
+        es = kernel_entries(model, rows, launches, counts[model], ms, bounds,
+                            shape, f"H={CH} B={CB}")
+        for e in es:
+            e["bitwise"] = rows[e["name"]].get("bitwise")
+            if model == "push_lcl" and e["name"] in PHASE_OF:
+                e["ms_is"] = PHASE_OF[e["name"]]
+            if e["name"] == "fd_jacobian":
+                fd = rows["fd_jacobian"]
+                e.update(launches=cli[model].get("fd_jacobian", 0),
+                         launched_by="the CLI's Optimise_once (generic "
+                         f"solve, B = 1, H = {CLI_CLUTTER_H}, AJ_1_100, "
+                         "deriv_mode fd)", ms=fd["ms"],
+                         bound_ms=fd["bound"][0], bound_by=fd["bound"][1],
+                         shape=f"H={CH} B={CB}, SI_1 slots (check)")
+            elif model == "push_ccl":
+                e.update(shape=f"H={CH} B={CB} (check)",
+                         launched_by="the CLI's Optimise_once (generic solve,"
+                         f" B = 1, H = {CLI_CLUTTER_H}, AJ_1_100)"
+                         if e["launches"] else "the clutter check alone")
+        out += es
+        kp = rows["keypoints"]
+        for name in ("keypoint_plan", "kp_interp"):
+            r = kp[name]
+            out.append({
+                "name": name, "model": model, "route": "cuda",
+                "source": "trajoptkp_tpu_torch/kernels/csrc/"
+                          f"{ops.SOURCES.get(name, name)}.cu",
+                "replaces": ops.REPLACES[name],
+                "launches": cli[model].get(name, 0),
+                "launched_by": "the CLI's Optimise_once (generic solve, "
+                               "B = 1, AJ_1_100)",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": None,
+                "tolerance": "bit for bit", "bitwise": r["bitwise"],
+                "shape": f"{kp['shape']}, AJ_1_100 on the check's nominal, "
+                         f"K_max {kp['K_max']}, {kp['live_slots']} live "
+                         "slots"})
+    sc = cmp["servo_check"]
+    fk, wide = sc["fk_bias"][0], crows["push_lcl"]["fk_bias"]
+    out.append({
+        "name": "fk_bias", "model": "push_lcl", "route": "cuda",
+        "source": "trajoptkp_tpu_torch/kernels/csrc/rollout.cu",
+        "device_function": "trajoptkp_tpu_torch/kernels/csrc/step.cuh",
+        "replaces": "trajoptkp_tpu/tasks/pushing.py:421",
+        "launches": cmp["servo"]["launches"].get("fk_bias", 0),
+        "launched_by": f"the setup and init servo of the main path "
+                       f"({pushing.SETUP_STEPS} + {UH} steps)",
+        "max_abs_err": max(f["err"][0] for f in sc["fk_bias"] + [wide]),
+        "ms": fk["ms"], "plain_ms": fk["plain_ms"],
+        "bound_ms": fk["bound"][0], "bound_by": fk["bound"][1],
+        "library_ms": None, "tolerance": fk["tol"],
+        "shape": f"{fk['lanes']} lanes",
+        "bitwise": all(f["bitwise"] for f in sc["fk_bias"] + [wide]),
+        "servo_vs_plain_servo": {
+            k: dict(steps=sc["steps"], max_abs_err=sc[k]["err"][0],
+                    bitwise=sc[k]["bitwise"]) for k in ("setup", "init")}})
     return out
 
 
@@ -2307,10 +2610,10 @@ def walker_hold_b128(task, cfg):
     return {k: dict(bitwise=v[0], max_abs_err=v[1]) for k, v in held.items()}
 
 
-def main_mpc(task):
+def main_mpc(task, n_replans=N_REPLANS):
     """The walker MPC main path: walker_run SI_1 (the task's own keypoints)
     at its MPC horizon, one iteration and one applied control per replan,
-    N_REPLANS replans, through the campaign entry point
+    `n_replans` replans, through the campaign entry point
     (bench/campaigns.py:sync_mpc_horizon_sweep, mpc/sync.py's host-timed
     lane executor), with launch counts: one episode at H = MH (the main
     path), the sweep's other horizons, and MB episodes at MH.  Then the
@@ -2323,36 +2626,36 @@ def main_mpc(task):
     out = {}
     os.makedirs(MPC_OUT, exist_ok=True)
     ops.reset_launch_counts()
-    row = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=N_REPLANS,
+    row = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=n_replans,
                                  out_dir=os.path.join(MPC_OUT, "b1_h40"))[0]
     launches = dict(ops.LAUNCHES)
     out["main"] = dict(row=row, launches=launches)
     for kname in LANE_KERNELS + ops.MPC_KERNELS:
-        want = N_REPLANS * bp_launches(kname, cfg)
+        want = n_replans * bp_launches(kname, cfg)
         check(launches[kname] == want,
               f"walker MPC main path launched {kname} {launches[kname]} "
-              f"times, not {want} ({N_REPLANS} replans)")
+              f"times, not {want} ({n_replans} replans)")
     out["sweep"] = [row] + sync_mpc_horizon_sweep(
-        task, cfg, [h for h in SWEEP if h != MH], n_replans=N_REPLANS,
+        task, cfg, [h for h in SWEEP if h != MH], n_replans=n_replans,
         out_dir=os.path.join(MPC_OUT, "sweep"))
     ops.reset_launch_counts()
-    row_b = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=N_REPLANS,
+    row_b = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=n_replans,
                                    B=MB, out_dir=os.path.join(MPC_OUT,
                                                               "b128_h40"))[0]
     out["batched"] = dict(row=row_b, launches=dict(ops.LAUNCHES))
     for kname in LANE_KERNELS + ops.MPC_KERNELS:
         got = out["batched"]["launches"][kname]
-        want = N_REPLANS * bp_launches(kname, cfg)
+        want = n_replans * bp_launches(kname, cfg)
         check(got == want,
               f"walker MPC at B={MB} launched {kname} {got} times, not "
-              f"{want} ({N_REPLANS} replans)")
+              f"{want} ({n_replans} replans)")
     for r in out["sweep"] + [row_b]:
         check(all(math.isfinite(r[k]) for k in ("median_opt_time_ms",
                                                 "p95_opt_time_ms",
                                                 "mean_running_cost")),
               f"walker MPC H={r['horizon']} B={r['B']}: non-finite row {r}")
         print(f"  walker_run sync MPC H={r['horizon']} B={r['B']}: "
-              f"{N_REPLANS} replans, ms per replan median "
+              f"{n_replans} replans, ms per replan median "
               f"{r['median_opt_time_ms']:.3f} p95 {r['p95_opt_time_ms']:.3f} "
               f"(mean {r['opt_time_ms']:.3f}), episode replans/s "
               f"{r['episode_replans_per_s']:.1f}, mean running cost "
@@ -2486,9 +2789,9 @@ def async_launches(name, launches, steps, replans, holds):
               f"{n} ({steps} actor steps, {replans} replans, {holds} holds)")
 
 
-def main_async(push, walk):
+def main_async(push, walk, n_scenes=ASYNC_PUSH_SCENES):
     """Asynchronous MPC on the card, float64, real time: push_ncl SI_1 over
-    ASYNC_PUSH_SCENES scenes of the async campaign's generator, 500 steps
+    `n_scenes` scenes of the async campaign's generator, 500 steps
     each at 125 Hz, through `async_mpc_campaign`, and one walker_run
     episode of 2000 steps at 200 Hz as MPC_until_completion runs it, with
     exact launch counts (`async_launches`); first the holds of
@@ -2499,7 +2802,7 @@ def main_async(push, walk):
     run)."""
     cfg = ILQRConfig()
     push1 = si1(push)
-    scenes = async_scenes(push1, ASYNC_PUSH_SCENES)
+    scenes = async_scenes(push1, n_scenes)
     out = {"hold_push_ncl": async_hold(push1, scenes[0]),
            "hold_walker": async_hold(walk, walk.qpos_start.cpu().numpy())}
     # device ms of each phase of one push_ncl planner step (B = 1) from the
@@ -2591,7 +2894,8 @@ def main_async(push, walk):
 
 
 def report_main(name, Hh, Bb, mp):
-    print(f"main path {name} SI_1 H={Hh} B={Bb} x{ITERS} it: mean cost "
+    print(f"main path {name} SI_1 H={Hh} B={Bb} x{mp['iterations']} it: "
+          f"mean cost "
           f"reduction {mp['mean_cost_reduction']:.4f}, {mp['solves_per_s']:.1f}"
           f" solves/s ({mp['wall_s']:.3f} s), phases ms "
           f"{json.dumps({k: round(v, 3) for k, v in mp['phases_ms'].items()})}"
@@ -2652,6 +2956,14 @@ def cli_runs(beside=None):
                       "--maxIter", "3", "--minIter", "3"],
         "threeD_push": ["--task", "threeD_push", "--runMode",
                         "Optimise_once", "--maxIter", "3", "--minIter", "3"],
+        # the clutter tasks at CLI_CLUTTER_H with their own method,
+        # AJ_1_100
+        "push_lcl": ["--task", "pushing_low_clutter", "--runMode",
+                     "Optimise_once", "--horizon", str(CLI_CLUTTER_H),
+                     "--maxIter", "3", "--minIter", "3"],
+        "push_ccl": ["--task", "pushing_moderate_clutter_constrained",
+                     "--runMode", "Optimise_once", "--horizon",
+                     str(CLI_CLUTTER_H), "--maxIter", "3", "--minIter", "3"],
         "mpc": ["--task", "walker_run", "--runMode",
                 "Generate_syncronus_mpc_data", "--horizon", str(MH),
                 "--out_dir", os.path.join(MPC_OUT, "cli")],
@@ -2675,16 +2987,18 @@ def cli_runs(beside=None):
     own = {"acrobot": "velocity_change", "acrobot_ie": "iterative_error",
            "acrobot_ad": "velocity_change",
            "reaching": "velocity_change", "push": "adaptive_jerk",
-           "box_sweep": "adaptive_jerk", "threeD_push": "set_interval"}
+           "box_sweep": "adaptive_jerk", "threeD_push": "set_interval",
+           "push_lcl": "adaptive_jerk", "push_ccl": "adaptive_jerk"}
     for k, method in own.items():
         res = out[k][1]
         if res is None:
             continue
-        if k == "box_sweep":
-            # from the task's own start the first backward pass sends every
-            # λ to its cap, which ends the generic solve with the initial
-            # controls (λ-exit): the JAX CLI's solve does the same
-            # (tests/test_torch_box.py, H = 15; PERF.md §6)
+        if k in ("box_sweep", "push_lcl", "push_ccl"):
+            # box_sweep: from the task's own start the first backward pass
+            # sends every λ to its cap, which ends the generic solve with
+            # the initial controls (λ-exit): the JAX CLI's solve does the
+            # same (tests/test_torch_box.py, H = 15; PERF.md §6); the
+            # clutter runs are held to a finite cost that does not rise
             check(math.isfinite(res["final_cost"])
                   and 0.0 <= res["cost_reduction"] < 1.0
                   and res["keypoint_method"] == method
@@ -2699,7 +3013,8 @@ def cli_runs(beside=None):
     # at ad
     for k, jac in (("acrobot", "fd_jacobian"), ("acrobot_ad", "ad_jacobian"),
                    ("box_sweep", "fd_jacobian"),
-                   ("threeD_push", "fd_jacobian")):
+                   ("threeD_push", "fd_jacobian"),
+                   ("push_lcl", "fd_jacobian"), ("push_ccl", "fd_jacobian")):
         res = out[k][1]
         if res is not None:
             other = ({"fd_jacobian", "ad_jacobian"} - {jac}).pop()
@@ -2709,14 +3024,18 @@ def cli_runs(beside=None):
                                             else "fd"),
                   f"CLI {k}: deriv_mode {res['deriv_mode']}, launches "
                   f"{res['launches']}")
-    res = out["box_sweep"][1]
-    if res is not None:
-        # AJ_1_1000 on the generic path: K9a's plan, K5 at per-lane slots,
-        # K9b's lerp; the servo's fk_bias
-        check(all(res["launches"].get(k, 0) > 0 for k in (
-            "keypoint_plan", "kp_interp", "fd_jacobian", "fk_bias", "rollout",
-            "cost_expansion", "backward")),
-              f"CLI box_sweep: launches {res['launches']}")
+    for k in ("box_sweep", "push_lcl", "push_ccl"):
+        res = out[k][1]
+        if res is not None:
+            # AJ_1_1000 (box_sweep) and AJ_1_100 (the clutter tasks) on the
+            # generic path: K9a's plan, K5 at per-lane slots, K9b's lerp;
+            # the servo's fk_bias
+            check(all(res["launches"].get(kn, 0) > 0 for kn in (
+                "keypoint_plan", "kp_interp", "fd_jacobian", "fk_bias",
+                "rollout", "cost_expansion", "backward")),
+                  f"CLI {k}: launches {res['launches']}")
+            if k != "box_sweep":
+                check(res["horizon"] == CLI_CLUTTER_H, f"CLI {k}: {res}")
     if out["mpc"][1] is not None:
         (row,) = out["mpc"][1]["rows"]
         check(row["horizon"] == MH and row["timing"].startswith("cuda")
@@ -2932,7 +3251,7 @@ def keypoint_entries(kps, amp):
         f"launches it {ie['launches'].get('ie_mse', 0)} times at H={H} B={B}",
         phase_check=c["phase"]))
     for model, tag in (("pentabot", "pentabot AA_1_10"),
-                       ("push_ncl", "push_ncl AJ_5_100 full shape"),
+                       ("push_ncl", "push_ncl AJ_5_100"),
                        ("walker", "walker VC_1_20")):
         c = kps[tag]
         for name in ("keypoint_plan", "kp_interp"):
@@ -2945,14 +3264,15 @@ def keypoint_entries(kps, amp):
     return out
 
 
-def build_beside(beside=None, worker=None):
-    """Build every kernel library in a thread while `beside()` runs the
-    plain halves that launch no kernel, and wait for the plain MPC worker
-    process `worker` (stopped if it has not ended) -> (build seconds,
-    nvcc logs, beside()'s result, the worker's result)."""
+def build_beside(beside=None, worker=None, lazy=False):
+    """Build every kernel library (with `lazy`, build.LAZY's too) in a
+    thread while `beside()` runs the plain halves that launch no kernel,
+    and wait for the plain MPC worker process `worker` (stopped if it has
+    not ended) -> (build seconds, nvcc logs, beside()'s result, the
+    worker's result)."""
     built = {}
     build_thread = threading.Thread(
-        target=lambda: built.update(out=build.build_all_timed()))
+        target=lambda: built.update(out=build.build_all_timed(lazy)))
     plain = worked = None
     try:
         build_thread.start()
@@ -2973,8 +3293,8 @@ def build_beside(beside=None, worker=None):
     if "out" not in built:
         raise RuntimeError("the kernel build failed (its error is above)")
     build_s, logs = built["out"]
-    print(f"kernel build: {build_s:.1f} s ({len(build.libraries())} nvcc in "
-          "parallel, one per library and instance)", flush=True)
+    print(f"kernel build: {build_s:.1f} s ({len(build.libraries(lazy))} "
+          "nvcc in parallel, one per library and instance)", flush=True)
     for name, text in logs.items():
         for ln in text.splitlines():
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
@@ -2983,62 +3303,130 @@ def build_beside(beside=None, worker=None):
     return build_s, logs, plain, worked
 
 
-def deep(card):
-    """`--deep`: the deep agreement holds of the earlier slices, a job of
+def nvcc_table(logs):
+    """Per library of the build logs: the seconds until its nvcc was done
+    (the compilers run side by side), and the largest registers, stack
+    frame and spill stores ptxas reported for its kernels."""
+    out = {}
+    for name, text in logs.items():
+        row = dict(s=None, registers=0, stack=0, spill_stores=0)
+        for ln in text.splitlines():
+            m = re.search(r"done after ([0-9.]+) s", ln)
+            if m:
+                row["s"] = float(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                row["registers"] = max(row["registers"], int(m.group(1)))
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                          ln)
+            if m:
+                row["stack"] = max(row["stack"], int(m.group(1)))
+                row["spill_stores"] = max(row["spill_stores"],
+                                          int(m.group(2)))
+        out[name] = row
+    return out
+
+
+# the jobs of `--deep` (its --phases), in the order they run
+DEEP_PHASES = ("main_paths", "full_shapes", "clutter_full_shape",
+               "keypoints", "mpc", "async")
+
+
+def deep(card, phases):
+    """`--deep`: the deep agreement holds and the full depths, a job of
     their own (the default run keeps every kernel against its twin at every
-    model and every main path): the acrobot, reaching and push_ncl main
-    paths again with 3 iterations of the kernel path against the plain path
-    (acrobot H=500 B=512, reaching H=RH3 B=PB, push_ncl from its servo
-    H=UH3 B=PB), reaching's, push_ncl's and box_sweep's kernels against
-    their twins at their main paths' shapes (hold_full_shape; box_sweep's
-    3 iterations run in the default job), acrobot VC_1_200's 3 iterations
-    against the whole plain path, the walker's first MPC_PLAIN_REPLANS MPC
-    replans and 6 acrobot replans, kernel against plain, and each kernel
-    phase of the walker's first replan of MB episodes against its twin.
-    The plain halves of acrobot's and reaching's solves and of the MPC
-    holds run beside the build, the walker's in a process of its own.
-    Prints a `record` line and no result line; exits 1 if a check
-    failed."""
+    model and every main path), in the `phases` of DEEP_PHASES:
+
+    - main_paths: the acrobot, reaching, push_ncl, box_sweep and push_lcl
+      main paths at ITERS iterations, with 3 iterations of the kernel path
+      against the plain path (acrobot H=500 B=512, reaching H=RH3,
+      push_ncl H=UH3 and push_lcl H=CH3 at B=PB; box_sweep's 3 iterations
+      run in the default job);
+    - full_shapes: reaching's, push_ncl's and box_sweep's kernels against
+      their twins at their main paths' shapes (full_shape);
+    - clutter_full_shape: push_lcl's, over its first CLUTTER_STEPS steps
+      and slots but K6, K7 and fk_bias whole;
+    - keypoints: the keypoint kernels at reaching's and push_ncl's full
+      shapes, push_lcl AJ_5_100, acrobot VC_1_200's 3 iterations against
+      the whole plain path;
+    - mpc: the walker's sync MPC sweep at DEEP_REPLANS replans (main_mpc),
+      its first MPC_PLAIN_REPLANS replans and 6 acrobot replans against
+      the plain path, and each kernel phase of the walker's first replan
+      of MB episodes against its twin;
+    - async: main_async over DEEP_PUSH_SCENES scenes, with its hold of the
+      push_ncl planner step.
+
+    The build compiles the libraries the default run leaves to their first
+    launch too (build.LAZY).  The plain halves of acrobot's and reaching's
+    3-iteration solves and of the MPC holds run beside the build, the
+    walker's in a process of its own.  Prints a `record` line and no result
+    line; exits 1 if a check failed."""
     t_start = time.perf_counter()
     acro = make_acrobot(device="cuda")
     reach = make_reaching(device="cuda")
     push = pushing.make_pushing(device="cuda")
     walk = make_walker(run=True, device="cuda")
+    box = manipulation.make_box_sweep(device="cuda")
+    lcl = pushing.make_pushing(3, device="cuda")
 
     def beside():
-        runs = plain_mpc_runs(walk, acro)
+        runs = plain_mpc_runs(walk, acro) if "mpc" in phases else {}
         plain3 = {}
         for task, Hh, Bb, H3 in ((acro, H, B, H), (reach, RH, RB, RH3)):
+            if "main_paths" not in phases:
+                break
             plain3[task.name] = plain_3it(task, Hh, Bb, H3)
             print(f"plain 3-iteration {task.name} solve beside the build: "
                   f"{plain3[task.name][1]:.1f} s", flush=True)
         return runs, plain3
 
-    build_s, _, (runs, plain3), worked = build_beside(
-        beside, start_plain_mpc_worker())
-    runs[walk.name] = worked
-    record = {"card": card, "build_s": build_s, "deep": {}}
-    for task, Hh, Bb, H3 in ((acro, H, B, H), (reach, RH, RB, RH3),
-                             (push, UH, UB, UH3)):
+    build_s, logs, (runs, plain3), worked = build_beside(
+        beside, start_plain_mpc_worker() if "mpc" in phases else None,
+        lazy=True)
+    if "mpc" in phases:
+        runs[walk.name] = worked
+    record = {"card": card, "build_s": build_s, "nvcc": nvcc_table(logs),
+              "deep": {}}
+    rec = record["deep"]
+
+    def timed(key, fn):
         t0 = time.perf_counter()
-        m = record["deep"][task.name] = main_path(
-            task, Hh, Bb, H3, task is not acro, 1,
-            plain3=plain3.get(task.name))
-        report_main(task.name, Hh, Bb, m)
-        m["seconds"] = time.perf_counter() - t0
-    # box_sweep's 3 iterations run in the default job; its full shape here
-    t0 = time.perf_counter()
-    box = si1(manipulation.make_box_sweep(device="cuda"))
-    record["deep"]["box_sweep"] = {"full_shape_err": box_full_shape(box)}
-    record["deep"]["box_sweep"]["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    vc = with_method(acro, "velocity_change", 1, 200)
-    record["deep"]["acrobot VC_1_200"] = adaptive_path(vc, H, B, True)
-    record["deep"]["acrobot VC_1_200"]["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    record["deep"]["mpc"] = mpc_holds(walk, acro, runs)
-    record["deep"]["mpc"]["held_b128"] = walker_hold_b128(walk, ILQRConfig())
-    record["deep"]["mpc"]["seconds"] = time.perf_counter() - t0
+        r = rec[key] = fn()
+        r["seconds"] = time.perf_counter() - t0
+        return r
+
+    if "main_paths" in phases:
+        for task, Hh, Bb, H3 in ((acro, H, B, H), (reach, RH, RB, RH3),
+                                 (push, UH, UB, UH3), (box, BH, BB, None),
+                                 (lcl, UH, UB, CH3)):
+            m = timed(task.name, lambda: main_path(
+                task, Hh, Bb, H3, task is not acro,
+                0 if task is lcl else 1, plain3=plain3.get(task.name)))
+            report_main(task.name, Hh, Bb, m)
+    for phase, task, Hh, Bb in (("full_shapes", reach, RH, RB),
+                                ("full_shapes", push, UH, UB),
+                                ("full_shapes", box, BH, BB),
+                                ("clutter_full_shape", lcl, UH, UB)):
+        if phase in phases:
+            timed(f"{task.name} full shape",
+                  lambda: full_shape(task, Hh, Bb))
+    if "keypoints" in phases:
+        rec["keypoints_full_shapes"] = keypoints_full_shapes(
+            {"reaching": reach, "push_ncl": push})
+        rec["push_lcl AJ_5_100"] = clutter_adaptive(lcl)
+        vc = with_method(acro, "velocity_change", 1, 200)
+        timed("acrobot VC_1_200", lambda: adaptive_path(vc, H, B, True))
+    if "mpc" in phases:
+        timed("main_mpc", lambda: main_mpc(walk, DEEP_REPLANS))
+        timed("mpc", lambda: dict(mpc_holds(walk, acro, runs),
+                                  held_b128=walker_hold_b128(
+                                      walk, ILQRConfig())))
+    if "async" in phases:
+        t0 = time.perf_counter()
+        rec["main_async"], hold_push = main_async(push, walk,
+                                                  DEEP_PUSH_SCENES)
+        hold_push()
+        rec["main_async"]["seconds"] = time.perf_counter() - t0
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke --deep: {record['seconds']:.1f} s in all (nvcc "
           f"{build_s:.1f} s)", flush=True)
@@ -3049,7 +3437,8 @@ def deep(card):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--phases", help="a subset of PHASES (with --deep, of "
+                    "DEEP_PHASES); all by default")
     ap.add_argument("--deep", action="store_true",
                     help="the deep agreement holds alone (see `deep`)")
     ap.add_argument("--plain-mpc-worker", metavar="PATH",
@@ -3057,10 +3446,11 @@ def main():
     ap.add_argument("--plain-check-worker", nargs=2,
                     metavar=("NAMES", "PATH"), help=argparse.SUPPRESS)
     args = ap.parse_args()
-    phases = args.phases.split(",")
-    unknown = [p for p in phases if p not in PHASES]
+    known = DEEP_PHASES if args.deep else PHASES
+    phases = args.phases.split(",") if args.phases else list(known)
+    unknown = [p for p in phases if p not in known]
     if unknown:
-        raise SystemExit(f"unknown phases {unknown}; known: {PHASES}")
+        raise SystemExit(f"unknown phases {unknown}; known: {known}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
@@ -3071,11 +3461,9 @@ def main():
         check_worker(*args.plain_check_worker)
         return
     if args.deep:
-        global DEEP
-        DEEP = True
         card = card_line()
         print(f"card: {card}", flush=True)
-        deep(card)
+        deep(card, phases)
         return
     t_start = time.perf_counter()
     phase_s = {}
@@ -3099,6 +3487,7 @@ def main():
     walk = make_walker(run=True, device="cuda")
     box = manipulation.make_box_sweep(device="cuda")
     tdp = manipulation.make_threed_push(device="cuda")
+    lcl = pushing.make_pushing(3, device="cuda")
 
     # the kernels build while the plain halves of the gated checks run in
     # processes of their own: host-bound twin launches that need no kernel
@@ -3124,7 +3513,8 @@ def main():
           flush=True)
     done("build")
 
-    record = {"card": card, "build_s": build_s, "phase_s": phase_s}
+    record = {"card": card, "build_s": build_s, "phase_s": phase_s,
+              "nvcc": nvcc_table(logs)}
     rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
         rows = check_kernels(acro, H, B, time_them=True)
@@ -3151,12 +3541,15 @@ def main():
             k: {kk: vv for kk, vv in v.items() if kk != "bound"}
             for k, v in rrow.items()}
         done("reaching")
+    push_worker = None
     if "push" in phases:
-        urow = check_kernels(push, PH, PB, time_them=True,
-                             inputs=push_inputs(si1(push), PH, PB, seed=3))
-        record["push_check"] = {
-            k: {kk: vv for kk, vv in v.items() if kk != "bound"}
-            for k, v in urow.items()}
+        # the check's inputs start from the kernel servo: its twins run in
+        # a process of their own beside the later phases (check_worker),
+        # and the check itself before the CLI phase
+        torch.save(_to(push_inputs(si1(push), PH, PB, seed=3), "cpu"),
+                   PUSH_INPUTS)
+        push_worker = start_worker("--plain-check-worker", "plain_push.pt",
+                                   "push_ncl")
         done("push")
     if "walker" in phases:
         inputs = check_case("walker")[1]
@@ -3186,12 +3579,22 @@ def main():
             t: {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                 for k, v in r.items()} for t, r in brows.items()}
         done("box")
+    crows = {}
+    if "clutter" in phases:
+        crows = clutter_check(plain)
+        record["clutter_check"] = {
+            t: {k: ({kk: vv for kk, vv in v.items() if kk != "bound"}
+                    if isinstance(v, dict) else v) for k, v in r.items()}
+            for t, r in crows.items()}
+        done("clutter")
     for name in ops.KERNELS + ops.MPC_KERNELS:
         for model, r in (("acrobot", rows), ("pentabot", prow),
                          ("reaching", rrow), ("push_ncl", urow),
                          ("walker", wrow),
                          ("box_sweep", brows.get("box_sweep")),
-                         ("threeD_push", brows.get("threeD_push"))):
+                         ("threeD_push", brows.get("threeD_push")),
+                         ("push_lcl", crows.get("push_lcl")),
+                         ("push_ccl", crows.get("push_ccl"))):
             if r and name not in r:
                 continue
             if r:
@@ -3225,24 +3628,27 @@ def main():
         mp = record["main_path"] = main_path(acro, H, B, None, False)
         report_main("acrobot", H, B, mp)
         done("main_acrobot")
-    bmp = None
+    bmp = cmp = None
     for phase, task, Hh, Bb, H3, key in (
             ("main_reaching", reach, RH, RB, None, "main_path_reaching"),
             ("main_push", push, UH, UB, None, "main_path_push"),
-            ("main_box_sweep", box, BH, BB, BH3, "main_path_box_sweep")):
+            ("main_box_sweep", box, BH, BB, BH3, "main_path_box_sweep"),
+            ("main_clutter", lcl, UH, UB, None, "main_path_clutter")):
         if phase not in phases:
             continue
-        # push_ncl's warm-up is one iteration and box_sweep's none (its
-        # libraries ran in the box phase): their kernels ran in the checks
+        # reaching's and push_ncl's warm-up is one iteration, box_sweep's
+        # and push_lcl's none (their libraries ran in the box and clutter
+        # phases, and a push_lcl iteration takes ~34 s): their kernels ran
+        # in the checks
         plain3 = None
         if task is box:
             r, secs, U3 = plain["box_sweep_3it"]
             plain3 = (lanes.LaneBatchResult(*r), secs, U3)
-        # the full-shape holds (hold_full_shape) run in `--deep`
+        # the full-shape holds (full_shape) run in `--deep`
         m = record[key] = main_path(task, Hh, Bb, H3, True,
-                                    ITERS if task is reach else
-                                    (1 if task is push else 0),
-                                    plain3=plain3)
+                                    0 if task in (box, lcl) else 1,
+                                    plain3=plain3,
+                                    iters=MAIN_ITERS.get(task.name, ITERS))
         report_main(task.name, Hh, Bb, m)
         print(f"  {task.name} kernels at H={Hh} B={Bb}: ms "
               f"{json.dumps({k: round(v, 3) for k, v in m['kernel_ms'].items()})}"
@@ -3253,9 +3659,11 @@ def main():
             rmp = m
         elif phase == "main_push":
             ump = m
-        else:
+        elif phase == "main_box_sweep":
             bmp = m
             m["keypoints"] = box_keypoints(task)
+        else:
+            cmp = m
         done(phase)
     wmp = None
     if "main_mpc" in phases:
@@ -3268,6 +3676,26 @@ def main():
             {"acrobot": acro, "reaching": reach})
         done("main_adaptive")
 
+    if push_worker is not None:
+        t0 = time.perf_counter()
+        try:
+            pw = _to(finish_worker(push_worker), "cuda")["push_ncl"]
+        finally:
+            if push_worker[0].poll() is None:
+                push_worker[0].kill()
+                push_worker[0].wait()
+        print(f"plain half of the push check in a process of its own: "
+              f"waited {time.perf_counter() - t0:.1f} s", flush=True)
+        urow = check_kernels(push, PH, PB, time_them=True,
+                             inputs=_to(torch.load(PUSH_INPUTS), "cuda"),
+                             plain=pw)
+        record["push_check"] = {
+            k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+            for k, v in urow.items()}
+        for name in LANE_KERNELS:
+            print(f"check {name}: push_ncl {urow[name]['tol']} err "
+                  f"{urow[name]['err'][1]:.3e}", flush=True)
+        done("push_check")
     hold_push = None
     if "main_async" in phases:
         record["main_async"], hold_push = main_async(push, walk)
@@ -3290,7 +3718,10 @@ def main():
 
     sizes = {"acrobot": Sizes(acro), "reaching": Sizes(si1(reach)),
              "push_ncl": Sizes(si1(push)), "walker": Sizes(walk),
-             "box_sweep": Sizes(si1(box)), "threeD_push": Sizes(si1(tdp))}
+             "box_sweep": Sizes(si1(box)), "threeD_push": Sizes(si1(tdp)),
+             "push_lcl": Sizes(si1(lcl)),
+             "push_ccl": Sizes(si1(pushing.make_pushing("constrained",
+                                                        device="cuda")))}
     # per step: the whole step, and the parts of the constraint solve and
     # the contact rows in it
     counts = record["ops_per_step"] = {
@@ -3303,7 +3734,8 @@ def main():
                # least time of one lane's step at the card's FP64 peak
                "step_bound_ns": step_ops(s) / F64_OPS_PER_S * 1e9}
         for name, s in sizes.items()}
-    for name in ("push_ncl", "box_sweep", "threeD_push"):
+    for name in ("push_ncl", "box_sweep", "threeD_push", "push_lcl",
+                 "push_ccl"):
         counts[name]["fk_bias"] = fk_bias_ops(sizes[name])
         counts[name]["fk"] = fk_ops(sizes[name])
     kernels = (kernel_entries("acrobot", rows, mp["launches"],
@@ -3321,7 +3753,8 @@ def main():
                                 wmp["bounds_b1"],
                                 f"H={MH} B=1, {N_REPLANS} replans",
                                 f"H={WH} B={WB}")
-               + box_entries(brows, bmp, counts, runs))
+               + box_entries(brows, bmp, counts, runs)
+               + clutter_entries(crows, cmp, counts, runs))
     for e in kernels:
         if e["model"] == "walker":
             # the same kernels at MB episodes, and the whole kernel path
@@ -3382,7 +3815,8 @@ def main():
                 "bound_ms": a["bounds"]["ad_jacobian"][0],
                 "bound_by": a["bounds"]["ad_jacobian"][1]}
         if e["name"] == "ad_jacobian" and e["model"] == "push_ncl":
-            full = kps["push_ncl AJ_5_100 full shape"]
+            # at the check size; its full shape is held in `--deep`
+            full = kps["push_ncl AJ_5_100"]
             e["adaptive_slots"] = {
                 "method": "AJ_5_100", "shape": f"{full['shape']}, K_max "
                 f"{full['K_max']}, {full['live_slots']} live slots",

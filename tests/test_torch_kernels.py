@@ -464,3 +464,68 @@ def test_box_kernels_match_plain(cuda, name):
     for a_, b_ in zip(kb[:3], pb[:3]):
         assert _rel(a_[..., live], b_[..., live]) < 1e-9
     assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
+
+
+@pytest.mark.parametrize("level", [3, "constrained"])
+def test_clutter_kernels_match_plain(cuda, level):
+    """push_lcl and push_ccl (one instance, push_lcl's: nv 31, 114 rows,
+    nx 38, its loops rolled): the goal and obstacles 1 and 2 pressed into
+    each other in a triangle, obstacle 3 into the goal, all 0.5 mm into the
+    table, in half the lanes; the other half from the scenes of the task's
+    generator, under controls of N(0, 2), at H = 4 (the plain push_lcl
+    step is thousands of small launches).  K3, K4, K5, K5ad, K6 and fk_bias
+    bit for bit with their twins, K7 at 1e-9 with its λ exactly."""
+    import math
+
+    H4, B4 = 4, 8
+    task = make_pushing(level, device=cuda)
+    task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
+        name="set_interval", min_N=1))
+    assert ops.kernel_args(task, task.model.device).tag == "push_lcl"
+    m = task.model
+    qp, qv, tg = (x.T.contiguous() for x in pushing.push_scenes(task, B4,
+                                                               seed=1))
+    qa = [m.jnt_qposadr[m.joint_names.index(b)]
+          for b in ("goal", "obstacle_1", "obstacle_2", "obstacle_3")]
+    d = 2 * pushing.OBJECT_R - 0.0005
+    tri = [(0.5, 0.0), (0.5 + d, 0.0), (0.5 + d / 2, d * math.sqrt(0.75))]
+    for a, (x, y) in zip(qa, tri + [(0.5 - d, 0.0)]):
+        qp[a, B4 // 2:], qp[a + 1, B4 // 2:] = x, y
+        qp[a + 2, B4 // 2:] = pushing.OBJECT_Z - 0.0025
+    g = torch.Generator(device="cpu").manual_seed(0)
+    f64 = dict(dtype=torch.float64)
+    nu, nx = m.nu, task.sv.nx
+    U = (2.0 * torch.randn((H4, nu, B4), generator=g, **f64)).to(cuda)
+    k = (0.1 * torch.randn((H4, nu, B4), generator=g, **f64)).to(cuda)
+    K = (0.05 * torch.randn((H4, nu, nx, B4), generator=g, **f64)).to(cuda)
+    kr = ops.rollout(task, qp, qv, U, tg)
+    pr = ops.rollout(task, qp, qv, U, tg, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(kr, pr))
+    act = contacts_active(m, pr[0].transpose(0, 1)).any(2).any(1)
+    assert int(act.sum()) >= 9, act.tolist()
+    alphas = ilqr.default_alphas(6, device=cuda)
+    kl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tg)
+    pl = ops.linesearch(task, kr[0], kr[1], U, k, K, alphas, tg, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(kl, pl))
+    plan = lanes.si_plan(task, H4)
+    for jac in ("fd", "ad"):
+        kj = lanes.slot_jacobians(task, jac)(kr[0], kr[1], U, plan.times)
+        pj = lanes.slot_jacobians(task, jac, plain=True)(kr[0], kr[1], U,
+                                                          plan.times)
+        assert bool(torch.isfinite(kj).all()) and torch.equal(kj, pj), jac
+    l = ops.cost_expansion(task, kr[0], kr[1], U, tg)
+    pc = ops.cost_expansion(task, kr[0], kr[1], U, tg, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(l, pc))
+    A, Bm = lanes.jacobians_si(task, plan, kr[0], kr[1], U,
+                               lanes.slot_jacobians(task, "ad"))
+    lam = torch.full((B4,), 0.1, dtype=torch.float64, device=cuda)
+    cfg = ILQRConfig()
+    kb = ops.backward(A, Bm, *l, lam, cfg)
+    pb = ops.backward(A, Bm, *l, lam, cfg, plain=True)
+    live = ~pb[4]
+    for a_, b_ in zip(kb[:3], pb[:3]):
+        assert _rel(a_[..., live], b_[..., live]) < 1e-9
+    assert torch.equal(kb[3], pb[3]) and torch.equal(kb[4], pb[4])
+    kf = ops.fk_bias(task, qp, qv)
+    pf = ops.fk_bias(task, qp, qv, plain=True)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(kf, pf))

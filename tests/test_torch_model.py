@@ -2,8 +2,10 @@
 
 `write_model_npz` is the one writer of `trajoptkp_tpu_torch/models/*.npz`:
 it dumps a JAX `Model` (from `load_mjcf` on the repo's XMLs, and for
-`push_ncl` from the pushing scene `tasks/pushing.py:build_push_scene_xml(0)`
-assembles around panda.xml, for `box_sweep` and `threeD_push` from the
+`push_ncl`, `push_lcl` and `push_ccl` from the pushing scenes
+`tasks/pushing.py:build_push_scene_xml` assembles around panda.xml (no
+clutter, three obstacles, the constrained corridor with the goal at (0.4,
+0.2)), for `box_sweep` and `threeD_push` from the
 scenes of `tasks/manipulation.py:make_box_sweep` and `make_threed_push`)
 field by field.
 Regenerate with
@@ -31,13 +33,18 @@ jax.config.update("jax_enable_x64", True)
 XML_DIR = os.path.join(os.path.dirname(__file__), "..", "trajoptkp_tpu",
                        "models")
 PORTED = ("acrobot", "pentabot", "panda", "push_ncl", "walker", "box_sweep",
-          "threeD_push")
+          "threeD_push", "push_lcl", "push_ccl")
 
 
 def jax_model(name: str):
     """The JAX Model each checked-in npz is written from."""
     if name == "push_ncl":
         return load_mjcf_string(build_push_scene_xml(0))
+    if name == "push_lcl":
+        return load_mjcf_string(build_push_scene_xml(3))
+    if name == "push_ccl":
+        return load_mjcf_string(build_push_scene_xml("constrained",
+                                                     goal_start=(0.4, 0.2)))
     if name in ("box_sweep", "threeD_push"):
         from trajoptkp_tpu.tasks.manipulation import (make_box_sweep,
                                                       make_threed_push)

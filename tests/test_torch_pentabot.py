@@ -72,7 +72,7 @@ def test_pentabot_keeps_its_six_pairs_and_instance(penta):
     assert pt.model.contact_pairs == pairs
     assert tuple(tuple(p) for p in jt.model.contact_pairs) == pairs
     key = ops.instance_key(pt)
-    assert len(key) == 15 + 6 and ops.instances()[key] == "pentabot"
+    assert len(key.PAIRS) == 6 and ops.instances()[key] == "pentabot"
 
 
 def test_pentabot_step_matches_jax_with_links_touching(penta):

@@ -27,6 +27,8 @@ import subprocess
 import threading
 import time
 
+from . import topology
+
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 # sources built per model instance, and the backward pass per (nx, nu)
@@ -35,13 +37,31 @@ MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
 # sources that run the step alone and read no residual: built once for
 # instances whose keys differ in the residual only (`step_shared`)
 STEP_SOURCES = ("ad_jacobian", "fd_jacobian")
-# the libraries whose nvcc runs longest start first: the dual steps over the
-# walker's 128, box_sweep's 50 and push_ncl's 42 constraint rows, the
-# largest backward passes
-SLOWEST = (("ad_jacobian", "walker"), ("ad_jacobian", "box_sweep"),
+# the libraries whose nvcc runs longest start first: the dual steps over
+# push_lcl's 114, the walker's 128, box_sweep's 50 and push_ncl's 42
+# constraint rows, the largest backward passes
+SLOWEST = (("ad_jacobian", "push_lcl"), ("backward", "nx38_nu7"),
+           ("ad_jacobian", "walker"), ("ad_jacobian", "box_sweep"),
            ("ad_jacobian", "push_ncl"), ("backward", "nx26_nu7"),
-           ("backward", "nx20_nu7"), ("backward", "nx18_nu6"),
-           ("ad_jacobian", "reaching"))
+           ("linesearch", "push_lcl"), ("fd_jacobian", "push_lcl"),
+           ("rollout", "push_lcl"), ("backward", "nx20_nu7"),
+           ("backward", "nx18_nu6"), ("ad_jacobian", "reaching"))
+# libraries no path of chip_smoke.py's default run launches, built at their
+# first launch instead of with the rest (the build is CPU-bound: every nvcc
+# at once on the card's 8 cores; `chip_smoke.py --deep` builds them with
+# the rest): K8 runs in the walker's and acrobot's MPC alone, and no
+# pentabot path takes central FD
+LAZY = tuple(("mpc_apply", m) for m in ("pentabot", "reaching", "push_ncl",
+                                         "box_sweep", "threeD_push",
+                                         "push_lcl")) + (
+    ("fd_jacobian", "pentabot"),)
+# past these sizes a library's loops over dofs and rows (ROLL_NV: the
+# model's nv) or over the state (ROLL_NX: the backward pass's nx) run
+# rolled; below them they stay unrolled, because rolled the step's kernels
+# run 2.7-5.6x slower (K3, K4 and K5ad at push_ncl and box_sweep on an
+# H100, `bench_kernels.py --rolled`; K7 0.99-1.12x; PERF.md)
+ROLL_NV = 15
+ROLL_NX = 26
 # sources built once for every model
 GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
@@ -65,27 +85,43 @@ def instance_names() -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def instance_tables() -> dict:
+    """model tag -> its topology.Topology, from instances.cuh (read once)."""
+    return topology.parse((CSRC / "instances.cuh").read_text())
+
+
+@functools.lru_cache(maxsize=None)
 def step_shared() -> dict:
     """model tag -> the tag whose step-only libraries (STEP_SOURCES) it
-    uses: the first instance whose key equals its own but for the residual
-    (RES, RESA, RESB, the key's entries 12-14); box_sweep's for
-    threeD_push."""
-    text = (CSRC / "instances.cuh").read_text().replace("\\\n", " ")
+    uses: the first instance whose tables equal its own but for the
+    residual (RES, RESARGS); box_sweep's for threeD_push."""
     out, first = {}, {}
-    for tag, args in re.findall(r"\bX\((\w+),([\s0-9a-fA-FxuUlL,]*)\)",
-                                text):
-        words = [w.strip() for w in args.split(",")]
-        key = tuple(words[:12] + words[15:])
-        out[tag] = first.setdefault(key, tag)
+    for tag, topo in instance_tables().items():
+        out[tag] = first.setdefault(topo.step_only(), tag)
     return out
 
 
-def libraries() -> tuple:
-    """Every (source, instance) library the kernels are built into."""
+def rolled(source: str, instance: str) -> bool:
+    """Whether a library is built with TRAJOPT_ROLL_LOOPS: the model
+    instances past ROLL_NV dofs and the backward passes past ROLL_NX (their
+    loops over dofs, rows or the state unrolled whole would keep nvcc for
+    tens of minutes; rolled, each iteration does the same operations in
+    the same order)."""
+    if source in GENERIC_SOURCES:
+        return False
+    if source == "backward":
+        return int(re.match(r"nx(\d+)_", instance).group(1)) > ROLL_NX
+    return instance_tables()[instance].NV > ROLL_NV
+
+
+def libraries(lazy: bool = False) -> tuple:
+    """Every (source, instance) library the kernels are built into, LAZY's
+    with `lazy`."""
     models, bps = instance_names()
     shared = step_shared()
     return (tuple((s, m) for s in MODEL_SOURCES for m in models
-                  if s not in STEP_SOURCES or shared.get(m, m) == m)
+                  if (s not in STEP_SOURCES or shared.get(m, m) == m)
+                  and (lazy or (s, m) not in LAZY))
             + tuple(("backward", b) for b in bps)
             + tuple((s, "generic") for s in GENERIC_SOURCES))
 
@@ -106,7 +142,8 @@ def _only(source: str, instance: str) -> tuple:
     if source in GENERIC_SOURCES:
         return ()
     kind = "BP" if source == "backward" else "MODEL"
-    return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",)
+    roll = ("-DTRAJOPT_ROLL_LOOPS",) if rolled(source, instance) else ()
+    return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",) + roll
 
 
 def _digest(source: str, instance: str) -> str:
@@ -194,11 +231,12 @@ def load(source: str, instance: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all_timed() -> tuple:
-    """(seconds, logs): build every kernel library, as a set-up step."""
+def build_all_timed(lazy: bool = False) -> tuple:
+    """(seconds, logs): build every kernel library (LAZY's with `lazy`), as
+    a set-up step."""
     t0 = time.perf_counter()
-    logs = build()
-    for lib in libraries():
+    logs = build(libraries(lazy))
+    for lib in libraries(lazy):
         load(*lib)
     return time.perf_counter() - t0, logs
 

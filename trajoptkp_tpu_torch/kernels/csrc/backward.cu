@@ -17,6 +17,11 @@
 // sweeps at 1 + bp_rounds); a launch whose target the lanes have already
 // reached returns at once.
 //
+// Past nx 26 (kernels/build.py ROLL_NX, TRAJOPT_ROLL_LOOPS) the outer loops
+// over the state and the columns run rolled and only the innermost sums are
+// unrolled: unrolled whole, nx 38 would keep nvcc for tens of minutes (nx 26
+// took ~230 s); every sum keeps its order.
+//
 // Bound: ~H (2n)^2 (2n + nu) x 4 double operations per lane against the
 // (2n)(3n + nu) + (nu)(nu + 1) + ... x 8 bytes of A, B and the cost terms it
 // reads once per sweep: bytes-light and latency-bound per thread; V_xx and
@@ -42,10 +47,10 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
   constexpr int NC = NX + NU;
   double Vx[NX], Vxx[NX][NX];
   const size_t T1 = size_t(H > 0 ? H - 1 : 0);  // H = 0: no steps
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NX; ++i) {
     Vx[i] = lx[(T1 * NX + i) * B + b];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int j = 0; j < NX; ++j) Vxx[i][j] = lxx[((T1 * NX + i) * NX + j) * B + b];
   }
   bool valid = true;
@@ -58,7 +63,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
                     : Bm[((tt * NX + j) * NU + (c - NX)) * B + b];
     };
     double W[NX][NC];  // V_xx [A|B]
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NX; ++i)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -68,7 +73,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
         W[i][c] = s;
       }
     double Qx[NX], Qu[NU], Quu[NU][NU], Qux[NU][NX];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int c = 0; c < NC; ++c) {
       double g = 0.0;
 #pragma unroll
@@ -77,7 +82,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
       else Qu[c - NX] = lu[(tt * NU + c - NX) * B + b] + g;
     }
     // Q_xx overwrites V_xx (no longer needed once W is formed)
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int c1 = 0; c1 < NC; ++c1)
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2) {
@@ -109,7 +114,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
       valid = valid && isfinite(k[a]);
       kout[(tt * NU + a) * B + b] = k[a];
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NX; ++i) {
       double col[NU];
 #pragma unroll
@@ -137,7 +142,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
         QuuK[a][i] = m;
       }
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NX; ++i) {
       double s1 = 0.0, s2 = 0.0, s3 = 0.0;
 #pragma unroll
@@ -148,7 +153,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
       }
       Vx[i] = Qx[i] + s1 + s2 + s3;
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NX; ++i)
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
@@ -161,7 +166,7 @@ __device__ bool riccati_sweep(const double* __restrict__ A,
         }
         Vxx[i][j] = Vxx[i][j] + s1 + s2 + s3;
       }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NX; ++i)
 #pragma unroll
       for (int j = i + 1; j < NX; ++j) {

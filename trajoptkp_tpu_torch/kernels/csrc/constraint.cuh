@@ -22,15 +22,17 @@
 // f = -min(y, 0) / R.  The solution x itself is not used: the integrator
 // solves (M + h D) qacc = qfrc + qfrc_con.
 //
-// Row format: sparse.  Row r touches the dofs code_dof(T::row_code(r), w),
-// w < T::row_w(r) <= ROW_W, known at compile time, with coefficients
-// rows.coef[r][w]; a limit row has one entry, +1 (q - lo) or -1 (hi - q).
-// Row order: every limited joint's lower side, then every upper side (the
-// JAX generic engine's order), then the contact rows of contact.cuh (K2b),
-// four per slot over the support of the slot's pair.  R, ROW_W, row_code and
-// row_w come from the topology; the loops over the rows run at compile time
-// (static_for), so each row's dofs and width are constants of its own
-// iteration, with any number of pairs.
+// Row format: sparse.  Row r touches the dofs T::row_dof(r, w),
+// w < T::row_w(r) <= ROW_W, with coefficients rows.coef[r][w]; a limit row
+// has one entry, +1 (q - lo) or -1 (hi - q).  Row order: every limited
+// joint's lower side, then every upper side (the JAX generic engine's
+// order), then the contact rows of contact.cuh (K2b), four per slot over
+// the support of the slot's pair.  R, ROW_W, row_dof and row_w come from
+// the topology's tables; the loops over the rows run at compile time
+// (for_rows: static_for), so each row's dofs and width are constants of
+// its own iteration, with any number of pairs, or under TRAJOPT_ROLL_LOOPS
+// as a loop that reads them from the table (push_lcl's 114 rows over 31
+// dofs: unrolled, nvcc would take tens of minutes).
 // The per-joint constants (range, margin, impedance and solref products) are
 // folded on the host in doubles and read from the model buffer, LIM_STRIDE
 // per limited joint (kernels/ops.py:pack_model, dynamics/contact.py
@@ -134,22 +136,17 @@ __device__ __forceinline__ void limit_rows(
   }
 }
 
-// the w-th dof of a row whose dofs are `code` (T::row_code)
-__host__ __device__ constexpr int code_dof(unsigned long long code, int w) {
-  return static_cast<int>((code >> (4 * w)) & 0xFull);
-}
-
 // out[r] = sum_w coef[r][w] x[row dof w], left to right
 template <class T, class S, class X, class O>
 __device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W, S>& rows,
                                            const X* x, O* out) {
-  static_for<T::R>([&](auto rc) {
-    constexpr int r = decltype(rc)::value;
-    constexpr unsigned long long D = T::row_code(r);
-    constexpr int RW = T::row_w(r);
-    O s = rows.coef[r][0] * x[code_dof(D, 0)];
+  for_rows<T::R>([&](auto rc) {
+    const int r = row_index(rc);
+    const int RW = T::row_w(rc);
+    O s = rows.coef[r][0] * x[T::row_dof(rc, 0)];
 #pragma unroll
-    for (int w = 1; w < RW; ++w) s += rows.coef[r][w] * x[code_dof(D, w)];
+    for (int w = 1; w < RW; ++w)
+      s += rows.coef[r][w] * x[T::row_dof(rc, w)];
     out[r] = s;
   });
 }
@@ -158,13 +155,13 @@ __device__ __forceinline__ void rows_times(const Rows<T::R, T::ROW_W, S>& rows,
 template <class T, class S>
 __device__ __forceinline__ void rows_times_v(
     const Rows<T::R, T::ROW_W, S>& rows, const double* x, double* out) {
-  static_for<T::R>([&](auto rc) {
-    constexpr int r = decltype(rc)::value;
-    constexpr unsigned long long D = T::row_code(r);
-    constexpr int RW = T::row_w(r);
-    double s = val(rows.coef[r][0]) * x[code_dof(D, 0)];
+  for_rows<T::R>([&](auto rc) {
+    const int r = row_index(rc);
+    const int RW = T::row_w(rc);
+    double s = val(rows.coef[r][0]) * x[T::row_dof(rc, 0)];
 #pragma unroll
-    for (int w = 1; w < RW; ++w) s += val(rows.coef[r][w]) * x[code_dof(D, w)];
+    for (int w = 1; w < RW; ++w)
+      s += val(rows.coef[r][w]) * x[T::row_dof(rc, w)];
     out[r] = s;
   });
 }
@@ -174,7 +171,7 @@ template <int R, class S>
 __device__ __forceinline__ double penalty(const S* invR, const double* y,
                                           const double* jdx, double al) {
   double s = 0.0;
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int r = 0; r < R; ++r) {
     const double ya = y[r] + al * jdx[r];
     const double neg = ya < 0.0 ? ya : 0.0;
@@ -189,26 +186,25 @@ __device__ __forceinline__ void gated_hessian(
     const SM (&M)[T::NV][T::NV], const Rows<T::R, T::ROW_W, S>& rows,
     const double* g, double (&H)[T::NV][T::NV]) {
   constexpr int NV = T::NV;
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i)
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int k = 0; k < NV; ++k) H[i][k] = val(M[i][k]);
-  static_for<T::R>([&](auto rc) {
-    constexpr int r = decltype(rc)::value;
-    constexpr unsigned long long D = T::row_code(r);
-    constexpr int RW = T::row_w(r);
+  for_rows<T::R>([&](auto rc) {
+    const int r = row_index(rc);
+    const int RW = T::row_w(rc);
 #pragma unroll
     for (int w1 = 0; w1 < RW; ++w1) {
-      const int d1 = code_dof(D, w1);
+      const int d1 = T::row_dof(rc, w1);
 #pragma unroll
       for (int w2 = 0; w2 < RW; ++w2) {
-        const int d2 = code_dof(D, w2);
+        const int d2 = T::row_dof(rc, w2);
         H[d1][d2] = H[d1][d2] +
                     (val(rows.coef[r][w1]) * g[r]) * val(rows.coef[r][w2]);
       }
     }
   });
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + HESSIAN_JITTER;
 }
 
@@ -220,69 +216,68 @@ __device__ __forceinline__ void newton_iterations(
     const Rows<T::R, T::ROW_W, S>& rows, double (&x)[T::NV]) {
   constexpr int NV = T::NV, R = T::R;
   double H[NV][NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) x[i] = a0[i];
   const double ladder[N_ALPHA] = {1.0, 0.5, 0.25, 0.1, 0.04, 0.01};
   double zero[R];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int r = 0; r < R; ++r) zero[r] = 0.0;
 
 #pragma unroll 1
   for (int it = 0; it < NEWTON_ITERS; ++it) {
     double y[R], g[R], e[NV], Me[NV], dx[NV], jdx[R], Mdx[NV];
     rows_times_v<T>(rows, x, y);
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int r = 0; r < R; ++r) {
       y[r] = y[r] - val(rows.aref[r]);
       g[r] = y[r] < 0.0 ? val(rows.invR[r]) : 0.0;
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) {
       double s = val(M[i][0]) * e[0];
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int k = 1; k < NV; ++k) s += val(M[i][k]) * e[k];
       Me[i] = s;
       dx[i] = s;  // becomes the gradient, then the Newton direction
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int k = 0; k < NV; ++k) H[i][k] = val(M[i][k]);
     }
-    static_for<R>([&](auto rc) {
-      constexpr int r = decltype(rc)::value;
-      constexpr unsigned long long D = T::row_code(r);
-      constexpr int RW = T::row_w(r);
+    for_rows<R>([&](auto rc) {
+      const int r = row_index(rc);
+      const int RW = T::row_w(rc);
       const double gy = g[r] * y[r];
 #pragma unroll
       for (int w1 = 0; w1 < RW; ++w1) {
-        const int d1 = code_dof(D, w1);
+        const int d1 = T::row_dof(rc, w1);
         dx[d1] = dx[d1] + val(rows.coef[r][w1]) * gy;
 #pragma unroll
         for (int w2 = 0; w2 < RW; ++w2) {
-          const int d2 = code_dof(D, w2);
+          const int d2 = T::row_dof(rc, w2);
           H[d1][d2] = H[d1][d2] + (val(rows.coef[r][w1]) * g[r]) *
                                       val(rows.coef[r][w2]);
         }
       }
     });
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + HESSIAN_JITTER;
     chol_factor<NV>(H);
     chol_solve<NV>(H, dx);
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
 
     // merit along x + alpha dx from shared products
     rows_times_v<T>(rows, dx, jdx);
     double eMe = 0.0, eMdx = 0.0, dMd = 0.0;
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) {
       double s = val(M[i][0]) * dx[0];
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int k = 1; k < NV; ++k) s += val(M[i][k]) * dx[k];
       Mdx[i] = s;
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) {
       eMe += e[i] * Me[i];
       eMdx += e[i] * Mdx[i];
@@ -303,7 +298,7 @@ __device__ __forceinline__ void newton_iterations(
       }
     }
     const double alpha = best_c < c0 ? best_a : 0.0;
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) x[i] = x[i] + alpha * dx[i];
   }
 }
@@ -315,17 +310,16 @@ __device__ __forceinline__ void constraint_force(
     S (&qc)[T::NV]) {
   S y[T::R];
   rows_times<T>(rows, x, y);
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < T::NV; ++i) qc[i] = 0.0;
-  static_for<T::R>([&](auto rc) {
-    constexpr int r = decltype(rc)::value;
-    constexpr unsigned long long D = T::row_code(r);
-    constexpr int RW = T::row_w(r);
+  for_rows<T::R>([&](auto rc) {
+    const int r = row_index(rc);
+    const int RW = T::row_w(rc);
     const S yr = y[r] - rows.aref[r];
     const S f = (-(yr < 0.0 ? yr : S(0.0))) * rows.invR[r];
 #pragma unroll
     for (int w = 0; w < RW; ++w) {
-      const int d = code_dof(D, w);
+      const int d = T::row_dof(rc, w);
       qc[d] = qc[d] + rows.coef[r][w] * f;
     }
   });
@@ -340,10 +334,10 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
                                  double (&qc)[T::NV]) {
   constexpr int NV = T::NV;
   double H[NV][NV], a0[NV], x[NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) {
     a0[i] = qfrc[i];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
   }
   chol_factor<NV>(H);
@@ -364,39 +358,39 @@ __device__ void implicit_tangent(const Dual (&M)[T::NV][T::NV],
                                  double (&dx)[T::NV]) {
   constexpr int NV = T::NV, R = T::R;
   Dual e[NV], F[NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) {
     Dual s = M[i][0] * e[0];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int k = 1; k < NV; ++k) s = s + M[i][k] * e[k];
     F[i] = s;
   }
   double g[R];
-  static_for<R>([&](auto rc) {
-    constexpr int r = decltype(rc)::value;
-    constexpr unsigned long long D = T::row_code(r);
-    constexpr int RW = T::row_w(r);
-    Dual y = rows.coef[r][0] * x[code_dof(D, 0)];
+  for_rows<R>([&](auto rc) {
+    const int r = row_index(rc);
+    const int RW = T::row_w(rc);
+    Dual y = rows.coef[r][0] * x[T::row_dof(rc, 0)];
 #pragma unroll
-    for (int w = 1; w < RW; ++w) y = y + rows.coef[r][w] * x[code_dof(D, w)];
+    for (int w = 1; w < RW; ++w)
+      y = y + rows.coef[r][w] * x[T::row_dof(rc, w)];
     y = y - rows.aref[r];
     const Dual f = (y < 0.0 ? y : Dual(0.0)) * rows.invR[r];
     g[r] = y < 0.0 ? rows.invR[r].v : 0.0;
 #pragma unroll
     for (int w = 0; w < RW; ++w) {
-      const int d = code_dof(D, w);
+      const int d = T::row_dof(rc, w);
       F[d] = F[d] + rows.coef[r][w] * f;
     }
   });
   double H[NV][NV];
   gated_hessian<T>(M, rows, g, H);
   chol_factor<NV>(H);
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) dx[i] = F[i].d;
   chol_solve<NV>(H, dx);
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
 }
 
@@ -410,21 +404,21 @@ __device__ void constraint_solve(const Dual (&M)[T::NV][T::NV],
                                  Dual (&qc)[T::NV]) {
   constexpr int NV = T::NV;
   Dual L[NV][NV], a0[NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) {
     a0[i] = qfrc[i];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int k = 0; k < NV; ++k) L[i][k] = M[i][k];
   }
   chol_factor<NV>(L);
   chol_solve<NV>(L, a0);
   double a0v[NV], x[NV], dx[NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) a0v[i] = a0[i].v;
   newton_iterations<T>(M, a0v, rows, x);
   implicit_tangent<T>(M, a0, rows, x, dx);
   Dual xd[NV];
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) xd[i] = Dual(x[i], dx[i]);
   constraint_force<T>(rows, xd, qc);
 }

@@ -21,7 +21,7 @@
 // cylinder-cylinder as equal-radius capsules), and four rows per slot,
 // J = Jn + mu Jt1, Jn - mu Jt1, Jn + mu Jt2, Jn - mu Jt2, over the pair's
 // support: the dofs on exactly one of the two bodies' root paths (known at
-// compile time, T::supp_code), the point Jacobian cdof_lin + cdof_ang x pos
+// compile time, T::supp), the point Jacobian cdof_lin + cdof_ang x pos
 // signed +1 on geom2's path and -1 on geom1's.  aref = -b (J qvel) -
 // k (dist - margin); R = max((1-d)/max(d, 1e-6), 1e-9) rconst, one per
 // slot; the row is active when dist < margin.  The rows are written after
@@ -416,9 +416,7 @@ __device__ __forceinline__ void pair_rows(
   constexpr int b1 = T::pair_b1(PI), b2 = T::pair_b2(PI);
   constexpr int NC = T::pair_ncon(PI), W = T::nsup(PI);
   constexpr int ROW0 = 2 * T::NLIM + 4 * T::first_slot(PI);
-  // the support's dofs (4 bits each) and signs (a bit each), constants
-  constexpr unsigned long long SUP = T::supp_code(PI);
-  constexpr unsigned SGN = T::sgn_code(PI);
+  using PIC = std::integral_constant<int, PI>;
   const double* pp = P + T::PAIRB + PI * PAIR_STRIDE;
   const double* pc = pp + PAIR_CONST;
   S xp1[3], xm1[9], xp2[3], xm2[9];
@@ -452,10 +450,10 @@ __device__ __forceinline__ void pair_rows(
         at_least((1.0 - dd) / at_least(dd, 1e-6), 1e-9) * pc[C_RCONST];
     const S invR = inc / Rr;
     S J[3][W];  // Jn, Jt1, Jt2 over the support
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int w = 0; w < W; ++w) {
-      const int i = code_dof(SUP, w);
-      const double sg = ((SGN >> w) & 1u) ? 1.0 : -1.0;
+      const int i = T::supp(PIC{}, w);
+      const double sg = T::supp_sign(PIC{}, w) > 0 ? 1.0 : -1.0;
       S wp[3], jac[3];
       cross3(cdof[i], pos[s], wp);
 #pragma unroll
@@ -472,11 +470,11 @@ __device__ __forceinline__ void pair_rows(
       const S* Jt = J[1 + e / 2];
       const double smu = (e % 2 == 0) ? mu : -mu;
       S vel = 0.0;
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int w = 0; w < W; ++w) {
         const S c = J[0][w] + smu * Jt[w];
         rows.coef[r][w] = c;
-        const S cv = c * v[code_dof(SUP, w)];
+        const S cv = c * v[T::supp(PIC{}, w)];
         vel = w == 0 ? cv : vel + cv;
       }
       rows.aref[r] = (-pc[L_B]) * vel - kk * imp;

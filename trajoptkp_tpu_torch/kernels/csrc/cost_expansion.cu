@@ -33,12 +33,12 @@
 namespace trajopt {
 
 // The coordinate residual row k selects, as an index into x = [q (NQ),
-// v (NV), u (NU)]: RES_SELECT's code, or RES_JOINT's first NJ qpos, first
+// v (NV), u (NU)]: RES_SELECT's table, or RES_JOINT's first NJ qpos, first
 // NJ qvel and first NUR controls.
 template <class T>
 __host__ __device__ constexpr int selected(int k) {
   if constexpr (T::RES == RES_SELECT) {
-    return static_cast<int>((T::SELECT >> (5 * k)) & 0x1Full);
+    return T::select(k);
   } else {
     return k < T::NJ       ? k
            : k < 2 * T::NJ ? T::NQ + k - T::NJ
@@ -64,8 +64,10 @@ __host__ __device__ constexpr int tangent_col(int i) {
 // body b moves with a dof j of b's root path at w_j x p + v_j ((w_j, v_j)
 // = cdof_j): the goal (the free body's origin) with its translations (its
 // rotations give w x p + p x w, exactly 0), the end effector with the
-// arm's hinges; d|x|/dx = x / |x|.  threeD_push's tilt moves with the free
-// rotation's tangent, dq/dz_k = 0.5 q (0, e_k).
+// arm's hinges; d|x|/dx = x / |x|.  Each clutter obstacle's row is that of
+// its x and y translations, d_k / |d| for d its xy less its layout point.
+// threeD_push's tilt moves with the free rotation's tangent, dq/dz_k =
+// 0.5 q (0, e_k).
 template <class T, int NZ>
 __device__ __forceinline__ void fk_jacobian(const double* __restrict__ P,
                                             const double* __restrict__ site,
@@ -75,7 +77,8 @@ __device__ __forceinline__ void fk_jacobian(const double* __restrict__ P,
   constexpr int N = T::NDOF;
   // the rows of |goal_xy - tg|, of the planar velocity and of the reach
   constexpr int RV = T::RES == RES_TILT ? 2 : 1;
-  constexpr int RR = T::RES == RES_PUSH ? 3 : (T::RES == RES_SWEEP ? 2 : 6);
+  constexpr int RR =
+      T::RES == RES_PUSH ? 3 + T::NOBST : (T::RES == RES_SWEEP ? 2 : 6);
   Frames<T> fr;
   fk_frames<T>(P, q, fr);
   fk_residual_of<T>(site, fr.xpos, fr.xquat, v, tg, r);
@@ -145,7 +148,18 @@ __device__ __forceinline__ void fk_jacobian(const double* __restrict__ P,
         J[RV][N + s] = gv[1] / r[RV];
     }
     if constexpr (T::RES == RES_PUSH) {
-      if (j == PUSH_JOINT5) J[2][N + s] = 1.0;
+      if (j == PUSH_JOINT5) J[2 + T::NOBST][N + s] = 1.0;
+      // |obstacle_i xy - its layout point|: the free body's origin moves
+      // with its x and y translations alone (cdof e_x, e_y)
+#pragma unroll
+      for (int i = 0; i < T::NOBST; ++i) {
+        const int od = T::body_dof(T::obstacle(i));
+        if (j == od || j == od + 1) {
+          const int k = j - od;
+          const double dk = fr.xpos[T::obstacle(i)][k] - site[3 + 2 * i + k];
+          J[2 + i][s] = dk / r[2 + i];
+        }
+      }
     }
   }
 }
@@ -163,7 +177,7 @@ __device__ __forceinline__ void residual_jacobian(
     if constexpr (T::RES == RES_JOINT)
       joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
     else
-      select_residual<T::NQ, T::NV, T::NRES, T::SELECT>(q, v, u, tg, r);
+      select_residual<T>(q, v, u, tg, r);
     for (int i = 0; i < T::NRES; ++i)
       for (int z = 0; z < NZ; ++z) J[i][z] = 0.0;
 #pragma unroll

@@ -14,8 +14,10 @@
 // and the generic solve's auto-adjust give one; 1 adaptive_jerk; 2
 // adaptive_accel; 3 velocity_change).  The sizes (H, n, nv, B), the
 // thresholds, min_N, max_N, K_max and 1/dt are runtime arguments: the
-// library is built once for every model.  A thread keeps its lane's n <= 15
-// per-dof counters in registers (loops over the fixed MAXN with a guard)
+// library is built once for every model.  A thread keeps its lane's per-dof
+// counters in registers (loops over the fixed MAXN with a guard): the
+// kernel is instantiated at MAXN 15 for the models up to 15 state dofs and
+// at 31 for the larger (push_lcl's 19, push_mcl's 31)
 // and walks the horizon twice: forwards for the mask, the slots and each
 // dof's previous keypoint, backwards for its next keypoint and the weight.
 // Pass 1 leaves each step's previous keypoint time in nslot; pass 2 reads
@@ -35,9 +37,10 @@
 
 namespace trajopt {
 
-constexpr int MAXN = 15;
+constexpr int MAXN_SMALL = 15;
+constexpr int MAXN_LARGE = 31;
 
-template <int SEL>
+template <int SEL, int MAXN>
 __global__ void __launch_bounds__(64)
 keypoint_plan_kernel(const double* __restrict__ qvel,
                      const int* __restrict__ order,
@@ -209,15 +212,21 @@ extern "C" int trajopt_keypoint_plan(
     int* overflow, int* pslot, int* nslot, double* w, double* pct,
     void* stream) {
   if (B <= 0) return 0;
-  if (n < 1 || n > trajopt::MAXN || H < 2 || K_max < 2 || K_max > H)
+  if (n < 1 || n > trajopt::MAXN_LARGE || H < 2 || K_max < 2 || K_max > H)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool small = n <= trajopt::MAXN_SMALL;
   const dim3 grid((B + 63) / 64), block(64);
   auto s = static_cast<cudaStream_t>(stream);
-#define TRAJOPT_KP_LAUNCH(SEL)                                                \
-  trajopt::keypoint_plan_kernel<SEL><<<grid, block, 0, s>>>(                  \
+#define TRAJOPT_KP_LAUNCH_N(SEL, N)                                           \
+  trajopt::keypoint_plan_kernel<SEL, N><<<grid, block, 0, s>>>(               \
       qvel, order, thr, mask_in, min_N, max_N, K_max, time_slots, inv_dt,     \
       pct_scale, H, n, nv, B, mask, slot_t, count, overflow, pslot, nslot, w, \
       pct)
+#define TRAJOPT_KP_LAUNCH(SEL)                                                \
+  if (small)                                                                  \
+    TRAJOPT_KP_LAUNCH_N(SEL, trajopt::MAXN_SMALL);                            \
+  else                                                                        \
+    TRAJOPT_KP_LAUNCH_N(SEL, trajopt::MAXN_LARGE)
   switch (selector) {
     case 0: TRAJOPT_KP_LAUNCH(0); break;
     case 1: TRAJOPT_KP_LAUNCH(1); break;
@@ -226,6 +235,7 @@ extern "C" int trajopt_keypoint_plan(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TRAJOPT_KP_LAUNCH
+#undef TRAJOPT_KP_LAUNCH_N
   return static_cast<int>(cudaGetLastError());
 }
 

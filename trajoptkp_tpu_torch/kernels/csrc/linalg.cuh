@@ -13,7 +13,24 @@
 
 #include "dual.cuh"
 
+// TRAJOPT_ROLL_LOOPS (kernels/build.py:rolled: the instances past ROLL_NV
+// dofs and the backward passes past ROLL_NX): the loops over dofs, rows and
+// the state that the other instances unroll whole run rolled, so that nvcc
+// finishes in minutes; each iteration does the same operations in the same
+// order, so a rolled kernel rounds as an unrolled one would.
+#ifdef TRAJOPT_ROLL_LOOPS
+#define TRAJOPT_UNROLL _Pragma("unroll 1")
+#else
+#define TRAJOPT_UNROLL _Pragma("unroll")
+#endif
+
 namespace trajopt {
+
+#ifdef TRAJOPT_ROLL_LOOPS
+constexpr bool ROLL_LOOPS = true;
+#else
+constexpr bool ROLL_LOOPS = false;
+#endif
 
 // clamp that keeps NaN, as torch.clamp and jnp.clip do (fmin/fmax drop it)
 template <class S>
@@ -40,17 +57,37 @@ __device__ __forceinline__ void static_for(F&& f) {
   static_for_impl(f, std::make_integer_sequence<int, N>{});
 }
 
+// the index for_rows passes (device code may not call integral_constant's
+// host conversion)
+__host__ __device__ constexpr int row_index(int r) { return r; }
+template <int R>
+__host__ __device__ constexpr int row_index(std::integral_constant<int, R>) {
+  return R;
+}
+
+// f(r) for r = 0..N-1 in order: at compile time (static_for, r an
+// integral_constant), or under TRAJOPT_ROLL_LOOPS as a loop (r an int)
+template <int N, class F>
+__device__ __forceinline__ void for_rows(F&& f) {
+  if constexpr (ROLL_LOOPS) {
+#pragma unroll 1
+    for (int r = 0; r < N; ++r) f(r);
+  } else {
+    static_for<N>(f);
+  }
+}
+
 // In-place lower Cholesky factor of SPD A (NaN where A is not PD).
 template <int N, class S>
 __device__ __forceinline__ void chol_factor(S (&A)[N][N]) {
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int j = 0; j < N; ++j) {
     S s = A[j][j];
 #pragma unroll
     for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
     A[j][j] = sqrt(s);
     const S inv = recip(A[j][j]);
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = j + 1; i < N; ++i) {
       S t = A[i][j];
 #pragma unroll
@@ -63,14 +100,14 @@ __device__ __forceinline__ void chol_factor(S (&A)[N][N]) {
 // Solve L L^T x = b in place, L from chol_factor.
 template <int N, class S>
 __device__ __forceinline__ void chol_solve(const S (&L)[N][N], S (&b)[N]) {
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = 0; i < N; ++i) {
     S s = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * b[k];
     b[i] = s / L[i][i];
   }
-#pragma unroll
+  TRAJOPT_UNROLL
   for (int i = N - 1; i >= 0; --i) {
     S s = b[i];
 #pragma unroll

@@ -8,7 +8,7 @@ namespace trajopt {
 
 // Residual kinds (tasks/base.py residual_kind; Topo's RES)
 constexpr int RES_JOINT = 0;  // ("joint_space", nj, nr)
-constexpr int RES_PUSH = 1;   // ("push", 0): the FK residual below
+constexpr int RES_PUSH = 1;   // ("push", n, ...): the FK residual below
 constexpr int RES_SELECT = 2;  // ("select", rows): selected coordinates
 constexpr int RES_SWEEP = 3;   // ("sweep", box, ee site): box_sweep's
 constexpr int RES_TILT = 4;    // ("tilt_push", box, ee site): threeD_push's
@@ -39,18 +39,20 @@ __device__ __forceinline__ void joint_space_residual(const double* q,
 }
 
 // tasks/locomotion.py:select_residual — r_k = x_k - tg_k for the k-th
-// selected coordinate of x = [q (NQ), v (NV), u (NU)]: entry k of SELECT (5
-// bits each) indexes x.  The walker's residual (torso height and angle,
-// forward velocity, the six controls) is this with its selection.
-template <int NQ, int NV, int NRES, unsigned long long SELECT>
+// selected coordinate of x = [q (NQ), v (NV), u (NU)], T::select(k) its
+// index.  The walker's residual (torso height and angle, forward velocity,
+// the six controls) is this with its selection.
+template <class T>
 __device__ __forceinline__ void select_residual(const double* q,
                                                 const double* v,
                                                 const double* u,
                                                 const double* tg, double* r) {
+  constexpr int NQ = T::NQ, NV = T::NV;
 #pragma unroll
-  for (int k = 0; k < NRES; ++k) {
-    const int i = static_cast<int>((SELECT >> (5 * k)) & 0x1Full);
-    const double x = i < NQ ? q[i] : (i < NQ + NV ? v[i - NQ] : u[i - NQ - NV]);
+  for (int k = 0; k < T::NRES; ++k) {
+    const int i = T::select(k);
+    const double x =
+        i < NQ ? q[i] : (i < NQ + NV ? v[i - NQ] : u[i - NQ - NV]);
     r[k] = x - tg[k];
   }
 }
@@ -81,8 +83,10 @@ __device__ __forceinline__ void ee_point(const double* __restrict__ site,
 }
 
 // tasks/pushing.py:push_residual — [|goal_xy - tg|, |goal planar velocity|,
+// |obstacle_i xy - its layout point| for each of the T::NOBST obstacles,
 // joint-5 velocity, |ee - goal|] from the FK products of the state (the
-// step's own, before the step: the JAX lane rollout reads the same).
+// step's own, before the step: the JAX lane rollout reads the same); the
+// layout points follow the site in the residual's constants (`site`).
 template <class T>
 __device__ __forceinline__ void push_residual(
     const double* __restrict__ site, const double (&xpos)[T::NBODY][3],
@@ -98,8 +102,15 @@ __device__ __forceinline__ void push_residual(
   for (int k = 0; k < 3; ++k) d[k] = ee[k] - goal[k];
   r[0] = norm_eps<2>(g);
   r[1] = norm_eps<2>(gv);
-  r[2] = v[PUSH_JOINT5];
-  r[3] = norm_eps<3>(d);
+#pragma unroll
+  for (int i = 0; i < T::NOBST; ++i) {
+    const double* o = xpos[T::obstacle(i)];
+    const double* lay = site + 3 + 2 * i;
+    const double od[2] = {o[0] - lay[0], o[1] - lay[1]};
+    r[2 + i] = norm_eps<2>(od);
+  }
+  r[2 + T::NOBST] = v[PUSH_JOINT5];
+  r[3 + T::NOBST] = norm_eps<3>(d);
 }
 
 // tasks/manipulation.py:sweep_residual — [|box_xy - tg01|, |box planar

@@ -71,105 +71,140 @@ enum DofField {
 constexpr int ACT_STRIDE = 5;
 enum ActField { A_DOF = 0, A_GEAR = 1, A_LIMITED = 2, A_LO = 3, A_HI = 4 };
 
-__host__ __device__ constexpr int popcount(unsigned long long x) {
-  int n = 0;
-  for (; x; x >>= 1) n += static_cast<int>(x & 1ull);
-  return n;
-}
+// A compile-time table as values: lookup by a constant index (an unrolled
+// loop's) folds to a constant in any compiler, a chain of selects without
+// memory, and lookup by a runtime index costs one compare per entry.
+// Device code may not name an instance's host `static constexpr` array, but
+// its elements may be template arguments.
+template <int... V>
+struct Pack {
+  __host__ __device__ static constexpr int at(int i) {
+    int out = 0, k = 0;
+    ((out = (k++ == i ? V : out)), ...);
+    return out;
+  }
+};
 
-// NV dofs, NU actuators, NBODY bodies (world included).  Bit codes, 4 bits
-// per entry unless said otherwise: the joint of dof j is a slide when bit j
-// of SLIDE is set; body b's joint is free when bit b of FREE is set; dof j
-// is limited when bit j of LIMITED is set; the parent of body b is
-// (PARENTS >> 4b) & 15; its first dof is ((BODYDOF >> 4b) & 15) - 1, -1 for
-// a welded body, and it has (BODYNDOF >> 4b) & 15 dofs (hinges and slides in
-// declaration order, or 6 for a free joint); its first joint's first qpos is
-// (QADR >> 4b) & 15.  The state vector holds NDOF dofs, state dof k being
-// qvel index (SVDOF >> 4k) & 15.  RES, RESA, RESB: the residual (RES_JOINT,
-// RES_PUSH, RES_SELECT of residuals.cuh).  PAIRS: one 16-bit code per
-// contact pair, geom types (4 bits each) and bodies (4 bits each) of geom1
-// and geom2; every lookup of a pair, a slot or a row is evaluated at compile
-// time (pair_rows<T, PI>, static_for over the rows), so any number of pairs
-// costs no runtime table.
-template <int NV_, int NU_, int NBODY_, unsigned SLIDE_, unsigned FREE_,
-          unsigned long long PARENTS_, unsigned long long BODYDOF_,
-          unsigned long long BODYNDOF_, unsigned long long QADR_,
-          unsigned LIMITED_, int NDOF_, unsigned long long SVDOF_, int RES_,
-          int RESA_, unsigned long long RESB_, unsigned... PAIRS_>
+// A table computed at compile time from the instance's arrays.
+template <int N>
+struct Table {
+  int v[N > 0 ? N : 1];
+  __host__ __device__ constexpr int operator[](int i) const { return v[i]; }
+};
+
+// Accessor name(i) of the instance's array Tab::FIELD of N entries (COL
+// empty), or of column COL of a 2-D one.
+#define TRAJOPT_TOPO_TABLE(name, FIELD, N, COL)                               \
+  template <int... I>                                                         \
+  static Pack<Tab::FIELD[I] COL...> name##_pack(                              \
+      std::integer_sequence<int, I...>);                                      \
+  using name##_values =                                                       \
+      decltype(name##_pack(std::make_integer_sequence<int, N>{}));            \
+  __host__ __device__ static constexpr int name(int i) {                      \
+    return name##_values::at(i);                                              \
+  }
+
+// A table derived from the instance's arrays, computed once (the static
+// member TABLE), and its accessor name(i).
+#define TRAJOPT_TOPO_DERIVED(name, TABLE, N, make)                            \
+  static constexpr Table<N> TABLE = make();                                   \
+  template <int... I>                                                         \
+  static Pack<TABLE.v[I]...> name##_pack(std::integer_sequence<int, I...>);   \
+  using name##_values =                                                       \
+      decltype(name##_pack(std::make_integer_sequence<int, N>{}));            \
+  __host__ __device__ static constexpr int name(int i) {                      \
+    return name##_values::at(i);                                              \
+  }
+
+// Lookups by a rolled loop's index (TRAJOPT_ROLL_LOOPS), from the tables
+// in constant memory below.
+template <class T>
+__device__ int rolled_row_dof(int r, int w);
+template <class T>
+__device__ int rolled_row_w(int r);
+template <class T>
+__device__ int rolled_ancestor(int b, int k);
+
+// The topology of an instance: its struct of tables Tab, which
+// instances.cuh holds (written by kernels/topology.py).  NV dofs, NU
+// actuators, NBODY bodies (world included), NDOF state dofs; per body
+// (world first) PARENT, BODY_DOF (its first dof, -1 for a welded body),
+// BODY_NDOF (hinges and slides in declaration order, or 6 for a free
+// joint), BODY_QADR (its first joint's first qpos) and FREE; per dof SLIDE
+// (else a hinge, or a free joint's), LIMITED (two constraint rows each),
+// DOF_BODY and DOF_Q; per state dof SV, its qvel index; NPAIR contact
+// pairs, PAIRS their geom types and bodies (geom1, geom2); RES and RESARGS
+// the residual (residuals.cuh).  Every lookup of a pair, a slot or a row is
+// evaluated at compile time (pair_rows<T, PI>, static_for over the rows) in
+// the unrolled instances, so any number of pairs costs no runtime table
+// there; the rolled ones (TRAJOPT_ROLL_LOOPS, linalg.cuh) read the rows'
+// tables at run time.
+template <class Tab>
 struct Topo {
-  static constexpr int NV = NV_;
-  static constexpr int NU = NU_;
-  static constexpr int NBODY = NBODY_;
-  static constexpr int NQ = NV_ + popcount(FREE_);
-  static constexpr int NDOF = NDOF_;
-  static constexpr int NX = 2 * NDOF_;
-  static constexpr int RES = RES_;
-  static constexpr int NJ = RESA_;     // joint-space residual sizes
-  static constexpr int NUR = static_cast<int>(RESB_);
-  static constexpr int GOAL = RESA_;   // push residual bodies
-  static constexpr int SITE_BODY = static_cast<int>(RESB_);
-  static constexpr unsigned long long SELECT = RESB_;  // select residual
-  static constexpr int NRES = RES_ == RES_JOINT    ? 2 * RESA_ + NUR
-                              : RES_ == RES_SELECT ? RESA_
-                              : RES_ == RES_SWEEP  ? 3
-                              : RES_ == RES_TILT   ? 7
-                                                   : 4;
-  static constexpr int NTGT =
-      (RES_ == RES_PUSH || RES_ == RES_TILT) ? 2
-                                             : (RES_ == RES_SWEEP ? 4 : NRES);
-  __host__ __device__ static constexpr int parent(int b) {
-    return static_cast<int>((PARENTS_ >> (4 * b)) & 0xFull);
+  static constexpr int NV = Tab::NV;
+  static constexpr int NU = Tab::NU;
+  static constexpr int NBODY = Tab::NBODY;
+  static constexpr int NDOF = Tab::NDOF;
+  static constexpr int NX = 2 * NDOF;
+  static constexpr int RES = Tab::RES;
+  static constexpr int NPAIR = Tab::NPAIR;
+  static constexpr int NRESARG =
+      static_cast<int>(sizeof(Tab::RESARGS) / sizeof(int));
+
+  TRAJOPT_TOPO_TABLE(parent, PARENT, NBODY, )
+  TRAJOPT_TOPO_TABLE(body_dof, BODY_DOF, NBODY, )
+  TRAJOPT_TOPO_TABLE(body_ndof, BODY_NDOF, NBODY, )
+  TRAJOPT_TOPO_TABLE(qadr, BODY_QADR, NBODY, )
+  TRAJOPT_TOPO_TABLE(free_flag, FREE, NBODY, )
+  TRAJOPT_TOPO_TABLE(slide_flag, SLIDE, NV, )
+  TRAJOPT_TOPO_TABLE(limited_flag, LIMITED, NV, )
+  // the body of dof j, and the qpos of a hinge, slide or free-translation
+  // dof j
+  TRAJOPT_TOPO_TABLE(dof_body, DOF_BODY, NV, )
+  TRAJOPT_TOPO_TABLE(dof_q, DOF_Q, NV, )
+  // state dof k: its qvel index
+  TRAJOPT_TOPO_TABLE(sv, SV, NDOF, )
+  TRAJOPT_TOPO_TABLE(resarg, RESARGS, NRESARG, )
+  TRAJOPT_TOPO_TABLE(pair_t1, PAIRS, NPAIR, [0])
+  TRAJOPT_TOPO_TABLE(pair_t2, PAIRS, NPAIR, [1])
+  TRAJOPT_TOPO_TABLE(pair_b1, PAIRS, NPAIR, [2])
+  TRAJOPT_TOPO_TABLE(pair_b2, PAIRS, NPAIR, [3])
+
+  __host__ __device__ static constexpr bool free(int b) {
+    return free_flag(b) != 0;
   }
   __host__ __device__ static constexpr bool slide(int j) {
-    return ((SLIDE_ >> j) & 1u) != 0u;
+    return slide_flag(j) != 0;
   }
-  __host__ __device__ static constexpr bool free(int b) {
-    return ((FREE_ >> b) & 1u) != 0u;
+  __host__ __device__ static constexpr int count_free() {
+    int n = 0;
+    for (int b = 0; b < NBODY; ++b) n += free(b) ? 1 : 0;
+    return n;
   }
-  __host__ __device__ static constexpr int body_dof(int b) {
-    return static_cast<int>((BODYDOF_ >> (4 * b)) & 0xFull) - 1;
+  static constexpr int NQ = NV + count_free();
+
+  // ---- the residual: RESARGS holds joint_space's (NJ, NUR), the FK
+  // residuals' (goal body, end-effector site body, obstacle bodies...) and
+  // select's index of each row's coordinate in [qpos, qvel, ctrl]
+  static constexpr int NJ = resarg(0);     // joint-space residual sizes
+  static constexpr int NUR = NRESARG > 1 ? resarg(1) : 0;
+  static constexpr int GOAL = resarg(0);   // FK residual bodies
+  static constexpr int SITE_BODY = NUR;
+  static constexpr int NOBST = RES == RES_PUSH ? NRESARG - 2 : 0;
+  __host__ __device__ static constexpr int obstacle(int i) {
+    return resarg(2 + i);
   }
-  __host__ __device__ static constexpr int body_ndof(int b) {
-    return static_cast<int>((BODYNDOF_ >> (4 * b)) & 0xFull);
-  }
-  __host__ __device__ static constexpr int qadr(int b) {
-    return static_cast<int>((QADR_ >> (4 * b)) & 0xFull);
-  }
-  // The inverse maps are folded into bit codes once, so that a lookup in an
-  // unrolled loop is a shift of a constant like parent(): as loops over the
-  // bodies they did not always fold, and an index the compiler cannot see
-  // sends the per-body arrays through local memory (pentabot's FD kernel ran
-  // 2.2x slower that way).
-  __host__ __device__ static constexpr unsigned long long make_dofbody() {
-    unsigned long long code = 0;
-    for (int b = 1; b < NBODY_; ++b)
-      for (int k = 0; k < body_ndof(b); ++k)
-        code |= static_cast<unsigned long long>(b) << (4 * (body_dof(b) + k));
-    return code;
-  }
-  static constexpr unsigned long long DOFBODY = make_dofbody();
-  // the body of dof j
-  __host__ __device__ static constexpr int dof_body(int j) {
-    return static_cast<int>((DOFBODY >> (4 * j)) & 0xFull);
-  }
-  __host__ __device__ static constexpr unsigned long long make_dofq() {
-    unsigned long long code = 0;
-    for (int j = 0; j < NV_; ++j) {
-      const int b = dof_body(j);
-      code |= static_cast<unsigned long long>(qadr(b) + j - body_dof(b))
-              << (4 * j);
-    }
-    return code;
-  }
-  static constexpr unsigned long long DOFQ = make_dofq();
-  // the qpos of a hinge, slide or free-translation dof j
-  __host__ __device__ static constexpr int dof_q(int j) {
-    return static_cast<int>((DOFQ >> (4 * j)) & 0xFull);
-  }
-  // state dof k: its qvel index and its qpos (hinge, slide or translation)
-  __host__ __device__ static constexpr int sv(int k) {
-    return static_cast<int>((SVDOF_ >> (4 * k)) & 0xFull);
-  }
+  __host__ __device__ static constexpr int select(int k) { return resarg(k); }
+  static constexpr int NRES = RES == RES_JOINT    ? 2 * NJ + NUR
+                              : RES == RES_SELECT ? NRESARG
+                              : RES == RES_SWEEP  ? 3
+                              : RES == RES_TILT   ? 7
+                                                  : 4 + NOBST;
+  static constexpr int NTGT =
+      (RES == RES_PUSH || RES == RES_TILT) ? 2
+                                           : (RES == RES_SWEEP ? 4 : NRES);
+
+  // state dof k: its qpos (hinge, slide or translation)
   __host__ __device__ static constexpr int sv_q(int k) { return dof_q(sv(k)); }
   // state dof k is component sv_rot(k) (0-2) of a free joint's rotation,
   // or -1: its position difference is the quaternion's log, taken per
@@ -183,94 +218,108 @@ struct Topo {
     return qadr(dof_body(sv(k))) + 3;
   }
   __host__ __device__ static constexpr bool make_has_rot() {
-    for (int k = 0; k < NDOF_; ++k)
+    for (int k = 0; k < NDOF; ++k)
       if (sv_rot(k) >= 0) return true;
     return false;
   }
   static constexpr bool HAS_ROT = make_has_rot();
+
+  // ---- limits: the k-th limited dof
   __host__ __device__ static constexpr int count_limited() {
     int n = 0;
-    for (int j = 0; j < NV_; ++j) n += (LIMITED_ >> j) & 1u;
+    for (int j = 0; j < NV; ++j) n += limited_flag(j) != 0 ? 1 : 0;
     return n;
   }
-  __host__ __device__ static constexpr unsigned long long make_limdof() {
-    unsigned long long code = 0;
-    int k = 0;
-    for (int j = 0; j < NV_; ++j)
-      if ((LIMITED_ >> j) & 1u) {
-        code |= static_cast<unsigned long long>(j) << (4 * k);
-        ++k;
-      }
-    return code;
-  }
-  static constexpr unsigned long long LIMDOF = make_limdof();
-  // the k-th limited dof
-  __host__ __device__ static constexpr int lim_dof(int k) {
-    return static_cast<int>((LIMDOF >> (4 * k)) & 0xFull);
-  }
   static constexpr int NLIM = count_limited();
+  __host__ __device__ static constexpr Table<NV> make_limdof() {
+    Table<NV> t{};
+    int k = 0;
+    for (int j = 0; j < NV; ++j)
+      if (limited_flag(j) != 0) t.v[k++] = j;
+    return t;
+  }
+  TRAJOPT_TOPO_DERIVED(lim_dof, LIMDOF, NV, make_limdof)
 
-  // ---- contact pairs (contact.cuh); compile time only
-  static constexpr int NPAIR = static_cast<int>(sizeof...(PAIRS_));
-  __host__ __device__ static constexpr unsigned pair_code(int p) {
-    unsigned out = 0;
-    int i = 0;
-    ((out = (i++ == p ? PAIRS_ : out)), ...);
-    return out;
+  // ---- root paths: whether dof j lies on body b's root path
+  __host__ __device__ static constexpr Table<NBODY * NV> make_path() {
+    Table<NBODY * NV> t{};
+    for (int b0 = 0; b0 < NBODY; ++b0)
+      for (int b = b0; b > 0; b = parent(b))
+        for (int k = 0; k < body_ndof(b); ++k)
+          t.v[b0 * NV + body_dof(b) + k] = 1;
+    return t;
   }
-  __host__ __device__ static constexpr int pair_field(int p, int f) {
-    return static_cast<int>((pair_code(p) >> (4 * f)) & 0xFu);
+  TRAJOPT_TOPO_DERIVED(path_flag, PATH, NBODY * NV, make_path)
+  // the k-th ancestor of body b (its parent first), 0 past the root
+  __host__ __device__ static constexpr Table<NBODY * NBODY> make_anc() {
+    Table<NBODY * NBODY> t{};
+    for (int b0 = 0; b0 < NBODY; ++b0) {
+      int k = 0;
+      for (int a = parent(b0); b0 > 0 && a > 0; a = parent(a))
+        t.v[b0 * NBODY + k++] = a;
+    }
+    return t;
   }
-  __host__ __device__ static constexpr int pair_t1(int p) {
-    return pair_field(p, 0);
+  TRAJOPT_TOPO_DERIVED(ancestor_at, ANC, NBODY * NBODY, make_anc)
+  __device__ static int ancestor(int b, int k) {
+    if constexpr (ROLL_LOOPS)
+      return rolled_ancestor<Topo>(b, k);  // b a rolled loop's: a table
+    else
+      return ancestor_at(b * NBODY + k);
   }
-  __host__ __device__ static constexpr int pair_t2(int p) {
-    return pair_field(p, 1);
+  __host__ __device__ static constexpr bool on_path(int b, int j) {
+    return path_flag(b * NV + j) != 0;
   }
-  __host__ __device__ static constexpr int pair_b1(int p) {
-    return pair_field(p, 2);
-  }
-  __host__ __device__ static constexpr int pair_b2(int p) {
-    return pair_field(p, 3);
-  }
-  // slots per pair (dynamics/collision.py _COLLIDERS)
+
+  // ---- contact pairs (contact.cuh): slots per pair (dynamics/collision.py
+  // _COLLIDERS), the support (the dofs on exactly one of the two root
+  // paths, in dof order) and its signs (+1 on geom2's path, -1 on geom1's)
   __host__ __device__ static constexpr int pair_ncon(int p) {
     return pair_slots(pair_t1(p), pair_t2(p));
   }
-  // dof j on body b's root path
-  __host__ __device__ static constexpr bool on_path(int b, int j) {
-    for (; b > 0; b = parent(b))
-      if (body_ndof(b) > 0 && j >= body_dof(b) &&
-          j < body_dof(b) + body_ndof(b))
-        return true;
-    return false;
-  }
-  // support of pair p: the dofs on exactly one of the two root paths, in
-  // dof order, 4 bits each; a sign bit per support entry, set on geom2's
-  // path (+1), clear on geom1's (-1)
-  __host__ __device__ static constexpr unsigned long long supp_code(int p) {
-    unsigned long long code = 0;
-    int w = 0;
-    for (int j = 0; j < NV_; ++j)
-      if (on_path(pair_b1(p), j) != on_path(pair_b2(p), j))
-        code |= static_cast<unsigned long long>(j) << (4 * w++);
-    return code;
-  }
-  __host__ __device__ static constexpr unsigned sgn_code(int p) {
-    unsigned code = 0;
-    int w = 0;
-    for (int j = 0; j < NV_; ++j)
-      if (on_path(pair_b1(p), j) != on_path(pair_b2(p), j)) {
-        if (on_path(pair_b2(p), j)) code |= 1u << w;
-        ++w;
-      }
-    return code;
-  }
   __host__ __device__ static constexpr int nsup(int p) {
     int w = 0;
-    for (int j = 0; j < NV_; ++j)
-      w += on_path(pair_b1(p), j) != on_path(pair_b2(p), j);
+    for (int j = 0; j < NV; ++j)
+      w += on_path(pair_b1(p), j) != on_path(pair_b2(p), j) ? 1 : 0;
     return w;
+  }
+  // entry p NV + w: the w-th support dof of pair p, then its sign (+1, -1)
+  __host__ __device__ static constexpr Table<NPAIR * NV> make_supp(bool sg) {
+    Table<NPAIR * NV> t{};
+    for (int p = 0; p < NPAIR; ++p) {
+      int w = 0;
+      for (int j = 0; j < NV; ++j)
+        if (on_path(pair_b1(p), j) != on_path(pair_b2(p), j))
+          t.v[p * NV + w++] = sg ? (on_path(pair_b2(p), j) ? 1 : -1) : j;
+    }
+    return t;
+  }
+  __host__ __device__ static constexpr Table<NPAIR * NV> make_supp_dof() {
+    return make_supp(false);
+  }
+  __host__ __device__ static constexpr Table<NPAIR * NV> make_supp_sign() {
+    return make_supp(true);
+  }
+  static constexpr Table<NPAIR * NV> SUPP = make_supp_dof();
+  static constexpr Table<NPAIR * NV> SUPP_SIGN = make_supp_sign();
+  template <int PI, int... W>
+  static Pack<SUPP.v[PI * NV + W]...> supp_pack(
+      std::integer_sequence<int, W...>);
+  template <int PI, int... W>
+  static Pack<SUPP_SIGN.v[PI * NV + W]...> sign_pack(
+      std::integer_sequence<int, W...>);
+  // the w-th support dof of pair PI, and its sign
+  template <int PI>
+  __host__ __device__ static constexpr int supp(
+      std::integral_constant<int, PI>, int w) {
+    return decltype(supp_pack<PI>(std::make_integer_sequence<int, NV>{}))::at(
+        w);
+  }
+  template <int PI>
+  __host__ __device__ static constexpr int supp_sign(
+      std::integral_constant<int, PI>, int w) {
+    return decltype(sign_pack<PI>(std::make_integer_sequence<int, NV>{}))::at(
+        w);
   }
   __host__ __device__ static constexpr int count_slots() {
     int n = 0;
@@ -297,29 +346,79 @@ struct Topo {
     return w;
   }
 
-  // constraint rows (constraint.cuh): two one-entry rows per limited joint,
-  // then four rows per contact slot over its pair's support; compile time
-  // only: row r's dofs (4 bits each) and its width
+  // ---- constraint rows (constraint.cuh): two one-entry rows per limited
+  // joint, then four rows per contact slot over its pair's support; row r's
+  // width row_w(r) and its w-th dof row_dof(r, w)
   static constexpr int R = 2 * NLIM + 4 * NSLOT;
   static constexpr int ROW_W = max_sup();
-  __host__ __device__ static constexpr unsigned long long row_code(int r) {
-    return r < 2 * NLIM
-               ? static_cast<unsigned long long>(lim_dof(r < NLIM ? r
-                                                                  : r - NLIM))
-               : supp_code(slot_pair((r - 2 * NLIM) / 4));
+  __host__ __device__ static constexpr Table<R * ROW_W + R> make_rows() {
+    Table<R * ROW_W + R> t{};
+    const Table<NPAIR * NV> sup = make_supp_dof();
+    for (int r = 0; r < R; ++r) {
+      if (r < 2 * NLIM) {
+        t.v[r * ROW_W] = lim_dof(r < NLIM ? r : r - NLIM);
+        t.v[R * ROW_W + r] = 1;
+      } else {
+        const int p = slot_pair((r - 2 * NLIM) / 4);
+        for (int w = 0; w < nsup(p); ++w) t.v[r * ROW_W + w] = sup[p * NV + w];
+        t.v[R * ROW_W + r] = nsup(p);
+      }
+    }
+    return t;
   }
-  __host__ __device__ static constexpr int row_w(int r) {
-    return r < 2 * NLIM ? 1 : nsup(slot_pair((r - 2 * NLIM) / 4));
+  static constexpr Table<R * ROW_W + R> ROWS = make_rows();
+  template <int RR, int... W>
+  static Pack<ROWS.v[RR * ROW_W + W]...> row_pack(
+      std::integer_sequence<int, W...>);
+  // row RR of a compile-time loop (for_rows: static_for): constants
+  template <int RR>
+  __host__ __device__ static constexpr int row_dof(
+      std::integral_constant<int, RR>, int w) {
+    return decltype(row_pack<RR>(std::make_integer_sequence<int, ROW_W>{}))::
+        at(w);
   }
+  template <int RR>
+  __host__ __device__ static constexpr int row_w(
+      std::integral_constant<int, RR>) {
+    return Pack<ROWS.v[R * ROW_W + RR]>::at(0);
+  }
+  // row r of a rolled loop (TRAJOPT_ROLL_LOOPS): read from the rows'
+  // table in constant memory (ROW_TABLE below; a local copy of the table
+  // would be written out at every lookup)
+  __device__ static int row_dof(int r, int w) {
+    return rolled_row_dof<Topo>(r, w);
+  }
+  __device__ static int row_w(int r) { return rolled_row_w<Topo>(r); }
 
   // ---- the model buffer
-  static constexpr int DOFB = (NBODY_ - 1) * BODY_STRIDE;  // per-dof block
-  static constexpr int ACT = DOFB + NV_ * DOF_STRIDE;      // actuator block
-  static constexpr int LIM = ACT + NU_ * ACT_STRIDE;       // limit block
-  static constexpr int PAIRB = LIM + NLIM * LIM_STRIDE;    // contact pairs
+  static constexpr int DOFB = (NBODY - 1) * BODY_STRIDE;  // per-dof block
+  static constexpr int ACT = DOFB + NV * DOF_STRIDE;      // actuator block
+  static constexpr int LIM = ACT + NU * ACT_STRIDE;       // limit block
+  static constexpr int PAIRB = LIM + NLIM * LIM_STRIDE;   // contact pairs
   static constexpr int GRAV = PAIRB + NPAIR * PAIR_STRIDE;
   static constexpr int DT = GRAV + 3;
 };
+
+// The rows' table and the ancestors' of an instance in constant memory,
+// for the lookups of rolled loops: every lane of a warp reads the same
+// entry at once.
+template <class T>
+__constant__ Table<T::R * T::ROW_W + T::R> ROW_TABLE = T::ROWS;
+template <class T>
+__constant__ Table<T::NBODY * T::NBODY> ANC_TABLE = T::ANC;
+
+template <class T>
+__device__ __forceinline__ int rolled_row_dof(int r, int w) {
+  return ROW_TABLE<T>.v[r * T::ROW_W + w];
+}
+template <class T>
+__device__ __forceinline__ int rolled_row_w(int r) {
+  return ROW_TABLE<T>.v[T::R * T::ROW_W + r];
+}
+template <class T>
+__device__ __forceinline__ int rolled_ancestor(int b, int k) {
+  return ANC_TABLE<T>.v[b * T::NBODY + k];
+}
 
 // Spatial inertia about the world origin in compact form.
 template <class S = double>
@@ -670,18 +769,19 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
     }
   } else {
     S M[NV][NV];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i)
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int k = 0; k < NV; ++k) M[i][k] = 0.0;
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) {
       const int bi = T::dof_body(i);
       S F[6];
       inertia_mul(In[bi], cdof[i], F);
       M[i][i] = dot6(cdof[i], F) + P[T::DOFB + i * DOF_STRIDE + D_ARM];
-      // the body's own earlier dofs (a free joint's), then its ancestors';
-      // loops of constant trip count with guards, which the unroller folds
+      // the body's own earlier dofs (a free joint's), then its ancestors'
+      // (parent first); loops of constant trip count with guards, which the
+      // unroller folds
 #pragma unroll
       for (int k = 0; k < 5; ++k) {
         const int ik = T::body_dof(bi) + k;
@@ -692,7 +792,9 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
         }
       }
 #pragma unroll
-      for (int a = T::parent(bi); a > 0; a = T::parent(a)) {
+      for (int n = 0; n < NB - 1; ++n) {
+        const int a = T::ancestor(bi, n);
+        if (a <= 0) continue;
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
           if (k < T::body_ndof(a)) {
@@ -708,7 +810,7 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
     // ---- forces, constraint force, implicit damping, Euler
     const double h = P[T::DT];
     S f[NV];
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) {
       const int bi = T::dof_body(i);
       const double* pd = P + T::DOFB + i * DOF_STRIDE;
@@ -735,15 +837,15 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
       if constexpr (T::NPAIR > 0)
         contact_rows<T>(P, xpos, xquat, cdof, v, rows);
       constraint_solve<T>(M, f, rows, qc);
-#pragma unroll
+      TRAJOPT_UNROLL
       for (int i = 0; i < NV; ++i) f[i] = f[i] + qc[i];
     }
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i)
       M[i][i] += h * P[T::DOFB + i * DOF_STRIDE + D_DAMP];
     chol_factor<NV>(M);
     chol_solve<NV>(M, f);
-#pragma unroll
+    TRAJOPT_UNROLL
     for (int i = 0; i < NV; ++i) vn[i] = v[i] + h * f[i];
     integrate_pos<T>(q, vn, h, qn);
   }
@@ -785,7 +887,7 @@ __device__ __forceinline__ void residual_and_step(
     joint_space_residual<T::NJ, T::NUR>(q, v, u, tg, r);
     smooth_step<T>(P, q, v, u, qn, vn);
   } else if constexpr (T::RES == RES_SELECT) {
-    select_residual<T::NQ, T::NV, T::NRES, T::SELECT>(q, v, u, tg, r);
+    select_residual<T>(q, v, u, tg, r);
     smooth_step<T>(P, q, v, u, qn, vn);
   } else {
     smooth_step<T, true>(P, q, v, u, qn, vn, tg, resc, r);

@@ -15,11 +15,11 @@ cylinder-box contacts (the contact rows K2b, csrc/contact.cuh, and the
 constraint solve K2a, csrc/constraint.cuh, device functions inside the step), a
 state vector of hinge, slide and free-joint dofs (a free rotation's three
 together), and the joint-space, the FK residuals of the pushing and box tasks
-or the walker's selected-coordinate residual.  Their topology (sizes, joint
-masks and codes, qpos addresses, state-vector dofs, residual kind, contact
-pairs) is a template argument; the instances built are listed in
-csrc/instances.cuh.  `cost_expansion` (K6) is the Gauss-Newton cost expansion
-from the closed-form residual Jacobian (the FK residuals' from the step's FK,
+or the walker's selected-coordinate residual.  Their topology (sizes, per
+body and per dof tables, state-vector dofs, residual kind, contact pairs) is
+a struct of compile-time tables (kernels/topology.py), a template argument;
+the instances built are listed in csrc/instances.cuh.  `cost_expansion` (K6)
+is the Gauss-Newton cost expansion from the closed-form residual Jacobian (the FK residuals' from the step's FK,
 `fk_frames`).  `mpc_apply` (K8) is the MPC replan's apply step. One more entry
 point runs a device function of the step alone: `fk_bias` (the FK products and
 bias force, for the pushing tasks' servo).
@@ -59,7 +59,8 @@ from ..keypoints import methods as kp_methods
 from ..keypoints.interpolate import lerp_columns
 from ..solver import ilqr as twins
 from ..tasks.base import Task, control_limits
-from . import build
+from . import build, topology
+from .topology import Topology
 
 # the dynamics Jacobians are central FD (K5, the generic solve's deriv_mode
 # "fd") or forward mode (K5ad, every lane path, and deriv_mode "ad" and
@@ -120,8 +121,9 @@ JOINT_FIELDS = (("jnt_pos", 3), ("jnt_axis", 3), ("qpos0", 1),
 # CONTACT_FIELDS; gravity (3); timestep
 RES_KINDS = {"joint_space": 0, "push": 1, "select": 2, "sweep": 3,
              "tilt_push": 4}
-# the FK residuals of a goal body and an end-effector site: ("push", 0,
-# goal, site), ("sweep", goal, site), ("tilt_push", goal, site)
+# the FK residuals of a goal body and an end-effector site: ("push", n,
+# goal, site, n obstacle bodies), ("sweep", goal, site), ("tilt_push",
+# goal, site)
 FK_KINDS = ("push", "sweep", "tilt_push")
 
 
@@ -157,18 +159,14 @@ def body_joints(model: Model):
 
 def _scope_error(why: str):
     return NotImplementedError(
-        f"the kernels take trees of up to 16 bodies (qpos and qvel up to 15 "
-        f"entries) whose bodies carry hinge and slide joints, one free joint "
-        f"alone, or none: {why}; ball joints are ROADMAP Queue 1 item 11")
+        f"the kernels take trees whose bodies carry hinge and slide joints, "
+        f"one free joint alone, or none: {why}; ball joints are ROADMAP "
+        f"Queue 1 item 11")
 
 
-def model_topology(model: Model) -> Tuple[int, ...]:
-    """(NV, NU, NBODY, slide mask, free mask, parent code, body-dof code,
-    body-ndof code, qpos-address code, limited mask) of a kernel-ready model,
-    and its contact pairs' codes, or raise."""
-    nv, nq = model.nv, model.nq
-    if nv > 15 or nq > 15 or model.nbody > 16:
-        raise _scope_error(f"nq {nq}, nv {nv}, nbody {model.nbody}")
+def model_topology(model: Model) -> Topology:
+    """The model's tables of a kernel instance (topology.Topology; the
+    state vector and the residual left empty), or raise."""
     joints = body_joints(model)
     dof = 0
     for b in range(1, model.nbody):
@@ -196,33 +194,43 @@ def model_topology(model: Model) -> Tuple[int, ...]:
         raise NotImplementedError(
             "the kernels multiply the impedance power out: contact solimp[4] "
             "must be an integer from 1 to 8")
-    if any(len(p.support) > 15 for p in cc.pairs):
-        raise _scope_error("a contact pair's support exceeds 15 dofs")
-    slide = sum(1 << model.jnt_dofadr[j] for j in range(model.njnt)
-                if model.jnt_type[j] == SLIDE)
-    free = sum(1 << b for b in range(1, model.nbody)
-               if joints[b] and model.jnt_type[joints[b][0]] == FREE)
-    parents = sum(model.body_parent[b] << (4 * b)
-                  for b in range(1, model.nbody))
-    bodydof = sum((model.jnt_dofadr[joints[b][0]] + 1) << (4 * b)
-                  for b in range(1, model.nbody) if joints[b])
-    ndof = sum(sum(6 if model.jnt_type[j] == FREE else 1 for j in joints[b])
-               << (4 * b) for b in range(1, model.nbody))
-    qadr = sum(model.jnt_qposadr[joints[b][0]] << (4 * b)
-               for b in range(1, model.nbody) if joints[b])
-    limited = sum(1 << model.jnt_dofadr[j]
-                  for j in limit_constants(model).joints)
-    pairs = tuple(pr.types[0] | pr.types[1] << 4 | pr.bodies[0] << 8
-                  | pr.bodies[1] << 12 for pr in cc.pairs)
-    return (nv, model.nu, model.nbody, slide, free, parents, bodydof, ndof,
-            qadr, limited), pairs
+    nb, nv = model.nbody, model.nv
+    first = [joints[b][0] if joints[b] else None for b in range(nb)]
+    body_dof = tuple(-1 if j is None else model.jnt_dofadr[j] for j in first)
+    body_ndof = tuple(sum(6 if model.jnt_type[j] == FREE else 1
+                          for j in joints[b]) for b in range(nb))
+    body_qadr = tuple(0 if j is None else model.jnt_qposadr[j]
+                      for j in first)
+    dof_body = [0] * nv
+    for b in range(1, nb):
+        for k in range(body_ndof[b]):
+            dof_body[body_dof[b] + k] = b
+    slide = [0] * nv
+    for j in range(model.njnt):
+        if model.jnt_type[j] == SLIDE:
+            slide[model.jnt_dofadr[j]] = 1
+    limited = [0] * nv
+    for j in limit_constants(model).joints:
+        limited[model.jnt_dofadr[j]] = 1
+    return Topology(
+        NV=nv, NU=model.nu, NBODY=nb, NDOF=0,
+        PARENT=(0,) + tuple(model.body_parent[1:]), BODY_DOF=body_dof,
+        BODY_NDOF=body_ndof, BODY_QADR=body_qadr,
+        FREE=tuple(int(bool(joints[b]) and b > 0
+                       and model.jnt_type[joints[b][0]] == FREE)
+                   for b in range(nb)),
+        SLIDE=tuple(slide), LIMITED=tuple(limited), DOF_BODY=tuple(dof_body),
+        DOF_Q=tuple(body_qadr[dof_body[j]] + j - body_dof[dof_body[j]]
+                    for j in range(nv)),
+        SV=(), PAIRS=tuple((*pr.types, *pr.bodies) for pr in cc.pairs),
+        RES=-1, RESARGS=())
 
 
-def state_key(model: Model, sv) -> Tuple[int, int]:
-    """(NDOF, state-dof code) of a state vector the kernels take, or raise:
-    hinge, slide and free-joint dofs, all active, at most 15.  A free
-    joint's rotation dofs enter as a whole (its tangent is the quaternion's
-    q * exp(dz), whose rows the kernels take per body)."""
+def state_key(model: Model, sv) -> Tuple[int, ...]:
+    """The qvel index of each state dof the kernels take, or raise: hinge,
+    slide and free-joint dofs, all active.  A free joint's rotation dofs
+    enter as a whole (its tangent is the quaternion's q * exp(dz), whose
+    rows the kernels take per body)."""
     allowed = set()
     for j in range(model.njnt):
         d = model.jnt_dofadr[j]
@@ -233,24 +241,31 @@ def state_key(model: Model, sv) -> Tuple[int, int]:
             rot = (d + 3, d + 4, d + 5)
             if all(i in sv.order for i in rot):
                 allowed.update(rot)
-    if (sv.ndof > 15 or any(i not in allowed for i in sv.order)
+    if (any(i not in allowed for i in sv.order)
             or not bool((sv.active > 0.5).all())):
         raise NotImplementedError(
-            "the kernels take a state vector of at most 15 active hinge, "
-            "slide or free-joint dofs, a free rotation's three together "
-            f"(ball joints are ROADMAP Queue 1 item 11); it has {sv.names}")
-    return sv.ndof, sum(i << (4 * k) for k, i in enumerate(sv.order))
+            "the kernels take a state vector of active hinge, slide or "
+            "free-joint dofs, a free rotation's three together (ball joints "
+            f"are ROADMAP Queue 1 item 11); it has {sv.names}")
+    return tuple(sv.order)
 
 
 def _fk_kind(task: Task):
-    """(kind, goal body, end-effector site) of a kernel-ready FK residual:
-    ("push", 0, goal, site) with nres 4, ("sweep", goal, site) with nres 3
-    and 4 targets, ("tilt_push", goal, site) with nres 7 and 2 targets;
-    else None."""
+    """(kind, goal body, end-effector site, obstacle bodies) of a
+    kernel-ready FK residual: ("push", n, goal, site, n obstacle bodies)
+    with nres 4 + n and n obstacle layout points (task.obstacle_starts),
+    ("sweep", goal, site) with nres 3 and 4 targets, ("tilt_push", goal,
+    site) with nres 7 and 2 targets; else None."""
     model, kind = task.model, task.residual_kind
     nres, ntgt = task.nres, task.residual_targets.shape[0]
-    if len(kind) == 4 and kind[:2] == ("push", 0) and nres == 4:
-        name, goal, site = "push", kind[2], kind[3]
+    obst = ()
+    if (len(kind) >= 4 and kind[0] == "push" and isinstance(kind[1], int)
+            and len(kind) == 4 + kind[1] and nres == 4 + kind[1]):
+        name, goal, site, obst = "push", kind[2], kind[3], tuple(kind[4:])
+        starts = task.obstacle_starts
+        if len(obst) and (starts is None
+                          or tuple(starts.shape) != (len(obst), 2)):
+            return None
     elif (len(kind) == 3 and (kind[0], nres, ntgt) in (("sweep", 3, 4),
                                                       ("tilt_push", 7, 2))):
         name, goal, site = kind
@@ -258,66 +273,62 @@ def _fk_kind(task: Task):
         return None
     j = model.jnt_bodyid.index(goal) if goal in model.jnt_bodyid else -1
     if (0 < goal < model.nbody and 0 <= site < model.nsite
+            and all(0 < b < model.nbody for b in obst)
             and (name == "push" or model.jnt_type[j] == FREE)):
-        return name, goal, site
+        return name, goal, site, obst
     return None
 
 
-def residual_key(task: Task) -> Tuple[int, int, int]:
-    """(RES, RESA, RESB) of the task's residual kind, or raise."""
+def residual_key(task: Task) -> Tuple[int, Tuple[int, ...]]:
+    """(RES, RESARGS) of the task's residual kind, or raise: joint_space
+    (nj, nr), push (goal body, ee site body, obstacle bodies...), select
+    (the index of each row's coordinate in [qpos, qvel, ctrl]), sweep and
+    tilt_push (box body, ee site body)."""
     model, kind = task.model, task.residual_kind
     if (len(kind) == 3 and kind[0] == "joint_space"
             and 0 < kind[1] <= model.nv and 0 <= kind[2] <= model.nu
             and task.nres == 2 * kind[1] + kind[2]):
-        return RES_KINDS["joint_space"], kind[1], kind[2]
+        return RES_KINDS["joint_space"], (kind[1], kind[2])
     fk = _fk_kind(task)
     if fk is not None:
-        return RES_KINDS[fk[0]], fk[1], model.site_bodyid[fk[2]]
+        return RES_KINDS[fk[0]], (fk[1], model.site_bodyid[fk[2]]) + fk[3]
     if len(kind) == 2 and kind[0] == "select" and len(kind[1]) == task.nres:
         sizes = (model.nq, model.nv, model.nu)
         base = (0, model.nq, model.nq + model.nv)
-        idx = [base[s_] + i for s_, i in kind[1] if 0 <= i < sizes[s_]]
-        if len(idx) == task.nres <= 12 and max(idx) < 32:
-            return (RES_KINDS["select"], task.nres,
-                    sum(i << (5 * k) for k, i in enumerate(idx)))
+        idx = tuple(base[s_] + i for s_, i in kind[1] if 0 <= i < sizes[s_])
+        if len(idx) == task.nres:
+            return RES_KINDS["select"], idx
     raise NotImplementedError(
         "the kernels compute the joint-space residual (\"joint_space\", "
-        "nj <= nv, nr <= nu), the FK residuals (\"push\", 0, goal body, "
-        "ee site), (\"sweep\", box, ee site) and (\"tilt_push\", box, ee "
-        "site) of a free box, and a residual of selected coordinates "
-        "(\"select\", ((source, index), ...)) of at most 12 rows; task "
-        f"residual is {kind}; clutter (\"push\", n > 0) is ROADMAP Queue 1 "
-        "item 7b")
+        "nj <= nv, nr <= nu), the FK residuals (\"push\", n, goal body, "
+        "ee site, n obstacle bodies), (\"sweep\", box, ee site) and "
+        "(\"tilt_push\", box, ee site) of a free box, and a residual of "
+        "selected coordinates (\"select\", ((source, index), ...)); task "
+        f"residual is {kind}")
 
 
 def residual_constants(task: Task) -> torch.Tensor:
     """The residual's constants at the end of the task buffer: for an FK
-    residual the end-effector site's position on its body."""
+    residual the end-effector site's position on its body, then for the
+    clutter residual each obstacle's layout point (x, y)."""
     model = task.model
     fk = _fk_kind(task)
-    if fk is not None:
-        return model.site_pos[fk[2]].reshape(3)
-    return torch.zeros(0, dtype=model.dtype, device=model.device)
-
-
-def _int(x: str) -> int:
-    return int(x.strip().rstrip("uUlL"), 0)
+    if fk is None:
+        return torch.zeros(0, dtype=model.dtype, device=model.device)
+    site = model.site_pos[fk[2]].reshape(3)
+    if not fk[3]:
+        return site
+    return torch.cat([site, task.obstacle_starts.to(site).reshape(-1)])
 
 
 @functools.lru_cache(maxsize=None)
 def instances() -> dict:
-    """instance key -> instance tag, from instances.cuh (read once): the key
-    is (NV, NU, NBODY, slide mask, free mask, parent code, body-dof code,
-    body-ndof code, qpos-address code, limited mask, NDOF, state-dof code,
-    RES, RESA, RESB, pair codes...).  The limited mask and the pairs in the
-    key fix the rows of the constraint solve, so a model with limits or
+    """instance key (topology.Topology) -> instance tag, from
+    instances.cuh (read once).  The limited dofs and the pairs in the key
+    fix the rows of the constraint solve, so a model with limits or
     contacts never runs through an instance without them."""
-    text = (build.CSRC / "instances.cuh").read_text().replace("\\\n", " ")
-    out = {}
-    for tag, args in re.findall(r"\bX\((\w+),([\s0-9a-fA-FxuUlL,]*)\)",
-                                text):
-        out[tuple(_int(x) for x in args.split(","))] = tag
-    return out
+    tables = build.instance_tables()
+    return {topo: tag for tag, topo in tables.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,22 +340,19 @@ def backward_instances() -> frozenset:
                      for a, b in re.findall(r"\bB\((\d+),\s*(\d+)\)", text))
 
 
-def instance_key(task: Task) -> Tuple[int, ...]:
-    """The instances.cuh key of a task, or raise outside the scope."""
-    topo, pairs = model_topology(task.model)
-    return topo + state_key(task.model, task.sv) + residual_key(task) + pairs
+def instance_key(task: Task) -> Topology:
+    """The instances.cuh tables of a task, or raise outside the scope."""
+    res, args = residual_key(task)
+    sv = state_key(task.model, task.sv)
+    return model_topology(task.model)._replace(NDOF=len(sv), SV=sv, RES=res,
+                                               RESARGS=args)
 
 
 def instance_line(task: Task, tag: str) -> str:
-    """The instances.cuh entry of a task (to add a topology)."""
-    key = instance_key(task)
-    hexes = {3, 4, 5, 6, 7, 8, 9, 11}
-    words = [tag] + [hex(v) + ("u" if i in (3, 4, 9) else "ull")
-                     if i in hexes else str(v)
-                     for i, v in enumerate(key[:15])]
-    words[15] = hex(key[14]) + "ull"
-    words += [hex(p) + "u" for p in key[15:]]
-    return f"X({', '.join(words)})"
+    """The instances.cuh entry of a task (to add a topology): its tables'
+    struct and its X entry."""
+    return topology.emit(tag, instance_key(task))
+
 
 
 class KernelArgs(NamedTuple):
@@ -812,7 +820,7 @@ def fk_bias(task: Task, qpos, qvel, plain: bool = False):
 # K9a's selectors: a mask given, or a method's profile and scan
 SELECTORS = {"mask": 0, "adaptive_jerk": 1, "adaptive_accel": 2,
              "velocity_change": 3}
-MAX_KP_DOFS = 15      # per-dof counters a K9a thread keeps in registers
+MAX_KP_DOFS = 31      # per-dof counters a K9a thread keeps (keypoints.cu MAXN)
 
 
 class KeypointPlanArgs(NamedTuple):

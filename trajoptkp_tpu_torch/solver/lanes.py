@@ -164,7 +164,8 @@ def residual_jacobian(task: Task, qp, qv, u, tg):
     """The residual r (nres, *L) and its Jacobian J on the tangent space
     (positions, velocities and controls of the state vector) in closed
     form: (nres, 2n + nu, 1, ...) for a residual that selects coordinates
-    (a constant), (nres, 2n + nu, *L) for the pushing FK residual
+    (a constant), (nres, 2n + nu, *L) for the pushing FK residual (with
+    its obstacles' rows in clutter)
     (tasks/pushing.py:push_residual_jacobian) and the box tasks'
     (tasks/manipulation.py).  The twin of
     kernels/csrc/cost_expansion.cu's `residual_jacobian`; a residual kind
@@ -174,10 +175,11 @@ def residual_jacobian(task: Task, qp, qv, u, tg):
         J = selection_jacobian(task)
         return (task.residual_fn(qp, qv, u, tg),
                 J.reshape(tuple(J.shape) + (1,) * (qp.dim() - 1)))
-    if kind[0] == "push" and kind[1] == 0:
+    if kind[0] == "push":
         from ..tasks.pushing import push_residual_jacobian
         return push_residual_jacobian(task.model, kind[2], kind[3], task.sv,
-                                      task.model.nu, qp, qv, tg)
+                                      task.model.nu, qp, qv, tg, kind[4:],
+                                      task.obstacle_starts)
     if kind[0] in ("sweep", "tilt_push"):
         from ..tasks import manipulation as mt
         fn = (mt.sweep_residual_jacobian if kind[0] == "sweep"

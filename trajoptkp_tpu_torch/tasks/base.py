@@ -50,6 +50,9 @@ class Task:
     init_controls_fn: Optional[Callable] = None
     openloop_horizon: int = 500
     mpc_horizon: int = 100
+    # (n, 2): the fixed xy each obstacle's displacement residual is
+    # measured from (the clutter pushing tasks); None without obstacles
+    obstacle_starts: Optional[torch.Tensor] = None
 
     @property
     def nres(self) -> int:
