@@ -427,6 +427,6 @@ def test_cli_async_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["task"] == "acrobot" and res["steps"] <= 30
     assert res["replans"] >= 1 and res["horizon"] == 100
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="the YAML/CSV layer"):
         app.main(["--device", "cpu", "--runMode",
                   "Generate_asynchronus_mpc_data", "--scenes_dir", "x"])

@@ -124,13 +124,13 @@ def test_unlimited_model_has_no_rows_and_contacts_are_refused():
     assert out.qfrc_constraint is None
     assert not bool(pcontact.limits_active(acro, d.qpos).any())
     # pentabot's six capsule-capsule pairs are ported; a sphere in a pair
-    # is not (the sphere pairs, ROADMAP Queue 1 item 7b)
+    # is not (the sphere pairs: ROADMAP, K2b's other pairs)
     penta = load_model("pentabot", device="cpu")
     assert pcontact.contact_constants(penta).nslot == 6
     g = penta.contact_pairs[0][0]
     boxed = penta.replace(geom_type=tuple(
         2 if i == g else t for i, t in enumerate(penta.geom_type)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="K2b's other pairs"):
         pcontact.assemble_constraints(boxed, Data(
             qpos=torch.zeros(5, 1), qvel=torch.zeros(5, 1),
             ctrl=torch.zeros(3, 1)))

@@ -154,10 +154,10 @@ def test_cylinder_cylinder_matches_jax(case, side):
 
 
 def test_other_pairs_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="K2b's other pairs"):
         pcol.pair_ncon(pcol.GEOM_PLANE, pcol.GEOM_SPHERE)
     x, m = torch.zeros(3, 1), torch.eye(3)[..., None]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="K2b's other pairs"):
         pcol.pair_contacts(pcol.GEOM_SPHERE, pcol.GEOM_SPHERE, x, m, (0.1,),
                            x, m, (0.1,))
 

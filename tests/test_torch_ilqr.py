@@ -2,8 +2,9 @@
 generic solver per scene (`trajoptkp_tpu/solver/ilqr.py:150,380,414`), at
 1e-10 relative in float64 (summation order is the only difference).
 
-Pentabot runs contact-free on both sides (its self-contacts are ROADMAP
-Queue 1 item 7); its nu = 3 exercises the Cholesky of the backward pass.
+Pentabot runs contact-free on both sides (its self-contacts are held in
+tests/test_torch_pentabot.py); its nu = 3 exercises the Cholesky of the
+backward pass.
 """
 
 import jax

@@ -90,7 +90,7 @@ def test_cli_refuses_what_is_not_ported(capsys):
         app.main(["--device", "cpu", "--keypoint", "XY_1_100"])
     with pytest.raises(ValueError, match="want SI_n, AJ_a_b"):
         app.main(["--device", "cpu", "--keypoint", "VC_1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="harness, config, CLI and bench"):
         app.main(["--device", "cpu", "--runMode", "Init_controls"])
     app.main(["--device", "cpu", "--keypoint", "SI_2", "--horizon", "12",
               "--maxIter", "2", "--minIter", "1"])

@@ -252,7 +252,7 @@ def test_cli_runs_the_sync_mpc_campaign_on_the_cpu(tmp_path, capsys,
         lines = f.read().splitlines()
     assert lines[0] == CSV_COLUMNS and lines[1].startswith("3,")
     for mode in ("Init_controls", "Generate_openloop_data"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="harness, config, CLI and bench"):
             app.main(["--device", "cpu", "--task", "walker_run",
                       "--runMode", mode])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

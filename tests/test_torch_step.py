@@ -142,13 +142,14 @@ def test_panda_smooth_dynamics_with_jointless_bodies_match_jax():
 
 
 def test_step_refuses_constraints():
-    """A contact pair the port has no collider for (a sphere: ROADMAP Queue
-    1 item 7b) is refused; pentabot's own capsule pairs are ported."""
+    """A contact pair the port has no collider for (a sphere: ROADMAP,
+    K2b's other pairs) is refused; pentabot's own capsule pairs are
+    ported."""
     pm = load_model("pentabot", device="cpu")
     g = pm.contact_pairs[0][0]
     boxed = pm.replace(geom_type=tuple(
         2 if i == g else t for i, t in enumerate(pm.geom_type)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="K2b's other pairs"):
         step_state(boxed, torch.zeros(5, 1), torch.zeros(5, 1),
                    torch.zeros(3, 1))
     qn, vn = step_state(pm, torch.zeros(5, 1), torch.zeros(5, 1),

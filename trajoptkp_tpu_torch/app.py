@@ -84,9 +84,9 @@ from .solver.ilqr import DERIV_MODES
 RUN_MODES = ("Optimise_once", "MPC_until_completion",
              "Generate_syncronus_mpc_data", "Generate_asynchronus_mpc_data")
 RUN_MODES_LATER = {
-    "Init_controls": "ROADMAP Queue 1 item 12",
-    "Generate_test_scenes": "ROADMAP Queue 1 item 12",
-    "Generate_openloop_data": "ROADMAP Queue 1 item 12",
+    "Init_controls": "ROADMAP: the harness, config, CLI and bench work",
+    "Generate_test_scenes": "ROADMAP: the harness, config, CLI and bench work",
+    "Generate_openloop_data": "ROADMAP: the harness, config, CLI and bench work",
 }
 SYNC_MPC_HORIZONS = (20, 30, 40, 50, 60, 70, 80)
 SYNC_MPC_REPLANS = 200          # replans per horizon, as the JAX campaign
@@ -273,8 +273,8 @@ def async_mpc_campaign(task, cfg, args):
 
     if args.scenes_dir:
         raise NotImplementedError(
-            "--scenes_dir reads the reference's TestTasks CSVs: ROADMAP "
-            "Queue 1 item 6 (the YAML/CSV layer)")
+            "--scenes_dir reads the reference's TestTasks CSVs: the "
+            "YAML/CSV layer (ROADMAP: the harness, config, CLI and bench work)")
     N = min(args.num_scenes, ASYNC_CAMPAIGN_MAX_SCENES)
     out_dir = os.path.join(
         args.out_dir, f"{task.name}_async_mpc_{time.strftime('%Y%m%d_%H%M')}")

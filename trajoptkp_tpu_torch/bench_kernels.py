@@ -9,6 +9,7 @@
     python -m trajoptkp_tpu_torch.bench_kernels --task pushing_no_clutter \
         --H 1000 --B 128 --kernels rollout,linesearch,ad_jacobian,backward \
         --rolled
+    python -m trajoptkp_tpu_torch.bench_kernels --backward
 
 The rollout, line search, FD slot Jacobians and backward pass, the exact slot
 Jacobians (K5ad), the cost expansion (K6) and the MPC replan's apply step (K8,
@@ -26,22 +27,189 @@ round, and the sweeps per lane that the backward pass makes on these inputs
 (`bp_sweeps_per_lane`), with the exact Jacobians it is timed on and with
 central-FD ones (with the exact ones alone when `--kernels` leaves out
 fd_jacobian).  `--rolled` builds and loads every library with its loops
-rolled (TRAJOPT_ROLL_LOOPS), as the instances past build.ROLL_NV dofs and
-the backward passes past build.ROLL_NX are built: a run with it and one
-without time the two builds of one instance against each other.  To
+rolled (TRAJOPT_ROLL_LOOPS), as the instances past build.ROLL_NV dofs are
+built: a run with it and one without time the two builds of one instance
+against each other.  `--backward` times the backward pass (K7) alone at
+each main path's shape (BACKWARD_SHAPES) on `backward_inputs` (every lane
+valid at its first sweep, so a call is one sweep and 1 + bp_rounds
+launches), with its launch geometry; with `--marks` it is built with its
+phase marks (TRAJOPT_BP_MARKS, build.BP_MARKS: a library of its own, its
+times the marked kernel's) and each shape also gives the SM cycles a step
+spends in each phase (BP_PHASES, one call); with `--threads` each shape
+where a block owns a lane is also timed at those block sizes, each held
+bit for bit against the twin first (`bitwise`).  To
 compare two trees on one card, run this file once per tree inside one job,
 with PYTHONPATH set to the tree under test, in the order parent, change,
 change, parent. """
 
 import argparse
+import contextlib
+import ctypes
 import json
 import subprocess
 
+import numpy as np
 import torch
 
 from trajoptkp_tpu_torch.config.loader import make_task
 from trajoptkp_tpu_torch.kernels import build, ops
 from trajoptkp_tpu_torch.solver import ilqr, lanes
+from trajoptkp_tpu_torch.utils import linalg
+
+
+# K7's (nx, nu, H, B) on each main path: the open-loop cells, the walker's
+# sync MPC replan at one and 128 episodes, the async push_ncl planner
+BACKWARD_SHAPES = {
+    "acrobot": (4, 1, 500, 512), "reaching": (14, 7, 1500, 128),
+    "push_ncl": (20, 7, 1000, 128), "box_sweep": (26, 7, 1500, 128),
+    "push_lcl": (38, 7, 1000, 128), "walker_b1": (18, 6, 40, 1),
+    "walker_b128": (18, 6, 40, 128), "push_ncl_planner": (20, 7, 50, 1)}
+
+
+def backward_inputs(nx, nu, H, B, seed, device, retries=False):
+    """(A, Bm, l_x, l_xx, l_u, l_uu, λ) for the backward pass from a numpy
+    seed: A a contraction (0.95 I plus noise, so V stays bounded over any
+    horizon), l_xx and l_uu positive definite.  With `retries` the lanes
+    take turns at l_uu shifted by 0, -0.5, -5 and -100 I: valid at the
+    first λ (0.1), after one or two retries, or never (λ-exit), and a lane
+    made valid by λ 1 turns invalid again as its λ falls, so the coupled
+    loop runs all its rounds."""
+    r = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(r.standard_normal(shape)).to(device)
+
+    def gram(M):                   # M M^T / n per (t, b), positive definite
+        return torch.einsum("hikb,hjkb->hijb", M, M) / M.shape[1]
+
+    f64 = dict(dtype=torch.float64, device=device)
+    eye_x = torch.eye(nx, **f64)[None, :, :, None]
+    eye_u = torch.eye(nu, **f64)[None, :, :, None]
+    A = 0.95 * eye_x + 0.1 * draw(H, nx, nx, B) / nx
+    Bm = 0.05 * draw(H, nx, nu, B)
+    l_x = draw(H, nx, B)
+    l_xx = gram(draw(H, nx, nx, B))
+    l_u = draw(H, nu, B)
+    l_uu = gram(draw(H, nu, nu, B)) + 0.1 * eye_u
+    if retries:
+        shift = torch.tensor([0.0, -0.5, -5.0, -100.0], **f64)[
+            torch.arange(B) % 4]
+        l_uu = l_uu + shift * eye_u
+    lam = torch.full((B,), ilqr.ILQRConfig().lambda_init, **f64)
+    return tuple(x.contiguous() for x in (A, Bm, l_x, l_xx, l_u, l_uu, lam))
+
+
+class _ExactSqrtTorch:
+    """torch, with a correctly rounded square root of CPU tensors."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def sqrt(x):
+        if x.device.type != "cpu":
+            return torch.sqrt(x)
+        with np.errstate(invalid="ignore"):
+            return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+@contextlib.contextmanager
+def exact_cpu_sqrt():
+    """The twins' Cholesky (utils/linalg.py, the one square root of K7's
+    twin) with numpy's square root of CPU tensors, the correctly rounded
+    one that the card computes, while the block runs: torch's vectorised
+    CPU sqrt rounds some doubles an ulp away (`cpu_sqrt_off_share`).  Only
+    that module's name `torch` is replaced, and put back after."""
+    linalg.torch = _ExactSqrtTorch()
+    try:
+        yield
+    finally:
+        linalg.torch = torch
+
+
+def cpu_sqrt_off_share(n=1_000_000, seed=0):
+    """The share of n doubles, uniform in [0, 1) from a numpy seed, whose
+    square root torch rounds otherwise on this host's CPU than numpy's
+    correctly rounded one."""
+    x = np.random.default_rng(seed).random(n)
+    return float((torch.sqrt(torch.from_numpy(x)).numpy()
+                  != np.sqrt(x)).mean())
+
+
+# the phases of a K7 step between its lane barriers (csrc/backward.cu)
+BP_PHASES = ("W, g", "Q_ux, Q_uu", "solves", "V update")
+
+
+def bp_marks(nx, nu, call):
+    """SM cycles a step of block 0's first lane spends in each of BP_PHASES
+    over one call(), from K7's phase marks (a build with build.BP_MARKS)."""
+    read = build.load("backward", f"nx{nx}_nu{nu}").trajopt_bp_marks_read
+    read.argtypes = [ctypes.c_void_p]
+    marks = (ctypes.c_ulonglong * 5)()
+    torch.cuda.synchronize()
+    read(marks)                                # zero the earlier calls' sums
+    call()
+    torch.cuda.synchronize()
+    read(marks)
+    steps = max(1, marks[0])
+    return {name: marks[i + 1] / steps for i, name in enumerate(BP_PHASES)}
+
+
+def same_values(a, b):
+    """Equal element for element, NaN where the other is NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def bench_threads(nx, nu, inputs, threads, reps, rounds):
+    """K7 at (nx, nu) with its block size set to each of `threads` that
+    the kernel takes (a block owning a lane): whether it equals the twin
+    bit for bit on `backward_inputs` with λ retries, and its ms per call
+    of every round on `inputs`."""
+    cfg = ilqr.ILQRConfig()
+    base = ops.backward_geometry(nx, nu)
+    held = backward_inputs(nx, nu, 12, 5, seed=nx, device="cuda",
+                           retries=True)
+    plain = ops.backward(*held, cfg, plain=True)
+    out = {}
+    for t in threads:
+        if base.lanes != 1 or not (
+                ops.backward_solver_threads(nx) + 32 <= t <= ops.BP_THREADS[1]
+                and t % 32 == 0):
+            continue
+        g = base._replace(threads=t)
+        out[t] = {
+            "bitwise": all(same_values(a, b) for a, b in zip(
+                ops.backward(*held, cfg, geometry=g), plain)),
+            "ms": [event_ms(lambda: ops.backward(*inputs, cfg, geometry=g),
+                            reps) for _ in range(rounds)]}
+    return out
+
+
+def bench_backward(reps, rounds, marks=False, threads=()):
+    """K7 alone at BACKWARD_SHAPES: geometry, ms per call of every round,
+    sweeps per lane, with `marks` the cycles of a step's phases, and at
+    each block size of `threads` (bench_threads)."""
+    cfg = ilqr.ILQRConfig()
+    out = {}
+    for name, (nx, nu, H, B) in BACKWARD_SHAPES.items():
+        inputs = backward_inputs(nx, nu, H, B, seed=0, device="cuda")
+        info = {}
+        ops.backward(*inputs, cfg, info=info)
+        out[name] = {
+            "nx": nx, "nu": nu, "H": H, "B": B,
+            "geometry": ops.backward_geometry(nx, nu)._asdict(),
+            "launches_per_call": 1 + ilqr.bp_rounds(cfg),
+            "sweeps_per_lane": 1 + int(info["rounds"]),
+            "ms": [event_ms(lambda: ops.backward(*inputs, cfg), reps)
+                   for _ in range(rounds)]}
+        if marks:
+            out[name]["cycles_per_step"] = bp_marks(
+                nx, nu, lambda: ops.backward(*inputs, cfg))
+        if threads:
+            out[name]["threads"] = bench_threads(nx, nu, inputs, threads,
+                                                 reps, rounds)
+        del inputs
+    return out
 
 
 def event_ms(fn, reps):
@@ -104,11 +272,36 @@ def main(argv=None):
                     "(comma-separated); all by default")
     ap.add_argument("--rolled", action="store_true",
                     help="every library with its loops rolled")
+    ap.add_argument("--backward", action="store_true",
+                    help="K7 alone at every main path's shape")
+    ap.add_argument("--marks", action="store_true",
+                    help="with --backward: K7 with its phase marks")
+    ap.add_argument("--threads", default="",
+                    help="with --backward: also at these block sizes "
+                    "(comma-separated)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA device is available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.backward:
+        build.BP_MARKS = args.marks
+        logs = build.build(tuple(("backward", b)
+                                 for b in build.instance_names()[1]))
+        nvcc = {name: [ln.strip() for ln in text.splitlines()
+                       if "registers" in ln or "spill" in ln
+                       or "done after" in ln] for name, text in logs.items()}
+        print(json.dumps({"label": args.label, "card": card, "reps":
+                          args.reps, "marks": args.marks, "nvcc": nvcc,
+                          "backward": bench_backward(
+                              args.reps, args.rounds, args.marks,
+                              [int(t) for t in args.threads.split(",")
+                               if t])}),
+              flush=True)
+        return
     if args.rolled:
-        build.ROLL_NV = build.ROLL_NX = 0
+        build.ROLL_NV = 0
     task = make_task(args.task, device="cuda")
     task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
         name="set_interval", min_N=1))
@@ -154,9 +347,6 @@ def main(argv=None):
             task, qp0, qv0, U, U, accept, costs, costs, z, std, tgl)
     ms = {name: [event_ms(fn, args.reps) for _ in range(args.rounds)]
           for name, fn in calls.items() if only is None or name in only}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "task": args.task, "H": H, "B": B,
                       "reps": args.reps, "rolled": args.rolled,
                       "card": card, "ms": ms,

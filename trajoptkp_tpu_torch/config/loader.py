@@ -1,7 +1,8 @@
 """Task registry (counterpart of `trajoptkp_tpu/config/loader.py`).
 
 Only the ported tasks.  No YAML/CSV config: the machine with the card has no
-`yaml`, and the config layer is ROADMAP Queue 1 item 12.
+`yaml`, and the config layer is part of ROADMAP's harness, config, CLI and
+bench work.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def task_names():
 _LATER = {
     "pushing_moderate_clutter": (
         "push_mcl's 7 obstacles: 45 contact pairs unrolled at compile time "
-        "keep nvcc too long, and the backward pass at nx 62 (ROADMAP Queue 1 "
-        "item 4)"),
+        "keep nvcc too long (ROADMAP: K2b's pairs at run time), and no "
+        "backward-pass instance at nx 62 is built"),
 }
 
 
@@ -50,7 +51,8 @@ def make_task(name: str, device=None):
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown task {name!r}; the port has {task_names()} (the other "
-            "tasks are ROADMAP Queue 1 items 4 and 11: moderate clutter, "
-            "place, sweep_multiple, humanoid, soft bodies)"
+            "tasks wait in ROADMAP: moderate clutter, place and sweep_multiple "
+            "among the modules to port, humanoid and soft bodies with the "
+            "engine outside the lane scope)"
         )
     return _REGISTRY[name](device=device)

@@ -29,7 +29,7 @@ plane-cylinder radial norm is sqrt(max(r.r, 1e-24)) as in the JAX lane
 engine (`dynamics/lanes.py:862`).
 
 Other geom pairs raise: the sphere pairs, capsule-cylinder and sphere-box
-as a pair are ROADMAP Queue 1 item 7b.
+as a pair wait in ROADMAP under "K2b's other pairs".
 """
 
 from __future__ import annotations
@@ -321,7 +321,8 @@ def _collider(t1: int, t2: int):
         "phase has plane-cylinder, plane-capsule, capsule-capsule, "
         "cylinder-cylinder, plane-box, capsule-box and cylinder-box, in "
         "either order; the other geom pairs (the sphere pairs, "
-        "capsule-cylinder, sphere-box) are ROADMAP Queue 1 item 7b")
+        "capsule-cylinder, sphere-box) wait in ROADMAP under K2b's other "
+        "pairs")
 
 
 def pair_ncon(t1: int, t2: int) -> int:

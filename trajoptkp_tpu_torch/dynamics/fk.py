@@ -128,7 +128,8 @@ def body_frames(model: Model, qpos: torch.Tensor):
                 cdof[da] = torch.cat([torch.zeros_like(axis_w), axis_w])
             elif jt == BALL:
                 raise NotImplementedError(
-                    "ball joints are not ported yet (ROADMAP Queue 1 item 11)"
+                    "ball joints are not ported yet (ROADMAP: the engine "
+                    "outside the lane scope)"
                 )
         xpos.append(xp.expand((3,) + lanes))
         xquat.append(xq.expand((4,) + lanes))

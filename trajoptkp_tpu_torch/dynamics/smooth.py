@@ -20,7 +20,7 @@ three).  A free joint's six dofs (JAX `model._path_dofs`): the translations
 move along world axes and their cdof does not change; the rotations turn
 about the body's own axes, so the whole body twist drives them:
 cacc_b = cacc_parent + sum over the rotations of (cvel_b x cdof_i) qvel_i.
-Ball joints are ROADMAP Queue 1 item 11.
+Ball joints wait in ROADMAP under the engine outside the lane scope.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def body_dofs(model: Model):
         if jt not in (HINGE, SLIDE, FREE) or (b in free and dofs[b]):
             raise NotImplementedError(
                 "smooth dynamics take hinge and slide joints, or one free "
-                "joint alone, per body; ball joints are ROADMAP Queue 1 "
-                "item 11")
+                "joint alone, per body; ball joints wait in ROADMAP "
+                "under the engine outside the lane scope")
         dofs[b] = dofs[b] + tuple(range(model.jnt_dofadr[j],
                                         model.jnt_dofadr[j] + dof_width(jt)))
     return dofs

@@ -6,8 +6,8 @@ instance of it (a model topology, or a backward-pass size, listed in
 instance with `-DTRAJOPT_ONLY`, into `_build/<source>-<instance>-<hash>.so`
 (the keypoint kernels take their sizes at run time and are built once, as
 the instance "generic");
-the compilers run in parallel, so a large instance (the backward pass at
-nx 20, nu 7) no longer holds up the others of its source.  The hash covers
+the compilers run in parallel, so a large instance (the dual step at
+push_lcl) does not hold up the others of its source.  The hash covers
 the sources, the flags and the instance, so an edited source rebuilds and an
 unchanged one loads the library already there.  `torch.utils.cpp_extension`
 is imported only here, inside the build, to find the CUDA toolkit; nothing
@@ -39,13 +39,12 @@ MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
 STEP_SOURCES = ("ad_jacobian", "fd_jacobian")
 # the libraries whose nvcc runs longest start first: the dual steps over
 # push_lcl's 114, the walker's 128, box_sweep's 50 and push_ncl's 42
-# constraint rows, the largest backward passes
-SLOWEST = (("ad_jacobian", "push_lcl"), ("backward", "nx38_nu7"),
-           ("ad_jacobian", "walker"), ("ad_jacobian", "box_sweep"),
-           ("ad_jacobian", "push_ncl"), ("backward", "nx26_nu7"),
+# constraint rows, then push_lcl's rolled steps (the backward passes, one
+# block per lane with only their inner sums unrolled, come after these)
+SLOWEST = (("ad_jacobian", "push_lcl"), ("ad_jacobian", "walker"),
+           ("ad_jacobian", "box_sweep"), ("ad_jacobian", "push_ncl"),
            ("linesearch", "push_lcl"), ("fd_jacobian", "push_lcl"),
-           ("rollout", "push_lcl"), ("backward", "nx20_nu7"),
-           ("backward", "nx18_nu6"), ("ad_jacobian", "reaching"))
+           ("rollout", "push_lcl"), ("ad_jacobian", "reaching"))
 # libraries no path of chip_smoke.py's default run launches, built at their
 # first launch instead of with the rest (the build is CPU-bound: every nvcc
 # at once on the card's 8 cores; `chip_smoke.py --deep` builds them with
@@ -55,13 +54,17 @@ LAZY = tuple(("mpc_apply", m) for m in ("pentabot", "reaching", "push_ncl",
                                          "box_sweep", "threeD_push",
                                          "push_lcl")) + (
     ("fd_jacobian", "pentabot"),)
-# past these sizes a library's loops over dofs and rows (ROLL_NV: the
-# model's nv) or over the state (ROLL_NX: the backward pass's nx) run
-# rolled; below them they stay unrolled, because rolled the step's kernels
-# run 2.7-5.6x slower (K3, K4 and K5ad at push_ncl and box_sweep on an
-# H100, `bench_kernels.py --rolled`; K7 0.99-1.12x; PERF.md)
+# past this many dofs (the model's nv) a library's loops over dofs and
+# rows run rolled; below it they stay unrolled, because rolled the step's
+# kernels run 2.7-5.6x slower (K3, K4 and K5ad at push_ncl and box_sweep on
+# an H100, `bench_kernels.py --rolled`; PERF.md).  The backward pass is
+# never rolled: its threads stride over the entries at run time and only
+# the inner sums are unrolled (csrc/backward.cu).
 ROLL_NV = 15
-ROLL_NX = 26
+# build the backward pass with its phase marks (TRAJOPT_BP_MARKS,
+# csrc/backward.cu; `bench_kernels.py --backward --marks`): a library of
+# its own, the marks' cost in every call
+BP_MARKS = False
 # sources built once for every model
 GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
@@ -103,14 +106,11 @@ def step_shared() -> dict:
 
 def rolled(source: str, instance: str) -> bool:
     """Whether a library is built with TRAJOPT_ROLL_LOOPS: the model
-    instances past ROLL_NV dofs and the backward passes past ROLL_NX (their
-    loops over dofs, rows or the state unrolled whole would keep nvcc for
-    tens of minutes; rolled, each iteration does the same operations in
-    the same order)."""
-    if source in GENERIC_SOURCES:
+    instances past ROLL_NV dofs (their loops over dofs and rows unrolled
+    whole would keep nvcc for tens of minutes; rolled, each iteration does
+    the same operations in the same order)."""
+    if source in GENERIC_SOURCES or source == "backward":
         return False
-    if source == "backward":
-        return int(re.match(r"nx(\d+)_", instance).group(1)) > ROLL_NX
     return instance_tables()[instance].NV > ROLL_NV
 
 
@@ -143,7 +143,9 @@ def _only(source: str, instance: str) -> tuple:
         return ()
     kind = "BP" if source == "backward" else "MODEL"
     roll = ("-DTRAJOPT_ROLL_LOOPS",) if rolled(source, instance) else ()
-    return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",) + roll
+    marks = (("-DTRAJOPT_BP_MARKS",) if BP_MARKS and source == "backward"
+             else ())
+    return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",) + roll + marks
 
 
 def _digest(source: str, instance: str) -> str:

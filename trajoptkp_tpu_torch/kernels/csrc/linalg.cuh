@@ -14,10 +14,10 @@
 #include "dual.cuh"
 
 // TRAJOPT_ROLL_LOOPS (kernels/build.py:rolled: the instances past ROLL_NV
-// dofs and the backward passes past ROLL_NX): the loops over dofs, rows and
-// the state that the other instances unroll whole run rolled, so that nvcc
-// finishes in minutes; each iteration does the same operations in the same
-// order, so a rolled kernel rounds as an unrolled one would.
+// dofs): the loops over dofs and rows that the other instances unroll
+// whole run rolled, so that nvcc finishes in minutes; each iteration does
+// the same operations in the same order, so a rolled kernel rounds as an
+// unrolled one would.
 #ifdef TRAJOPT_ROLL_LOOPS
 #define TRAJOPT_UNROLL _Pragma("unroll 1")
 #else

@@ -35,7 +35,8 @@ implicit tangent K2c; every lane path's) and `fd_jacobian` (K5: central
 FD; the generic solve's at deriv_mode "fd"), take slot times shared by
 every lane, or per lane with a live count, or per lane scattered into a
 full-horizon cache at their times (iterative_error).  `backward` (K7)
-runs the JAX lane solver's coupled λ loop in 1 + bp_rounds launches.
+runs the JAX lane solver's coupled λ loop in 1 + bp_rounds launches, a
+thread block per lane (a warp per lane up to nx 10, `backward_geometry`).
 """
 
 from __future__ import annotations
@@ -160,8 +161,8 @@ def body_joints(model: Model):
 def _scope_error(why: str):
     return NotImplementedError(
         f"the kernels take trees whose bodies carry hinge and slide joints, "
-        f"one free joint alone, or none: {why}; ball joints are ROADMAP "
-        f"Queue 1 item 11")
+        f"one free joint alone, or none: {why}; ball joints wait in "
+        f"ROADMAP under the engine outside the lane scope")
 
 
 def model_topology(model: Model) -> Topology:
@@ -246,7 +247,8 @@ def state_key(model: Model, sv) -> Tuple[int, ...]:
         raise NotImplementedError(
             "the kernels take a state vector of active hinge, slide or "
             "free-joint dofs, a free rotation's three together (ball joints "
-            f"are ROADMAP Queue 1 item 11); it has {sv.names}")
+            "wait in ROADMAP under the engine outside the lane scope); it "
+            f"has {sv.names}")
     return tuple(sv.order)
 
 
@@ -674,6 +676,79 @@ def cost_expansion(task: Task, qpos, qvel, U, targets, plain: bool = False):
     return l_x, l_xx, l_u, l_uu
 
 
+# K7's launch geometry (csrc/backward.cu): up to this nx a warp owns a lane
+# and a block holds BP_WARP_LANES lanes; past it a block owns a lane, with
+# about half as many threads as its largest phase has entries (each thread
+# sums one entry of W, G or the new V_xx at a time), 128 to 512
+BP_WARP_NX = 10
+BP_WARP_LANES = 4
+BP_THREADS = (128, 512)
+# dynamic shared memory a block of an H100 may take (227 KB)
+SMEM_LIMIT = 232448
+
+
+class BackwardGeometry(NamedTuple):
+    threads: int       # per block
+    lanes: int         # per block: 1, or one per warp
+    smem_bytes: int    # dynamic shared memory per block
+
+    def blocks(self, B: int) -> int:
+        return -(-B // self.lanes)
+
+    def lane(self, block: int, thread: int) -> int:
+        """The lane a thread works on (csrc/backward.cu:backward_kernel);
+        past B the kernel returns."""
+        return block * self.lanes + thread // (self.threads // self.lanes)
+
+
+def backward_phase_entries(nx: int, nu: int) -> Tuple[int, int, int]:
+    """Entries of K7's three wide phases per step: W and g, the Q blocks
+    (G), and the upper triangle of V_xx with V_x."""
+    nc = nx + nu
+    return (nx * nc + nc, nx * nx + nu * nc, nx * (nx + 1) // 2 + nx)
+
+
+def backward_solver_threads(nx: int) -> int:
+    """Threads of the warps that hold K7's nx + 1 right-hand sides where a
+    block owns a lane; the rest of the block loads the next inputs."""
+    return 32 * ((nx + 32) // 32)
+
+
+def backward_smem_bytes(nx: int, nu: int, lanes: int) -> int:
+    """Dynamic shared memory of a K7 block (csrc/backward.cu:BpLayout): per
+    lane the work arrays V_x, V_xx, W, Q_x|Q_u, Q_ux, Q_uu, k, K, Q_uu k,
+    Q_uu K, and two input buffers of a step's [A|B], l_x, l_xx, l_u and
+    l_uu, all doubles; then the block's table of V_xx's upper-triangle
+    pairs (2 bytes each), rounded to 16 bytes."""
+    nc = nx + nu
+    work = (nx + nx * nx + nx * nc + nc + nu * nx + nu * nu + nu + nu * nx
+            + nu + nu * nx)
+    inputs = nx * nc + nx + nx * nx + nu + nu * nu
+    per_lane = work + 2 * inputs
+    return (8 * lanes * per_lane + 2 * (nx * (nx + 1) // 2) + 15) // 16 * 16
+
+
+def backward_geometry(nx: int, nu: int) -> BackwardGeometry:
+    """K7's block size, lanes per block and shared memory at (nx, nu);
+    NotImplementedError where a block cannot hold them."""
+    if nx <= BP_WARP_NX:
+        lanes, threads = BP_WARP_LANES, 32 * BP_WARP_LANES
+    else:
+        half = -(-max(backward_phase_entries(nx, nu)) // 64) * 32
+        lanes, threads = 1, min(BP_THREADS[1], max(BP_THREADS[0], half))
+        # the warps that solve the nx + 1 right-hand sides and one more
+        # that loads the next inputs meanwhile (csrc/backward.cu)
+        if threads < backward_solver_threads(nx) + 32:
+            raise NotImplementedError(f"K7 at nx={nx} needs more than "
+                                      f"{BP_THREADS[1]} threads a block")
+    smem = backward_smem_bytes(nx, nu, lanes)
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K7 at nx={nx}, nu={nu} needs {smem} bytes of shared memory a "
+            f"block, past the {SMEM_LIMIT} a block may take")
+    return BackwardGeometry(threads, lanes, smem)
+
+
 _BP_ARGS: dict = {}
 
 
@@ -699,21 +774,23 @@ def backward_args(nx: int, nu: int, cfg, device) -> Tuple[str, torch.Tensor]:
 
 
 def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False,
-             info: dict = None):
+             info: dict = None, geometry: BackwardGeometry = None):
     """K7.  Riccati sweep with the coupled λ retry of
     `backward_pass_lambda_loop` -> (k, K, dJ, new λ, λ-exit);
     `info["rounds"]` receives the retry rounds taken (a device tensor on
     the card).  On the card 1 + `bp_rounds(cfg)` launches run back to back
     without reading anything back (csrc/backward.cu: each lane's own sweeps
     first, then every lane up to the most any lane needed); a launch whose
-    target the lanes have reached sweeps over no steps.  Each launch
-    counts."""
+    target the lanes have reached returns at once.  A block or a warp owns
+    a lane (`geometry`, by default `backward_geometry`; the C entry refuses
+    one that does not fit the kernel).  Each launch counts."""
     if _on_cpu(A, Bm, l_x, l_xx, l_u, l_uu, lamb) or plain:
         return twins.backward_pass_lambda_loop(A, Bm, l_x, l_xx, l_u, l_uu,
                                                lamb, cfg, info=info)
     H, nx, B = l_x.shape
     nu = l_u.shape[1]
     symbol, sched = backward_args(nx, nu, cfg, A.device)
+    g = geometry or backward_geometry(nx, nu)
     _check("A", A, (H, nx, nx, B))
     _check("Bm", Bm, (H, nx, nu, B))
     _check("l_x", l_x, (H, nx, B))
@@ -731,12 +808,15 @@ def backward(A, Bm, l_x, l_xx, l_u, l_uu, lamb, cfg, plain: bool = False,
     count = torch.empty((B,), dtype=torch.int32, device=A.device)
     rounds = twins.bp_rounds(cfg)
     target = torch.zeros((rounds + 1,), dtype=torch.int32, device=A.device)
+    geo = (ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+           ctypes.c_int(g.smem_bytes))
     for launch in range(rounds + 1):
         _launch("backward", f"nx{nx}_nu{nu}", symbol, _p(A), _p(Bm),
                 _p(l_x), _p(l_xx), _p(l_u), _p(l_uu), _p(lamb), _p(sched),
                 _p(k), _p(K), _p(dJ), _p(lam), _p(exited), _p(valid),
                 _p(count), _p(target), ctypes.c_int(launch),
-                ctypes.c_int(rounds + 1), ctypes.c_int(H), ctypes.c_int(B))
+                ctypes.c_int(rounds + 1), ctypes.c_int(H), ctypes.c_int(B),
+                *geo)
     if info is not None:
         info["rounds"] = target[rounds] - 1      # sweeps per lane, less one
     return k, K, dJ, lam, exited.bool() & (valid == 0)

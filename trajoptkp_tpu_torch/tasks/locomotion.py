@@ -16,8 +16,8 @@ instance key (kernels/ops.py), through the device function
 `select_residual` (kernels/csrc/residuals.cuh).
 
 walker_uneven raises: its 190 contact pairs, 168 of them capsule-box,
-would unroll at compile time into every step kernel (ROADMAP Queue 1 item
-7b).
+would unroll at compile time into every step kernel (ROADMAP: K2b's pairs
+at run time).
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def make_walker(run: bool = False, uneven: bool = False,
         raise NotImplementedError(
             "walker_uneven walks on a strip of boxes: its 190 pairs (168 "
             "capsule-box, the rest plane-box, plane-capsule and "
-            "capsule-capsule) would unroll into every step kernel; ROADMAP "
-            "Queue 1 item 7b")
+            "capsule-capsule) would unroll into every step kernel; ROADMAP: "
+            "K2b's pairs at run time")
     device = resolve_device(device)
     model = load_model("walker", device=device)
     f64 = dict(dtype=model.dtype, device=device)
