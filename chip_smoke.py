@@ -25,7 +25,15 @@ and in its own order on the CPU with a correctly rounded sqrt.  The
 `bp_instances` phase holds the backward pass (K7, a thread block per lane)
 at every instance built, at one lane and at five, through λ retries and
 λ-exits, bit for bit, and prints each instance's launch geometry, shared
-memory, registers and nvcc seconds.
+memory, registers and nvcc seconds.  The `step_instances` phase does the
+same for the line search (K4, a warp per lane over the cooperative step
+of warp_step.cuh where the model has constraint rows) and the exact slot
+Jacobians (K5ad, a primal pass per (slot, lane) and a tangent pass per
+column, one pass where the model has no primal entries) at every model
+instance, at one scene and at five (K4 also in blocks of four lanes, the
+last block part full; K5ad at shared slot times, per-lane slots with live
+counts and into the iterative_error cache, with all slots or one a
+chunk), its twins beside the build.
 The `box` phase holds the box tasks' kernels (box_sweep and threeD_push: a
 free box in the state with its rotations, plane-box and cylinder-box rows
 inside the step) against their twins bit for bit at H=100 B=64 (K3, K4,
@@ -121,7 +129,8 @@ PATH), which the script waits for and stops; in `--deep`, the acrobot and
 reaching 3-iteration holds and acrobot's MPC holds in this process and the
 walker's MPC hold in a second one (`--plain-mpc-worker PATH`).
 
-`--phases a,b` runs a subset (build, bp_instances, acrobot, pentabot,
+`--phases a,b` runs a subset (build, bp_instances, step_instances,
+acrobot, pentabot,
 reaching, push,
 walker, box, clutter, keypoints, golden, main_acrobot, main_reaching,
 main_push, main_box_sweep, main_clutter, main_mpc, main_adaptive,
@@ -161,6 +170,7 @@ from trajoptkp_tpu_torch.bench_kernels import (backward_inputs,
 from trajoptkp_tpu_torch.bench.campaigns import (async_mpc_campaign,
                                                  async_scenes, episode_starts,
                                                  sync_mpc_horizon_sweep)
+from trajoptkp_tpu_torch.config.loader import make_task
 from trajoptkp_tpu_torch.kernels import build, ops
 from trajoptkp_tpu_torch.mpc import native_executor
 from trajoptkp_tpu_torch.mpc import sync as mpc_sync
@@ -249,7 +259,7 @@ ASYNC_MIN_PLANS = 10                # plans published per episode, at least
 # phase (main_async's hold, run beside the CLI), the walker's at H=40 B=1
 # in main_mpc's kernel path against the plain path
 ASYNC_HOLD_H = 5
-PHASES = ("build", "bp_instances", "acrobot", "pentabot", "reaching", "push", "walker",
+PHASES = ("build", "bp_instances", "step_instances", "acrobot", "pentabot", "reaching", "push", "walker",
           "box", "clutter", "keypoints", "golden", "main_acrobot",
           "main_reaching", "main_push", "main_box_sweep", "main_clutter",
           "main_mpc", "main_adaptive", "main_async", "cli")
@@ -506,9 +516,8 @@ def ad_slot_ops(s):
     columns of [A|B] the tangent of every operation of the step outside
     the Newton iterations, which run on the values alone (two per
     operation: a dual product adds three, a sum one), and K2c's column
-    (implicit_column_ops).  The kernel repeats the primal part in each of
-    its 2n + nu threads of a (slot, lane); that repetition is not work the
-    function needs, and is not counted."""
+    (implicit_column_ops).  The kernel does the primal part once per
+    (slot, lane) in its primal pass."""
     nc = s.nx + s.nu
     # with a free rotation in the state, the nominal next state (the
     # quaternion rows' reference) is one more primal step
@@ -1106,6 +1115,153 @@ def bp_instances(logs):
     return out
 
 
+# step_instances: K4 and K5ad at every model instance, at these lanes (one,
+# and five: 30 (alpha, scene) lanes, and in blocks of four lanes the last
+# block half full) over STEP_CHECK_H steps
+STEP_CHECK_B = (1, 5)
+STEP_CHECK_H = 3
+STEP_TASKS = ("acrobot", "pentabot", "reaching", "pushing_no_clutter",
+              "walker_run", "box_sweep", "threeD_push", "pushing_low_clutter")
+
+
+def pressed_push_inputs(task, Hh, Bb, seed):
+    """Check inputs for push_ncl without its servo: the task's scenes with
+    the goal 0.5 mm into the table, and the second half of the lanes with
+    the pusher pressed 1-4 mm into the table (`pressed_arms`), under
+    N(0, 0.5) controls; gains as lane_inputs."""
+    m = task.model
+    qa = m.jnt_qposadr[m.joint_names.index("goal")]
+    qp0, qv0, tgl = (x.T.contiguous() for x in pushing.push_scenes(
+        task, Bb, seed=seed))
+    rng = np.random.default_rng(seed + 1)
+    nu, nx = m.nu, task.sv.nx
+    f64 = dict(dtype=torch.float64, device="cuda")
+    half = Bb // 2
+    if Bb - half:
+        qp0[:7, half:] = pressed_arms(task, Bb - half, seed)
+    qp0[qa + 2, :] = pushing.OBJECT_Z - 0.0025
+    U = torch.as_tensor(0.5 * rng.standard_normal((Hh, nu, Bb)),
+                        **f64).contiguous()
+    k = torch.as_tensor(0.1 * rng.standard_normal((Hh, nu, Bb)), **f64)
+    K = torch.as_tensor(0.05 * rng.standard_normal((Hh, nu, nx, Bb)), **f64)
+    return qp0, qv0, tgl, U, k, K
+
+
+def step_inputs(task, Hh, Bb, seed):
+    """Each model's check inputs, with its rows active (limits or
+    contacts)."""
+    if task.name == "pentabot":
+        return pentabot_inputs(task, Hh, Bb, seed)
+    if task.name.startswith("walker"):
+        return walker_inputs(task, Hh, Bb, seed)
+    if task.residual_kind[0] in ("sweep", "tilt_push"):
+        return box_inputs(task, Hh, Bb, seed)
+    if task.residual_kind[0] == "push":
+        return (clutter_inputs if task.residual_kind[1] else
+                pressed_push_inputs)(task, Hh, Bb, seed)
+    return lane_inputs(task, Hh, Bb, seed, at_limits=task.name == "reaching")
+
+
+def step_twins():
+    """The twins of step_instances (`--plain-check-worker step_instances`,
+    beside the build: they launch no kernel) -> {(task, B): (inputs, the
+    plain rollout's qpos and qvel, K4's twin, K5ad's twin at every step
+    and in its other slot modes)}."""
+    cfg = ILQRConfig()
+    alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
+    out = {}
+    for name in STEP_TASKS:
+        task = make_task(name, device="cuda")
+        for Bb in STEP_CHECK_B:
+            inputs = step_inputs(task, STEP_CHECK_H, Bb, seed=11 + Bb)
+            qp0, qv0, tg, U, k, K = inputs
+            qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tg, plain=True)
+            times = torch.arange(STEP_CHECK_H, device="cuda")
+            out[(name, Bb)] = (
+                inputs, qpos, qvel,
+                ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg,
+                               plain=True),
+                ops.ad_jacobian(task, qpos, qvel, U, times, plain=True),
+                ad_modes(task, qpos, qvel, U, plain=True))
+    return out
+
+
+def step_instances(logs, plain=None):
+    """K4 and K5ad at every model instance: their launch plans (K4's
+    geometry at six alphas and the main paths' 128 scenes, lanes a block,
+    shared memory, resident lanes and waves; K5ad's primal entries per
+    (slot, lane) and slots a chunk), registers, stack and local memory
+    (sass_counts.py --resources), ptxas's spill stores and nvcc seconds;
+    and both against their twins (step_twins, run beside the build, or
+    here without `plain`) on step_inputs at STEP_CHECK_B lanes over
+    STEP_CHECK_H steps, bit for bit: K4 in its own geometry and, with
+    a warp per lane, in blocks of four lanes; K5ad at shared slot times,
+    per-lane times with live counts and into the iterative_error cache,
+    with all slots a chunk and one (one pass where the model has no primal
+    entries)."""
+    cfg = ILQRConfig()
+    alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
+    nA = alphas.shape[0]
+    table = nvcc_table(logs)
+    plain = plain or step_twins()
+    out = {}
+    for name in STEP_TASKS:
+        task = make_task(name, device="cuda")
+        tag = ops.kernel_args(task, task.model.device).tag
+        stag = build.step_shared().get(tag, tag)
+        topo = build.instance_tables()[tag]
+        g = ops.linesearch_geometry(topo, nA, 128)
+        entries = ops.ad_primal_entries(topo)
+        row = out[name] = dict(
+            instance=tag, linesearch_geometry=dict(
+                g._asdict(), lane_bytes=g.smem_bytes // g.lanes if g.warp
+                else 0, resident_lanes=ops.NUM_SMS * g.blocks_per_sm
+                * g.lanes, waves=g.waves(nA, 128)),
+            ad_primal_entries=entries, ad_chunk_main=ops.ad_chunk(
+                entries, 1000, 128), held={})
+        for src, inst in (("linesearch", tag), ("ad_jacobian", stag)):
+            ptx = table.get(f"{src}-{inst}", {})
+            row[src] = dict(
+                resources=sass_counts.resources_of(
+                    build.library_path(src, inst)),
+                nvcc_s=ptx.get("s"), registers=ptx.get("registers"),
+                stack=ptx.get("stack"), spill_stores=ptx.get("spill_stores"))
+        for Bb in STEP_CHECK_B:
+            (qp0, qv0, tg, U, k, K), qpos, qvel, pl, pj, pmodes = \
+                plain[(name, Bb)]
+            geos = [ops.linesearch_geometry(topo, nA, Bb)]
+            if geos[0].warp:
+                geos.append(geos[0]._replace(
+                    lanes=4, threads=128,
+                    smem_bytes=geos[0].smem_bytes // geos[0].lanes * 4))
+            ls = {f"lanes_{geo.lanes}": all(same_values(a, b) for a, b in zip(
+                ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg,
+                               geometry=geo), pl)) for geo in geos}
+            times = torch.arange(STEP_CHECK_H, device="cuda")
+            ad = {}
+            cap = ops.AD_PRIMAL_CAP_BYTES
+            try:
+                for label, c in (("chunk_all", cap), ("chunk_1", 1)):
+                    ops.AD_PRIMAL_CAP_BYTES = c
+                    kj = ops.ad_jacobian(task, qpos, qvel, U, times)
+                    modes = ad_modes_check(task, qpos, qvel, U, plain=pmodes)
+                    ad[label] = dict(shared=same_values(kj, pj),
+                                     **{m: v[0] for m, v in modes.items()})
+            finally:
+                ops.AD_PRIMAL_CAP_BYTES = cap
+            active = (contact_counts(task, qpos)["lane_steps_by_pair"]
+                      if task.model.contact_pairs else None)
+            row["held"][Bb] = dict(linesearch=ls, ad_jacobian=ad,
+                                   contact_lane_steps=active)
+            check(all(ls.values()), f"linesearch {name} at B={Bb}: kernel "
+                  f"vs plain not bit for bit: {ls}")
+            check(all(all(v.values()) for v in ad.values()),
+                  f"ad_jacobian {name} at B={Bb}: kernel vs plain not bit "
+                  f"for bit: {ad}")
+        print(f"  step {name}: {json.dumps(row)}", flush=True)
+    return out
+
+
 def check_orders(name, wit):
     print(f"  {name} backward, summation orders: {json.dumps(wit)}",
           flush=True)
@@ -1456,6 +1612,7 @@ def check_case(name):
 # the twins beside the build, one process each (check_worker), the longest
 # first
 CHECK_WORKERS = ("push_lcl", "push_ccl", "pentabot,reaching,walker",
+                 "step_instances",
                  "box_sweep", "threeD_push", "box_sweep_3it")
 
 
@@ -1467,6 +1624,9 @@ def check_worker(names, path):
     3-iteration solve at PB lanes), saved to PATH.  It launches no kernel,
     so it runs beside the build, in a process of its own (CHECK_WORKERS
     side by side)."""
+    if names == "step_instances":
+        torch.save({names: _to(step_twins(), "cpu")}, path)
+        return
     if names != "box_sweep_3it":
         out = {}
         for name in names.split(","):
@@ -3631,6 +3791,10 @@ def main():
     if "bp_instances" in phases:
         record["bp_instances"] = bp_instances(logs)
         done("bp_instances")
+    if "step_instances" in phases:
+        record["step_instances"] = step_instances(
+            logs, plain.get("step_instances"))
+        done("step_instances")
     rows = prow = rrow = urow = wrow = None
     if "acrobot" in phases:
         rows = check_kernels(acro, H, B, time_them=True)

@@ -10,6 +10,8 @@
         --H 1000 --B 128 --kernels rollout,linesearch,ad_jacobian,backward \
         --rolled
     python -m trajoptkp_tpu_torch.bench_kernels --backward
+    python -m trajoptkp_tpu_torch.bench_kernels --task pushing_no_clutter \
+        --H 1000 --B 128 --kernels linesearch,ad_jacobian --reps 1
 
 The rollout, line search, FD slot Jacobians and backward pass, the exact slot
 Jacobians (K5ad), the cost expansion (K6) and the MPC replan's apply step (K8,
@@ -26,13 +28,19 @@ with the card's name and power limit, the per-launch milliseconds of every
 round, and the sweeps per lane that the backward pass makes on these inputs
 (`bp_sweeps_per_lane`), with the exact Jacobians it is timed on and with
 central-FD ones (with the exact ones alone when `--kernels` leaves out
-fd_jacobian).  `--rolled` builds and loads every library with its loops
+fd_jacobian), and the launch plans of the line search (K4: a warp or a
+thread per lane, lanes a block, shared memory, waves) and of the exact
+slot Jacobians (K5ad: primal entries per (slot, lane), slots a chunk).  `--rolled` builds and loads every library with its loops
 rolled (TRAJOPT_ROLL_LOOPS), as the instances past build.ROLL_NV dofs are
 built: a run with it and one without time the two builds of one instance
 against each other.  `--backward` times the backward pass (K7) alone at
 each main path's shape (BACKWARD_SHAPES) on `backward_inputs` (every lane
 valid at its first sweep, so a call is one sweep and 1 + bp_rounds
-launches), with its launch geometry; with `--marks` it is built with its
+launches), with its launch geometry.  `--marks` without `--backward`
+builds the line search with its phase marks (TRAJOPT_WARP_MARKS,
+build.WARP_MARKS) and gives the SM cycles a step of its first lane spends
+in each of WARP_PHASES over one call.  With `--backward --marks` K7 is
+built with its
 phase marks (TRAJOPT_BP_MARKS, build.BP_MARKS: a library of its own, its
 times the marked kernel's) and each shape also gives the SM cycles a step
 spends in each phase (BP_PHASES, one call); with `--threads` each shape
@@ -40,7 +48,11 @@ where a block owns a lane is also timed at those block sizes, each held
 bit for bit against the twin first (`bitwise`).  To
 compare two trees on one card, run this file once per tree inside one job,
 with PYTHONPATH set to the tree under test, in the order parent, change,
-change, parent. """
+change, parent; or, where the other tree's C entries of K4 and K5ad take
+no launch plan, `--against OTHER/trajoptkp_tpu_torch/kernels/_build` (its
+libraries of the task's instance built there first) times both trees'
+K4 and K5ad alternately in this one process, `--pairs` times, and holds
+their outputs bit for bit. """
 
 import argparse
 import contextlib
@@ -136,6 +148,28 @@ def cpu_sqrt_off_share(n=1_000_000, seed=0):
                   != np.sqrt(x)).mean())
 
 
+# the phases of a step of the cooperative step (csrc/warp_step.cuh)
+WARP_PHASES = ("control law", "FK, RNE, narrow phase", "CRBA, forces, rows",
+               "a0", "Newton products", "Newton gradient and H",
+               "Newton solves", "Newton step length", "constraint force",
+               "mass-matrix solve, Euler")
+
+
+def warp_marks(tag, call):
+    """SM cycles a step of block 0's first lane of K4 spends in each of
+    WARP_PHASES over one call(), from a build with build.WARP_MARKS."""
+    read = build.load("linesearch", tag).trajopt_warp_marks_read
+    read.argtypes = [ctypes.c_void_p]
+    marks = (ctypes.c_ulonglong * 16)()
+    torch.cuda.synchronize()
+    read(marks)                                # zero the earlier calls' sums
+    call()
+    torch.cuda.synchronize()
+    read(marks)
+    steps = max(1, marks[15])
+    return {name: marks[i] / steps for i, name in enumerate(WARP_PHASES)}
+
+
 # the phases of a K7 step between its lane barriers (csrc/backward.cu)
 BP_PHASES = ("W, g", "Q_ux, Q_uu", "solves", "V update")
 
@@ -226,6 +260,98 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _same(a, b) -> bool:
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def against(other, task, qpos, qvel, U, k, K, alphas, tgl, times, pairs,
+            reps):
+    """This tree's K4 and K5ad against another checkout's libraries of the
+    same instance, timed alternately in one process (`pairs` pairs, the
+    order swapped every pair, `reps` launches each) on the same inputs,
+    with their outputs compared bit for bit (NaN where NaN).  Both sides
+    call their C entries directly on buffers allocated once, so that
+    neither time holds a wrapper's checks or allocations.  `other` is that
+    checkout's kernels/_build, built there by its own kernels/build.py,
+    whose C entries take no launch plan: the line search a thread per lane
+    in blocks of 64, the exact Jacobians one pass."""
+    from trajoptkp_tpu_torch import sass_counts
+
+    ka = ops.kernel_args(task, U.device)
+    tag = ka.tag
+    stag = build.step_shared().get(tag, tag)
+    paths = sass_counts.built_in(other, [("linesearch", tag),
+                                         ("ad_jacobian", stag)])
+    build.build([("linesearch", tag), ("ad_jacobian", stag)])
+    H, B, nA = U.shape[0], U.shape[-1], alphas.shape[0]
+    f64 = dict(dtype=torch.float64, device=U.device)
+
+    def entry(lib, symbol, *args):
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def call():
+            err = fn(*args, ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream))
+            if err != 0:
+                raise RuntimeError(f"{symbol}: cudaError {err}")
+        return call
+
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    nK = times.shape[0]
+    ls, J = [], []
+    for _ in range(2):
+        ls.append((torch.empty((H + 1, ka.nq, nA, B), **f64),
+                   torch.empty((H + 1, ka.nv, nA, B), **f64),
+                   torch.empty((H, ka.nu, nA, B), **f64),
+                   torch.empty((H, nA, B), **f64)))
+        J.append(torch.empty((nK, ka.sv.nx, ka.sv.nx + ka.nu, B), **f64))
+    ls_args = (p(ka.model_buf), p(ka.task_buf), p(qpos), p(qvel), p(U), p(k),
+               p(K), p(alphas), p(tgl))
+    ad_args = (p(ka.model_buf), p(qpos), p(qvel), p(U), p(times),
+               ctypes.c_longlong(1), ctypes.c_longlong(0),
+               ctypes.c_void_p(None), ctypes.c_int(0))
+    g = ops.linesearch_geometry(
+        build.instance_tables()[tag], nA, B,
+        torch.cuda.get_device_properties(U.device).multi_processor_count)
+    entries = ops.ad_primal_entries(build.instance_tables()[stag])
+    chunk = ops.ad_chunk(entries, nK, B)
+    prim = torch.empty((max(chunk * entries * B, 1),), **f64)
+    sizes = (ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B))
+    calls = {
+        "linesearch": (
+            entry(paths[("linesearch", tag)], f"trajopt_linesearch_{tag}",
+                  *ls_args, *map(p, ls[0]), *sizes),
+            entry(build.library_path("linesearch", tag),
+                  f"trajopt_linesearch_{tag}", *ls_args, *map(p, ls[1]),
+                  *sizes, ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+                  ctypes.c_int(g.smem_bytes)),
+            ls),
+        "ad_jacobian": (
+            entry(paths[("ad_jacobian", stag)],
+                  f"trajopt_ad_jacobian_{stag}", *ad_args, p(J[0]),
+                  ctypes.c_int(nK), ctypes.c_int(B)),
+            entry(build.library_path("ad_jacobian", stag),
+                  f"trajopt_ad_jacobian_{stag}", *ad_args,
+                  ctypes.c_void_p(prim.data_ptr() if chunk else None),
+                  ctypes.c_int(entries), ctypes.c_int(chunk), p(J[1]),
+                  ctypes.c_int(nK), ctypes.c_int(B)),
+            [(j,) for j in J])}
+    out = {}
+    for name, (theirs, ours, res) in calls.items():
+        theirs()
+        ours()
+        same = all(_same(a, b) for a, b in zip(*res))
+        ms = {"other": [], "this": []}
+        for i in range(pairs):
+            order = (("other", theirs), ("this", ours))
+            for who, fn in (order if i % 2 == 0 else order[::-1]):
+                ms[who].append(event_ms(fn, reps))
+        out[name] = dict(bitwise_equal=same, **ms)
+    return out
+
+
 def bp_sweeps_per_lane(task, plan, qpos, qvel, U, l, lam, cfg,
                        routes=("ad", "fd")):
     """Sweeps each lane of the backward pass (K7) makes under its coupled λ
@@ -275,10 +401,15 @@ def main(argv=None):
     ap.add_argument("--backward", action="store_true",
                     help="K7 alone at every main path's shape")
     ap.add_argument("--marks", action="store_true",
-                    help="with --backward: K7 with its phase marks")
+                    help="K7 (with --backward) or K4 with its phase marks")
     ap.add_argument("--threads", default="",
                     help="with --backward: also at these block sizes "
                     "(comma-separated)")
+    ap.add_argument("--against", metavar="BUILD_DIR",
+                    help="also time K4 and K5ad against another "
+                    "checkout's libraries, alternately (`against`)")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="with --against: pairs of timings")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA device is available")
@@ -302,6 +433,7 @@ def main(argv=None):
         return
     if args.rolled:
         build.ROLL_NV = 0
+    build.WARP_MARKS = args.marks
     task = make_task(args.task, device="cuda")
     task = task.replace(keypoint_cfg=task.keypoint_cfg.replace(
         name="set_interval", min_N=1))
@@ -347,10 +479,31 @@ def main(argv=None):
             task, qp0, qv0, U, U, accept, costs, costs, z, std, tgl)
     ms = {name: [event_ms(fn, args.reps) for _ in range(args.rounds)]
           for name, fn in calls.items() if only is None or name in only}
+    marks = None
+    if args.marks and (only is None or "linesearch" in only):
+        tag = ops.kernel_args(task, U.device).tag
+        if ops.linesearch_geometry(build.instance_tables()[tag],
+                                   alphas.shape[0], B).warp:
+            marks = warp_marks(tag, calls["linesearch"])
+    topo = build.instance_tables()[ops.kernel_args(task, U.device).tag]
+    nA = alphas.shape[0]
+    ls = ops.linesearch_geometry(topo, nA, B)
+    entries = ops.ad_primal_entries(topo)
+    plans = {"linesearch": dict(ls._asdict(), waves=ls.waves(nA, B)),
+             "ad_jacobian": {"entries": entries, "chunk": ops.ad_chunk(
+                 entries, plan.times.shape[0], B)}}
+    pair = None
+    if args.against:
+        import pathlib
+
+        pair = against(pathlib.Path(args.against), task, qpos, qvel, U, k, K,
+                       alphas, tgl, plan.times, args.pairs, args.reps)
     print(json.dumps({"label": args.label, "task": args.task, "H": H, "B": B,
                       "reps": args.reps, "rolled": args.rolled,
-                      "card": card, "ms": ms,
-                      "bp_sweeps_per_lane": sweeps}), flush=True)
+                      "card": card, "ms": ms, "plans": plans,
+                      "linesearch_cycles_per_step": marks,
+                      "bp_sweeps_per_lane": sweeps, "against": pair}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -39,12 +39,13 @@ MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
 STEP_SOURCES = ("ad_jacobian", "fd_jacobian")
 # the libraries whose nvcc runs longest start first: the dual steps over
 # push_lcl's 114, the walker's 128, box_sweep's 50 and push_ncl's 42
-# constraint rows, then push_lcl's rolled steps (the backward passes, one
-# block per lane with only their inner sums unrolled, come after these)
+# constraint rows (each with its primal pass), then push_lcl's rolled
+# steps (the backward passes and the line search, whose threads stride
+# over entries, rows and dofs at run time, come after these)
 SLOWEST = (("ad_jacobian", "push_lcl"), ("ad_jacobian", "walker"),
            ("ad_jacobian", "box_sweep"), ("ad_jacobian", "push_ncl"),
-           ("linesearch", "push_lcl"), ("fd_jacobian", "push_lcl"),
-           ("rollout", "push_lcl"), ("ad_jacobian", "reaching"))
+           ("fd_jacobian", "push_lcl"), ("rollout", "push_lcl"),
+           ("ad_jacobian", "reaching"))
 # libraries no path of chip_smoke.py's default run launches, built at their
 # first launch instead of with the rest (the build is CPU-bound: every nvcc
 # at once on the card's 8 cores; `chip_smoke.py --deep` builds them with
@@ -55,16 +56,22 @@ LAZY = tuple(("mpc_apply", m) for m in ("pentabot", "reaching", "push_ncl",
                                          "push_lcl")) + (
     ("fd_jacobian", "pentabot"),)
 # past this many dofs (the model's nv) a library's loops over dofs and
-# rows run rolled; below it they stay unrolled, because rolled the step's
-# kernels run 2.7-5.6x slower (K3, K4 and K5ad at push_ncl and box_sweep on
-# an H100, `bench_kernels.py --rolled`; PERF.md).  The backward pass is
-# never rolled: its threads stride over the entries at run time and only
-# the inner sums are unrolled (csrc/backward.cu).
+# rows run rolled; below it they stay unrolled, because rolled the
+# one-thread step's kernels run 2.7-5.6x slower (K3, K4 and K5ad at
+# push_ncl and box_sweep on an H100, `bench_kernels.py --rolled`;
+# PERF.md).  The backward pass and the line search (UNROLLED_SOURCES) are
+# never rolled: their threads stride over entries, rows and dofs at run
+# time and only inner sums over compile-time sizes are unrolled
+# (csrc/backward.cu, csrc/warp_step.cuh).
 ROLL_NV = 15
+UNROLLED_SOURCES = ("backward", "linesearch")
 # build the backward pass with its phase marks (TRAJOPT_BP_MARKS,
 # csrc/backward.cu; `bench_kernels.py --backward --marks`): a library of
 # its own, the marks' cost in every call
 BP_MARKS = False
+# build the line search with the cooperative step's phase marks
+# (TRAJOPT_WARP_MARKS, csrc/warp_step.cuh; `bench_kernels.py --marks`)
+WARP_MARKS = False
 # sources built once for every model
 GENERIC_SOURCES = ("keypoints", "kp_interp")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round as
@@ -108,8 +115,8 @@ def rolled(source: str, instance: str) -> bool:
     """Whether a library is built with TRAJOPT_ROLL_LOOPS: the model
     instances past ROLL_NV dofs (their loops over dofs and rows unrolled
     whole would keep nvcc for tens of minutes; rolled, each iteration does
-    the same operations in the same order)."""
-    if source in GENERIC_SOURCES or source == "backward":
+    the same operations in the same order), but for UNROLLED_SOURCES."""
+    if source in GENERIC_SOURCES or source in UNROLLED_SOURCES:
         return False
     return instance_tables()[instance].NV > ROLL_NV
 
@@ -144,7 +151,8 @@ def _only(source: str, instance: str) -> tuple:
     kind = "BP" if source == "backward" else "MODEL"
     roll = ("-DTRAJOPT_ROLL_LOOPS",) if rolled(source, instance) else ()
     marks = (("-DTRAJOPT_BP_MARKS",) if BP_MARKS and source == "backward"
-             else ())
+             else ("-DTRAJOPT_WARP_MARKS",) if WARP_MARKS
+             and source == "linesearch" else ())
     return (f"-DTRAJOPT_ONLY=TRAJOPT_{kind}_{instance}",) + roll + marks
 
 
@@ -219,8 +227,9 @@ def build(libs=None) -> dict:
 
 def load(source: str, instance: str) -> ctypes.CDLL:
     """The loaded library of one instance of a kernel source, built first
-    if needed."""
-    key = (source, instance)
+    if needed (cached with its flags: ROLL_NV, BP_MARKS and WARP_MARKS
+    name other libraries)."""
+    key = (source, instance, _only(source, instance))
     lib = _LIBS.get(key)
     if lib is None:
         with _LOAD_LOCK:
@@ -228,7 +237,7 @@ def load(source: str, instance: str) -> ctypes.CDLL:
             if lib is None:
                 path = library_path(source, instance)
                 if not path.exists():
-                    build((key,))
+                    build(((source, instance),))
                 lib = _LIBS[key] = ctypes.CDLL(str(path))
     return lib
 

@@ -58,12 +58,19 @@
 // Bound: per step ~2 NV^3/3 + 8 iterations x (NV^3/3 + 7 NV^2 + ~50 R +
 // 3 sum_r row_w(r)^2) dependent double operations per lane (about 10k at
 // panda with 14 limit rows, ~50k at push_ncl with 42 rows up to 13 wide,
-// beside ~6-9k for the smooth step; chip_smoke.py:constraint_ops counts them
-// term by term) and no global memory traffic of its own beyond the
-// constants per joint and pair: bound by the latency of one thread's
-// dependent double arithmetic.  This first version keeps one lane per
-// thread; H and L (NV x NV) live in local memory at panda width.  The Newton
-// and step-length loops stay rolled to bound code size and compile time.
+// ~414k at push_lcl with 114 rows over 31 dofs, beside ~6-52k for the
+// smooth step; chip_smoke.py:constraint_ops and newton_ops count them term
+// by term) and no global memory traffic of its own beyond the constants
+// per joint and pair: bound by the latency of the dependent double
+// arithmetic.  These functions run one lane per thread, H and L (NV x NV)
+// in local memory past panda width, the Newton and step-length loops
+// rolled to bound code size and compile time; warp_step.cuh runs the same
+// solve across a warp for K4 (its Cholesky right-looking by column, a
+// chain NV columns long instead of NV^2/2).  In K5ad the Newton iterations
+// and K2c's gated-Hessian factor run once per (slot, lane) in its primal
+// pass (ad_primal) and every column reads them (constraint_solve given
+// the buffer); K2c's column solve reads the packed factor from global
+// memory (linalg.cuh:chol_solve_packed).
 #pragma once
 
 #include "dual.cuh"
@@ -87,6 +94,47 @@ struct Rows {
   S aref[R];
   S invR[R];  // active / R: an inactive row contributes nothing
 };
+
+// K5ad's primal buffer of one (slot, lane), batch last (entry e at
+// p[e * stride]): the Newton iterate x (NV), the lower Cholesky factor of
+// K2c's gated Hessian at x packed row by row (entry (i, k <= i) at
+// i (i + 1) / 2 + k), then with a free rotation in the state the nominal
+// next positions (NQ); kernels/ops.py:ad_primal_entries mirrors it.
+struct AdPrimalBuf {
+  double* p;
+  long long stride;
+};
+
+template <class T>
+struct AdLayout {
+  static constexpr int NTRI = T::NV * (T::NV + 1) / 2;
+  static constexpr int X = 0;
+  static constexpr int L = T::NV;
+  static constexpr int QN = T::R > 0 ? T::NV + NTRI : 0;
+  static constexpr int ENTRIES = QN + (T::HAS_ROT ? T::NQ : 0);
+};
+
+// K5ad's tangent pass is launched while its primal pass still runs
+// (programmatic dependent launch, csrc/ad_jacobian.cu): the primal pass
+// lets it start at once, and the tangent pass waits for the primal pass's
+// end, and for its writes to be visible, just before its first read of
+// the buffer.  Each is a no-op in a launch without that attribute and on
+// the host.
+__device__ __forceinline__ void primal_release_tangents() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
+}
+
+__device__ __forceinline__ void wait_for_primal() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+__host__ __device__ constexpr int tri(int i, int k) {
+  return i * (i + 1) / 2 + k;
+}
 
 // x^n for n >= 1 by repeated multiplication
 template <class S>
@@ -331,7 +379,8 @@ template <class T>
 __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
                                  const double (&qfrc)[T::NV],
                                  const Rows<T::R, T::ROW_W>& rows,
-                                 double (&qc)[T::NV]) {
+                                 double (&qc)[T::NV],
+                                 const AdPrimalBuf* = nullptr) {
   constexpr int NV = T::NV;
   double H[NV][NV], a0[NV], x[NV];
   TRAJOPT_UNROLL
@@ -346,17 +395,60 @@ __device__ void constraint_solve(const double (&M)[T::NV][T::NV],
   constraint_force<T>(rows, x, qc);
 }
 
+// K2c's values, once per (slot, lane) in K5ad's primal pass: a0 and the
+// Newton iterate x of the step's values (as constraint_solve runs them),
+// the gate at x and the Cholesky factor of the gated Hessian (as
+// implicit_tangent computes them), written to `ad` (AdLayout).  The dual
+// step's values are these numbers: each dual operation's value is the
+// double operation.
+template <class T>
+__device__ void ad_primal(const double (&M)[T::NV][T::NV],
+                          const double (&qfrc)[T::NV],
+                          const Rows<T::R, T::ROW_W>& rows,
+                          const AdPrimalBuf& ad) {
+  constexpr int NV = T::NV, R = T::R;
+  double H[NV][NV], a0[NV], x[NV];
+  TRAJOPT_UNROLL
+  for (int i = 0; i < NV; ++i) {
+    a0[i] = qfrc[i];
+    TRAJOPT_UNROLL
+    for (int k = 0; k < NV; ++k) H[i][k] = M[i][k];
+  }
+  chol_factor<NV>(H);
+  chol_solve<NV>(H, a0);
+  newton_iterations<T>(M, a0, rows, x);
+  double y[R], g[R];
+  rows_times_v<T>(rows, x, y);
+  TRAJOPT_UNROLL
+  for (int r = 0; r < R; ++r) {
+    y[r] = y[r] - rows.aref[r];
+    g[r] = y[r] < 0.0 ? rows.invR[r] : 0.0;
+  }
+  gated_hessian<T>(M, rows, g, H);
+  chol_factor<NV>(H);
+  TRAJOPT_UNROLL
+  for (int i = 0; i < NV; ++i) {
+    ad.p[(AdLayout<T>::X + i) * ad.stride] = x[i];
+    TRAJOPT_UNROLL
+    for (int k = 0; k <= i; ++k)
+      ad.p[(AdLayout<T>::L + tri(i, k)) * ad.stride] = H[i][k];
+  }
+}
+
 // K2c: dx = -(H + 1e-10 I)^-1 dF at the Newton iterate x, dF the tangent
 // of F = M (x - a0) + J' (min(J x - aref, 0) invR) at the fixed x, F
 // evaluated in dual numbers row by row in the order of
 // dynamics/contact.py:implicit_residual_tangent.
+// The gated Hessian's factor is the one the primal pass wrote to `ad`
+// (ad_primal): the same numbers, read instead of computed.
 template <class T>
 __device__ void implicit_tangent(const Dual (&M)[T::NV][T::NV],
                                  const Dual (&a0)[T::NV],
                                  const Rows<T::R, T::ROW_W, Dual>& rows,
                                  const double (&x)[T::NV],
-                                 double (&dx)[T::NV]) {
-  constexpr int NV = T::NV, R = T::R;
+                                 double (&dx)[T::NV],
+                                 const AdPrimalBuf& ad) {
+  constexpr int NV = T::NV;
   Dual e[NV], F[NV];
   TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) e[i] = x[i] - a0[i];
@@ -367,8 +459,7 @@ __device__ void implicit_tangent(const Dual (&M)[T::NV][T::NV],
     for (int k = 1; k < NV; ++k) s = s + M[i][k] * e[k];
     F[i] = s;
   }
-  double g[R];
-  for_rows<R>([&](auto rc) {
+  for_rows<T::R>([&](auto rc) {
     const int r = row_index(rc);
     const int RW = T::row_w(rc);
     Dual y = rows.coef[r][0] * x[T::row_dof(rc, 0)];
@@ -377,31 +468,28 @@ __device__ void implicit_tangent(const Dual (&M)[T::NV][T::NV],
       y = y + rows.coef[r][w] * x[T::row_dof(rc, w)];
     y = y - rows.aref[r];
     const Dual f = (y < 0.0 ? y : Dual(0.0)) * rows.invR[r];
-    g[r] = y < 0.0 ? rows.invR[r].v : 0.0;
 #pragma unroll
     for (int w = 0; w < RW; ++w) {
       const int d = T::row_dof(rc, w);
       F[d] = F[d] + rows.coef[r][w] * f;
     }
   });
-  double H[NV][NV];
-  gated_hessian<T>(M, rows, g, H);
-  chol_factor<NV>(H);
   TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) dx[i] = F[i].d;
-  chol_solve<NV>(H, dx);
+  chol_solve_packed<NV>(ad.p + AdLayout<T>::L * ad.stride, ad.stride, dx);
   TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) dx[i] = -dx[i];
 }
 
 // The forward-mode constraint force: a0 = M^-1 qfrc in dual numbers, the
-// Newton iterations on the values, K2c's tangent of the iterate, and the
-// force from the dual x.
+// Newton iterate of the values from K5ad's primal pass (`ad`, which the
+// dual step, run only by its tangent pass, is always given), K2c's tangent
+// of the iterate, and the force from the dual x.
 template <class T>
 __device__ void constraint_solve(const Dual (&M)[T::NV][T::NV],
                                  const Dual (&qfrc)[T::NV],
                                  const Rows<T::R, T::ROW_W, Dual>& rows,
-                                 Dual (&qc)[T::NV]) {
+                                 Dual (&qc)[T::NV], const AdPrimalBuf* ad) {
   constexpr int NV = T::NV;
   Dual L[NV][NV], a0[NV];
   TRAJOPT_UNROLL
@@ -412,11 +500,12 @@ __device__ void constraint_solve(const Dual (&M)[T::NV][T::NV],
   }
   chol_factor<NV>(L);
   chol_solve<NV>(L, a0);
-  double a0v[NV], x[NV], dx[NV];
+  double x[NV], dx[NV];
+  wait_for_primal();
   TRAJOPT_UNROLL
-  for (int i = 0; i < NV; ++i) a0v[i] = a0[i].v;
-  newton_iterations<T>(M, a0v, rows, x);
-  implicit_tangent<T>(M, a0, rows, x, dx);
+  for (int i = 0; i < NV; ++i)
+    x[i] = ad->p[(AdLayout<T>::X + i) * ad->stride];
+  implicit_tangent<T>(M, a0, rows, x, dx, *ad);
   Dual xd[NV];
   TRAJOPT_UNROLL
   for (int i = 0; i < NV; ++i) xd[i] = Dual(x[i], dx[i]);

@@ -116,4 +116,28 @@ __device__ __forceinline__ void chol_solve(const S (&L)[N][N], S (&b)[N]) {
   }
 }
 
+// chol_solve with L packed row by row in global memory (entry (i, k <= i)
+// at L[(i (i + 1) / 2 + k) * stride]): the same operations in the same
+// order.
+template <int N>
+__device__ __forceinline__ void chol_solve_packed(const double* L,
+                                                  long long stride,
+                                                  double (&b)[N]) {
+  TRAJOPT_UNROLL
+  for (int i = 0; i < N; ++i) {
+    double s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= L[(i * (i + 1) / 2 + k) * stride] * b[k];
+    b[i] = s / L[(i * (i + 1) / 2 + i) * stride];
+  }
+  TRAJOPT_UNROLL
+  for (int i = N - 1; i >= 0; --i) {
+    double s = b[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k)
+      s -= L[(k * (k + 1) / 2 + i) * stride] * b[k];
+    b[i] = s / L[(i * (i + 1) / 2 + i) * stride];
+  }
+}
+
 }  // namespace trajopt

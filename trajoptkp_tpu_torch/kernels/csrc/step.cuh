@@ -35,11 +35,15 @@
 //
 // Bound: one step is ~1.3k (acrobot) to ~6k (panda) dependent double
 // operations per lane before its constraint solve (~10k more with panda's
-// limit rows, ~86k with push_ncl's 42 rows, ~131k with the walker's 128;
-// chip_smoke.py counts them), so a kernel
-// built on it is bound by latency per thread, not by bytes; this first
-// version runs one lane per thread and spills the per-body arrays and the
-// rows to local memory from pentabot width up.
+// limit rows, ~86k with push_ncl's 42 rows, ~131k with the walker's 128,
+// ~466k with push_lcl's 114 over 31 dofs; chip_smoke.py:step_ops counts
+// them), so a kernel built on it is bound by the latency of its dependent
+// chains, not by bytes.  Here the step runs one lane per thread, the
+// per-body arrays and the rows in the thread's local memory (a 39 KB frame
+// at push_lcl): K3, K5, K5ad, K8 and fk_bias run it so.  K4 runs the same
+// operations in the same order spread over a warp per lane with the
+// lane's arrays in shared memory (warp_step.cuh: 25.1 KB at push_lcl);
+// fk_rne is the part the two share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -618,28 +622,13 @@ struct Frames {
   double cdof[T::NV][6];
 };
 
-// (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
-// actuator forces, the constraint force of the limit rows (K2a) and contact
-// rows (K2b), (M + h D) qacc = f, semi-implicit Euler.  With WANT_RES the
-// FK residual of the state (q, v) (fk_residual, with its constants `resc`
-// from the task buffer) is written to `res`, from the same FK products the
-// step uses.  With FK_BIAS the step stops after the
-// RNE and writes its FK products and bias force to `out` (fk_bias below).
-template <class T, bool WANT_RES = false, bool FK_BIAS = false,
-          class S = double>
-__device__ void smooth_step(const double* __restrict__ P, const S* q,
-                            const S* v, const S* u, S* qn, S* vn,
-                            const double* tg = nullptr,
-                            const double* resc = nullptr,
-                            double* res = nullptr,
-                            const FkBiasOut* out = nullptr) {
-  constexpr int NV = T::NV;
-  constexpr int NU = T::NU;
-  constexpr int NB = T::NBODY;
-  S xpos[NB][3], xquat[NB][4];
-  S cdof[NV][6];
-  Inertia<S> In[NB];
-  S cvel[NB][6], cacc[NB][6], cfrc[NB][6];
+// The world body's frame, velocity and acceleration (gravity).
+template <class T, class S>
+__device__ __forceinline__ void fk_rne_root(const double* __restrict__ P,
+                                            S (&xpos)[T::NBODY][3],
+                                            S (&xquat)[T::NBODY][4],
+                                            S (&cvel)[T::NBODY][6],
+                                            S (&cacc)[T::NBODY][6]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) xpos[0][k] = 0.0;
   xquat[0][0] = 1.0; xquat[0][1] = 0.0; xquat[0][2] = 0.0; xquat[0][3] = 0.0;
@@ -648,98 +637,115 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
   cacc[0][0] = 0.0; cacc[0][1] = 0.0; cacc[0][2] = 0.0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) cacc[0][3 + k] = -P[T::GRAV + k];
+}
 
-  // ---- forward kinematics, body inertias and the RNE forward sweep
+// Body b's RNE velocity and acceleration from its parent's, its cdof done:
+// with fk_body the part of a body's forward sweep that chains down the
+// tree.
+template <class T, class S>
+__device__ __forceinline__ void rne_chain(const S* v, const int b,
+                                          const S (&cdof)[T::NV][6],
+                                          S (&cvel)[T::NBODY][6],
+                                          S (&cacc)[T::NBODY][6]) {
+  const int p = T::parent(b);
+  const int j0 = T::body_dof(b);
 #pragma unroll
-  for (int b = 1; b < NB; ++b) {
-    fk_body<T>(P, q, b, xpos, xquat, cdof);
-    const double* pb = P + (b - 1) * BODY_STRIDE;
-    const int p = T::parent(b);
-    const int j0 = T::body_dof(b);
-    const S* xq = xquat[b];
-    const S* xp = xpos[b];
-
-    // inertia of body b about the world origin
-    S R[9], Ri[9], X[9], c[3];
-    quat_to_mat(xq, R);
-    quat_to_mat(pb + F_IQUAT, Ri);
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      c[r] = xp[r] + (R[3 * r] * pb[F_IPOS] + R[3 * r + 1] * pb[F_IPOS + 1] +
-                      R[3 * r + 2] * pb[F_IPOS + 2]);
-#pragma unroll
-      for (int s = 0; s < 3; ++s)
-        X[3 * r + s] = R[3 * r] * Ri[s] + R[3 * r + 1] * Ri[3 + s] +
-                       R[3 * r + 2] * Ri[6 + s];
-    }
-    const double m = pb[F_MASS];
-    const double* d = pb + F_INERTIA;
-    const int kk[6][2] = {{0, 0}, {1, 1}, {2, 2}, {0, 1}, {0, 2}, {1, 2}};
-    const S cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
-    Inertia<S>& I = In[b];
-    I.m = m;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) I.h[r] = m * c[r];
-#pragma unroll
-    for (int e = 0; e < 6; ++e) {
-      const int r = kk[e][0], s = kk[e][1];
-      const S ic = X[3 * r] * d[0] * X[3 * s] +
-                        X[3 * r + 1] * d[1] * X[3 * s + 1] +
-                        X[3 * r + 2] * d[2] * X[3 * s + 2];
-      I.J[e] = ic + m * ((r == s ? cc : 0.0) - c[r] * c[s]);
-    }
-
-    // RNE forward: body velocity, acceleration and force
-    S Iv[6], Ia[6], cf[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      cvel[b][k] = cvel[p][k];
-      cacc[b][k] = cacc[p][k];
-    }
-    if (T::free(b)) {
-      // the rotations' cdof turn with the whole body twist
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int k = 0; k < 6; ++k)
-          cvel[b][k] = cvel[b][k] + cdof[j0 + i][k] * v[j0 + i];
-#pragma unroll
-      for (int i = 3; i < 6; ++i) {
-        S cm[6];
-        cross_motion(cvel[b], cdof[j0 + i], cm);
-#pragma unroll
-        for (int k = 0; k < 6; ++k)
-          cacc[b][k] = cacc[b][k] + cm[k] * v[j0 + i];
-      }
-    } else {
-      // hinge or slide dof j's cdof turns with the twist of the dofs before
-      // it: the parent's and the body's own earlier ones
-#pragma unroll
-      for (int n = 0; n < 6; ++n) {
-        if (n >= T::body_ndof(b)) continue;
-        const int j = j0 + n;
-        S cm[6];
-        cross_motion(cvel[b], cdof[j], cm);
-#pragma unroll
-        for (int k = 0; k < 6; ++k) {
-          cacc[b][k] = cacc[b][k] + cm[k] * v[j];
-          cvel[b][k] = cvel[b][k] + cdof[j][k] * v[j];
-        }
-      }
-    }
-    inertia_mul(I, cvel[b], Iv);
-    inertia_mul(I, cacc[b], Ia);
-    cross_force(cvel[b], Iv, cf);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) cfrc[b][k] = Ia[k] + cf[k];
+  for (int k = 0; k < 6; ++k) {
+    cvel[b][k] = cvel[p][k];
+    cacc[b][k] = cacc[p][k];
   }
-  if constexpr (WANT_RES && fk_residual(T::RES) && !is_dual<S>::value)
-    fk_residual_of<T>(resc, xpos, xquat, v, tg, res);
-
-  // ---- RNE backward (bias) and composite inertias (CRBA)
-  S bias[NV];
+  if (T::free(b)) {
+    // the rotations' cdof turn with the whole body twist
 #pragma unroll
-  for (int b = NB - 1; b >= 1; --b) {
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        cvel[b][k] = cvel[b][k] + cdof[j0 + i][k] * v[j0 + i];
+#pragma unroll
+    for (int i = 3; i < 6; ++i) {
+      S cm[6];
+      cross_motion(cvel[b], cdof[j0 + i], cm);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        cacc[b][k] = cacc[b][k] + cm[k] * v[j0 + i];
+    }
+  } else {
+    // hinge or slide dof j's cdof turns with the twist of the dofs before
+    // it: the parent's and the body's own earlier ones
+#pragma unroll
+    for (int n = 0; n < 6; ++n) {
+      if (n >= T::body_ndof(b)) continue;
+      const int j = j0 + n;
+      S cm[6];
+      cross_motion(cvel[b], cdof[j], cm);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        cacc[b][k] = cacc[b][k] + cm[k] * v[j];
+        cvel[b][k] = cvel[b][k] + cdof[j][k] * v[j];
+      }
+    }
+  }
+}
+
+// Body b's inertia about the world origin from its frame: a body's own
+// part of the forward sweep, independent of the other bodies' (b may be a
+// runtime index: the cooperative step runs a body per thread).
+template <class T, class S>
+__device__ __forceinline__ void body_inertia(const double* __restrict__ P,
+                                             const int b, const S* xp,
+                                             const S* xq, Inertia<S>& I) {
+  const double* pb = P + (b - 1) * BODY_STRIDE;
+  S R[9], Ri[9], X[9], c[3];
+  quat_to_mat(xq, R);
+  quat_to_mat(pb + F_IQUAT, Ri);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    c[r] = xp[r] + (R[3 * r] * pb[F_IPOS] + R[3 * r + 1] * pb[F_IPOS + 1] +
+                    R[3 * r + 2] * pb[F_IPOS + 2]);
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      X[3 * r + s] = R[3 * r] * Ri[s] + R[3 * r + 1] * Ri[3 + s] +
+                     R[3 * r + 2] * Ri[6 + s];
+  }
+  const double m = pb[F_MASS];
+  const double* d = pb + F_INERTIA;
+  const int kk[6][2] = {{0, 0}, {1, 1}, {2, 2}, {0, 1}, {0, 2}, {1, 2}};
+  const S cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
+  I.m = m;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) I.h[r] = m * c[r];
+#pragma unroll
+  for (int e = 0; e < 6; ++e) {
+    const int r = kk[e][0], s = kk[e][1];
+    const S ic = X[3 * r] * d[0] * X[3 * s] +
+                 X[3 * r + 1] * d[1] * X[3 * s + 1] +
+                 X[3 * r + 2] * d[2] * X[3 * s + 2];
+    I.J[e] = ic + m * ((r == s ? cc : 0.0) - c[r] * c[s]);
+  }
+}
+
+// Body b's RNE force from its inertia, velocity and acceleration.
+template <class S>
+__device__ __forceinline__ void body_rne_force(const Inertia<S>& I,
+                                               const S* cvel, const S* cacc,
+                                               S* cfrc) {
+  S Iv[6], Ia[6], cf[6];
+  inertia_mul(I, cvel, Iv);
+  inertia_mul(I, cacc, Ia);
+  cross_force(cvel, Iv, cf);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) cfrc[k] = Ia[k] + cf[k];
+}
+
+// The RNE backward sweep (the bias force) and the composite inertias
+// (CRBA's), leaves first.
+template <class T, class S>
+__device__ __forceinline__ void rne_backward(const S (&cdof)[T::NV][6],
+                                             S (&cfrc)[T::NBODY][6],
+                                             Inertia<S> (&In)[T::NBODY],
+                                             S (&bias)[T::NV]) {
+#pragma unroll
+  for (int b = T::NBODY - 1; b >= 1; --b) {
     const int p = T::parent(b);
     const int j = T::body_dof(b);
 #pragma unroll
@@ -751,6 +757,68 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
       inertia_add(In[p], In[b]);
     }
   }
+}
+
+// FK, the body inertias and the RNE forward sweep, with WANT_RES the FK
+// residual of the state (q, v) (fk_residual_of, its constants `resc` from
+// the task buffer) from the same FK products, then the RNE backward sweep
+// (the bias force) and the composite inertias (CRBA's): the part of
+// smooth_step before the mass matrix, on one thread, in the order of the
+// JAX lane step's body loop.  The cooperative step (warp_step.cuh) runs
+// the same parts, body_inertia and body_rne_force one body per thread.
+template <class T, bool WANT_RES, class S>
+__device__ __forceinline__ void fk_rne(const double* __restrict__ P,
+                                       const S* q, const S* v,
+                                       const double* tg, const double* resc,
+                                       double* res, S (&xpos)[T::NBODY][3],
+                                       S (&xquat)[T::NBODY][4],
+                                       S (&cdof)[T::NV][6],
+                                       Inertia<S> (&In)[T::NBODY],
+                                       S (&bias)[T::NV]) {
+  constexpr int NB = T::NBODY;
+  S cvel[NB][6], cacc[NB][6], cfrc[NB][6];
+  fk_rne_root<T>(P, xpos, xquat, cvel, cacc);
+#pragma unroll
+  for (int b = 1; b < NB; ++b) {
+    fk_body<T>(P, q, b, xpos, xquat, cdof);
+    body_inertia<T>(P, b, xpos[b], xquat[b], In[b]);
+    rne_chain<T>(v, b, cdof, cvel, cacc);
+    body_rne_force(In[b], cvel[b], cacc[b], cfrc[b]);
+  }
+  if constexpr (WANT_RES && fk_residual(T::RES) && !is_dual<S>::value)
+    fk_residual_of<T>(resc, xpos, xquat, v, tg, res);
+  rne_backward<T>(cdof, cfrc, In, bias);
+}
+
+// (q, v, u) -> (qn, vn): FK, RNE bias, CRBA mass matrix, passive and
+// actuator forces, the constraint force of the limit rows (K2a) and contact
+// rows (K2b), (M + h D) qacc = f, semi-implicit Euler.  With WANT_RES the FK
+// residual of the state (q, v) (fk_residual, with its constants `resc`
+// from the task buffer) is written to `res`, from the same FK products the
+// step uses.  With FK_BIAS the step stops after the
+// RNE and writes its FK products and bias force to `out` (fk_bias below).
+// K5ad's primal buffer `ad` (constraint.cuh:AdPrimalBuf): with AD_PRIMAL,
+// in double, the step stops after the constraint rows and writes K2c's
+// values there (the Newton iterate and the gated Hessian's factor,
+// constraint.cuh:ad_primal); in dual numbers (K5ad's tangent pass, which
+// always gives it) it reads them there instead of computing them again.
+template <class T, bool WANT_RES = false, bool FK_BIAS = false,
+          class S = double, bool AD_PRIMAL = false>
+__device__ void smooth_step(const double* __restrict__ P, const S* q,
+                            const S* v, const S* u, S* qn, S* vn,
+                            const double* tg = nullptr,
+                            const double* resc = nullptr,
+                            double* res = nullptr,
+                            const FkBiasOut* out = nullptr,
+                            const AdPrimalBuf* ad = nullptr) {
+  constexpr int NV = T::NV;
+  constexpr int NU = T::NU;
+  constexpr int NB = T::NBODY;
+  S xpos[NB][3], xquat[NB][4];
+  S cdof[NV][6];
+  Inertia<S> In[NB];
+  S bias[NV];
+  fk_rne<T, WANT_RES>(P, q, v, tg, resc, res, xpos, xquat, cdof, In, bias);
   if constexpr (FK_BIAS && !is_dual<S>::value) {
     const int B = out->B, l = out->b;
 #pragma unroll
@@ -836,7 +904,12 @@ __device__ void smooth_step(const double* __restrict__ P, const S* q,
       if constexpr (T::NLIM > 0) limit_rows<T>(P, q, v, rows);
       if constexpr (T::NPAIR > 0)
         contact_rows<T>(P, xpos, xquat, cdof, v, rows);
-      constraint_solve<T>(M, f, rows, qc);
+      if constexpr (AD_PRIMAL) {
+        ad_primal<T>(M, f, rows, *ad);
+        return;
+      } else {
+        constraint_solve<T>(M, f, rows, qc, ad);
+      }
       TRAJOPT_UNROLL
       for (int i = 0; i < NV; ++i) f[i] = f[i] + qc[i];
     }

@@ -31,10 +31,14 @@ the adaptive keypoint selectors and the per-lane slot plan),
 slot Jacobians to the full horizon) and `ie_mse` (K9c, csrc/kp_interp.cu:
 the iterative_error bisection test).  The slot Jacobians, `ad_jacobian`
 (K5ad: exact, the step in dual numbers with the constraint solve's
-implicit tangent K2c; every lane path's) and `fd_jacobian` (K5: central
-FD; the generic solve's at deriv_mode "fd"), take slot times shared by
-every lane, or per lane with a live count, or per lane scattered into a
-full-horizon cache at their times (iterative_error).  `backward` (K7)
+implicit tangent K2c, its Newton iterate and gated-Hessian factor from a
+primal pass once per (slot, lane), `ad_primal_entries`, `ad_chunk`; every
+lane path's) and `fd_jacobian` (K5: central FD; the generic solve's at
+deriv_mode "fd"), take slot times shared by every lane, or per lane with
+a live count, or per lane scattered into a full-horizon cache at their
+times (iterative_error).  `linesearch` (K4) runs a warp per (alpha,
+scene) lane over the cooperative step (csrc/warp_step.cuh) where the
+model has constraint rows (`linesearch_geometry`).  `backward` (K7)
 runs the JAX lane solver's coupled λ loop in 1 + bp_rounds launches, a
 thread block per lane (a warp per lane up to nx 10, `backward_geometry`).
 """
@@ -513,11 +517,14 @@ def rollout(task: Task, qpos0, qvel0, U, targets, plain: bool = False):
 
 
 def linesearch(task: Task, qpos, qvel, U, k, K, alphas, targets,
-               plain: bool = False):
+               plain: bool = False, geometry: "LinesearchGeometry" = None):
     """K4.  All alphas' rollouts under u = clip(u_nom + α k + K dx), K over
     the state vector's 2 ndof tangent dofs:
     -> qpos (H+1, nq, A, B), qvel (H+1, nv, A, B), ctrl (H, nu, A, B),
-    costs (H, A, B)."""
+    costs (H, A, B).  A warp per (alpha, scene) lane with the cooperative
+    step where the model has constraint rows, else a thread per lane
+    (`geometry`, by default `linesearch_geometry`; the C entry refuses one
+    its kernel does not run)."""
     if _on_cpu(qpos, qvel, U, k, K, alphas, targets) or plain:
         return twins.forward_pass_rollouts(task, qpos, qvel, U, k, K, alphas,
                                            targets)
@@ -536,11 +543,14 @@ def linesearch(task: Task, qpos, qvel, U, k, K, alphas, targets,
     qvs = torch.empty((H + 1, nv, nA, B), **f64)
     us = torch.empty((H, nu, nA, B), **f64)
     cs = torch.empty((H, nA, B), **f64)
+    g = geometry or _linesearch_plan(ka.tag, nA, B, U.device)
     _launch("linesearch", ka.tag, f"trajopt_linesearch_{ka.tag}",
             _p(ka.model_buf), _p(ka.task_buf), _p(qpos), _p(qvel), _p(U),
             _p(k), _p(K), _p(alphas), _p(targets), _p(qps), _p(qvs), _p(us),
             _p(cs),
-            ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B))
+            ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B),
+            ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+            ctypes.c_int(g.smem_bytes))
     return qps, qvs, us, cs
 
 
@@ -559,7 +569,9 @@ def _slot_args(ka, qpos, qvel, U, times, counts, cache):
         stride = (B, 1)
     else:
         _check("times", times, (nK,), torch.int64)
-        if nK and not (0 <= int(times.min()) and int(times.max()) < H):
+        # one read back to the host: each one waits for the card
+        lo, hi = torch.stack(torch.aminmax(times)).tolist() if nK else (0, 0)
+        if not (0 <= lo and hi < H):
             raise ValueError(f"slot times must lie in [0, {H})")
         stride = (1, 0)
     if cache is not None:
@@ -623,7 +635,12 @@ def ad_jacobian(task: Task, qpos, qvel, U, times, plain: bool = False,
     by forward mode, the constraint solve differentiated implicitly at its
     Newton iterate (K2c), at the slot times of the trajectory, in the slot
     modes of `fd_jacobian` (shared times, per-lane times with live counts,
-    the full-horizon cache).  Plain twin: derivs/ad.py."""
+    the full-horizon cache).  On the card a primal pass per (slot, lane)
+    writes what the slot's columns share into a buffer of `ad_chunk` slots
+    (`ad_primal_entries` doubles per (slot, lane)), and the tangent pass
+    reads it, launched to start while the primal pass runs; one C call
+    runs both per chunk and counts one launch.  A model with no primal
+    entries (acrobot) runs one pass.  Plain twin: derivs/ad.py."""
     lanes = _slot_modes(times, counts, cache)
     if _on_cpu(qpos, qvel, U, times) or plain:
         if not lanes:
@@ -637,13 +654,20 @@ def ad_jacobian(task: Task, qpos, qvel, U, times, plain: bool = False,
     ka = kernel_args(task, U.device)
     J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
     tag = build.step_shared().get(ka.tag, ka.tag)   # reads no residual
+    nK, B = times.shape[0], U.shape[-1]
+    entries = _ad_entries(tag)
+    chunk = ad_chunk(entries, nK, B)
+    prim = (torch.empty((chunk * entries * B,), dtype=torch.float64,
+                        device=U.device) if chunk else None)
     _launch("ad_jacobian", tag,
             f"trajopt_ad_jacobian_{tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times),
             ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
             ctypes.c_void_p(counts.data_ptr() if lanes else None),
-            ctypes.c_int(cache is not None), _p(J),
-            ctypes.c_int(times.shape[0]), ctypes.c_int(U.shape[-1]))
+            ctypes.c_int(cache is not None),
+            ctypes.c_void_p(None if prim is None else prim.data_ptr()),
+            ctypes.c_int(entries), ctypes.c_int(chunk), _p(J),
+            ctypes.c_int(nK), ctypes.c_int(B))
     return J
 
 
@@ -747,6 +771,207 @@ def backward_geometry(nx: int, nu: int) -> BackwardGeometry:
             f"K7 at nx={nx}, nu={nu} needs {smem} bytes of shared memory a "
             f"block, past the {SMEM_LIMIT} a block may take")
     return BackwardGeometry(threads, lanes, smem)
+
+
+# ---------------------------------------------------------------------------
+# K4's and K5ad's launch plans (csrc/linesearch.cu, csrc/ad_jacobian.cu)
+# ---------------------------------------------------------------------------
+
+# an H100 SXM: its SMs (the plans' default; K4's wrapper reads the card's
+# own count) and the shared memory one SM holds
+NUM_SMS = 132
+SMEM_PER_SM = 233472
+# lanes a block of the warp-per-lane K4 holds at most (linesearch.cu
+# LS_MAX_LANES), and the block of its one-thread kernel
+LS_MAX_LANES = 8
+LS_THREAD_BLOCK = 64
+# the cooperative step holds a row of M a thread (warp_step.cuh:
+# warp_factor_solve)
+LS_MAX_DOFS = 32
+# doubles per contact slot of the cooperative step's narrow phase
+# (warp_step.cuh SLOT_DOUBLES)
+SLOT_DOUBLES = 16
+
+
+def _direct(t1: int, t2: int) -> bool:
+    plane, capsule, cylinder, box = 0, 3, 5, 6
+    return ((t1 == plane and t2 in (cylinder, capsule, box))
+            or (t1 == capsule and t2 in (capsule, box))
+            or (t1 == cylinder and t2 in (cylinder, box)))
+
+
+def pair_slots(t1: int, t2: int) -> int:
+    """Contact slots of a pair of geom types (csrc/contact.cuh:pair_slots)."""
+    if not _direct(t1, t2) and _direct(t2, t1):
+        t1, t2 = t2, t1
+    if t1 == 0:
+        return {5: 3, 6: 4}.get(t2, 2)
+    return 2 if t2 == 6 else 1
+
+
+def _root_path(t: Topology, b: int) -> set:
+    dofs = set()
+    while b > 0:
+        if t.BODY_DOF[b] >= 0:
+            dofs.update(range(t.BODY_DOF[b], t.BODY_DOF[b] + t.BODY_NDOF[b]))
+        b = t.PARENT[b]
+    return dofs
+
+
+class StepSizes(NamedTuple):
+    """An instance's sizes as csrc/step.cuh:Topo derives them."""
+    nq: int
+    nlim: int
+    rows: int
+    nslot: int
+    ncoef: int        # the rows' sparse coefficients
+    nres: int
+    ntgt: int
+    has_rot: bool
+
+
+def step_sizes(t: Topology) -> StepSizes:
+    nlim = sum(1 for x in t.LIMITED if x)
+    ncoef, nslot = 2 * nlim, 0
+    for t1, t2, b1, b2 in t.PAIRS:
+        nc = pair_slots(t1, t2)
+        w = len(_root_path(t, b1) ^ _root_path(t, b2))
+        nslot += nc
+        ncoef += 4 * nc * w
+    nres = {0: 2 * t.RESARGS[0] + (t.RESARGS[1] if len(t.RESARGS) > 1
+                                   else 0),
+            2: len(t.RESARGS), 3: 3, 4: 7}.get(t.RES, 4 + len(t.RESARGS) - 2)
+    ntgt = {1: 2, 4: 2, 3: 4}.get(t.RES, nres)
+    has_rot = any(t.FREE[t.DOF_BODY[j]] and j - t.BODY_DOF[t.DOF_BODY[j]] >= 3
+                  for j in t.SV)
+    return StepSizes(t.NV + sum(t.FREE), nlim, 2 * nlim + 4 * nslot, nslot,
+                     ncoef, nres, ntgt, has_rot)
+
+
+def linesearch_lane_doubles(t: Topology) -> int:
+    """Doubles of one lane's shared memory in the warp-per-lane K4
+    (csrc/warp_step.cuh:WarpLayout): q, v, u, xpos, xquat, cdof, the
+    composite inertias, f, M and H packed (H at least the RNE's per-body
+    arrays and the slots' narrow phase), seven dof vectors, the rows' coefficients, aref, invR, y, J dx,
+    16 merit sums, the targets, the residual and the state difference."""
+    z = step_sizes(t)
+    nv, nb = t.NV, t.NBODY
+    ntri = nv * (nv + 1) // 2
+    return (z.nq + nv + t.NU + 3 * nb + 4 * nb + 6 * nv + 10 * nb + nv
+            + ntri + max(ntri, SLOT_DOUBLES * z.nslot, 18 * nb) + 7 * nv
+            + z.ncoef
+            + 4 * z.rows + 16 + z.ntgt + z.nres + 2 * t.NDOF)
+
+
+def warp_tables_bytes(t: Topology) -> int:
+    """Bytes of the cooperative step's tables, which each block of the
+    warp-per-lane K4 copies into its static shared memory (csrc/
+    warp_step.cuh:WarpTables: int16 arrays, then the H items as int32, then
+    33 int16 offsets, 4-byte aligned)."""
+    z = step_sizes(t)
+    nv, nb, npair = t.NV, t.NBODY, len(t.PAIRS)
+    sup = [len(_root_path(t, b1) ^ _root_path(t, b2))
+           for _, _, b1, b2 in t.PAIRS]
+    ncon = [pair_slots(t1, t2) for t1, t2, _, _ in t.PAIRS]
+    nji = sum(w * n for w, n in zip(sup, ncon))
+    nhi = sum(w * (w + 1) // 2 + w for w in sup)
+    one = lambda n: max(n, 1)  # noqa: E731  (C++ keeps one entry of none)
+    shorts = (nb * nv + 3 * nv + one(z.nlim)
+              + 2 * one(z.rows) + one(z.ncoef) + 10 * one(npair)
+              + 2 * (npair * nv if npair else 1) + one(z.nslot)
+              + 2 * one(nji))
+    head = (2 * shorts + 3) // 4 * 4
+    return (head + 4 * one(nhi) + 2 * 33 + 3) // 4 * 4
+
+
+class LinesearchGeometry(NamedTuple):
+    threads: int        # per block
+    lanes: int          # (alpha, scene) lanes per block
+    smem_bytes: int     # dynamic shared memory per block (the lanes')
+    warp: bool          # a warp per lane (else a thread per lane)
+    blocks_per_sm: int  # resident blocks an SM holds (by shared memory,
+                        # threads and the 32-block limit)
+
+    def blocks(self, A: int, B: int) -> int:
+        return -(-A * B // self.lanes)
+
+    def waves(self, A: int, B: int, sms: int = NUM_SMS) -> int:
+        return -(-self.blocks(A, B) // (sms * self.blocks_per_sm))
+
+    def lane(self, block: int, thread: int, A: int) -> Tuple[int, int]:
+        """(alpha, scene) of a thread (csrc/linesearch.cu); a lane past
+        A B returns."""
+        per = 32 if self.warp else 1
+        n = block * self.lanes + thread // per
+        return n % A, n // A
+
+
+def linesearch_geometry(t: Topology, A: int, B: int,
+                        sms: int = NUM_SMS) -> LinesearchGeometry:
+    """K4's plan: a thread per lane in blocks of 64 without constraint
+    rows; else a warp per lane, as many lanes a block as the lanes need to
+    fill `sms` SMs at one block each (ceil(A B / sms), the A alphas of a
+    scene at B = 128), at most LS_MAX_LANES and what 227 KB hold beside
+    the block's tables (warp_tables_bytes).  Raises past LS_MAX_DOFS dofs
+    and where one lane does not fit a block."""
+    if step_sizes(t).rows == 0:
+        return LinesearchGeometry(LS_THREAD_BLOCK, LS_THREAD_BLOCK, 0, False,
+                                  2048 // LS_THREAD_BLOCK)
+    if t.NV > LS_MAX_DOFS:
+        raise NotImplementedError(
+            f"K4's cooperative step holds a row of M a thread: up to "
+            f"{LS_MAX_DOFS} dofs, not {t.NV}")
+    per_lane = 8 * linesearch_lane_doubles(t)
+    tables = warp_tables_bytes(t)
+    fit = (SMEM_LIMIT - tables) // per_lane
+    if fit < 1:
+        raise NotImplementedError(
+            f"K4's lane needs {per_lane} bytes of shared memory beside "
+            f"{tables} of tables, past the {SMEM_LIMIT} a block may take")
+    lanes = max(1, min(LS_MAX_LANES, fit, -(-A * B // sms)))
+    smem = per_lane * lanes
+    # each resident block also holds 1 KB of shared memory of its own
+    per_sm = min(SMEM_PER_SM // (smem + tables + 1024),
+                 2048 // (32 * lanes), 32)
+    return LinesearchGeometry(32 * lanes, lanes, smem, True, per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def _linesearch_plan(tag: str, A: int, B: int,
+                     device: torch.device) -> "LinesearchGeometry":
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return linesearch_geometry(build.instance_tables()[tag], A, B, sms)
+
+
+# the primal buffer K5ad's wrapper may take on the card; past it the C
+# entry runs its two passes a chunk of slots at a time
+AD_PRIMAL_CAP_BYTES = 1 << 30
+
+
+def ad_primal_entries(t: Topology) -> int:
+    """Doubles of K5ad's primal buffer per (slot, lane) (csrc/
+    constraint.cuh:AdLayout): the Newton iterate and the gated Hessian's
+    packed factor where the model has constraint rows, the nominal next
+    positions where the state holds a free rotation; 0 for neither."""
+    z = step_sizes(t)
+    nv = t.NV
+    return ((nv + nv * (nv + 1) // 2 if z.rows else 0)
+            + (z.nq if z.has_rot else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _ad_entries(tag: str) -> int:
+    return ad_primal_entries(build.instance_tables()[tag])
+
+
+def ad_chunk(entries: int, K: int, B: int, cap: int = None) -> int:
+    """Slots a K5ad pass takes at once: 0 (one pass, no primal buffer)
+    where a (slot, lane) has no primal entries, else all K or as many as
+    the primal buffer's cap (AD_PRIMAL_CAP_BYTES) holds, at least one."""
+    cap = AD_PRIMAL_CAP_BYTES if cap is None else cap
+    if entries == 0:
+        return 0
+    return max(1, min(K, cap // (8 * entries * B)))
 
 
 _BP_ARGS: dict = {}
