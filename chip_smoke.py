@@ -26,14 +26,17 @@ and in its own order on the CPU with a correctly rounded sqrt.  The
 at every instance built, at one lane and at five, through λ retries and
 λ-exits, bit for bit, and prints each instance's launch geometry, shared
 memory, registers and nvcc seconds.  The `step_instances` phase does the
-same for the line search (K4, a warp per lane over the cooperative step
-of warp_step.cuh where the model has constraint rows) and the exact slot
-Jacobians (K5ad, a primal pass per (slot, lane) and a tangent pass per
-column, one pass where the model has no primal entries) at every model
-instance, at one scene and at five (K4 also in blocks of four lanes, the
-last block part full; K5ad at shared slot times, per-lane slots with live
-counts and into the iterative_error cache, with all slots or one a
-chunk), its twins beside the build.
+same for the rollout (K3, a warp per scene: the line search's kernel in
+its open loop where the model has constraint rows), the line search (K4,
+a warp per lane over the cooperative step of warp_step.cuh where the
+model has constraint rows), central FD (K5, a warp per (slot, column,
+scene) item where the model has rows) and the exact slot Jacobians (K5ad,
+a primal pass per (slot, lane) and a tangent pass per column, one pass
+where the model has no primal entries) at every model instance, at one
+scene and at five (K3 also in blocks of two scenes, K4 of four lanes, K5
+of three items, the last block part full; K5 and K5ad at shared slot
+times, per-lane slots with live counts and into the iterative_error
+cache, K5ad with all slots or one a chunk), its twins beside the build.
 The `box` phase holds the box tasks' kernels (box_sweep and threeD_push: a
 free box in the state with its rotations, plane-box and cylinder-box rows
 inside the step) against their twins bit for bit at H=100 B=64 (K3, K4,
@@ -112,8 +115,9 @@ compiles the libraries the default run leaves to their first launch
 (build.LAZY) too.  It prints a `record` line and no result line.
 
 Prints the card's name and power limit, the kernel build time, the seconds
-of each phase and of the whole script, a `record` line with every
-measurement, one
+of each phase and of the whole script, K3 and K5 per launch on each main
+path (the rollout phases, the walker's replan, the async planner's
+phases), a `record` line with every measurement, one
 `{"kernels": [...]}` line (one entry per kernel and model) and, last,
 `{"ok": true, "device": {...}}`.  Any failed check is printed as it happens
 and makes the script exit non-zero at the end without a result; it also
@@ -223,10 +227,6 @@ BH3 = 20
 SERVO_CHECK = 10                    # servo steps held against the plain servo
 # push_lcl's: a plain servo step at nv 31 takes seconds
 SERVO_CHECKS = {"push_lcl": 3}
-# the main paths whose kernel_ms are their phases' one call at the initial
-# nominal (K4: the fp phase, K4 and the argmin; K5ad: the jacobians phase,
-# K5ad and the lerp): push_lcl's kernels take 10-15 s a call
-FROM_PHASES = ("push_lcl",)
 WH, WB = 20, 16                     # walker check size
 MH, MB = 40, 128                    # walker MPC: make_walker's mpc_horizon,
 #                                     and the episodes of the batched run
@@ -1166,7 +1166,8 @@ def step_twins():
     """The twins of step_instances (`--plain-check-worker step_instances`,
     beside the build: they launch no kernel) -> {(task, B): (inputs, the
     plain rollout's qpos and qvel, K4's twin, K5ad's twin at every step
-    and in its other slot modes)}."""
+    and in its other slot modes, the plain rollout's costs, K5's twin at
+    every step and in its other slot modes)}."""
     cfg = ILQRConfig()
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     out = {}
@@ -1175,30 +1176,45 @@ def step_twins():
         for Bb in STEP_CHECK_B:
             inputs = step_inputs(task, STEP_CHECK_H, Bb, seed=11 + Bb)
             qp0, qv0, tg, U, k, K = inputs
-            qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tg, plain=True)
+            qpos, qvel, costs = ops.rollout(task, qp0, qv0, U, tg,
+                                            plain=True)
             times = torch.arange(STEP_CHECK_H, device="cuda")
             out[(name, Bb)] = (
                 inputs, qpos, qvel,
                 ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg,
                                plain=True),
                 ops.ad_jacobian(task, qpos, qvel, U, times, plain=True),
-                ad_modes(task, qpos, qvel, U, plain=True))
+                ad_modes(task, qpos, qvel, U, plain=True), costs,
+                ops.fd_jacobian(task, qpos, qvel, U, times, cfg.fd_eps,
+                                plain=True),
+                fd_modes(task, qpos, qvel, U, plain=True))
     return out
 
 
+def plans(g, n):
+    """A kernel's plan `g` and, where it runs a warp per lane, the same in
+    blocks of `n` lanes (the last block part full at the checks' sizes)."""
+    return [g, g._replace(lanes=n, threads=32 * n,
+                          smem_bytes=g.smem_bytes // g.lanes * n)] \
+        if g.warp else [g]
+
+
 def step_instances(logs, plain=None):
-    """K4 and K5ad at every model instance: their launch plans (K4's
-    geometry at six alphas and the main paths' 128 scenes, lanes a block,
-    shared memory, resident lanes and waves; K5ad's primal entries per
-    (slot, lane) and slots a chunk), registers, stack and local memory
-    (sass_counts.py --resources), ptxas's spill stores and nvcc seconds;
-    and both against their twins (step_twins, run beside the build, or
-    here without `plain`) on step_inputs at STEP_CHECK_B lanes over
-    STEP_CHECK_H steps, bit for bit: K4 in its own geometry and, with
-    a warp per lane, in blocks of four lanes; K5ad at shared slot times,
-    per-lane times with live counts and into the iterative_error cache,
-    with all slots a chunk and one (one pass where the model has no primal
-    entries)."""
+    """K3, K4, K5 and K5ad at every model instance: their launch plans
+    (K4's geometry at six alphas and the main paths' 128 scenes, lanes a
+    block, shared memory, resident lanes and waves; K3's at one alpha, at
+    128 scenes and one; K5's at the async planner's 50 slots of one scene
+    and at 100 slots of 64 scenes; K5ad's primal entries per (slot, lane)
+    and slots a chunk), registers, stack and local memory (sass_counts.py
+    --resources), ptxas's spill stores and nvcc seconds; and all four
+    against their twins (step_twins, run beside the build, or here without
+    `plain`) on step_inputs at STEP_CHECK_B lanes over STEP_CHECK_H steps,
+    bit for bit: K3 and K4 in their own geometry and, with a warp per lane,
+    in blocks of two (K3) or four (K4) lanes; K5 at shared slot times,
+    per-lane times with live counts and into the iterative_error cache, in
+    its plan and, a warp per item, in blocks of three items; K5ad in the
+    same three modes, with all slots a chunk and one (one pass where the
+    model has no primal entries)."""
     cfg = ILQRConfig()
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     nA = alphas.shape[0]
@@ -1212,14 +1228,23 @@ def step_instances(logs, plain=None):
         topo = build.instance_tables()[tag]
         g = ops.linesearch_geometry(topo, nA, 128)
         entries = ops.ad_primal_entries(topo)
+        stopo = build.instance_tables()[stag]
         row = out[name] = dict(
             instance=tag, linesearch_geometry=dict(
                 g._asdict(), lane_bytes=g.smem_bytes // g.lanes if g.warp
                 else 0, resident_lanes=ops.NUM_SMS * g.blocks_per_sm
                 * g.lanes, waves=g.waves(nA, 128)),
+            rollout_geometry={f"B={b_}": ops.linesearch_geometry(
+                topo, 1, b_)._asdict() for b_ in (128, 1)},
+            fd_geometry={f"K={k_} B={b_}": dict(
+                ops.fd_geometry(stopo, k_, b_)._asdict(),
+                items=k_ * (2 * stopo.NDOF + stopo.NU) * b_,
+                item_bytes=8 * ops.fd_lane_doubles(stopo))
+                for k_, b_ in ((50, 1), (100, 64))},
             ad_primal_entries=entries, ad_chunk_main=ops.ad_chunk(
                 entries, 1000, 128), held={})
-        for src, inst in (("linesearch", tag), ("ad_jacobian", stag)):
+        for src, inst in (("linesearch", tag), ("ad_jacobian", stag),
+                          ("fd_jacobian", stag), ("rollout", tag)):
             ptx = table.get(f"{src}-{inst}", {})
             row[src] = dict(
                 resources=sass_counts.resources_of(
@@ -1227,17 +1252,26 @@ def step_instances(logs, plain=None):
                 nvcc_s=ptx.get("s"), registers=ptx.get("registers"),
                 stack=ptx.get("stack"), spill_stores=ptx.get("spill_stores"))
         for Bb in STEP_CHECK_B:
-            (qp0, qv0, tg, U, k, K), qpos, qvel, pl, pj, pmodes = \
-                plain[(name, Bb)]
-            geos = [ops.linesearch_geometry(topo, nA, Bb)]
-            if geos[0].warp:
-                geos.append(geos[0]._replace(
-                    lanes=4, threads=128,
-                    smem_bytes=geos[0].smem_bytes // geos[0].lanes * 4))
+            ((qp0, qv0, tg, U, k, K), qpos, qvel, pl, pj, pmodes, pcost,
+             pfd, pfmodes) = plain[(name, Bb)]
+            ro = {f"lanes_{geo.lanes}": all(same_values(a, b) for a, b in zip(
+                ops.rollout(task, qp0, qv0, U, tg, geometry=geo),
+                (qpos, qvel, pcost)))
+                for geo in plans(ops.linesearch_geometry(topo, 1, Bb), 2)}
+            times = torch.arange(STEP_CHECK_H, device="cuda")
+            fd = {}
+            for geo in plans(ops.fd_geometry(stopo, STEP_CHECK_H, Bb), 3):
+                kf = ops.fd_jacobian(task, qpos, qvel, U, times,
+                                     cfg.fd_eps, geometry=geo)
+                km = fd_modes(task, qpos, qvel, U, geometry=geo)
+                fd[f"lanes_{geo.lanes}"] = dict(
+                    shared=same_values(kf, pfd), per_lane=same_values(
+                        km[0], pfmodes[0]),
+                    ie_cache=same_values(km[1], pfmodes[1]))
             ls = {f"lanes_{geo.lanes}": all(same_values(a, b) for a, b in zip(
                 ops.linesearch(task, qpos, qvel, U, k, K, alphas, tg,
-                               geometry=geo), pl)) for geo in geos}
-            times = torch.arange(STEP_CHECK_H, device="cuda")
+                               geometry=geo), pl))
+                for geo in plans(ops.linesearch_geometry(topo, nA, Bb), 4)}
             ad = {}
             cap = ops.AD_PRIMAL_CAP_BYTES
             try:
@@ -1251,8 +1285,14 @@ def step_instances(logs, plain=None):
                 ops.AD_PRIMAL_CAP_BYTES = cap
             active = (contact_counts(task, qpos)["lane_steps_by_pair"]
                       if task.model.contact_pairs else None)
-            row["held"][Bb] = dict(linesearch=ls, ad_jacobian=ad,
+            row["held"][Bb] = dict(rollout=ro, linesearch=ls,
+                                   fd_jacobian=fd, ad_jacobian=ad,
                                    contact_lane_steps=active)
+            check(all(ro.values()), f"rollout {name} at B={Bb}: kernel "
+                  f"vs plain not bit for bit: {ro}")
+            check(all(all(v.values()) for v in fd.values()),
+                  f"fd_jacobian {name} at B={Bb}: kernel vs plain not bit "
+                  f"for bit: {fd}")
             check(all(ls.values()), f"linesearch {name} at B={Bb}: kernel "
                   f"vs plain not bit for bit: {ls}")
             check(all(all(v.values()) for v in ad.values()),
@@ -1307,6 +1347,20 @@ def ad_modes(task, q0, v0, U0, plain=False, seed=5):
                     plain=plain)
     return (ops.ad_jacobian(task, q0, v0, U0, slot_t, counts=counts,
                             plain=plain), cache)
+
+
+def fd_modes(task, q0, v0, U0, plain=False, seed=5, geometry=None):
+    """K5, or its twin, in its other slot modes, as ad_modes -> (per-lane
+    output, cache)."""
+    Hh, Bb = U0.shape[0], U0.shape[-1]
+    slot_t, counts = lane_slots(Hh, Bb, seed)
+    nx, nc = task.sv.nx, task.sv.nx + task.model.nu
+    eps = ILQRConfig().fd_eps
+    cache = torch.zeros((Hh, nx, nc, Bb), dtype=torch.float64, device="cuda")
+    ops.fd_jacobian(task, q0, v0, U0, slot_t, eps, counts=counts,
+                    cache=cache, plain=plain, geometry=geometry)
+    return (ops.fd_jacobian(task, q0, v0, U0, slot_t, eps, counts=counts,
+                            plain=plain, geometry=geometry), cache)
 
 
 def ad_modes_check(task, q0, v0, U0, plain=None):
@@ -1832,8 +1886,7 @@ def plain_3it(task, Hh, Bb, H3):
 def initial_nominal(task, qp0, qv0, tgl, U):
     """A main path's first iteration at its initial nominal (qp0 (nq, B),
     U (H, nu, B), lanes last): the rollout, the exact Jacobians at SI_1
-    slots, the cost expansion and the backward pass, each call's device ms
-    in "ms" -> dict."""
+    slots, the cost expansion and the backward pass -> dict."""
     Hh, Bb = U.shape[0], U.shape[-1]
     cfg = ILQRConfig()
     n = dict(cfg=cfg, plan=lanes.si_plan(task, Hh), info={},
@@ -1842,20 +1895,12 @@ def initial_nominal(task, qp0, qv0, tgl, U):
              jac=lanes.slot_jacobians(task, "ad"),
              lam=torch.full((Bb,), cfg.lambda_init, dtype=torch.float64,
                             device="cuda"))
-    ms = n["ms"] = {}
-
-    def timed(name, fn):
-        out, ms[name] = cuda_timed(fn)
-        return out
-
-    n["qpos"], n["qvel"], n["costs"] = timed(
-        "rollout", lambda: ops.rollout(task, qp0, qv0, U, tgl))
-    n["A"], n["Bm"] = timed("jacobians", lambda: lanes.jacobians_si(
-        task, n["plan"], n["qpos"], n["qvel"], U, n["jac"]))
-    n["l"] = timed("cost_expansion", lambda: ops.cost_expansion(
-        task, n["qpos"], n["qvel"], U, tgl))
-    n["k"], n["K"] = timed("bp", lambda: ops.backward(
-        n["A"], n["Bm"], *n["l"], n["lam"], cfg, info=n["info"]))[:2]
+    n["qpos"], n["qvel"], n["costs"] = ops.rollout(task, qp0, qv0, U, tgl)
+    n["A"], n["Bm"] = lanes.jacobians_si(task, n["plan"], n["qpos"],
+                                         n["qvel"], U, n["jac"])
+    n["l"] = ops.cost_expansion(task, n["qpos"], n["qvel"], U, tgl)
+    n["k"], n["K"] = ops.backward(n["A"], n["Bm"], *n["l"], n["lam"], cfg,
+                                  info=n["info"])[:2]
     return n
 
 
@@ -2007,9 +2052,8 @@ def main_path(task, Hh, Bb, H3, time_kernels, warmup_iters=ITERS,
 def nominal_phases(task, qp, qv, U0, tg, time_kernels):
     """A main path's per-phase device times at its initial nominal (qp (B,
     nq), U0 (B, H, nu)), and with `time_kernels` each kernel's alone with
-    its bound; at FROM_PHASES the phases are the nominal's own calls (one
-    each, K7's timed again) and K4's and K5ad's times their phases'.  The
-    timing runs with this script's workers stopped (card_alone) -> dict."""
+    its bound.  The timing runs with this script's workers stopped
+    (card_alone) -> dict."""
     Hh, Bb = U0.shape[1], U0.shape[0]
     s = Sizes(task)
     qp0, qv0, tgl = qp.T.contiguous(), qv.T.contiguous(), tg.T.contiguous()
@@ -2023,37 +2067,25 @@ def nominal_phases(task, qp, qv, U0, tg, time_kernels):
     contacts = (contact_counts(task, qpos[:Hh]) if task.model.contact_pairs
                 else None)
     old = nom["costs"].sum(0)
-    from_phases = task.name in FROM_PHASES
     with card_alone() as paused:
-        if from_phases:
-            # each phase's one call at the nominal is its time; K7's,
-            # milliseconds long, again with the card to itself
-            phases = dict(nom["ms"])
-            phases["fp"] = cuda_timed(lambda: lanes.forward_pass(
-                task, qpos, qvel, U, k, K, alphas, tgl, old))[1]
-            phases["bp"] = phase_ms(lambda: ops.backward(A, Bm, *l, lam,
-                                                         cfg))
-        else:
-            phases = {
-                "rollout": phase_ms(lambda: ops.rollout(task, qp0, qv0, U,
-                                                        tgl)),
-                "jacobians": phase_ms(lambda: lanes.jacobians_si(
-                    task, plan, qpos, qvel, U, jac)),
-                "cost_expansion": phase_ms(lambda: ops.cost_expansion(
-                    task, qpos, qvel, U, tgl)),
-                "bp": phase_ms(lambda: ops.backward(A, Bm, *l, lam, cfg)),
-                "fp": phase_ms(lambda: lanes.forward_pass(
-                    task, qpos, qvel, U, k, K, alphas, tgl, old)),
-            }
+        phases = {
+            "rollout": phase_ms(lambda: ops.rollout(task, qp0, qv0, U, tgl)),
+            "jacobians": phase_ms(lambda: lanes.jacobians_si(
+                task, plan, qpos, qvel, U, jac)),
+            "cost_expansion": phase_ms(lambda: ops.cost_expansion(
+                task, qpos, qvel, U, tgl)),
+            "bp": phase_ms(lambda: ops.backward(A, Bm, *l, lam, cfg)),
+            "fp": phase_ms(lambda: lanes.forward_pass(
+                task, qpos, qvel, U, k, K, alphas, tgl, old)),
+        }
         # the four kernels alone at this path's shapes, from its nominal
         # (the rollout and bp phases above are these kernels' launches)
         kernel_ms = time_kernels and {
             "rollout": phases["rollout"],
-            "linesearch": phases["fp"] if from_phases else phase_ms(
-                lambda: ops.linesearch(task, qpos, qvel, U, k, K, alphas,
-                                       tgl)),
-            "ad_jacobian": phases["jacobians"] if from_phases else phase_ms(
-                lambda: ops.ad_jacobian(task, qpos, qvel, U, plan.times)),
+            "linesearch": phase_ms(lambda: ops.linesearch(
+                task, qpos, qvel, U, k, K, alphas, tgl)),
+            "ad_jacobian": phase_ms(lambda: ops.ad_jacobian(
+                task, qpos, qvel, U, plan.times)),
             "cost_expansion": phases["cost_expansion"],
             "backward": phases["bp"],
         }
@@ -2063,8 +2095,6 @@ def nominal_phases(task, qp, qv, U0, tg, time_kernels):
                contacts=contacts, bp_sweeps_first=bp_sweeps(info))
     if time_kernels:
         out["kernel_ms"] = kernel_ms
-        if from_phases:
-            out["kernel_ms_note"] = PHASE_OF
         out["bounds"] = {
             "rollout": rollout_bound(s, Hh, Bb),
             "linesearch": linesearch_bound(s, Hh, len(alphas), Bb),
@@ -2599,11 +2629,6 @@ def clutter_adaptive(task):
     return a
 
 
-# at FROM_PHASES, what the `ms` of K4 and K5ad is (nominal_phases)
-PHASE_OF = {"linesearch": "the fp phase's one call at the initial nominal "
-                          "(K4, then the argmin and accept)",
-            "ad_jacobian": "the jacobians phase's one call at the initial "
-                           "nominal (K5ad at SI_1 slots, then the lerp)"}
 
 
 def clutter_entries(crows, cmp, counts, runs):
@@ -2624,8 +2649,6 @@ def clutter_entries(crows, cmp, counts, runs):
                             shape, f"H={CH} B={CB}")
         for e in es:
             e["bitwise"] = rows[e["name"]].get("bitwise")
-            if model == "push_lcl" and e["name"] in PHASE_OF:
-                e["ms_is"] = PHASE_OF[e["name"]]
             if e["name"] == "fd_jacobian":
                 fd = rows["fd_jacobian"]
                 e.update(launches=cli[model].get("fd_jacobian", 0),
@@ -2899,8 +2922,11 @@ def main_mpc(task, n_replans=N_REPLANS):
     out = {}
     os.makedirs(MPC_OUT, exist_ok=True)
     ops.reset_launch_counts()
-    row = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=n_replans,
-                                 out_dir=os.path.join(MPC_OUT, "b1_h40"))[0]
+    # the replans' times are the card's alone: the twin workers wait
+    with card_alone():
+        row = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=n_replans,
+                                     out_dir=os.path.join(MPC_OUT,
+                                                          "b1_h40"))[0]
     launches = dict(ops.LAUNCHES)
     out["main"] = dict(row=row, launches=launches)
     for kname in LANE_KERNELS + ops.MPC_KERNELS:
@@ -2908,13 +2934,14 @@ def main_mpc(task, n_replans=N_REPLANS):
         check(launches[kname] == want,
               f"walker MPC main path launched {kname} {launches[kname]} "
               f"times, not {want} ({n_replans} replans)")
-    out["sweep"] = [row] + sync_mpc_horizon_sweep(
-        task, cfg, [h for h in SWEEP if h != MH], n_replans=n_replans,
-        out_dir=os.path.join(MPC_OUT, "sweep"))
-    ops.reset_launch_counts()
-    row_b = sync_mpc_horizon_sweep(task, cfg, [MH], n_replans=n_replans,
-                                   B=MB, out_dir=os.path.join(MPC_OUT,
-                                                              "b128_h40"))[0]
+    with card_alone():
+        out["sweep"] = [row] + sync_mpc_horizon_sweep(
+            task, cfg, [h for h in SWEEP if h != MH], n_replans=n_replans,
+            out_dir=os.path.join(MPC_OUT, "sweep"))
+        ops.reset_launch_counts()
+        row_b = sync_mpc_horizon_sweep(
+            task, cfg, [MH], n_replans=n_replans, B=MB,
+            out_dir=os.path.join(MPC_OUT, "b128_h40"))[0]
     out["batched"] = dict(row=row_b, launches=dict(ops.LAUNCHES))
     for kname in LANE_KERNELS + ops.MPC_KERNELS:
         got = out["batched"]["launches"][kname]
@@ -3141,9 +3168,12 @@ def main_async(push, walk, n_scenes=ASYNC_PUSH_SCENES):
         zeros(push.model.nu), push1.residual_targets[:, None])[-1, 0]),
         r["final_residuals"][-1]) for q, r in zip(scenes, rows)]
     out["push_ncl"]["reach_dist_start_end"] = reach
+    disp = out["push_ncl"]["object_disp"] = [r["object_disp"] for r in rows]
     print(f"  push_ncl async launches ({len(rows)} trials): "
           f"{json.dumps(launches)}; pusher-to-object distance at each "
-          f"trial's start and end {json.dumps(reach)}", flush=True)
+          f"trial's start and end {json.dumps(reach)}; the object's "
+          f"horizontal displacement per scene (m) {json.dumps(disp)}",
+          flush=True)
 
     H = walk.mpc_horizon
     ops.reset_launch_counts()
@@ -3164,6 +3194,46 @@ def main_async(push, walk, n_scenes=ASYNC_PUSH_SCENES):
     async_summary("walker_run", st, cost, 0.0, False)
     print(f"  walker_run async launches: {json.dumps(launches)}", flush=True)
     return out, hold_push
+
+
+def k5_main_shapes(reach, walk):
+    """K5 where the main paths run it besides the async push_ncl planner
+    (main_async): the async walker planner's generic solve (SI_1 at H=MH,
+    B=1, from the task's start under zero controls) and reaching's CLI
+    Optimise_once (the generic solve at H=RH, B=1, velocity_change at
+    per-lane slots on the same kind of nominal, its first iteration) ->
+    {model: ms, the twin's ms, bound over the live slots, bit for bit}."""
+    cfg = ILQRConfig()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    out = {}
+    for name, task, Hh in (("walker", walk, MH), ("reaching", reach, RH)):
+        qp0, qv0, tg = (x[:, None].contiguous() for x in (
+            task.qpos_start, task.qvel_start, task.residual_targets))
+        U = torch.zeros((Hh, task.model.nu, 1), **f64)
+        q, v, _ = ops.rollout(task, qp0, qv0, U, tg)
+        if task.keypoint_cfg.name == "set_interval":
+            times, counts = lanes.si_plan(task, Hh).times, None
+            live = int(times.shape[0])
+        else:
+            plan = ops.keypoint_plan(ops.keypoint_plan_args(task), v, Hh, Hh)
+            times, counts = plan.slot_t, plan.count
+            live = int(plan.count.sum())
+
+        def call(plain=False):
+            return ops.fd_jacobian(task, q, v, U, times, cfg.fd_eps,
+                                   counts=counts, plain=plain)
+        same, gap = outputs_gap(call(), call(plain=True))
+        check(same, f"{name} fd_jacobian at H={Hh} B=1 differs from its "
+                    f"twin by {gap:.3e}")
+        out[name] = dict(
+            ms=cuda_ms(call, 5), plain_ms=cuda_timed(
+                lambda: call(plain=True))[1],
+            bound=fd_bound(Sizes(task), live, 1), live_slots=live,
+            shape=f"H={Hh} B=1, {task.keypoint_cfg.name} slots, {live} "
+                  "live", bitwise=same, max_abs_err=gap)
+    print(f"  K5 at the walker's async planner and reaching's CLI solve: "
+          f"{json.dumps(out)}", flush=True)
+    return out
 
 
 def report_main(name, Hh, Bb, mp):
@@ -3464,6 +3534,72 @@ def kernel_entries(model_name, rows, launches, step_counts, ms=None,
             e["modes"] = r["modes"]
             e["ops_per_slot_lane"] = step_counts["ad_slot"]
         out.append(e)
+    return out
+
+
+def instance_of(model_name, kernel):
+    """The instance tables behind a `kernels` entry (push_ccl shares
+    push_lcl's; K5 reads the step-only instance, build.step_shared)."""
+    tag = "push_lcl" if model_name == "push_ccl" else model_name
+    if kernel == "fd_jacobian":
+        tag = build.step_shared()[tag]
+    return build.instance_tables()[tag]
+
+
+def k35_routes(kernels):
+    """K3's and K5's source and launch plan in their `kernels` entries, at
+    the shape each entry reports (acrobot's main path where it names
+    none): K3 with constraint rows is the line search's warp kernel in its
+    open loop (csrc/linesearch.cu), a warp per scene; K5 a warp per (slot,
+    column, scene) item; without rows a thread per scene or item."""
+    for e in kernels:
+        if e["name"] not in ("rollout", "fd_jacobian"):
+            continue
+        topo = instance_of(e["model"], e["name"])
+        m = re.search(r"H=(\d+) B=(\d+)", e.get("shape", ""))
+        Hh, Bb = (int(m.group(1)), int(m.group(2))) if m else (H, B)
+        csrc = "trajoptkp_tpu_torch/kernels/csrc/"
+        if e["name"] == "rollout":
+            g = ops.linesearch_geometry(topo, 1, Bb)
+            e["source"] = csrc + ("linesearch.cu" if g.warp else
+                                  "rollout.cu")
+            e["geometry"] = dict(g._asdict(), kernel=(
+                "linesearch_warp_kernel in its open loop (null gains, "
+                "A = 1): a warp per scene" if g.warp else
+                "rollout_kernel: a thread per scene"))
+        else:
+            g = ops.fd_geometry(topo, Hh, Bb)
+            e["geometry"] = dict(
+                g._asdict(), items=Hh * (2 * topo.NDOF + topo.NU) * Bb,
+                kernel=("fd_warp_kernel: a warp per (slot, column, scene)"
+                        if g.warp else "fd_thread_kernel: a thread per "
+                        "(slot, column, scene)"))
+        if g.warp:
+            e["device_step"] = csrc + "warp_step.cuh"
+
+
+def k35_summary(record, mp, rmp, ump, bmp, cmp, wmp):
+    """K3 and K5 per launch on each main path (the main paths' rollout
+    phase; the walker's replan at B=1 and 128; the async push_ncl planner's
+    rollout and jacobians phases and K5 at its shape) -> dict."""
+    out = {f"rollout {name} H={Hh} B={Bb}": m["phases_ms"]["rollout"]
+           for name, m, Hh, Bb in (
+               ("acrobot", mp, H, B), ("reaching", rmp, RH, RB),
+               ("push_ncl", ump, UH, UB), ("box_sweep", bmp, BH, BB),
+               ("push_lcl", cmp, UH, UB)) if m}
+    if wmp:
+        out[f"rollout walker H={MH} B=1"] = wmp["kernel_ms_b1"]["rollout"]
+        out[f"rollout walker H={MH} B={MB}"] = wmp["kernel_ms_b128"][
+            "rollout"]
+        out[f"walker replan H={MH} B=1 median"] = wmp["main"]["row"][
+            "median_opt_time_ms"]
+    ma = record.get("main_async")
+    if ma:
+        ph = ma["phases_ms_push_ncl"]
+        out["async push_ncl planner rollout phase H=50 B=1"] = ph["rollout"]
+        out["async push_ncl planner jacobians phase H=50 B=1"] = ph[
+            "jacobians"]
+        out["fd_jacobian push_ncl H=50 B=1"] = ma["fd_jacobian_b1"]["ms"]
     return out
 
 
@@ -3979,6 +4115,7 @@ def main():
     hold_push = None
     if "main_async" in phases:
         record["main_async"], hold_push = main_async(push, walk)
+        record["k5_main_shapes"] = k5_main_shapes(reach, walk)
         done("main_async")
 
     if "cli" in phases:
@@ -4124,6 +4261,30 @@ def main():
         "bound_ms": fd["bound"][0], "bound_by": fd["bound"][1],
         "library_ms": None, "tolerance": "bit for bit",
         "shape": fd["shape"]})
+    # K5 at the async walker planner's and reaching's CLI solve's shapes
+    for model, r, n, by in (
+            ("walker", record["k5_main_shapes"]["walker"],
+             ma["walker"]["launches"]["fd_jacobian"],
+             "the async walker planner (generic solve, deriv_mode fd)"),
+            ("reaching", record["k5_main_shapes"]["reaching"],
+             (runs["reaching"][1] or {}).get("launches", {}).get(
+                 "fd_jacobian", 0),
+             "the CLI's Optimise_once (generic solve, B = 1, "
+             "velocity_change, deriv_mode fd)")):
+        kernels.append({
+            "name": "fd_jacobian", "model": model, "route": "cuda",
+            "source": "trajoptkp_tpu_torch/kernels/csrc/fd_jacobian.cu",
+            "replaces": ops.REPLACES["fd_jacobian"], "launches": n,
+            "launched_by": by, "max_abs_err": r["max_abs_err"],
+            "bitwise": r["bitwise"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
+            "tolerance": "bit for bit", "shape": r["shape"]})
+    k35_routes(kernels)
+    k35 = record["k3_k5_ms"] = k35_summary(record, mp, rmp, ump, bmp, cmp,
+                                           wmp)
+    print(f"K3 and K5 ms per launch on the main paths ({card}): "
+          f"{json.dumps(k35)}", flush=True)
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: {record['seconds']:.1f} s in all, build phase "
           f"{phase_s['build']:.1f} s (nvcc {build_s:.1f} s)", flush=True)

@@ -119,6 +119,16 @@ def async_scenes(task: Task, N: int, seed: int = 0) -> np.ndarray:
     return qpos
 
 
+def _object_disp(model, qpos0, qpos_hist) -> Optional[float]:
+    """The horizontal distance the pushed object (the free body "goal")
+    moved from its start to the episode's last state; None without one."""
+    if "goal" not in model.joint_names or not len(qpos_hist):
+        return None
+    qa = model.jnt_qposadr[model.joint_names.index("goal")]
+    d = np.asarray(qpos_hist[-1])[qa:qa + 2] - np.asarray(qpos0)[qa:qa + 2]
+    return float(np.hypot(d[0], d[1]))
+
+
 def async_mpc_campaign(task: Task, cfg: ILQRConfig, scenes_qpos,
                        horizon: int, max_steps: int = 1000,
                        out_dir: Optional[str] = None, realtime: bool = False):
@@ -126,8 +136,9 @@ def async_mpc_campaign(task: Task, cfg: ILQRConfig, scenes_qpos,
     AsyncMPC episode per start pose (noise seed = the trial's index) from
     zero controls, max_steps actor steps or until the task completes.  One
     row per trial with the JAX keys (trial, steps, wall_s, replans,
-    mean_replan_ms, final_dist, episode_cost, task_complete), the task's
-    residuals at the last state and the episode's `AsyncMPC.stats()`;
+    mean_replan_ms, final_dist, episode_cost, task_complete), the pushed
+    object's displacement (`object_disp`), the task's residuals at the last
+    state and the episode's `AsyncMPC.stats()`;
     `async_mpc.csv` under out_dir."""
     model = task.model
     f64 = dict(dtype=model.dtype, device=model.device)
@@ -156,6 +167,7 @@ def async_mpc_campaign(task: Task, cfg: ILQRConfig, scenes_qpos,
         rows.append({
             "trial": i,
             "steps": len(u_hist),
+            "object_disp": _object_disp(model, qpos0, qpos_hist),
             "wall_s": wall,
             "replans": st["replans"],
             "mean_replan_ms": (st["mean_replan_ms"] if st["replans"]

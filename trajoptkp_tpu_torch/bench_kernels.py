@@ -48,11 +48,16 @@ where a block owns a lane is also timed at those block sizes, each held
 bit for bit against the twin first (`bitwise`).  To
 compare two trees on one card, run this file once per tree inside one job,
 with PYTHONPATH set to the tree under test, in the order parent, change,
-change, parent; or, where the other tree's C entries of K4 and K5ad take
-no launch plan, `--against OTHER/trajoptkp_tpu_torch/kernels/_build` (its
-libraries of the task's instance built there first) times both trees'
-K4 and K5ad alternately in this one process, `--pairs` times, and holds
-their outputs bit for bit. """
+change, parent; or, against a tree whose C entries of K3 and K5 take no
+launch plan (a thread per scene, a thread per (slot, scene)),
+`--against OTHER/trajoptkp_tpu_torch/kernels/_build` (its libraries of
+the task's instance built there first) times both trees' K3, K4, K5 and
+K5ad (those of `--kernels`) alternately in this one process, `--pairs`
+times, and holds their outputs bit for bit.  `--servo` times the task's
+initial-controls servo alone (`--rounds` runs; run it once per tree, with
+PYTHONPATH set to the tree, to compare the servo's K3 launches at H = 1).  `--kernels` naming only
+rollout, fd_jacobian or cost_expansion skips the gains, the backward pass
+and its sweeps (no K5ad or K7 library is built). """
 
 import argparse
 import contextlib
@@ -264,27 +269,41 @@ def _same(a, b) -> bool:
     return bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
-def against(other, task, qpos, qvel, U, k, K, alphas, tgl, times, pairs,
-            reps):
-    """This tree's K4 and K5ad against another checkout's libraries of the
-    same instance, timed alternately in one process (`pairs` pairs, the
-    order swapped every pair, `reps` launches each) on the same inputs,
-    with their outputs compared bit for bit (NaN where NaN).  Both sides
-    call their C entries directly on buffers allocated once, so that
-    neither time holds a wrapper's checks or allocations.  `other` is that
-    checkout's kernels/_build, built there by its own kernels/build.py,
-    whose C entries take no launch plan: the line search a thread per lane
-    in blocks of 64, the exact Jacobians one pass."""
+def against(other, task, qp0, qv0, qpos, qvel, U, k, K, alphas, tgl, times,
+            pairs, reps, only=None):
+    """This tree's K3, K4, K5 and K5ad (those of `only`) against another
+    checkout's libraries of the same instance, timed alternately in one
+    process (`pairs` pairs, the order swapped every pair, `reps` launches
+    each) on the same inputs, with their outputs compared bit for bit (NaN
+    where NaN).  Both sides call their C entries directly on buffers
+    allocated once, so that neither time holds a wrapper's checks or
+    allocations.  `other` is that checkout's kernels/_build, built there by
+    its own kernels/build.py: a tree whose K3 and K5 C entries take no
+    launch plan (K3 a thread per scene, rollout.cu; K5 a thread per (slot,
+    scene)) and whose K4 and K5ad entries take this tree's arguments.  This
+    tree's K3 is the line search's open loop where the instance has
+    constraint rows."""
     from trajoptkp_tpu_torch import sass_counts
 
     ka = ops.kernel_args(task, U.device)
     tag = ka.tag
     stag = build.step_shared().get(tag, tag)
-    paths = sass_counts.built_in(other, [("linesearch", tag),
-                                         ("ad_jacobian", stag)])
-    build.build([("linesearch", tag), ("ad_jacobian", stag)])
+    names = [n for n in ("rollout", "linesearch", "fd_jacobian",
+                         "ad_jacobian") if only is None or n in only]
+    theirs_lib = {"rollout": ("rollout", tag),
+                  "linesearch": ("linesearch", tag),
+                  "fd_jacobian": ("fd_jacobian", stag),
+                  "ad_jacobian": ("ad_jacobian", stag)}
+    paths = sass_counts.built_in(other, [theirs_lib[n] for n in names])
+    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
+    topo = build.instance_tables()[tag]
     H, B, nA = U.shape[0], U.shape[-1], alphas.shape[0]
+    g3 = ops.linesearch_geometry(topo, 1, B, sms)
+    ours_lib = dict(theirs_lib, rollout=("linesearch" if g3.warp
+                                         else "rollout", tag))
+    build.build({ours_lib[n] for n in names})
     f64 = dict(dtype=torch.float64, device=U.device)
+    null = ctypes.c_void_p(None)
 
     def entry(lib, symbol, *args):
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
@@ -298,46 +317,76 @@ def against(other, task, qpos, qvel, U, k, K, alphas, tgl, times, pairs,
                 raise RuntimeError(f"{symbol}: cudaError {err}")
         return call
 
+    def mine(name, symbol, *args):
+        return entry(build.library_path(*ours_lib[name]), symbol, *args)
+
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     nK = times.shape[0]
-    ls, J = [], []
-    for _ in range(2):
-        ls.append((torch.empty((H + 1, ka.nq, nA, B), **f64),
-                   torch.empty((H + 1, ka.nv, nA, B), **f64),
-                   torch.empty((H, ka.nu, nA, B), **f64),
-                   torch.empty((H, nA, B), **f64)))
-        J.append(torch.empty((nK, ka.sv.nx, ka.sv.nx + ka.nu, B), **f64))
-    ls_args = (p(ka.model_buf), p(ka.task_buf), p(qpos), p(qvel), p(U), p(k),
-               p(K), p(alphas), p(tgl))
-    ad_args = (p(ka.model_buf), p(qpos), p(qvel), p(U), p(times),
-               ctypes.c_longlong(1), ctypes.c_longlong(0),
-               ctypes.c_void_p(None), ctypes.c_int(0))
-    g = ops.linesearch_geometry(
-        build.instance_tables()[tag], nA, B,
-        torch.cuda.get_device_properties(U.device).multi_processor_count)
-    entries = ops.ad_primal_entries(build.instance_tables()[stag])
-    chunk = ops.ad_chunk(entries, nK, B)
-    prim = torch.empty((max(chunk * entries * B, 1),), **f64)
-    sizes = (ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B))
-    calls = {
-        "linesearch": (
-            entry(paths[("linesearch", tag)], f"trajopt_linesearch_{tag}",
-                  *ls_args, *map(p, ls[0]), *sizes),
-            entry(build.library_path("linesearch", tag),
-                  f"trajopt_linesearch_{tag}", *ls_args, *map(p, ls[1]),
-                  *sizes, ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
-                  ctypes.c_int(g.smem_bytes)),
-            ls),
-        "ad_jacobian": (
-            entry(paths[("ad_jacobian", stag)],
-                  f"trajopt_ad_jacobian_{stag}", *ad_args, p(J[0]),
+    two = lambda *shape: [torch.empty(shape, **f64)  # noqa: E731
+                          for _ in range(2)]
+    calls = {}
+    if "rollout" in names:
+        r = [two(H + 1, ka.nq, B), two(H + 1, ka.nv, B), two(H, B)]
+        res = [tuple(x[i] for x in r) for i in range(2)]
+        head = (p(ka.model_buf), p(ka.task_buf), p(qp0), p(qv0), p(U))
+        hw = (ctypes.c_int(H), ctypes.c_int(B))
+        theirs = entry(paths[theirs_lib["rollout"]], f"trajopt_rollout_{tag}",
+                       *head, p(tgl), *map(p, res[0]), *hw)
+        if g3.warp:
+            q, v, c = map(p, res[1])
+            ours = mine("rollout", f"trajopt_linesearch_{tag}", *head, null,
+                        null, null, p(tgl), q, v, null, c, ctypes.c_int(H),
+                        ctypes.c_int(1), ctypes.c_int(B),
+                        ctypes.c_int(g3.threads), ctypes.c_int(g3.lanes),
+                        ctypes.c_int(g3.smem_bytes))
+        else:
+            ours = mine("rollout", f"trajopt_rollout_{tag}", *head, p(tgl),
+                        *map(p, res[1]), *hw)
+        calls["rollout"] = (theirs, ours, res)
+    if "linesearch" in names:
+        r = [two(H + 1, ka.nq, nA, B), two(H + 1, ka.nv, nA, B),
+             two(H, ka.nu, nA, B), two(H, nA, B)]
+        res = [tuple(x[i] for x in r) for i in range(2)]
+        g = ops.linesearch_geometry(topo, nA, B, sms)
+        args = (p(ka.model_buf), p(ka.task_buf), p(qpos), p(qvel), p(U),
+                p(k), p(K), p(alphas), p(tgl))
+        tail = (ctypes.c_int(H), ctypes.c_int(nA), ctypes.c_int(B),
+                ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+                ctypes.c_int(g.smem_bytes))
+        calls["linesearch"] = (
+            entry(paths[theirs_lib["linesearch"]], f"trajopt_linesearch_{tag}",
+                  *args, *map(p, res[0]), *tail),
+            mine("linesearch", f"trajopt_linesearch_{tag}", *args,
+                 *map(p, res[1]), *tail), res)
+    slot_args = (p(ka.model_buf), p(qpos), p(qvel), p(U), p(times),
+                 ctypes.c_longlong(1), ctypes.c_longlong(0), null,
+                 ctypes.c_int(0))
+    if "fd_jacobian" in names:
+        J = two(nK, ka.sv.nx, ka.sv.nx + ka.nu, B)
+        g5 = ops.fd_geometry(build.instance_tables()[stag], nK, B, sms)
+        eps = ctypes.c_double(ilqr.ILQRConfig().fd_eps)
+        sym = f"trajopt_fd_jacobian_{stag}"
+        calls["fd_jacobian"] = (
+            entry(paths[theirs_lib["fd_jacobian"]], sym, *slot_args, eps,
+                  p(J[0]), ctypes.c_int(nK), ctypes.c_int(B)),
+            mine("fd_jacobian", sym, *slot_args, eps, p(J[1]),
+                 ctypes.c_int(nK), ctypes.c_int(B), ctypes.c_int(g5.threads),
+                 ctypes.c_int(g5.lanes), ctypes.c_int(g5.smem_bytes)),
+            [(j,) for j in J])
+    if "ad_jacobian" in names:
+        J = two(nK, ka.sv.nx, ka.sv.nx + ka.nu, B)
+        entries = ops.ad_primal_entries(build.instance_tables()[stag])
+        chunk = ops.ad_chunk(entries, nK, B)
+        prim = torch.empty((max(chunk * entries * B, 1),), **f64)
+        sym = f"trajopt_ad_jacobian_{stag}"
+        args = (*slot_args, ctypes.c_void_p(prim.data_ptr() if chunk
+                                            else None),
+                ctypes.c_int(entries), ctypes.c_int(chunk))
+        calls["ad_jacobian"] = (
+            entry(paths[theirs_lib["ad_jacobian"]], sym, *args, p(J[0]),
                   ctypes.c_int(nK), ctypes.c_int(B)),
-            entry(build.library_path("ad_jacobian", stag),
-                  f"trajopt_ad_jacobian_{stag}", *ad_args,
-                  ctypes.c_void_p(prim.data_ptr() if chunk else None),
-                  ctypes.c_int(entries), ctypes.c_int(chunk), p(J[1]),
-                  ctypes.c_int(nK), ctypes.c_int(B)),
-            [(j,) for j in J])}
+            mine("ad_jacobian", sym, *args, p(J[1]), ctypes.c_int(nK),
+                 ctypes.c_int(B)), [(j,) for j in J])
     out = {}
     for name, (theirs, ours, res) in calls.items():
         theirs()
@@ -365,6 +414,39 @@ def bp_sweeps_per_lane(task, plan, qpos, qvel, U, l, lam, cfg,
         info = {}
         ops.backward(A, Bm, *l, lam, cfg, info=info)
         out[route] = 1 + int(info["rounds"])
+    return out
+
+
+def bench_servo(name, H, B, rounds, profile=False):
+    """Wall seconds of `rounds` runs of a task's initial-controls servo
+    (`bench_inputs`: for the pushing tasks the setup servo and the init
+    servo over H, a K3 launch at H = 1 and an fk_bias launch a step), each
+    from the scenes to a synchronize, the first after one warm-up run; with
+    `profile` one more run under torch.profiler prints its 15 kernels of
+    most device time and its CPU-side totals."""
+    import time
+
+    task = make_task(name, device="cuda")
+    bench_inputs(task, H, B)
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench_inputs(task, H, B)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            bench_inputs(task, H, B)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total",
+                                        row_limit=15), flush=True)
+        print(prof.key_averages().table(sort_by="cpu_time_total",
+                                        row_limit=15), flush=True)
     return out
 
 
@@ -410,6 +492,11 @@ def main(argv=None):
                     "checkout's libraries, alternately (`against`)")
     ap.add_argument("--pairs", type=int, default=10,
                     help="with --against: pairs of timings")
+    ap.add_argument("--servo", action="store_true",
+                    help="time the task's initial-controls servo alone")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --servo: the device time of its kernels by "
+                    "name (torch.profiler) over one more run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA device is available")
@@ -431,6 +518,13 @@ def main(argv=None):
                                if t])}),
               flush=True)
         return
+    if args.servo:
+        print(json.dumps({"label": args.label, "task": args.task, "H": args.H,
+                          "B": args.B, "card": card,
+                          "servo_s": bench_servo(args.task, args.H, args.B,
+                                                 args.rounds, args.profile)}),
+              flush=True)
+        return
     if args.rolled:
         build.ROLL_NV = 0
     build.WARP_MARKS = args.marks
@@ -443,16 +537,21 @@ def main(argv=None):
     plan = lanes.si_plan(task, H)
     alphas = ilqr.default_alphas(cfg.num_parallel_rollouts, device="cuda")
     qpos, qvel, _ = ops.rollout(task, qp0, qv0, U, tgl)
-    A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U,
-                               lanes.slot_jacobians(task, "ad"))
-    l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
-    lam = torch.full((B,), cfg.lambda_init, dtype=torch.float64,
-                     device="cuda")
-    k, K = ops.backward(A, Bm, *l, lam, cfg)[:2]
     only = args.kernels.split(",") if args.kernels else None
-    sweeps = bp_sweeps_per_lane(
-        task, plan, qpos, qvel, U, l, lam, cfg,
-        ("ad", "fd") if only is None or "fd_jacobian" in only else ("ad",))
+    k = K = A = Bm = l = lam = sweeps = None
+    if only is None or not set(only) <= {"rollout", "fd_jacobian",
+                                         "cost_expansion"}:
+        # the gains K4 runs on and the backward pass's inputs
+        A, Bm = lanes.jacobians_si(task, plan, qpos, qvel, U,
+                                   lanes.slot_jacobians(task, "ad"))
+        l = lanes.cost_expansion(task, qpos, qvel, U, tgl)
+        lam = torch.full((B,), cfg.lambda_init, dtype=torch.float64,
+                         device="cuda")
+        k, K = ops.backward(A, Bm, *l, lam, cfg)[:2]
+        sweeps = bp_sweeps_per_lane(
+            task, plan, qpos, qvel, U, l, lam, cfg,
+            ("ad", "fd") if only is None or "fd_jacobian" in only
+            else ("ad",))
     calls = {
         "rollout": lambda: ops.rollout(task, qp0, qv0, U, tgl),
         "linesearch": lambda: ops.linesearch(task, qpos, qvel, U, k, K,
@@ -467,7 +566,7 @@ def main(argv=None):
     if hasattr(ops, "cost_expansion"):
         calls["cost_expansion"] = lambda: ops.cost_expansion(
             task, qpos, qvel, U, tgl)
-    if hasattr(ops, "mpc_apply"):
+    if hasattr(ops, "mpc_apply") and (only is None or "mpc_apply" in only):
         from trajoptkp_tpu_torch.mpc.sync import noise_std
 
         costs = ops.rollout(task, qp0, qv0, U, tgl)[2].sum(0)
@@ -485,19 +584,26 @@ def main(argv=None):
         if ops.linesearch_geometry(build.instance_tables()[tag],
                                    alphas.shape[0], B).warp:
             marks = warp_marks(tag, calls["linesearch"])
-    topo = build.instance_tables()[ops.kernel_args(task, U.device).tag]
+    topo_tag = ops.kernel_args(task, U.device).tag
+    topo = build.instance_tables()[topo_tag]
     nA = alphas.shape[0]
     ls = ops.linesearch_geometry(topo, nA, B)
     entries = ops.ad_primal_entries(topo)
     plans = {"linesearch": dict(ls._asdict(), waves=ls.waves(nA, B)),
              "ad_jacobian": {"entries": entries, "chunk": ops.ad_chunk(
                  entries, plan.times.shape[0], B)}}
+    if hasattr(ops, "fd_geometry"):
+        plans["rollout"] = ops.linesearch_geometry(topo, 1, B)._asdict()
+        plans["fd_jacobian"] = ops.fd_geometry(
+            build.instance_tables()[build.step_shared()[topo_tag]],
+            plan.times.shape[0], B)._asdict()
     pair = None
     if args.against:
         import pathlib
 
-        pair = against(pathlib.Path(args.against), task, qpos, qvel, U, k, K,
-                       alphas, tgl, plan.times, args.pairs, args.reps)
+        pair = against(pathlib.Path(args.against), task, qp0, qv0, qpos,
+                       qvel, U, k, K, alphas, tgl, plan.times, args.pairs,
+                       args.reps, only)
     print(json.dumps({"label": args.label, "task": args.task, "H": H, "B": B,
                       "reps": args.reps, "rolled": args.rolled,
                       "card": card, "ms": ms, "plans": plans,

@@ -39,32 +39,32 @@ MODEL_SOURCES = ("ad_jacobian", "rollout", "linesearch", "fd_jacobian",
 STEP_SOURCES = ("ad_jacobian", "fd_jacobian")
 # the libraries whose nvcc runs longest start first: the dual steps over
 # push_lcl's 114, the walker's 128, box_sweep's 50 and push_ncl's 42
-# constraint rows (each with its primal pass), then push_lcl's rolled
-# steps (the backward passes and the line search, whose threads stride
-# over entries, rows and dofs at run time, come after these)
+# constraint rows (each with its primal pass), then push_lcl's
+# cooperative steps (K3 and K4 in one library, K5); the backward passes
+# come after these
 SLOWEST = (("ad_jacobian", "push_lcl"), ("ad_jacobian", "walker"),
            ("ad_jacobian", "box_sweep"), ("ad_jacobian", "push_ncl"),
-           ("fd_jacobian", "push_lcl"), ("rollout", "push_lcl"),
+           ("linesearch", "push_lcl"), ("fd_jacobian", "push_lcl"),
            ("ad_jacobian", "reaching"))
 # libraries no path of chip_smoke.py's default run launches, built at their
 # first launch instead of with the rest (the build is CPU-bound: every nvcc
 # at once on the card's 8 cores; `chip_smoke.py --deep` builds them with
-# the rest): K8 runs in the walker's and acrobot's MPC alone, and no
-# pentabot path takes central FD
+# the rest): K8 runs in the walker's and acrobot's MPC alone
 LAZY = tuple(("mpc_apply", m) for m in ("pentabot", "reaching", "push_ncl",
                                          "box_sweep", "threeD_push",
-                                         "push_lcl")) + (
-    ("fd_jacobian", "pentabot"),)
+                                         "push_lcl"))
 # past this many dofs (the model's nv) a library's loops over dofs and
 # rows run rolled; below it they stay unrolled, because rolled the
 # one-thread step's kernels run 2.7-5.6x slower (K3, K4 and K5ad at
 # push_ncl and box_sweep on an H100, `bench_kernels.py --rolled`;
-# PERF.md).  The backward pass and the line search (UNROLLED_SOURCES) are
-# never rolled: their threads stride over entries, rows and dofs at run
-# time and only inner sums over compile-time sizes are unrolled
-# (csrc/backward.cu, csrc/warp_step.cuh).
+# PERF.md).  The backward pass and the cooperative step's kernels (K3 and
+# K4 in the line search, K5; UNROLLED_SOURCES) are never rolled: their
+# threads stride over entries, rows and dofs at run time and only inner
+# sums over compile-time sizes are unrolled (csrc/backward.cu,
+# csrc/warp_step.cuh); the rows' instances of fd_jacobian build the warp
+# kernel alone.
 ROLL_NV = 15
-UNROLLED_SOURCES = ("backward", "linesearch")
+UNROLLED_SOURCES = ("backward", "linesearch", "fd_jacobian")
 # build the backward pass with its phase marks (TRAJOPT_BP_MARKS,
 # csrc/backward.cu; `bench_kernels.py --backward --marks`): a library of
 # its own, the marks' cost in every call

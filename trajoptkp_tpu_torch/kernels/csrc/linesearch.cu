@@ -26,6 +26,15 @@
 // thread per lane in blocks of 64 (linesearch_kernel): its step is ~1.3k
 // operations and 6 x 512 lanes fill the card.
 //
+// Open loop (K3, the rollout, where the instance has constraint rows):
+// linesearch_warp_kernel<T, true>, with no gains, alphas or ctrl output
+// and A = 1; u_t is read straight from U (no clip, no state difference)
+// and the trajectory and costs keep K3's layout (qpos (H+1, nq, B), qvel,
+// costs (H, B)), which is K4's at A = 1.  One library serves K3 and K4.
+// The open loop is a template parameter, not a runtime flag: as a flag it
+// cost K4 two registers at reaching and 16 bytes of stack at push_lcl
+// (sass_counts.py --resources on an H100, PERF.md).
+//
 // Bound (chip_smoke.py:linesearch_bound): H x A x B steps of step_ops
 // double operations plus the control law, against the nominal, gains and
 // trajectories read and written once; the kernel is bound by the latency
@@ -122,8 +131,8 @@ linesearch_kernel(const double* __restrict__ P, const double* __restrict__ W,
 
 
 // a warp per lane, `lanes` lanes a block, the lane's arrays in the block's
-// dynamic shared memory (WarpLayout)
-template <class T>
+// dynamic shared memory (WarpLayout); OPEN: K3's open loop
+template <class T, bool OPEN>
 __global__ void __launch_bounds__(WARP* LS_MAX_LANES)
 linesearch_warp_kernel(const double* __restrict__ P,
                        const double* __restrict__ W,
@@ -152,7 +161,7 @@ linesearch_warp_kernel(const double* __restrict__ P,
   double* v = sm + LY::V;
   double* u = sm + LY::U;
   double* dx = sm + LY::DXS;
-  const double alpha = alphas[a];
+  const double alpha = OPEN ? 0.0 : alphas[a];
   const double* lo = W + 2 * NRES;
   const double* hi = lo + NU;
   const double* resc = hi + NU;  // the residual's constants
@@ -167,34 +176,39 @@ linesearch_warp_kernel(const double* __restrict__ P,
       qpos[((size_t(t) * NQ + i) * A + a) * B + b] = q[i];
     for (int i = lane; i < NV; i += WARP)
       qvel[((size_t(t) * NV + i) * A + a) * B + b] = v[i];
+    if constexpr (OPEN) {
+      for (int c = lane; c < NU; c += WARP)
+        u[c] = U[(size_t(t) * NU + c) * B + b];
+    } else {
 #pragma unroll 1
-    for (int k = lane; k < NDOF; k += WARP) {
-      const int iv = T::sv(k);
-      if (T::HAS_ROT && T::sv_rot(k) >= 0) {
-        const int qa = T::sv_quat(k);
-        double qr[4], lg[3];
+      for (int k = lane; k < NDOF; k += WARP) {
+        const int iv = T::sv(k);
+        if (T::HAS_ROT && T::sv_rot(k) >= 0) {
+          const int qa = T::sv_quat(k);
+          double qr[4], lg[3];
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
-          qr[m] = qnom[(size_t(t) * NQ + qa + m) * B + b];
-        quat_sub(q + qa, qr, lg);
-        dx[k] = lg[T::sv_rot(k)];
-      } else {
-        const int iq = T::sv_q(k);
-        dx[k] = q[iq] - qnom[(size_t(t) * NQ + iq) * B + b];
+          for (int m = 0; m < 4; ++m)
+            qr[m] = qnom[(size_t(t) * NQ + qa + m) * B + b];
+          quat_sub(q + qa, qr, lg);
+          dx[k] = lg[T::sv_rot(k)];
+        } else {
+          const int iq = T::sv_q(k);
+          dx[k] = q[iq] - qnom[(size_t(t) * NQ + iq) * B + b];
+        }
+        dx[NDOF + k] = v[iv] - vnom[(size_t(t) * NV + iv) * B + b];
       }
-      dx[NDOF + k] = v[iv] - vnom[(size_t(t) * NV + iv) * B + b];
-    }
-    __syncwarp();
+      __syncwarp();
 #pragma unroll 1
-    for (int c = lane; c < NU; c += WARP) {
-      const size_t tc = size_t(t) * NU + c;
-      double fb = 0.0;
+      for (int c = lane; c < NU; c += WARP) {
+        const size_t tc = size_t(t) * NU + c;
+        double fb = 0.0;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) fb += Kfb[(tc * NX + j) * B + b] * dx[j];
-      const double uc =
-          clip(U[tc * B + b] + alpha * kff[tc * B + b] + fb, lo[c], hi[c]);
-      u[c] = uc;
-      ctrl[(tc * A + a) * B + b] = uc;
+        for (int j = 0; j < NX; ++j) fb += Kfb[(tc * NX + j) * B + b] * dx[j];
+        const double uc =
+            clip(U[tc * B + b] + alpha * kff[tc * B + b] + fb, lo[c], hi[c]);
+        u[c] = uc;
+        ctrl[(tc * A + a) * B + b] = uc;
+      }
     }
     __syncwarp();
     WARP_MARK(0);
@@ -216,7 +230,10 @@ linesearch_warp_kernel(const double* __restrict__ P,
 // geometry the instance's kernel does not run is refused
 // (cudaErrorInvalidValue): 64 threads, 64 lanes and no shared memory
 // without constraint rows, else 32 threads a lane, 1..LS_MAX_LANES lanes
-// and WarpLayout<T>::DOUBLES x 8 bytes a lane.
+// and WarpLayout<T>::DOUBLES x 8 bytes a lane.  Null Kfb asks for the open
+// loop (K3): it takes A = 1, null kff, alphas and ctrl, and constraint
+// rows (an instance without them runs K3's own one-thread kernel,
+// rollout.cu); anything else is refused too.
 #define TRAJOPT_DEFINE_LINESEARCH(tag, ...)                                    \
   extern "C" int trajopt_linesearch_##tag(                                    \
       const double* P, const double* W, const double* qnom,                   \
@@ -227,6 +244,12 @@ linesearch_warp_kernel(const double* __restrict__ P,
     using T = trajopt::Topo<__VA_ARGS__>;                                     \
     const int n = A * B;                                                      \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);                \
+    const bool open = Kfb == nullptr;                                         \
+    if (open && (A != 1 || kff != nullptr || alphas != nullptr ||             \
+                 ctrl != nullptr || T::R == 0))                               \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    if (!open && (kff == nullptr || alphas == nullptr || ctrl == nullptr))    \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
     if constexpr (T::R == 0) {                                                \
       if (threads != 64 || lanes != 64 || smem != 0)                          \
         return static_cast<int>(cudaErrorInvalidValue);                       \
@@ -238,18 +261,27 @@ linesearch_warp_kernel(const double* __restrict__ P,
       constexpr int per_lane = trajopt::WarpLayout<T>::DOUBLES * 8;           \
       if (lanes < 1 || lanes > trajopt::LS_MAX_LANES ||                       \
           threads != trajopt::WARP * lanes || smem != per_lane * lanes)       \
-        return static_cast<int>(cudaErrorInvalidValue);                      \
+        return static_cast<int>(cudaErrorInvalidValue);                       \
       if (n <= 0) return 0;                                                   \
-      if (smem > 48 * 1024) {                                                 \
+      /* past 48 KB with the static tables: opt in */                         \
+      if (smem + static_cast<int>(sizeof(trajopt::WarpTables<T>)) >           \
+          48 * 1024) {                                                        \
         const cudaError_t e = cudaFuncSetAttribute(                           \
-            trajopt::linesearch_warp_kernel<T>,                               \
+            open ? trajopt::linesearch_warp_kernel<T, true>                   \
+                 : trajopt::linesearch_warp_kernel<T, false>,                 \
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);               \
         if (e != cudaSuccess) return static_cast<int>(e);                     \
       }                                                                       \
-      trajopt::linesearch_warp_kernel<T>                                      \
-          <<<(n + lanes - 1) / lanes, threads, smem, st>>>(                   \
-              P, W, qnom, vnom, U, kff, Kfb, alphas, tgt, qpos, qvel, ctrl,   \
-              costs, H, A, B, lanes);                                         \
+      if (open)                                                               \
+        trajopt::linesearch_warp_kernel<T, true>                              \
+            <<<(n + lanes - 1) / lanes, threads, smem, st>>>(                 \
+                P, W, qnom, vnom, U, kff, Kfb, alphas, tgt, qpos, qvel, ctrl, \
+                costs, H, A, B, lanes);                                       \
+      else                                                                    \
+        trajopt::linesearch_warp_kernel<T, false>                             \
+            <<<(n + lanes - 1) / lanes, threads, smem, st>>>(                 \
+                P, W, qnom, vnom, U, kff, Kfb, alphas, tgt, qpos, qvel, ctrl, \
+                costs, H, A, B, lanes);                                       \
     }                                                                         \
     return static_cast<int>(cudaGetLastError());                              \
   }

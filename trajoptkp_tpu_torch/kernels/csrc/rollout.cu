@@ -1,23 +1,23 @@
-// K3: fused rollout, one thread per scene with the time loop inside.
+// K3: fused rollout, one thread per scene with the time loop inside, for
+// an instance without constraint rows (acrobot).  An instance with rows
+// runs K3 as a warp per scene over the cooperative step: linesearch.cu's
+// warp kernel in its open-loop mode (null gains, A = 1), launched by
+// kernels/ops.py:rollout with linesearch_geometry at A = 1; this file's
+// C entry refuses such an instance, so its one-thread rollout (at
+// push_lcl rolled, 13.9 s a launch on an H100) is never built.
 //
 // Replaces the JAX lane rollout, trajoptkp_tpu/solver/lanes.py:263
 // (a lax.scan of the lane step).  Plain twin:
 // trajoptkp_tpu_torch/solver/ilqr.py:rollout.
 //
-// Per lane: H steps of K1 (step.cuh; with joint limits or contacts the
-// constraint solve K2a of constraint.cuh over the rows of K2b, contact.cuh,
-// inside it), the task residual at (x_t, u_t) (joint-space, or the FK
-// residual from the step's own FK products of x_t) and the weighted cost,
-// terminal weights at t = H-1.  Layout is batch last, so each step's loads
-// and stores are coalesced across the lanes of a warp.
+// Per lane: H steps of K1 (step.cuh), the task residual at (x_t, u_t) and
+// the weighted cost, terminal weights at t = H-1.  Layout is batch last,
+// so each step's loads and stores are coalesced across the lanes of a
+// warp.
 //
-// Bound: ~H x (one step's ~1.3k (acrobot) to ~16k (panda with its limit
-// rows) or ~60k (push_ncl with its contact rows) dependent double
-// operations) per thread against ~(nq + nv + 1) x 8 bytes written per step:
-// latency-bound per thread, and at B = 512 lanes only 8 blocks of 64 threads
-// are resident (2 blocks at 128 scenes), so most SMs idle.  A later version
-// can split lanes across warps (one warp per lane, bodies across threads) to
-// fill the card.
+// Bound: ~H x one step's ~1.3k dependent double operations (acrobot) per
+// thread against ~(nq + nv + 1) x 8 bytes written per step: latency-bound
+// per thread; acrobot's 512 lanes fill 8 blocks of 64 threads.
 #include "instances.cuh"
 #include "residuals.cuh"
 #include "step.cuh"
@@ -104,17 +104,23 @@ fk_bias_kernel(const double* __restrict__ P, const double* __restrict__ qp,
 
 TRAJOPT_INSTANCES(TRAJOPT_DEFINE_FK_BIAS)
 
+// The C entry of the one-thread rollout: an instance with constraint rows
+// is refused (cudaErrorInvalidValue), its K3 is linesearch.cu's.
 #define TRAJOPT_DEFINE_ROLLOUT(tag, ...)                                       \
   extern "C" int trajopt_rollout_##tag(                                       \
       const double* P, const double* W, const double* qp0, const double* qv0, \
       const double* U, const double* tgt, double* qpos, double* qvel,         \
       double* costs, int H, int B, void* stream) {                            \
     using T = trajopt::Topo<__VA_ARGS__>;                                     \
-    if (B <= 0) return 0;                                                     \
-    trajopt::rollout_kernel<T><<<(B + 63) / 64, 64, 0,                        \
-                                 static_cast<cudaStream_t>(stream)>>>(        \
-        P, W, qp0, qv0, U, tgt, qpos, qvel, costs, H, B);                     \
-    return static_cast<int>(cudaGetLastError());                              \
+    if constexpr (T::R > 0) {                                                 \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    } else {                                                                  \
+      if (B <= 0) return 0;                                                   \
+      trajopt::rollout_kernel<T><<<(B + 63) / 64, 64, 0,                      \
+                                   static_cast<cudaStream_t>(stream)>>>(      \
+          P, W, qp0, qv0, U, tgt, qpos, qvel, costs, H, B);                   \
+      return static_cast<int>(cudaGetLastError());                            \
+    }                                                                         \
   }
 
 TRAJOPT_INSTANCES(TRAJOPT_DEFINE_ROLLOUT)

@@ -1,7 +1,8 @@
 // The cooperative step: one K1 step (step.cuh) of one lane spread over the
-// 32 threads of a warp, with the lane's arrays in shared memory.  K4
-// (linesearch.cu) runs it for every instance with constraint rows; the
-// other step kernels keep the one-thread step.
+// 32 threads of a warp, with the lane's arrays in shared memory.  K3 and
+// K4 (linesearch.cu, K3 its open loop) and K5 (fd_jacobian.cu, without the
+// residual) run it for every instance with constraint rows; K5ad, K8 and
+// fk_bias keep the one-thread step.
 //
 // Replaces the JAX lane step, trajoptkp_tpu/dynamics/lanes.py:1595
 // (build_smooth_step) with the constraint solve of lanes.py:1523 and the
@@ -50,7 +51,8 @@
 // arrays, then the slots' narrow-phase results), eight dof vectors, the rows' packed coefficients, aref, invR,
 // y, J dx, the merit sums and K4's targets, residual and state difference:
 // 25.1 KB at push_lcl (31 dofs, 114 rows), 10.6 KB at push_ncl, 11.9 KB at
-// box_sweep, 14.6 KB at the walker.  The topology's tables the threads
+// box_sweep, 14.6 KB at the walker; K5 adds the plus step's q and v
+// (FD_DOUBLES, ops.fd_lane_doubles).  The topology's tables the threads
 // index at run time (WarpTables) are copied into each block's shared
 // memory at the kernel's start.
 //
@@ -325,6 +327,9 @@ struct WarpLayout {
   static constexpr int RES = TG + T::NTGT;
   static constexpr int DXS = RES + T::NRES;
   static constexpr int DOUBLES = DXS + T::NX;
+  // K5 (fd_jacobian.cu): the plus step's result (q, v) beside the lane
+  static constexpr int FDP = DOUBLES;
+  static constexpr int FD_DOUBLES = FDP + NQ + NV;
 };
 
 __device__ __forceinline__ void warp_sync() { __syncwarp(); }

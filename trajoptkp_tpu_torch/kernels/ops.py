@@ -34,11 +34,14 @@ the iterative_error bisection test).  The slot Jacobians, `ad_jacobian`
 implicit tangent K2c, its Newton iterate and gated-Hessian factor from a
 primal pass once per (slot, lane), `ad_primal_entries`, `ad_chunk`; every
 lane path's) and `fd_jacobian` (K5: central FD; the generic solve's at
-deriv_mode "fd"), take slot times shared by every lane, or per lane with
-a live count, or per lane scattered into a full-horizon cache at their
-times (iterative_error).  `linesearch` (K4) runs a warp per (alpha,
-scene) lane over the cooperative step (csrc/warp_step.cuh) where the
-model has constraint rows (`linesearch_geometry`).  `backward` (K7)
+deriv_mode "fd"; a warp per (slot, column, scene) item over the
+cooperative step where the model has constraint rows, `fd_geometry`),
+take slot times shared by every lane, or per lane with a live count, or
+per lane scattered into a full-horizon cache at their times
+(iterative_error).  `linesearch` (K4) runs a warp per (alpha, scene) lane
+over the cooperative step (csrc/warp_step.cuh) where the model has
+constraint rows (`linesearch_geometry`), and `rollout` (K3) the same
+kernel in its open loop, a warp per scene.  `backward` (K7)
 runs the JAX lane solver's coupled λ loop in 1 + bp_rounds launches, a
 thread block per lane (a warp per lane up to nx 10, `backward_geometry`).
 """
@@ -465,10 +468,11 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(kernel: str, instance: str, symbol: str, *args):
-    """Launch `symbol` of the kernel's library (`SOURCES`) at `instance`,
-    and count it."""
-    lib = build.load(SOURCES.get(kernel, kernel), instance)
+def _launch(kernel: str, instance: str, symbol: str, *args,
+            source: str = None):
+    """Launch `symbol` of the kernel's library (`source`, by default
+    `SOURCES`) at `instance`, and count it."""
+    lib = build.load(source or SOURCES.get(kernel, kernel), instance)
     fn = getattr(lib, symbol)
     fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -493,9 +497,14 @@ def _on_cpu(*tensors) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def rollout(task: Task, qpos0, qvel0, U, targets, plain: bool = False):
+def rollout(task: Task, qpos0, qvel0, U, targets, plain: bool = False,
+            geometry: "LinesearchGeometry" = None):
     """K3.  qpos0 (nq, B), qvel0 (nv, B), U (H, nu, B), targets (ntgt, B)
-    -> qpos (H+1, nq, B), qvel (H+1, nv, B), costs (H, B)."""
+    -> qpos (H+1, nq, B), qvel (H+1, nv, B), costs (H, B).  Where the model
+    has constraint rows, a warp per scene over the cooperative step: K4's
+    warp kernel in its open loop (csrc/linesearch.cu, null gains, A = 1),
+    `geometry` by default `linesearch_geometry` at A = 1; else a thread per
+    scene (csrc/rollout.cu)."""
     if _on_cpu(qpos0, qvel0, U, targets) or plain:
         return twins.rollout(task, qpos0, qvel0, U, targets)
     ka = kernel_args(task, U.device)
@@ -509,10 +518,20 @@ def rollout(task: Task, qpos0, qvel0, U, targets, plain: bool = False):
     qpos = torch.empty((H + 1, nq, B), **f64)
     qvel = torch.empty((H + 1, nv, B), **f64)
     costs = torch.empty((H, B), **f64)
-    _launch("rollout", ka.tag, f"trajopt_rollout_{ka.tag}",
+    g = geometry or _linesearch_plan(ka.tag, 1, B, U.device)
+    if not g.warp:
+        _launch("rollout", ka.tag, f"trajopt_rollout_{ka.tag}",
+                _p(ka.model_buf), _p(ka.task_buf), _p(qpos0), _p(qvel0),
+                _p(U), _p(targets), _p(qpos), _p(qvel), _p(costs),
+                ctypes.c_int(H), ctypes.c_int(B))
+        return qpos, qvel, costs
+    null = ctypes.c_void_p(None)
+    _launch("rollout", ka.tag, f"trajopt_linesearch_{ka.tag}",
             _p(ka.model_buf), _p(ka.task_buf), _p(qpos0), _p(qvel0), _p(U),
-            _p(targets), _p(qpos), _p(qvel), _p(costs), ctypes.c_int(H),
-            ctypes.c_int(B))
+            null, null, null, _p(targets), _p(qpos), _p(qvel), null,
+            _p(costs), ctypes.c_int(H), ctypes.c_int(1), ctypes.c_int(B),
+            ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+            ctypes.c_int(g.smem_bytes), source="linesearch")
     return qpos, qvel, costs
 
 
@@ -592,9 +611,13 @@ def _slot_modes(times, counts, cache) -> bool:
 
 
 def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
-                plain: bool = False, counts=None, cache=None):
+                plain: bool = False, counts=None, cache=None,
+                geometry: "FdGeometry" = None):
     """K5.  Central-FD [A|B] over the state vector at slot times of the
-    trajectory qpos (>=H, nq, B), qvel, U (H, nu, B):
+    trajectory qpos (>=H, nq, B), qvel, U (H, nu, B), one (slot, column,
+    scene) item a warp where the model has constraint rows, else a thread
+    (`geometry`, by default `fd_geometry`; the C entry refuses one its
+    kernel does not run):
 
     - times (K,) int64, shared by every lane -> J (K, 2n, 2n+nu, B);
     - times (K, B) int64 per lane with counts (B,) int32 live slots -> J
@@ -619,13 +642,17 @@ def fd_jacobian(task: Task, qpos, qvel, U, times, eps: float,
     ka = kernel_args(task, U.device)
     J, stride = _slot_args(ka, qpos, qvel, U, times, counts, cache)
     tag = build.step_shared().get(ka.tag, ka.tag)   # reads no residual
+    nK, B = times.shape[0], U.shape[-1]
+    g = geometry or _fd_plan(tag, nK, B, U.device)
     _launch("fd_jacobian", tag,
             f"trajopt_fd_jacobian_{tag}", _p(ka.model_buf),
             _p(qpos), _p(qvel), _p(U), _p(times),
             ctypes.c_longlong(stride[0]), ctypes.c_longlong(stride[1]),
             ctypes.c_void_p(counts.data_ptr() if lanes else None),
             ctypes.c_int(cache is not None), ctypes.c_double(eps),
-            _p(J), ctypes.c_int(times.shape[0]), ctypes.c_int(U.shape[-1]))
+            _p(J), ctypes.c_int(nK), ctypes.c_int(B),
+            ctypes.c_int(g.threads), ctypes.c_int(g.lanes),
+            ctypes.c_int(g.smem_bytes))
     return J
 
 
@@ -774,15 +801,17 @@ def backward_geometry(nx: int, nu: int) -> BackwardGeometry:
 
 
 # ---------------------------------------------------------------------------
-# K4's and K5ad's launch plans (csrc/linesearch.cu, csrc/ad_jacobian.cu)
+# K3's, K4's, K5's and K5ad's launch plans (csrc/linesearch.cu,
+# csrc/fd_jacobian.cu, csrc/ad_jacobian.cu)
 # ---------------------------------------------------------------------------
 
-# an H100 SXM: its SMs (the plans' default; K4's wrapper reads the card's
+# an H100 SXM: its SMs (the plans' default; the wrappers read the card's
 # own count) and the shared memory one SM holds
 NUM_SMS = 132
 SMEM_PER_SM = 233472
-# lanes a block of the warp-per-lane K4 holds at most (linesearch.cu
-# LS_MAX_LANES), and the block of its one-thread kernel
+# lanes a block of the warp-per-lane K3, K4 and K5 holds at most
+# (linesearch.cu LS_MAX_LANES, fd_jacobian.cu FD_MAX_LANES), and the block
+# of their one-thread kernels
 LS_MAX_LANES = 8
 LS_THREAD_BLOCK = 64
 # the cooperative step holds a row of M a thread (warp_step.cuh:
@@ -863,6 +892,13 @@ def linesearch_lane_doubles(t: Topology) -> int:
             + 4 * z.rows + 16 + z.ntgt + z.nres + 2 * t.NDOF)
 
 
+def fd_lane_doubles(t: Topology) -> int:
+    """Doubles of one item's shared memory in the warp-per-item K5
+    (csrc/warp_step.cuh:WarpLayout::FD_DOUBLES): the lane's
+    (linesearch_lane_doubles), then the plus step's q and v."""
+    return linesearch_lane_doubles(t) + step_sizes(t).nq + t.NV
+
+
 def warp_tables_bytes(t: Topology) -> int:
     """Bytes of the cooperative step's tables, which each block of the
     warp-per-lane K4 copies into its static shared memory (csrc/
@@ -906,33 +942,46 @@ class LinesearchGeometry(NamedTuple):
         return n % A, n // A
 
 
-def linesearch_geometry(t: Topology, A: int, B: int,
-                        sms: int = NUM_SMS) -> LinesearchGeometry:
-    """K4's plan: a thread per lane in blocks of 64 without constraint
-    rows; else a warp per lane, as many lanes a block as the lanes need to
-    fill `sms` SMs at one block each (ceil(A B / sms), the A alphas of a
-    scene at B = 128), at most LS_MAX_LANES and what 227 KB hold beside
-    the block's tables (warp_tables_bytes).  Raises past LS_MAX_DOFS dofs
-    and where one lane does not fit a block."""
-    if step_sizes(t).rows == 0:
-        return LinesearchGeometry(LS_THREAD_BLOCK, LS_THREAD_BLOCK, 0, False,
-                                  2048 // LS_THREAD_BLOCK)
+def _warp_plan(t: Topology, kernel: str, per_lane: int, n: int,
+               sms: int) -> Tuple[int, int, int]:
+    """(lanes a block, shared memory a block, resident blocks an SM) of a
+    warp-per-lane kernel over the cooperative step: as many lanes a block
+    as `n` lanes need to fill `sms` SMs at one block each (ceil(n / sms)),
+    at most LS_MAX_LANES and what 227 KB hold beside the block's tables
+    (warp_tables_bytes).  Raises past LS_MAX_DOFS dofs and where one lane
+    of `per_lane` bytes does not fit a block."""
     if t.NV > LS_MAX_DOFS:
         raise NotImplementedError(
-            f"K4's cooperative step holds a row of M a thread: up to "
+            f"{kernel}'s cooperative step holds a row of M a thread: up to "
             f"{LS_MAX_DOFS} dofs, not {t.NV}")
-    per_lane = 8 * linesearch_lane_doubles(t)
     tables = warp_tables_bytes(t)
     fit = (SMEM_LIMIT - tables) // per_lane
     if fit < 1:
         raise NotImplementedError(
-            f"K4's lane needs {per_lane} bytes of shared memory beside "
+            f"{kernel}'s lane needs {per_lane} bytes of shared memory beside "
             f"{tables} of tables, past the {SMEM_LIMIT} a block may take")
-    lanes = max(1, min(LS_MAX_LANES, fit, -(-A * B // sms)))
+    lanes = max(1, min(LS_MAX_LANES, fit, -(-n // sms)))
     smem = per_lane * lanes
     # each resident block also holds 1 KB of shared memory of its own
     per_sm = min(SMEM_PER_SM // (smem + tables + 1024),
                  2048 // (32 * lanes), 32)
+    return lanes, smem, per_sm
+
+
+def linesearch_geometry(t: Topology, A: int, B: int,
+                        sms: int = NUM_SMS) -> LinesearchGeometry:
+    """K4's plan, and K3's at A = 1: a thread per lane in blocks of 64
+    without constraint rows; else a warp per lane, as many lanes a block
+    as the lanes need to fill `sms` SMs at one block each (ceil(A B /
+    sms), the A alphas of a scene at B = 128), at most LS_MAX_LANES and
+    what 227 KB hold beside the block's tables (warp_tables_bytes).
+    Raises past LS_MAX_DOFS dofs and where one lane does not fit a
+    block."""
+    if step_sizes(t).rows == 0:
+        return LinesearchGeometry(LS_THREAD_BLOCK, LS_THREAD_BLOCK, 0, False,
+                                  2048 // LS_THREAD_BLOCK)
+    lanes, smem, per_sm = _warp_plan(t, "K4", 8 * linesearch_lane_doubles(t),
+                                     A * B, sms)
     return LinesearchGeometry(32 * lanes, lanes, smem, True, per_sm)
 
 
@@ -941,6 +990,45 @@ def _linesearch_plan(tag: str, A: int, B: int,
                      device: torch.device) -> "LinesearchGeometry":
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return linesearch_geometry(build.instance_tables()[tag], A, B, sms)
+
+
+class FdGeometry(NamedTuple):
+    threads: int        # per block
+    lanes: int          # (slot, column, scene) items per block
+    smem_bytes: int     # dynamic shared memory per block (the items')
+    warp: bool          # a warp per item (else a thread per item)
+    blocks_per_sm: int  # resident blocks an SM holds
+
+    def blocks(self, n: int) -> int:
+        return -(-n // self.lanes)
+
+    def item(self, block: int, thread: int, nc: int,
+             B: int) -> Tuple[int, int, int]:
+        """(slot, column, scene) of a thread (csrc/fd_jacobian.cu:fd_item,
+        the scene fastest); past K nc B the kernel returns."""
+        n = block * self.lanes + thread // (32 if self.warp else 1)
+        m, b = divmod(n, B)
+        return m // nc, m % nc, b
+
+
+def fd_geometry(t: Topology, K: int, B: int,
+                sms: int = NUM_SMS) -> FdGeometry:
+    """K5's plan over its K (2n + nu) B items: a thread per item in blocks
+    of 64 without constraint rows; else a warp per item, as many items a
+    block as `_warp_plan` sets (fd_lane_doubles each; eight at the async
+    push_ncl planner's 1350 items)."""
+    if step_sizes(t).rows == 0:
+        return FdGeometry(LS_THREAD_BLOCK, LS_THREAD_BLOCK, 0, False,
+                          2048 // LS_THREAD_BLOCK)
+    n = K * (2 * t.NDOF + t.NU) * B
+    lanes, smem, per_sm = _warp_plan(t, "K5", 8 * fd_lane_doubles(t), n, sms)
+    return FdGeometry(32 * lanes, lanes, smem, True, per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def _fd_plan(tag: str, K: int, B: int, device: torch.device) -> FdGeometry:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return fd_geometry(build.instance_tables()[tag], K, B, sms)
 
 
 # the primal buffer K5ad's wrapper may take on the card; past it the C
